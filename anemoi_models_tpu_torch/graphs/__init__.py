@@ -1,12 +1,11 @@
 """Graph builders and the static graph container.
 
-They are host-side numpy code, free of any framework, so the port uses the
-JAX package's own (``anemoi_models_tpu.graphs``: ``build.py``,
-``container.py``), which import neither jax nor flax; this module only makes
-them available under the port's module paths.
+The port's own copies of the JAX package's ``graphs/build.py`` and
+``graphs/container.py``: host-side numpy and scipy code that builds the
+encoder, processor and decoder edge sets of the enc-proc-dec model.
 """
 
-from anemoi_models_tpu.graphs.build import build_enc_proc_dec_graph
-from anemoi_models_tpu.graphs.container import EdgeSet, HeteroGraph, NodeSet
+from anemoi_models_tpu_torch.graphs.build import build_enc_proc_dec_graph
+from anemoi_models_tpu_torch.graphs.container import EdgeSet, HeteroGraph, NodeSet
 
 __all__ = ["EdgeSet", "HeteroGraph", "NodeSet", "build_enc_proc_dec_graph"]

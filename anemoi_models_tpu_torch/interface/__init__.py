@@ -3,7 +3,9 @@
 Counterpart of ``anemoi_models_tpu/interface/__init__.py`` for serving: the
 constructor, ``to``, ``init_params``, ``load_params``, ``forward`` and
 ``predict_step``. The model is an ``nn.Module`` that owns its parameters;
-the device is explicit (``device=`` at construction, or ``to``).
+train it with ``anemoi_models_tpu_torch.training``. Everything is built on the
+card (``device="cuda"``) unless the caller names another device; without a
+card that raises.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from typing import Any, Mapping
 
 import torch
 
+from anemoi_models_tpu_torch.models.encoder_processor_decoder import resolve_device
 from anemoi_models_tpu_torch.preprocessing import Processors
 from anemoi_models_tpu_torch.utils.config import instantiate
 from anemoi_models_tpu_torch.weights import init_params, load_flax_params
@@ -25,13 +28,13 @@ class AnemoiModelInterface:
     """Wraps an Anemoi model with pre- and post-processing steps."""
 
     def __init__(self, *, config: Any, graph_data: Any, statistics: dict, data_indices: Any,
-                 device="cpu") -> None:
+                 device="cuda") -> None:
         self.config = config
         self.multi_step = config.training.multistep_input
         self.graph_data = graph_data
         self.statistics = statistics
         self.data_indices = data_indices
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
         processors = [
             [name, instantiate(processor, data_indices=data_indices, statistics=statistics)]
@@ -50,7 +53,7 @@ class AnemoiModelInterface:
         self.model.eval()
 
     def to(self, device) -> "AnemoiModelInterface":
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.model.to(self.device)
         self.pre_processors.to(self.device)
         self.post_processors.to(self.device)

@@ -19,6 +19,7 @@ from torch import nn
 
 from anemoi_models_tpu_torch.layers.conv import graph_transformer_conv
 from anemoi_models_tpu_torch.layers.utils import AutocastLayerNorm, Dense, get_activation
+from anemoi_models_tpu_torch.ops.edge_attention import CSRTranspose
 
 __all__ = ["GraphTransformerProcessorBlock", "GraphTransformerMapperBlock"]
 
@@ -52,13 +53,13 @@ class _GraphTransformerBase(nn.Module):
         self.projection = Dense(out_channels, out_channels, dtype=dtype, device=device)
         self.node_dst_mlp = DstMLP(out_channels, hidden_dim, activation, dtype=dtype, device=device)
 
-    def _attend(self, query, x_r, feats, x_skip, edge_attr, rowptr, src):
+    def _attend(self, query, x_r, feats, x_skip, edge_attr, rowptr, src, csr_t):
         """conv -> projection(out + x_r) + x_skip -> dst MLP residual."""
         b, n, _ = query.shape
         out = graph_transformer_conv(
             query.reshape(b, n, self.num_heads, self.head_dim), feats,
             self.lin_kv.weight, self.lin_kv.bias, edge_attr,
-            self.lin_edge.weight, self.lin_edge.bias, rowptr, src,
+            self.lin_edge.weight, self.lin_edge.bias, rowptr, src, csr_t,
         )
         out = self.projection(out.reshape(b, n, self.out_channels) + x_r) + x_skip
         return self.node_dst_mlp(out) + out
@@ -75,11 +76,11 @@ class GraphTransformerProcessorBlock(_GraphTransformerBase):
         self.lin_qr = Dense(in_channels, 2 * out_channels, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor, edge_attr: torch.Tensor, rowptr: torch.Tensor,
-                src: torch.Tensor) -> torch.Tensor:
+                src: torch.Tensor, csr_t: CSRTranspose) -> torch.Tensor:
         """x (B, N, C) -> (B, N, C)."""
         xn = self.layer_norm1(x)
         query, x_r = self.lin_qr(xn).chunk(2, dim=-1)
-        return self._attend(query, x_r, xn, x, edge_attr, rowptr, src)
+        return self._attend(query, x_r, xn, x, edge_attr, rowptr, src, csr_t)
 
 
 class GraphTransformerMapperBlock(_GraphTransformerBase):
@@ -95,9 +96,10 @@ class GraphTransformerMapperBlock(_GraphTransformerBase):
         self.lin_qs = Dense(in_channels, 2 * out_channels, dtype=dtype, device=device)  # [q | r]
 
     def forward(self, x: tuple[torch.Tensor, torch.Tensor], edge_attr: torch.Tensor,
-                rowptr: torch.Tensor, src: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                rowptr: torch.Tensor, src: torch.Tensor,
+                csr_t: CSRTranspose) -> tuple[torch.Tensor, torch.Tensor]:
         """(x_src (B, Ns, C), x_dst (B, Nd, C)) -> (x_src, new x_dst)."""
         x_src, x_dst = x
         query, x_r = self.lin_qs(self.layer_norm2(x_dst)).chunk(2, dim=-1)
-        out = self._attend(query, x_r, self.layer_norm1(x_src), x_dst, edge_attr, rowptr, src)
+        out = self._attend(query, x_r, self.layer_norm1(x_src), x_dst, edge_attr, rowptr, src, csr_t)
         return x_src, out

@@ -16,7 +16,7 @@ import torch
 from torch import nn
 
 from anemoi_models_tpu_torch.layers.block import GraphTransformerMapperBlock
-from anemoi_models_tpu_torch.layers.processor import register_edge_buffers
+from anemoi_models_tpu_torch.layers.processor import edge_csr_t, register_edge_buffers
 from anemoi_models_tpu_torch.layers.utils import AutocastLayerNorm, Dense
 
 __all__ = ["GraphTransformerForwardMapper", "GraphTransformerBackwardMapper"]
@@ -55,7 +55,9 @@ class _GraphTransformerBaseMapper(nn.Module):
 
     def _run(self, x_src: torch.Tensor, x_dst: torch.Tensor) -> torch.Tensor:
         edge_attr = self.trainable(self.edge_attr.to(self.dtype))
-        _, x_dst = self.proc((x_src, self.emb_nodes_dst(x_dst)), edge_attr, self.rowptr, self.src)
+        _, x_dst = self.proc(
+            (x_src, self.emb_nodes_dst(x_dst)), edge_attr, self.rowptr, self.src, edge_csr_t(self)
+        )
         return x_dst
 
 

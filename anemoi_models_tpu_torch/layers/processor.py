@@ -2,7 +2,8 @@
 
 Counterpart of ``GraphTransformerProcessor`` and ``register_edges`` in
 ``anemoi_models_tpu/layers/processor.py``. The edge set is registered once at
-construction as a CSR list (``rowptr``, ``src``) plus its static attributes.
+construction as a CSR list (``rowptr``, ``src``), its transpose for the
+backward (``perm_t``, ``colptr_t``, ``dst_t``) and its static attributes.
 """
 
 from __future__ import annotations
@@ -15,9 +16,9 @@ from torch import nn
 
 from anemoi_models_tpu_torch.layers.chunk import GraphTransformerProcessorChunk
 from anemoi_models_tpu_torch.layers.graph import TrainableTensor
-from anemoi_models_tpu_torch.ops.edge_attention import csr_from_edge_index
+from anemoi_models_tpu_torch.ops.edge_attention import CSRTranspose, csr_from_edge_index, csr_transpose
 
-__all__ = ["GraphTransformerProcessor", "register_edges"]
+__all__ = ["GraphTransformerProcessor", "register_edges", "register_edge_buffers", "edge_csr_t"]
 
 # Layouts of the JAX package's conv; the port has one CSR path for both.
 GRAPH_IMPLS = ("dense", "pallas")
@@ -41,17 +42,24 @@ def register_edge_buffers(
     num_src: int, num_dst: int, graph_impl: str, device,
 ) -> int:
     """Give ``module`` the edge set: buffers ``edge_attr``, ``rowptr``, ``src``
-    (graph-derived, not saved in the state dict) and the parameter
-    ``trainable.trainable``. Returns the edge feature width."""
+    and the transposed CSR ``perm_t``, ``colptr_t``, ``dst_t`` (graph-derived,
+    not saved in the state dict) and the parameter ``trainable.trainable``.
+    Returns the edge feature width."""
     if graph_impl not in GRAPH_IMPLS:
         raise ValueError(f"graph_impl must be one of {GRAPH_IMPLS}, got {graph_impl!r}")
     edge_attr, edge_index, edge_dim = register_edges(sub_graph, edge_attributes, trainable_size)
     rowptr, src = csr_from_edge_index(edge_index, num_src, num_dst)
-    module.register_buffer("edge_attr", torch.as_tensor(edge_attr, device=device), persistent=False)
-    module.register_buffer("rowptr", torch.as_tensor(rowptr, device=device), persistent=False)
-    module.register_buffer("src", torch.as_tensor(src, device=device), persistent=False)
+    perm_t, colptr_t, dst_t = csr_transpose(rowptr, src, num_src)
+    buffers = dict(edge_attr=edge_attr, rowptr=rowptr, src=src, perm_t=perm_t, colptr_t=colptr_t, dst_t=dst_t)
+    for name, value in buffers.items():
+        module.register_buffer(name, torch.as_tensor(value, device=device), persistent=False)
     module.trainable = TrainableTensor(edge_attr.shape[0], trainable_size, device=device)
     return edge_dim
+
+
+def edge_csr_t(module: nn.Module) -> CSRTranspose:
+    """The transposed CSR that :func:`register_edge_buffers` gave ``module``."""
+    return CSRTranspose(module.perm_t, module.colptr_t, module.dst_t)
 
 
 class GraphTransformerProcessor(nn.Module):
@@ -73,6 +81,7 @@ class GraphTransformerProcessor(nn.Module):
         src_grid_size: int = 0,
         dst_grid_size: int = 0,
         graph_impl: str = "dense",
+        remat_policy: str = "full",
         dtype: torch.dtype = torch.float32,
         device=None,
     ) -> None:
@@ -87,7 +96,8 @@ class GraphTransformerProcessor(nn.Module):
         self.proc = nn.ModuleList(
             GraphTransformerProcessorChunk(
                 num_channels, num_layers // num_chunks, edge_dim, num_heads=num_heads,
-                mlp_hidden_ratio=mlp_hidden_ratio, activation=activation, dtype=dtype, device=device,
+                mlp_hidden_ratio=mlp_hidden_ratio, activation=activation, remat_policy=remat_policy,
+                dtype=dtype, device=device,
             )
             for _ in range(num_chunks)
         )
@@ -95,6 +105,7 @@ class GraphTransformerProcessor(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x (B, N, C) -> (B, N, C)."""
         edge_attr = self.trainable(self.edge_attr.to(self.dtype))
+        csr_t = edge_csr_t(self)
         for chunk in self.proc:
-            x = chunk(x, edge_attr, self.rowptr, self.src)
+            x = chunk(x, edge_attr, self.rowptr, self.src, csr_t)
         return x

@@ -6,7 +6,8 @@ back, with a residual connection for the prognostic variables. Encoder,
 processor and decoder are built from the config's ``_target_`` entries.
 
 Input layout: (batch, time, ensemble, grid, vars), as in the JAX package;
-batch and ensemble merge into one leading axis inside.
+batch and ensemble merge into one leading axis inside. The model is built on
+the card (``device="cuda"``) unless the caller names another device.
 """
 
 from __future__ import annotations
@@ -20,15 +21,27 @@ from torch import nn
 from anemoi_models_tpu_torch.layers.graph import NamedNodesAttributes
 from anemoi_models_tpu_torch.utils.config import DotDict, instantiate
 
-__all__ = ["AnemoiModelEncProcDec"]
+__all__ = ["AnemoiModelEncProcDec", "resolve_device"]
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; raises for CUDA on a machine without a card."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card here: build the model with device='cpu' to run it on the CPU")
+    return device
 
 
 class AnemoiModelEncProcDec(nn.Module):
     """Message passing graph neural network (enc-proc-dec)."""
 
     def __init__(self, *, model_config: Any, data_indices: Any, graph_data: Any,
-                 dtype: torch.dtype = torch.float32, device=None) -> None:
+                 dtype: torch.dtype = torch.float32, device="cuda", deterministic: bool = True) -> None:
         super().__init__()
+        device = resolve_device(device)
+        # attention dropout (deterministic=False) is not ported: the training
+        # step refuses such a model
+        self.deterministic = deterministic
         cfg = DotDict(model_config)
         name_data, name_hidden = cfg.graph.data, cfg.graph.hidden
         self._graph_name_data, self._graph_name_hidden = name_data, name_hidden

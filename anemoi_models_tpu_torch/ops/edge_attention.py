@@ -10,11 +10,19 @@ straight off the destination-sorted edge list in two kernels
 
 - :func:`kv_proj` projects the narrow source features to ``[k|v]`` once per
   node (fp32 accumulation, rounded to the compute dtype, the rounding point of
-  ``_feats_kernel``). Bound by FLOPs; a per-edge projection inside the
-  attention kernel would cost about mean-degree times as many.
+  ``_feats_kernel``). A per-edge projection inside the attention kernel
+  would cost about mean-degree times as many operations.
 - :func:`edge_attn_csr` computes the partials ``(num, den, m)`` with one CTA
   per (batch, destination). Bound by the gathered row reads, which the 50 MB
   L2 holds for the most part at O96 (the processor's kv is 10.5 MB in bf16).
+
+The backward (``csrc/edge_attention_bwd.cu``) replaces
+``_feats_bwd_kernel``: :func:`edge_attn_csr_bwd` walks the same CSR edge list
+for ``dq`` and the edge gradients and the transposed list
+(:func:`csr_transpose`) for the per-source ``[dk|dv]``, with fixed-order sums
+only. :class:`EdgeAttnCSR` and :class:`KVProj` are the autograd Functions the
+conv runs through; the chain through ``w_kv`` is ``torch.matmul``, as the JAX
+package leaves it to XLA.
 
 Each wrapper takes the plain version for a tensor on the CPU, launches its
 kernel for a CUDA tensor or raises, and counts its launches in
@@ -33,9 +41,15 @@ from anemoi_models_tpu_torch.ops.segment import segment_max, segment_sum
 
 __all__ = [
     "AttentionPartials",
+    "CSRTranspose",
+    "EdgeAttnCSR",
+    "KVProj",
     "LAUNCHES",
     "csr_from_edge_index",
+    "csr_transpose",
     "edge_attn_csr",
+    "edge_attn_csr_bwd",
+    "edge_attn_csr_bwd_plain",
     "edge_attn_csr_plain",
     "finalize_partials",
     "kv_proj",
@@ -45,10 +59,12 @@ __all__ = [
 
 _NEG = -1e30
 _MAX_A2 = 16  # kMaxA2 in csrc/edge_attention.cu
+_MAX_BWD_THREADS = 256  # kMaxRowThreads in csrc/edge_attention_bwd.cu
+_DW_PARTS = 1024  # destination-row partition of the backward's dw_aug partials
 _DTYPES = (torch.float32, torch.bfloat16)
 
 # kernel launches per wrapper; a CPU call runs the plain version and adds nothing
-LAUNCHES: dict[str, int] = {"kv_proj": 0, "edge_attn_csr": 0}
+LAUNCHES: dict[str, int] = {"kv_proj": 0, "edge_attn_csr": 0, "edge_attn_csr_bwd": 0}
 
 
 class AttentionPartials(NamedTuple):
@@ -92,6 +108,25 @@ def csr_from_edge_index(
     return rowptr.astype(np.int32), src.astype(np.int32)
 
 
+class CSRTranspose(NamedTuple):
+    perm: torch.Tensor  # (E,) int32 edge ids by source, ascending within a source
+    colptr: torch.Tensor  # (Ns + 1,) int32 offsets of each source's edges in perm
+    dst: torch.Tensor  # (E,) int32 destination of each edge
+
+
+def csr_transpose(rowptr, src, num_src: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The source-sorted view of a destination-sorted CSR edge list, on the
+    host, once per edge set: (perm, colptr, dst) int32 (see
+    :class:`CSRTranspose`). ``rowptr`` and ``src`` are numpy arrays or CPU
+    tensors."""
+    rowptr, src = np.asarray(rowptr, dtype=np.int64), np.asarray(src, dtype=np.int64)
+    dst = np.repeat(np.arange(rowptr.size - 1), np.diff(rowptr))
+    perm = np.argsort(src, kind="stable")
+    colptr = np.zeros(num_src + 1, dtype=np.int64)
+    colptr[1:] = np.cumsum(np.bincount(src, minlength=num_src))
+    return perm.astype(np.int32), colptr.astype(np.int32), dst.astype(np.int32)
+
+
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
@@ -132,6 +167,50 @@ def edge_attn_csr_plain(
     den = segment_sum(w, dst, nd)
     num = segment_sum((w[..., None] * v_j).reshape(b, -1, c), dst, nd)
     return AttentionPartials(num.view(bnd, h, d), den.view(bnd, h), m.view(bnd, h))
+
+
+def edge_attn_csr_bwd_plain(
+    q: torch.Tensor,  # (B*Nd, C)
+    kv: torch.Tensor,  # (B*Ns, 2C)
+    rowptr: torch.Tensor,  # (Nd + 1,) int32
+    src: torch.Tensor,  # (E,) int32
+    a: torch.Tensor,  # (E, A2)
+    w_aug: torch.Tensor,  # (A2, C)
+    m: torch.Tensor,  # (B*Nd, H) fp32, the forward's max logits
+    g_num: torch.Tensor,  # (B*Nd, C) fp32 cotangent of num
+    g_den: torch.Tensor,  # (B*Nd, H) fp32 cotangent of den
+    num_heads: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq (B*Nd, C), dkv (B*Ns, 2C), da (E, A2), dw_aug (A2, C)), all fp32,
+    from segment ops, as ``_feats_bwd_kernel`` computes them: the weights are
+    recomputed in the forward's m-gauge with the exp argument clamped at 0,
+    and ``da``, ``dw_aug`` are summed over the batch."""
+    nd = rowptr.numel() - 1
+    bnd, c = q.shape
+    b = bnd // nd
+    ns = kv.shape[0] // b
+    h, d = num_heads, c // num_heads
+    dst = torch.repeat_interleave(torch.arange(nd, device=q.device), rowptr.long().diff())
+    src = src.long()
+    e = (a.float() @ w_aug.float()).view(-1, h, d)
+    kvf = kv.float().view(b, ns, 2, h, d)
+    ke = kvf[:, src, 0] + e  # (B, E, H, D)
+    ve = kvf[:, src, 1] + e
+    q_i = q.float().view(b, nd, h, d)[:, dst]
+    gn = g_num.float().view(b, nd, h, d)[:, dst]
+    logits = (q_i * ke).sum(-1) / math.sqrt(d)  # (B, E, H)
+    w = torch.exp(torch.clamp(logits - m.view(b, nd, h)[:, dst], max=0.0))
+    dl = w * ((gn * ve).sum(-1) + g_den.float().view(b, nd, h)[:, dst])
+    sdl = (dl / math.sqrt(d))[..., None]
+    dq = segment_sum((sdl * ke).reshape(b, -1, c), dst, nd)
+    dk_e = (sdl * q_i).reshape(b, -1, c)
+    dv_e = (w[..., None] * gn).reshape(b, -1, c)
+    dk = torch.zeros(b, ns, c, device=q.device).index_add_(1, src, dk_e)
+    dv = torch.zeros(b, ns, c, device=q.device).index_add_(1, src, dv_e)
+    de = (dk_e + dv_e).sum(0)  # (E, C): the edge attributes are batch-invariant
+    da = de @ w_aug.float().t()
+    dw = a.float().t() @ de
+    return dq.view(bnd, c), torch.cat([dk, dv], dim=-1).view(b * ns, 2 * c), da, dw
 
 
 # ---------------------------------------------------------------------------
@@ -250,3 +329,133 @@ def edge_attn_csr(
     _check_launch(rc, "edge_attn_csr")
     LAUNCHES["edge_attn_csr"] += 1
     return AttentionPartials(num.view(bnd, num_heads, c // num_heads), den, m)
+
+
+def edge_attn_csr_bwd(
+    q: torch.Tensor,
+    kv: torch.Tensor,
+    rowptr: torch.Tensor,
+    src: torch.Tensor,
+    a: torch.Tensor,
+    w_aug: torch.Tensor,
+    m: torch.Tensor,
+    g_num: torch.Tensor,
+    g_den: torch.Tensor,
+    num_heads: int,
+    csr_t: CSRTranspose,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Backward of :func:`edge_attn_csr` with ``m`` held at its forward value
+    (see :func:`edge_attn_csr_bwd_plain` for the shapes): ``(dq, dkv, da,
+    dw_aug)``, fp32. ``csr_t`` is the edge list's :class:`CSRTranspose` on
+    the same device."""
+    if _on_cpu(q, kv, rowptr, src, a, w_aug, m, g_num, g_den):
+        return edge_attn_csr_bwd_plain(q, kv, rowptr, src, a, w_aug, m, g_num, g_den, num_heads)
+    dt = q.dtype
+    _require(dt in _DTYPES, f"compute dtype must be fp32 or bf16, got {dt}")
+    _require(all(t.dtype == dt for t in (kv, a, w_aug)), "q, kv, a, w_aug must share one dtype")
+    _require(all(t.dtype == torch.float32 for t in (m, g_num, g_den)), "m, g_num, g_den must be fp32")
+    perm, colptr, dst = csr_t
+    _require(all(t.dtype == torch.int32 for t in (rowptr, src, perm, colptr, dst)),
+             "rowptr, src and the transposed CSR must be int32")
+    _require(all(t.device == q.device for t in (perm, colptr, dst)), "the transposed CSR must be on q's device")
+    bnd, c = q.shape
+    nd = rowptr.numel() - 1
+    _check_heads(c, num_heads)
+    d = c // num_heads
+    _require(c // (d // 32 if d > 32 else 1) <= _MAX_BWD_THREADS,
+             f"edge_attn_csr_bwd takes at most {_MAX_BWD_THREADS} threads per row; got C={c}, H={num_heads}")
+    _require(nd > 0 and bnd % nd == 0, f"q rows {bnd} not a multiple of {nd} destinations")
+    batch = bnd // nd
+    _require(kv.shape[1] == 2 * c and kv.shape[0] % batch == 0, f"kv shape {tuple(kv.shape)} for C={c}, B={batch}")
+    ns = kv.shape[0] // batch
+    num_edges, a2 = a.shape
+    _require(num_edges == src.numel() and 0 < a2 <= _MAX_A2, f"a shape {tuple(a.shape)} for {src.numel()} edges")
+    _require(w_aug.shape == (a2, c), f"w_aug shape {tuple(w_aug.shape)} != ({a2}, {c})")
+    _require(m.shape == (bnd, num_heads) and g_den.shape == (bnd, num_heads) and g_num.shape == (bnd, c),
+             f"m, g_num, g_den shapes {tuple(m.shape)}, {tuple(g_num.shape)}, {tuple(g_den.shape)}")
+    _require(perm.numel() == num_edges and dst.numel() == num_edges and colptr.numel() == ns + 1,
+             "the transposed CSR does not match the edge list")
+    _require_contiguous(q=q, kv=kv, rowptr=rowptr, src=src, a=a, w_aug=w_aug, m=m, g_num=g_num,
+                        g_den=g_den, perm=perm, colptr=colptr, dst=dst)
+    dev = q.device
+    parts = min(bnd, _DW_PARTS)
+    dq = torch.empty((bnd, c), dtype=torch.float32, device=dev)
+    dkv = torch.empty((batch * ns, 2 * c), dtype=torch.float32, device=dev)
+    da = torch.empty((num_edges, a2), dtype=torch.float32, device=dev)
+    dw = torch.empty((a2, c), dtype=torch.float32, device=dev)
+    dl = torch.empty((batch, num_edges, num_heads), dtype=torch.float32, device=dev)
+    w = torch.empty_like(dl)
+    pg = torch.empty((bnd, 2, a2, num_heads), dtype=torch.float32, device=dev)
+    dw_part = torch.empty((parts, a2, c), dtype=torch.float32, device=dev)
+    from anemoi_models_tpu_torch.ops.kernels import load_kernels
+
+    lib = load_kernels()
+    fn = lib.edge_attn_csr_bwd_bf16 if dt == torch.bfloat16 else lib.edge_attn_csr_bwd_f32
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(
+            q.data_ptr(), kv.data_ptr(), rowptr.data_ptr(), src.data_ptr(), a.data_ptr(),
+            w_aug.data_ptr(), m.data_ptr(), g_num.data_ptr(), g_den.data_ptr(),
+            colptr.data_ptr(), perm.data_ptr(), dst.data_ptr(),
+            dq.data_ptr(), dkv.data_ptr(), da.data_ptr(), dw.data_ptr(),
+            dl.data_ptr(), w.data_ptr(), pg.data_ptr(), dw_part.data_ptr(),
+            batch, nd, ns, num_edges, c, num_heads, a2, parts, stream,
+        )
+    _check_launch(rc, "edge_attn_csr_bwd")
+    LAUNCHES["edge_attn_csr_bwd"] += 1
+    return dq, dkv, da, dw
+
+
+# ---------------------------------------------------------------------------
+# autograd
+# ---------------------------------------------------------------------------
+
+
+class KVProj(torch.autograd.Function):
+    """:func:`kv_proj` with the chain of ``_feats_kernel_bwd``: ``df = dkv.w``,
+    ``dw = dkv^T.f``, ``db = sum dkv``, in fp32 and rounded to each primal's
+    dtype."""
+
+    @staticmethod
+    def forward(ctx, f: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(f, w)
+        ctx.b_dtype = b.dtype
+        return kv_proj(f, w, b)
+
+    @staticmethod
+    def backward(ctx, dkv: torch.Tensor):
+        f, w = ctx.saved_tensors
+        dkv = dkv.float()
+        df = (dkv @ w.float()).to(f.dtype) if ctx.needs_input_grad[0] else None
+        dw = (dkv.t() @ f.float()).to(w.dtype) if ctx.needs_input_grad[1] else None
+        db = dkv.sum(0).to(ctx.b_dtype) if ctx.needs_input_grad[2] else None
+        return df, dw, db
+
+
+class EdgeAttnCSR(torch.autograd.Function):
+    """:func:`edge_attn_csr` with :func:`edge_attn_csr_bwd` as its backward.
+
+    Valid under the m-gauge contract of ``slot_attention_feats_kernel``: the
+    consumer of ``(num, den, m)`` is invariant to ``(num e^-d, den e^-d, m+d)``
+    (as :func:`merge_partials` and :func:`finalize_partials` are), so ``m`` is
+    returned non-differentiable and its cotangent is dropped. ``csr_t`` is the
+    edge list's :class:`CSRTranspose` on q's device (the layers register it
+    as buffers, once per edge set)."""
+
+    @staticmethod
+    def forward(ctx, q, kv, a, w_aug, rowptr, src, num_heads: int, csr_t):
+        p = edge_attn_csr(q, kv, rowptr, src, a, w_aug, num_heads)
+        ctx.save_for_backward(q, kv, a, w_aug, rowptr, src, p.m)
+        ctx.num_heads, ctx.csr_t = num_heads, csr_t
+        ctx.mark_non_differentiable(p.m)
+        return p.num, p.den, p.m
+
+    @staticmethod
+    def backward(ctx, g_num, g_den, _g_m):
+        q, kv, a, w_aug, rowptr, src, m = ctx.saved_tensors
+        # autograd materialises an unused output's cotangent as zeros
+        dq, dkv, da, dw = edge_attn_csr_bwd(
+            q, kv, rowptr, src, a, w_aug, m, g_num.reshape(q.shape).float().contiguous(),
+            g_den.float().contiguous(), ctx.num_heads, ctx.csr_t,
+        )
+        return dq.to(q.dtype), dkv.to(kv.dtype), da.to(a.dtype), dw.to(w_aug.dtype), None, None, None, None

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-The sources are compiled with ``nvcc`` for Hopper (``sm_90a``) into one shared
-library with a plain C interface, at first use, and loaded with ctypes. The
+The sources are compiled with ``nvcc`` for Hopper (``sm_90a``), one process
+per source, all started together, and linked into one shared library with a
+plain C interface, at first use, and loaded with ctypes. The
 library lands in ``build/kernels/`` beside the package, under a name keyed by
 the sources' content and the compiler flags, so a changed source rebuilds and
 an unchanged one loads at once. The compiler's report (``-Xptxas -v``:
@@ -27,7 +28,7 @@ _CSRC = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _LIB: ctypes.CDLL | None = None
@@ -40,6 +41,8 @@ _SIGNATURES = {
     "kv_proj_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
     "edge_attn_csr_f32": [_P] * 9 + [_I] * 6 + [_P],
     "edge_attn_csr_bf16": [_P] * 9 + [_I] * 6 + [_P],
+    "edge_attn_csr_bwd_f32": [_P] * 20 + [_I] * 8 + [_P],
+    "edge_attn_csr_bwd_bf16": [_P] * 20 + [_I] * 8 + [_P],
 }
 
 
@@ -69,14 +72,26 @@ def _build(so_path: str) -> None:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so_path}.tmp-{os.getpid()}"
     cu = [p for p in _sources() if p.endswith(".cu")]
-    proc = subprocess.run(
-        [_nvcc(), *_NVCC_FLAGS, "-o", tmp, *cu],
-        capture_output=True, text=True, timeout=900,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    objs = [f"{tmp}-{os.path.basename(p)}.o" for p in cu]
+    procs = [
+        subprocess.Popen([_nvcc(), *_NVCC_FLAGS, "-c", "-o", obj, src],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(cu, objs)
+    ]
+    logs = [proc.communicate(timeout=900)[0] for proc in procs]
+    try:
+        for src, proc, log in zip(cu, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {os.path.basename(src)} ({proc.returncode}):\n{log}")
+        link = subprocess.run([_nvcc(), "-shared", "-o", tmp, *objs], capture_output=True, text=True, timeout=300)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}")
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     with open(so_path[:-3] + ".log", "w") as fh:
-        fh.write(proc.stdout + proc.stderr)
+        fh.write("".join(logs))
     os.replace(tmp, so_path)  # atomic: a concurrent loader sees all or nothing
 
 

@@ -1,0 +1,20 @@
+"""Training: the loss, the optimizer and the train step.
+
+The port's counterpart of the single-step part of
+``anemoi_models_tpu.training``. Rollout training, CRPS and the data loaders
+are not ported yet.
+"""
+
+from anemoi_models_tpu_torch.training.loss import WeightedMSELoss, weighted_mse
+from anemoi_models_tpu_torch.training.optim import AdamW, ema_update, make_optimizer, warmup_cosine_decay_schedule
+from anemoi_models_tpu_torch.training.step import make_train_step
+
+__all__ = [
+    "AdamW",
+    "WeightedMSELoss",
+    "ema_update",
+    "make_optimizer",
+    "make_train_step",
+    "warmup_cosine_decay_schedule",
+    "weighted_mse",
+]

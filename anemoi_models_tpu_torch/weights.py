@@ -1,4 +1,4 @@
-"""Parameters: flax-tree loading and seeded initialisation.
+"""Parameters: flax-tree loading and saving, and seeded initialisation.
 
 :func:`load_flax_params` turns the JAX package's parameter tree (nested dicts
 of numpy arrays, as ``model.init`` returns them) into a state dict of the
@@ -12,6 +12,9 @@ port's modules:
 - under the commuted dataflow the encoder's ``emb_nodes_src`` sits at
   ``encoder/proc/emb_nodes_src``; the port keeps it at ``encoder.emb_nodes_src``
   and accepts either place (for a mapper's own tree too: ``proc/emb_nodes_src``).
+
+:func:`to_flax_params` is its inverse: it carries a state dict (a model
+trained in the port, or its gradients) back to the JAX package's tree.
 
 :func:`init_params` draws the flax initialisers (lecun-normal kernels, zero
 biases, unit LayerNorm scales, zero trainable tensors) from a
@@ -29,7 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["load_flax_params", "init_params"]
+__all__ = ["load_flax_params", "to_flax_params", "init_params"]
 
 _RENAME = {
     "AutocastLayerNorm_0": "norm",
@@ -39,6 +42,7 @@ _RENAME = {
     "scale": "weight",
 }
 _LAYER_INDEX = re.compile(r"^(proc|blocks)_(\d+)$")
+_FLAX_NAME = {"norm": "AutocastLayerNorm_0", "fc1": "Dense_0", "fc2": "Dense_1"}
 
 
 def _flatten(tree: Mapping, prefix: tuple = ()) -> dict[tuple, np.ndarray]:
@@ -84,6 +88,51 @@ def load_flax_params(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
             continue
         state[_port_name(path)] = tensor.contiguous()
     return state
+
+
+def _flax_path(name: str, state: Mapping[str, torch.Tensor]) -> tuple:
+    stem, leaf = name.split(".")[:-1], name.split(".")[-1]
+    if stem == ["node_attributes", "trainable"]:
+        return ("node_attributes", f"trainable_{leaf}")
+    path: list[str] = []
+    for token in stem:
+        if token.isdigit() and path and path[-1] in ("proc", "blocks"):
+            path[-1] = f"{path[-1]}_{token}"
+        else:
+            path.append(_FLAX_NAME.get(token, token))
+    if path[-1] == "emb_nodes_src":
+        path.insert(-1, "proc")  # commuted layout: <mapper>/proc/emb_nodes_src
+    weight = state.get(".".join([*stem, "weight"]))
+    if weight is not None and weight.dim() == 1:  # a LayerNorm (flax LayerNorm_0 inside)
+        return (*path, "LayerNorm_0", "scale" if leaf == "weight" else "bias")
+    return (*path, "kernel" if leaf == "weight" else leaf)
+
+
+def to_flax_params(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """The JAX package's parameter tree, ``{"params": ...}`` of numpy fp32
+    arrays, from a state dict of the port's model (or a dict of gradients with
+    the same names): the inverse of :func:`load_flax_params`. ``lin_qr`` and
+    ``lin_kv`` of a processor block join back into ``lin_qkvs`` (columns
+    ``[q | k | v | r]``). A mapper's ``emb_nodes_src`` goes where the JAX
+    commuted dataflow (``kv_src_gather="auto"``, the default) keeps it."""
+    state = {k: v.detach().cpu().float() for k, v in state_dict.items()}
+    tree: dict = {}
+    for name, tensor in state.items():
+        if ".lin_kv." in name and name.replace(".lin_kv.", ".lin_qr.") in state:
+            continue  # joined into lin_qkvs with its lin_qr
+        if ".lin_qr." in name:
+            q, r = tensor.chunk(2, dim=0)
+            k, v = state[name.replace(".lin_qr.", ".lin_kv.")].chunk(2, dim=0)
+            tensor = torch.cat([q, k, v, r])
+            name = name.replace(".lin_qr.", ".lin_qkvs.")
+        path = _flax_path(name, state)
+        if path[-1] == "kernel":
+            tensor = tensor.t()
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = tensor.contiguous().numpy()
+    return {"params": tree}
 
 
 @torch.no_grad()

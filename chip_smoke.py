@@ -2,30 +2,48 @@
 
 Builds the port's CUDA kernels from ``anemoi_models_tpu_torch/csrc``, then:
 
-1. holds each kernel against its plain PyTorch version on the card, at the
-   shapes of the O96 / refinement-5 main path (kv_proj on the processor's
-   10,242 nodes; edge_attn_csr on the real processor, encoder and decoder
-   edge sets; a case with destinations that have no edge), fp32 within
-   atol = rtol = 1e-5 (only the summation order differs) and bf16 within
-   2e-2, and times both with CUDA events;
-2. runs a reduced model (O48 grid, refinement-4 mesh, C=64, 2 layers) in fp32
-   through the kernels on the card and through the plain versions on the CPU,
-   from the same seeded weights, within 1e-4 * max(1, mean |ref|);
-3. serves the flagship (O96, r5, C=256, 8 layers in 2 chunks, 4 heads, bf16,
+1. holds each forward kernel against its plain PyTorch version on the card,
+   at the shapes of the O96 / refinement-5 main path (kv_proj on the
+   processor's 10,242 nodes; edge_attn_csr on the real processor, encoder and
+   decoder edge sets; a case with destinations that have no edge), fp32
+   within atol = rtol = 1e-5 (only the summation order differs) and bf16
+   within 2e-2, and times both with CUDA events;
+2. holds the backward kernel (edge_attn_csr_bwd) against its plain version at
+   the same three edge sets and the dead-destination case, in fp32 and bf16:
+   ``max |kernel - plain| <= 1e-4 * max(1, max |plain|)`` per output (both
+   read the same inputs and sum in fp32, in another order), and two calls
+   bit-identical;
+3. runs a reduced model (O48 grid, refinement-4 mesh, C=64, 2 layers) in fp32
+   through the kernels on the card and through the plain versions on the
+   CPU, from the same seeded weights: the forward within
+   1e-4 * max(1, mean |ref|), every parameter's gradient within
+   1e-4 * max(1, max |ref grad|), and a 3-step make_optimizer loss trace
+   within rtol 6e-4 (the reference's bound for loss traces);
+4. serves the flagship (O96, r5, C=256, 8 layers in 2 chunks, 4 heads, bf16,
    batch 1, two input steps) through ``AnemoiModelInterface.predict_step``:
    three requests on seeded inputs, finite outputs of the right shape, and
-   exactly 10 launches of each kernel per request.
+   exactly 10 launches of each forward kernel per request;
+5. trains the flagship at full width with ``make_train_step`` +
+   ``make_optimizer`` (``remat_policy="full"``, bench.py's default): one
+   warm-up step and three timed steps on one seeded batch, finite losses,
+   the last below the first, launches per step (18 kv_proj, 18 edge_attn_csr:
+   10 forward + 8 recomputed, and 10 edge_attn_csr_bwd), peak memory; then
+   one step with ``remat_policy="none"`` (10 of each).
 
 Prints the card's name and power limit, per-phase numbers, one JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``. Exits
 non-zero, with no result line, on any failure or when there is no card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                      # what the checks need
+    python3 chip_smoke.py --profile OUT_DIR    # also profile one train step
+    python3 chip_smoke.py --build-times DIR    # also time cold kernel builds
 """
 
 from __future__ import annotations
 
+import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -37,15 +55,39 @@ from anemoi_models_tpu_torch.data_indices import IndexCollection
 from anemoi_models_tpu_torch.graphs import build_enc_proc_dec_graph
 from anemoi_models_tpu_torch.interface import AnemoiModelInterface
 from anemoi_models_tpu_torch.ops import edge_attention as ea
+from anemoi_models_tpu_torch.ops import kernels
 from anemoi_models_tpu_torch.ops.kernels import build_log, load_kernels
+from anemoi_models_tpu_torch.training import make_optimizer, make_train_step, weighted_mse
 from anemoi_models_tpu_torch.utils import DotDict
 
-SOURCE = "anemoi_models_tpu_torch/csrc/edge_attention.cu"
-REPLACES = "anemoi_models_tpu/ops/pallas/edge_attention.py:626"  # _feats_kernel
+KERNELS = {  # name -> (source, the TPU kernel it replaces)
+    "kv_proj": ("anemoi_models_tpu_torch/csrc/edge_attention.cu",
+                "anemoi_models_tpu/ops/pallas/edge_attention.py:626"),  # _feats_kernel
+    "edge_attn_csr": ("anemoi_models_tpu_torch/csrc/edge_attention.cu",
+                      "anemoi_models_tpu/ops/pallas/edge_attention.py:626"),  # _feats_kernel
+    "edge_attn_csr_bwd": ("anemoi_models_tpu_torch/csrc/edge_attention_bwd.cu",
+                          "anemoi_models_tpu/ops/pallas/edge_attention.py:781"),  # _feats_bwd_kernel
+}
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+BWD_TOL = 1e-4
 NAME_TO_INDEX = {"lsm": 0, "z_500": 1, "t_850": 2, "q_700": 3, "t2m": 4, "tp": 5}
 EDGE_ATTRS = ["edge_length", "edge_dirs"]
 TRAINABLE_EDGES = 4
+# published H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, FLOP/s
+HBM_BPS = 3.35e12
+PEAK_FLOPS = {"bf16 tensor": 989e12, "fp32": 67e12}
+# device kernels of a profiled step, grouped by what they do (first match)
+PROFILE_KINDS = [
+    ("edge_attn_csr_bwd (4 phases)", ("edge_attn_bwd_", "dw_reduce_kernel")),
+    ("kv_proj", ("kv_proj_kernel",)),
+    ("edge_attn_csr", ("edge_attn_csr_kernel",)),
+    ("optimizer (multi-tensor)", ("multi_tensor", "lpnorm")),
+    ("LayerNorm forward + backward", ("layer_norm", "GammaBeta")),
+    ("GEMM (cuBLAS, CUTLASS)", ("gemm", "nvjet", "cutlass")),
+    ("copies and dtype casts", ("copy",)),
+    ("reductions", ("reduce_kernel",)),
+    ("GELU forward + backward", ("Gelu",)),
+]
 
 
 def card() -> str:
@@ -69,6 +111,37 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bound(nbytes: float, flops: float, peak: str) -> dict:
+    """The least time the card could take: max(bytes / HBM rate, operations
+    / peak rate for their type), in ms, and which of the two binds."""
+    by_bytes, by_ops = nbytes / HBM_BPS * 1e3, flops / PEAK_FLOPS[peak] * 1e3
+    return {"bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": nbytes, "flops": flops, "peak": peak}
+
+
+def build_times(out_dir: str, repeats: int = 2) -> dict:
+    """Wall seconds of a cold build of the kernel library two ways, into
+    ``out_dir``, alternated: the package's build (one nvcc per source, all
+    started together, then a link) and one nvcc call over every source."""
+    os.makedirs(out_dir, exist_ok=True)
+    cu = [p for p in kernels._sources() if p.endswith(".cu")]
+    one_call = [kernels._nvcc(), *kernels._NVCC_FLAGS, "-shared", "-o", os.path.join(out_dir, "one_call.so"), *cu]
+    times: dict[str, list] = {"parallel_s": [], "one_call_s": []}
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        kernels._build(os.path.join(out_dir, "parallel.so"))
+        times["parallel_s"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        subprocess.run(one_call, check=True, capture_output=True, timeout=900)
+        times["one_call_s"].append(time.perf_counter() - t0)
+    return {"sources": len(cu), **times}
+
+
+def reset_launches() -> None:
+    for key in ea.LAUNCHES:
+        ea.LAUNCHES[key] = 0
+
+
 def max_err(got, want, tol: float, what: str) -> float:
     got, want = got.float(), want.float()
     if not torch.isfinite(got).all():
@@ -79,7 +152,19 @@ def max_err(got, want, tol: float, what: str) -> float:
     return (got - want).abs().max().item()
 
 
-def model_config(num_channels: int, num_layers: int, num_chunks: int, dtype: str) -> DotDict:
+def normwise_err(got, want, what: str) -> float:
+    """max |got - want| / max(1, max |want|), checked against BWD_TOL."""
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: non-finite values")
+    err = (got - want).abs().max().item() / max(1.0, want.abs().max().item())
+    if err > BWD_TOL:
+        raise AssertionError(f"{what}: normwise error {err:.3e} > {BWD_TOL}")
+    return err
+
+
+def model_config(num_channels: int, num_layers: int, num_chunks: int, dtype: str,
+                 remat_policy: str = "full") -> DotDict:
     """The flagship config of the JAX package's entry point, written for the port."""
     mapper = {
         "trainable_size": TRAINABLE_EDGES,
@@ -110,6 +195,7 @@ def model_config(num_channels: int, num_layers: int, num_chunks: int, dtype: str
                 "num_layers": num_layers,
                 "num_chunks": num_chunks,
                 "graph_impl": "pallas",
+                "remat_policy": remat_policy,
                 **mapper,
             },
             "decoder": {"_target_": "anemoi.models.layers.mapper.GraphTransformerBackwardMapper", **mapper},
@@ -143,74 +229,118 @@ def interface(graph, cfg: DotDict, device, seed: int) -> AnemoiModelInterface:
     return iface
 
 
+def train_batch(iface: AnemoiModelInterface, num_grid: int, seed: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """A seeded (x, y) pair at the model's internal widths, on the CPU."""
+    rng = np.random.RandomState(seed)
+    n_in = len(iface.data_indices.internal_model.input)
+    n_out = len(iface.data_indices.internal_model.output)
+    x = rng.randn(1, 2, 1, num_grid, n_in).astype(np.float32)
+    y = rng.randn(1, 1, num_grid, n_out).astype(np.float32)
+    return torch.from_numpy(x), torch.from_numpy(y)
+
+
+def edge_case(graph, label: str, dev, gen, c: int = 256, keep=None) -> dict:
+    """One real edge set of the main path on the card, with seeded inputs."""
+    s_name, d_name = {"processor": ("hidden", "hidden"), "encoder": ("data", "hidden"),
+                      "decoder": ("hidden", "data")}[label]
+    es = graph[(s_name, "to", d_name)]
+    ns, nd = graph[s_name].num_nodes, graph[d_name].num_nodes
+    edge_index = es.edge_index if keep is None else es.edge_index[:, keep]
+    rowptr, src = ea.csr_from_edge_index(edge_index, ns, nd)
+    num_edges = edge_index.shape[1]
+    static = torch.from_numpy(es.attr_tensor(EDGE_ATTRS))
+    if keep is not None:
+        static = static[torch.from_numpy(keep)]
+    a = torch.cat([static, torch.randn(num_edges, TRAINABLE_EDGES, generator=gen) * 0.1,
+                   torch.ones(num_edges, 1)], dim=-1)
+    return {
+        "ns": ns, "nd": nd, "num_edges": num_edges, "a": a,
+        "rowptr": torch.from_numpy(rowptr).to(dev), "src": torch.from_numpy(src).to(dev),
+        "csr_t": ea.CSRTranspose(*(torch.from_numpy(t).to(dev) for t in ea.csr_transpose(rowptr, src, ns))),
+        "q": torch.randn(nd, c, generator=gen), "kv": torch.randn(ns, 2 * c, generator=gen),
+        "w_aug": torch.randn(a.shape[1], c, generator=gen) * 0.3,
+        "g_num": torch.randn(nd, c, generator=gen), "g_den": torch.randn(nd, 4, generator=gen),
+    }
+
+
+def attn_bounds(case: dict, c: int, h: int, dtype: torch.dtype) -> tuple[dict, dict]:
+    """Bounds of edge_attn_csr and edge_attn_csr_bwd on one edge set (batch
+    1): each input read once, each output written once, and the fewest
+    operations the function needs, priced at the peak for the operands' type.
+    The edge term e = a.w_aug factors through per-destination products with
+    w_aug (2 A2 C each) and per-edge sums over the A2 attributes (2 A2 H
+    each), so per edge the forward needs the logit and the weighted sum of v
+    (4C) and two A2 H terms, per destination two A2 C products; the backward
+    needs the logit, <g_num, v>, dq, dk and dv (10C) and six A2 H terms per
+    edge (the two logit terms, da, the two sums dq and dw_aug read), and
+    five A2 C products per destination (P, G, dq's e-term, dw_aug's two)."""
+    nd, ns, e = case["nd"], case["ns"], case["num_edges"]
+    a2 = case["a"].shape[1]
+    itemsize = torch.finfo(dtype).bits // 8
+    peak = "bf16 tensor" if dtype == torch.bfloat16 else "fp32"
+    fwd_in = (nd * c + ns * 2 * c + e * a2 + a2 * c) * itemsize + (nd + 1 + e) * 4
+    fwd = bound(fwd_in + (nd * c + 2 * nd * h) * 4, e * (4 * c + 4 * a2 * h) + nd * 4 * a2 * c, peak)
+    bwd_in = fwd_in + (nd * h + nd * c + nd * h) * 4 + (e + ns + 1 + e) * 4
+    bwd_out = (nd * c + ns * 2 * c + e * a2 + a2 * c) * 4
+    bwd = bound(bwd_in + bwd_out, e * (10 * c + 12 * a2 * h) + nd * 10 * a2 * c, peak)
+    return fwd, bwd
+
+
 def phase_kernels(graph, dev) -> tuple[dict, list]:
-    """Kernel against plain at main-path shapes; returns per-kernel summary
-    (bf16, the serving dtype) and a row per case."""
+    """Forward kernels against plain at main-path shapes; returns the
+    per-kernel summary (bf16, the model's dtype; the processor's shapes) and
+    a row per case."""
     gen = torch.Generator().manual_seed(0)
     c, h = 256, 4
     n_hidden = graph["hidden"].num_nodes
     rows, summary = [], {"kv_proj": {}, "edge_attn_csr": {}}
 
-    def randn(*shape, scale=1.0):
-        return torch.randn(*shape, generator=gen) * scale
-
-    def record(name, shape, dtype, err, ms, plain_ms):
+    def record(name, shape, dtype, err, ms, plain_ms, extra=None):
         rows.append({"kernel": name, "shape": shape, "dtype": str(dtype).split(".")[-1],
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **(extra or {})})
         if dtype == torch.bfloat16:
             s = summary[name]
             s["max_abs_err"] = max(s.get("max_abs_err", 0.0), err)
-            if shape.startswith("processor") or name == "kv_proj":
-                s["ms"], s["plain_ms"] = ms, plain_ms
+            if shape.startswith("processor"):
+                s.update({"ms": ms, "plain_ms": plain_ms, **(extra or {})})
 
-    f32 = randn(n_hidden, c)
-    w32 = randn(2 * c, c, scale=c ** -0.5)
-    b32 = randn(2 * c, scale=0.1)
+    f32 = torch.randn(n_hidden, c, generator=gen)
+    w32 = torch.randn(2 * c, c, generator=gen) * c ** -0.5
+    b32 = torch.randn(2 * c, generator=gen) * 0.1
     for dt in (torch.float32, torch.bfloat16):
         f, w, b = f32.to(dev, dt), w32.to(dev, dt), b32.to(dev)
         got, want = ea.kv_proj(f, w, b), ea.kv_proj_plain(f, w, b)
         torch.cuda.synchronize()
         err = max_err(got, want, TOL[dt], f"kv_proj {dt}")
+        nbytes = (f.numel() + w.numel() + got.numel()) * f.element_size() + b.numel() * 4
+        peak = "bf16 tensor" if dt == torch.bfloat16 else "fp32"
+        b_dt = b.to(dt)
+        extra = {**bound(nbytes, 2.0 * n_hidden * 2 * c * c, peak),
+                 "library_ms": cuda_ms(lambda: torch.addmm(b_dt, f, w.t()))}
         record("kv_proj", f"processor {n_hidden}x{c} . {c}x{2 * c}", dt, err,
-               cuda_ms(lambda: ea.kv_proj(f, w, b)), cuda_ms(lambda: ea.kv_proj_plain(f, w, b)))
+               cuda_ms(lambda: ea.kv_proj(f, w, b)), cuda_ms(lambda: ea.kv_proj_plain(f, w, b)), extra)
 
-    cases = {
-        "processor": ("hidden", "hidden"),
-        "encoder": ("data", "hidden"),
-        "decoder": ("hidden", "data"),
-    }
-    for label, (s_name, d_name) in cases.items():
-        es = graph[(s_name, "to", d_name)]
-        ns, nd = graph[s_name].num_nodes, graph[d_name].num_nodes
-        rowptr, src = ea.csr_from_edge_index(es.edge_index, ns, nd)
-        static = torch.from_numpy(es.attr_tensor(EDGE_ATTRS))
-        a32 = torch.cat([static, randn(es.num_edges, TRAINABLE_EDGES, scale=0.1),
-                         torch.ones(es.num_edges, 1)], dim=-1)
-        q32, kv32 = randn(nd, c), randn(ns, 2 * c)
-        wa32 = randn(a32.shape[1], c, scale=0.3)
-        rp, sr = torch.from_numpy(rowptr).to(dev), torch.from_numpy(src).to(dev)
+    for label in ("processor", "encoder", "decoder"):
+        case = edge_case(graph, label, dev, gen, c)
+        rp, sr = case["rowptr"], case["src"]
         for dt in (torch.float32, torch.bfloat16):
-            q, kv, a, wa = (t.to(dev, dt) for t in (q32, kv32, a32, wa32))
+            q, kv, a, wa = (case[k].to(dev, dt) for k in ("q", "kv", "a", "w_aug"))
             got = ea.edge_attn_csr(q, kv, rp, sr, a, wa, h)
             want = ea.edge_attn_csr_plain(q, kv, rp, sr, a, wa, h)
             torch.cuda.synchronize()
             err = max(max_err(g, w_, TOL[dt], f"edge_attn_csr {label} {dt} {n}")
                       for g, w_, n in zip(got, want, ("num", "den", "m")))
-            record("edge_attn_csr", f"{label} E={es.num_edges} Nd={nd} Ns={ns}", dt, err,
+            extra = {**attn_bounds(case, c, h, dt)[0], "library_ms": None}
+            record("edge_attn_csr", f"{label} E={case['num_edges']} Nd={case['nd']} Ns={case['ns']}", dt, err,
                    cuda_ms(lambda: ea.edge_attn_csr(q, kv, rp, sr, a, wa, h)),
-                   cuda_ms(lambda: ea.edge_attn_csr_plain(q, kv, rp, sr, a, wa, h), iters=5))
+                   cuda_ms(lambda: ea.edge_attn_csr_plain(q, kv, rp, sr, a, wa, h), iters=5), extra)
 
     # destinations without edges: m = -1e30, den = 0, num = 0, never NaN
-    es = graph[("hidden", "to", "hidden")]
-    dst = es.edge_index[1]
-    keep = dst % 7 != 3
-    rowptr, src = ea.csr_from_edge_index(es.edge_index[:, keep], n_hidden, n_hidden)
-    rp, sr = torch.from_numpy(rowptr).to(dev), torch.from_numpy(src).to(dev)
-    a = torch.cat([torch.from_numpy(es.attr_tensor(EDGE_ATTRS))[keep],
-                   randn(int(keep.sum()), TRAINABLE_EDGES + 1)], dim=-1).to(dev)
-    q, kv, wa = randn(n_hidden, c).to(dev), randn(n_hidden, 2 * c).to(dev), randn(a.shape[1], c).to(dev)
-    got = ea.edge_attn_csr(q, kv, rp, sr, a, wa, h)
-    want = ea.edge_attn_csr_plain(q, kv, rp, sr, a, wa, h)
+    keep = graph[("hidden", "to", "hidden")].edge_index[1] % 7 != 3
+    case = edge_case(graph, "processor", dev, gen, c, keep)
+    q, kv, a, wa = (case[k].to(dev) for k in ("q", "kv", "a", "w_aug"))
+    got = ea.edge_attn_csr(q, kv, case["rowptr"], case["src"], a, wa, h)
+    want = ea.edge_attn_csr_plain(q, kv, case["rowptr"], case["src"], a, wa, h)
     torch.cuda.synchronize()
     dead = torch.from_numpy(np.arange(n_hidden) % 7 == 3).to(dev)
     if not (bool((got.m[dead] == -1e30).all()) and bool((got.den[dead] == 0).all())
@@ -223,14 +353,58 @@ def phase_kernels(graph, dev) -> tuple[dict, list]:
     return summary, rows
 
 
+def phase_backward_kernels(graph, dev) -> tuple[dict, list]:
+    """edge_attn_csr_bwd against plain at the three edge sets (and with dead
+    destinations), fp32 and bf16, two calls bit-identical; the summary is
+    bf16 on the processor's edges."""
+    gen = torch.Generator().manual_seed(1)
+    c, h = 256, 4
+    rows, summary, bf16_err = [], {}, 0.0
+    cases = [(label, None) for label in ("processor", "encoder", "decoder")]
+    cases.append(("processor", graph[("hidden", "to", "hidden")].edge_index[1] % 7 != 3))
+    for label, keep in cases:
+        case = edge_case(graph, label, dev, gen, c, keep)
+        rp, sr, csr_t = case["rowptr"], case["src"], case["csr_t"]
+        g_num, g_den = case["g_num"].to(dev), case["g_den"].to(dev)
+        shape = f"{label}{' dead' if keep is not None else ''} E={case['num_edges']} Nd={case['nd']} Ns={case['ns']}"
+        for dt in (torch.float32, torch.bfloat16):
+            q, kv, a, wa = (case[k].to(dev, dt) for k in ("q", "kv", "a", "w_aug"))
+            m = ea.edge_attn_csr(q, kv, rp, sr, a, wa, h).m
+            args = (q, kv, rp, sr, a, wa, m, g_num, g_den, h)
+            got, again = ea.edge_attn_csr_bwd(*args, csr_t), ea.edge_attn_csr_bwd(*args, csr_t)
+            want = ea.edge_attn_csr_bwd_plain(*args)
+            torch.cuda.synchronize()
+            what = f"edge_attn_csr_bwd {shape} {dt}"
+            for name, g, g2 in zip(("dq", "dkv", "da", "dw_aug"), got, again):
+                if not torch.equal(g, g2):
+                    raise AssertionError(f"{what} {name}: two calls differ (not run-to-run deterministic)")
+            err = max(normwise_err(g, w_, f"{what} {n}") for g, w_, n in zip(got, want, ("dq", "dkv", "da", "dw_aug")))
+            abs_err = max((g - w_).abs().max().item() for g, w_ in zip(got, want))
+            row = {"kernel": "edge_attn_csr_bwd", "shape": shape, "dtype": str(dt).split(".")[-1],
+                   "normwise_err": err, "max_abs_err": abs_err, "bit_identical": True}
+            if keep is None:
+                row.update({
+                    "ms": cuda_ms(lambda: ea.edge_attn_csr_bwd(*args, csr_t)),
+                    "plain_ms": cuda_ms(lambda: ea.edge_attn_csr_bwd_plain(*args), iters=3, warmup=1),
+                    **attn_bounds(case, c, h, dt)[1], "library_ms": None,
+                })
+            if dt == torch.bfloat16:
+                bf16_err = max(bf16_err, abs_err)
+                if label == "processor" and keep is None:
+                    summary = {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            rows.append(row)
+    return {**summary, "max_abs_err": bf16_err}, rows
+
+
 def phase_reduced_model(dev) -> dict:
-    """Reduced fp32 model: kernels on the card against plain on the CPU."""
+    """Reduced fp32 model: kernels on the card against plain on the CPU, in
+    the forward, the gradients and a 3-step train trace."""
     graph = build_enc_proc_dec_graph(grid_lat=48, mesh_refinements=4, grid="octahedral")
     cfg = model_config(num_channels=64, num_layers=2, num_chunks=1, dtype="float32")
     cpu = interface(graph, cfg, "cpu", seed=1)
     gpu = interface(graph, cfg, "cpu", seed=1).to(dev)
-    n_in = len(cpu.data_indices.internal_model.input)
-    x = torch.from_numpy(np.random.RandomState(2).randn(1, 2, 1, graph["data"].num_nodes, n_in).astype(np.float32))
+    n_grid = graph["data"].num_nodes
+    x, y = train_batch(cpu, n_grid, seed=2)
     t0 = time.perf_counter()
     ref = cpu.forward(x)
     cpu_s = time.perf_counter() - t0
@@ -239,8 +413,24 @@ def phase_reduced_model(dev) -> dict:
     err = (out - ref).abs().max().item()
     if not torch.isfinite(out).all() or err > 1e-4 * scale:
         raise AssertionError(f"reduced model: GPU kernels vs CPU plain max err {err:.3e} > {1e-4 * scale:.3e}")
-    return {"grid": graph["data"].num_nodes, "hidden": graph["hidden"].num_nodes,
-            "max_abs_err": err, "bound": 1e-4 * scale, "cpu_forward_s": cpu_s}
+
+    weighted_mse(cpu.model(x), y).backward()
+    weighted_mse(gpu.model(x.to(dev)), y.to(dev)).backward()
+    gpu_params = dict(gpu.model.named_parameters())
+    grad_err = max(normwise_err(gpu_params[n].grad.cpu(), p.grad, f"reduced model gradient {n}")
+                   for n, p in cpu.model.named_parameters())
+
+    traces = []
+    for iface, xx, yy in ((cpu, x, y), (gpu, x.to(dev), y.to(dev))):
+        step = make_train_step(iface.model, make_optimizer(iface.model.parameters(), 1e-3, warmup_steps=1,
+                                                           total_steps=10))
+        traces.append([step(xx, yy).item() for _ in range(3)])
+    trace_err = float(np.max(np.abs(np.subtract(traces[1], traces[0])) / np.abs(traces[0])))
+    if not np.all(np.isfinite(traces[1])) or trace_err > 6e-4:
+        raise AssertionError(f"reduced train trace: GPU {traces[1]} vs CPU {traces[0]} (rel err {trace_err:.3e})")
+    return {"grid": n_grid, "hidden": graph["hidden"].num_nodes, "max_abs_err": err, "bound": 1e-4 * scale,
+            "cpu_forward_s": cpu_s, "grad_normwise_err": grad_err, "loss_trace_cpu": traces[0],
+            "loss_trace_gpu": traces[1], "loss_trace_rel_err": trace_err}
 
 
 def phase_serving(graph, dev) -> dict:
@@ -261,8 +451,7 @@ def phase_serving(graph, dev) -> dict:
     iface.predict_step(requests[0])  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for key in ea.LAUNCHES:
-        ea.LAUNCHES[key] = 0
+    reset_launches()
     ms, per_request = [], []
     for batch in requests[1:]:
         before = dict(ea.LAUNCHES)
@@ -277,13 +466,118 @@ def phase_serving(graph, dev) -> dict:
             raise AssertionError(f"serving: bad output shape {tuple(y.shape)} or non-finite values")
     launches = dict(ea.LAUNCHES)
     for counts in per_request:
-        if counts != {"kv_proj": 10, "edge_attn_csr": 10}:
-            raise AssertionError(f"serving: expected 10 launches of each kernel per request, got {counts}")
+        if counts != {"kv_proj": 10, "edge_attn_csr": 10, "edge_attn_csr_bwd": 0}:
+            raise AssertionError(f"serving: expected 10 launches of each forward kernel per request, got {counts}")
     return {"request_ms": ms, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
             "launches": launches, "per_request": per_request}
 
 
+def timed_steps(step, x, y, n: int) -> tuple[list, list, list]:
+    """Losses, CUDA-event ms and kernel launches of ``n`` train steps."""
+    losses, ms, launches = [], [], []
+    for _ in range(n):
+        before = dict(ea.LAUNCHES)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = step(x, y)
+        end.record()
+        torch.cuda.synchronize()
+        losses.append(loss.item())
+        ms.append(start.elapsed_time(end))
+        launches.append({k: ea.LAUNCHES[k] - before[k] for k in ea.LAUNCHES})
+    return losses, ms, launches
+
+
+def phase_train(graph, dev, profile_dir: str | None) -> dict:
+    """Flagship bf16 train steps at full width (remat "full", then "none")."""
+    cfg = model_config(num_channels=256, num_layers=8, num_chunks=2, dtype="bfloat16", remat_policy="full")
+    iface = interface(graph, cfg, dev, seed=4)
+    model = iface.model
+    x, y = (t.to(dev) for t in train_batch(iface, graph["data"].num_nodes, seed=20))
+    step = make_train_step(model, make_optimizer(model.parameters(), 1e-3, warmup_steps=1, total_steps=100))
+
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms, per_step = timed_steps(step, x, y, 4)  # the first is the warm-up, at lr 0
+    launches = dict(ea.LAUNCHES)
+    peak_full = torch.cuda.max_memory_allocated() / 2**30
+    if not np.all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train: losses {losses} are not finite or do not fall")
+    expected = {"kv_proj": 18, "edge_attn_csr": 18, "edge_attn_csr_bwd": 10}
+    if any(counts != expected for counts in per_step):
+        raise AssertionError(f"train (remat full): expected {expected} launches per step, got {per_step}")
+
+    profile = phase_profile(step, x, y, profile_dir) if profile_dir else None
+
+    for chunk in model.processor.proc:
+        chunk.remat_policy = "none"
+    torch.cuda.reset_peak_memory_stats()
+    losses_none, ms_none, per_step_none = timed_steps(step, x, y, 2)
+    peak_none = torch.cuda.max_memory_allocated() / 2**30
+    expected = {"kv_proj": 10, "edge_attn_csr": 10, "edge_attn_csr_bwd": 10}
+    if any(counts != expected for counts in per_step_none) or not np.all(np.isfinite(losses_none)):
+        raise AssertionError(f"train (remat none): expected {expected} launches per step, got {per_step_none}")
+    return {"losses": losses, "step_ms": ms[1:], "warmup_step_ms": ms[0], "peak_mem_gib": peak_full,
+            "launches": launches, "per_step": per_step[1],
+            "remat_none": {"losses": losses_none, "step_ms": ms_none[1:], "peak_mem_gib": peak_none,
+                           "per_step": per_step_none[1]},
+            "profile": profile}
+
+
+def phase_profile(step, x, y, out_dir: str) -> dict:
+    """One train step under torch.profiler: device time by kernel, and the
+    device's busy share (union of kernel intervals over the step's span)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(out_dir, exist_ok=True)
+    step(x, y)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(x, y)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=60)
+    with open(os.path.join(out_dir, "profile_train_step.txt"), "w") as fh:
+        fh.write(table)
+    prof.export_chrome_trace(os.path.join(out_dir, "profile_train_step.json"))
+    kernels = [e for e in prof.events()  # device kernels and copies, not the annotations that span them
+               if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+    by_name: dict[str, list] = {}
+    for e in kernels:
+        entry = by_name.setdefault(e.name, [0, 0.0])
+        entry[0] += 1
+        entry[1] += e.time_range.elapsed_us() / 1e3
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, end = 0.0, None
+    for s, t in spans:
+        if end is None or s > end:
+            busy += t - s
+            end = t
+        elif t > end:
+            busy += t - end
+            end = t
+    first, last = (spans[0][0], max(t for _, t in spans)) if spans else (0, 0)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:25]
+    by_kind: dict[str, list] = {}
+    for name, (count, ms) in by_name.items():
+        kind = next((k for k, marks in PROFILE_KINDS if any(m in name for m in marks)), "other elementwise")
+        entry = by_kind.setdefault(kind, [0, 0.0])
+        entry[0] += count
+        entry[1] += ms
+    return {"wall_ms_under_profiler": wall_ms, "device_kernels": len(kernels),
+            "device_busy_ms": busy / 1e3, "device_span_ms": (last - first) / 1e3,
+            "by_kind": [{"kind": k, "count": c, "ms": ms}
+                        for k, (c, ms) in sorted(by_kind.items(), key=lambda kv: -kv[1][1])],
+            "top_kernels": [{"name": n[:90], "count": c, "ms": ms} for n, (c, ms) in top]}
+
+
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--profile", metavar="OUT_DIR", help="also profile one train step into OUT_DIR")
+    parser.add_argument("--build-times", metavar="OUT_DIR",
+                        help="also time cold kernel builds, parallel against one nvcc call, in OUT_DIR")
+    args = parser.parse_args()
     name_power = card()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; no card to test")
@@ -292,11 +586,14 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
 
     t0 = time.perf_counter()
     load_kernels()
     print(f"build: {time.perf_counter() - t0:.1f} s")
     print(build_log().strip())
+    if args.build_times:
+        print("build-times", json.dumps(build_times(args.build_times)))
 
     t0 = time.perf_counter()
     graph = build_enc_proc_dec_graph(grid_lat=96, mesh_refinements=5, grid="octahedral")
@@ -304,20 +601,32 @@ def main() -> None:
           f"built in {time.perf_counter() - t0:.1f} s")
 
     summary, rows = phase_kernels(graph, dev)
-    for row in rows:
+    bwd_summary, bwd_rows = phase_backward_kernels(graph, dev)
+    summary["edge_attn_csr_bwd"] = bwd_summary
+    for row in rows + bwd_rows:
         print("kernel-vs-plain", json.dumps(row))
     reduced = phase_reduced_model(dev)
     print("reduced-model", json.dumps(reduced))
     serving = phase_serving(graph, dev)
     print("serving", json.dumps(serving))
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
+    train = phase_train(graph, dev, args.profile)
+    print("train", json.dumps(train))
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "anemoi_models_tpu"))
+    if leaked:
+        raise AssertionError(f"the port imported {leaked}")
+    print(f"total: {time.perf_counter() - t_start:.1f} s")
 
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES,
-         "launches": serving["launches"][name], **summary[name]}
-        for name in ("kv_proj", "edge_attn_csr")
+        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+         "launches": train["launches"][name],
+         "launches_by_path": {"serving": serving["launches"][name], "train": train["launches"][name]},
+         **{k: summary[name][k] for k in keys}}
+        for name, (source, replaces) in KERNELS.items()
     ]
+    for k in kernels:
+        if k["launches"] == 0:
+            raise AssertionError(f"{k['name']} was not launched on the train path")
     print(name_power)  # as nvidia-smi prints it: name, power limit
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,10 @@ jax), run it as::
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_port_cuda.py
 
 Tolerances: fp32 ``atol = rtol = 1e-5`` (only the summation order differs
-from the plain version); bf16 inputs ``2e-2``.
+from the plain version); bf16 inputs ``2e-2``. The backward is held to
+``max |kernel - plain| <= 1e-4 * max(1, max |plain|)`` per output: both read
+the same inputs and sum in fp32, in another order (the dw_aug sum runs over
+every edge).
 """
 
 import numpy as np
@@ -21,6 +24,7 @@ from anemoi_models_tpu_torch.ops import edge_attention as ea
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+BWD_TOL = 1e-4
 
 
 @pytest.fixture(scope="module")
@@ -40,6 +44,16 @@ def _csr(es, num_src, num_dst, dev, keep=None):
     ei = es.edge_index if keep is None else es.edge_index[:, keep]
     rowptr, src = ea.csr_from_edge_index(ei, num_src, num_dst)
     return torch.from_numpy(rowptr).to(dev), torch.from_numpy(src).to(dev), ei.shape[1]
+
+
+def _csr_t(rowptr, src, num_src):
+    return ea.CSRTranspose(*(
+        torch.from_numpy(t).to(rowptr.device) for t in ea.csr_transpose(rowptr.cpu(), src.cpu(), num_src)
+    ))
+
+
+def _normwise(got, want):
+    return (got.float() - want.float()).abs().max().item() / max(1.0, want.abs().max().item())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -86,6 +100,43 @@ def test_edge_attn_csr_matches_plain(dev, graph, dtype, channels, heads, edges):
         assert bool((got.num[dead] == 0).all())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels,heads", [(64, 4), (256, 4), (512, 4), (128, 16)])
+@pytest.mark.parametrize("edges", ["hidden-hidden", "data-hidden", "hidden-data", "dead"])
+def test_edge_attn_csr_bwd_matches_plain_and_repeats_bit_for_bit(dev, graph, dtype, channels, heads, edges):
+    names = {"hidden-hidden": ("hidden", "hidden"), "data-hidden": ("data", "hidden"),
+             "hidden-data": ("hidden", "data"), "dead": ("hidden", "hidden")}[edges]
+    es = graph[(names[0], "to", names[1])]
+    ns, nd = graph[names[0]].num_nodes, graph[names[1]].num_nodes
+    keep = es.edge_index[1] % 4 != 1 if edges == "dead" else None
+    rowptr, src, num_edges = _csr(es, ns, nd, dev, keep)
+    csr_t = _csr_t(rowptr, src, ns)
+    gen = torch.Generator().manual_seed(2)
+    batch = 2
+    q = torch.randn(batch * nd, channels, generator=gen).to(dev, dtype)
+    kv = torch.randn(batch * ns, 2 * channels, generator=gen).to(dev, dtype)
+    a = torch.randn(num_edges, 8, generator=gen).to(dev, dtype)
+    w_aug = (torch.randn(8, channels, generator=gen) * 0.3).to(dev, dtype)
+    g_num = torch.randn(batch * nd, channels, generator=gen).to(dev)
+    g_den = torch.randn(batch * nd, heads, generator=gen).to(dev)
+    m = ea.edge_attn_csr(q, kv, rowptr, src, a, w_aug, heads).m
+    args = (q, kv, rowptr, src, a, w_aug, m, g_num, g_den, heads)
+    before = ea.LAUNCHES["edge_attn_csr_bwd"]
+    got = ea.edge_attn_csr_bwd(*args, csr_t)
+    again = ea.edge_attn_csr_bwd(*args, csr_t)
+    assert ea.LAUNCHES["edge_attn_csr_bwd"] == before + 2
+    want = ea.edge_attn_csr_bwd_plain(*args)
+    torch.cuda.synchronize()
+    for name, g, g2, w in zip(("dq", "dkv", "da", "dw_aug"), got, again, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape, name
+        assert bool(torch.isfinite(g).all()), name
+        assert torch.equal(g, g2), f"{name} differs between two calls"
+        assert _normwise(g, w) <= BWD_TOL, f"{name}: normwise error {_normwise(g, w):.3e}"
+    if edges == "dead":
+        dead = torch.from_numpy(np.tile(np.arange(nd) % 4 == 1, batch)).to(dev)
+        assert bool((got[0][dead] == 0).all())
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(dev, graph):
     es = graph[("hidden", "to", "hidden")]
     n = graph["hidden"].num_nodes
@@ -104,9 +155,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev, graph):
         ea.kv_proj(torch.randn(4, 8, device=dev), torch.randn(6, 8), torch.randn(6))
     with pytest.raises(ValueError, match="fp32"):
         ea.kv_proj(torch.randn(4, 8, device=dev), torch.randn(6, 8, device=dev), torch.randn(6, device=dev).bfloat16())
+    q, kv = torch.randn(n, 1024, device=dev), torch.randn(n, 2048, device=dev)  # 512 threads per row
+    m = g_den = torch.zeros(n, 16, device=dev)
+    with pytest.raises(ValueError, match="threads per row"):
+        ea.edge_attn_csr_bwd(q, kv, rowptr, src, a, torch.randn(8, 1024, device=dev), m, q, g_den, 16,
+                             _csr_t(rowptr, src, n))
 
 
-def test_model_forward_on_card_matches_cpu(dev, graph):
+def _interfaces(graph, remat_policy="full"):
     from anemoi_models_tpu_torch.data_indices import IndexCollection
     from anemoi_models_tpu_torch.interface import AnemoiModelInterface
     from anemoi_models_tpu_torch.utils import DotDict
@@ -121,7 +177,7 @@ def test_model_forward_on_card_matches_cpu(dev, graph):
             "model": {"_target_": "anemoi.models.models.encoder_processor_decoder.AnemoiModelEncProcDec"},
             "encoder": {"_target_": "anemoi.models.layers.mapper.GraphTransformerForwardMapper", **mapper},
             "processor": {"_target_": "anemoi.models.layers.processor.GraphTransformerProcessor",
-                          "num_layers": 2, "num_chunks": 2, **mapper},
+                          "num_layers": 2, "num_chunks": 2, "remat_policy": remat_policy, **mapper},
             "decoder": {"_target_": "anemoi.models.layers.mapper.GraphTransformerBackwardMapper", **mapper},
         },
     })
@@ -129,17 +185,47 @@ def test_model_forward_on_card_matches_cpu(dev, graph):
     di = IndexCollection(cfg, n2i)
     ifaces = []
     for _ in range(2):
-        iface = AnemoiModelInterface(config=cfg, graph_data=graph, statistics={}, data_indices=di)
+        iface = AnemoiModelInterface(config=cfg, graph_data=graph, statistics={}, data_indices=di, device="cpu")
         gen = torch.Generator().manual_seed(5)
         iface.init_params(gen)
         with torch.no_grad():
             for p in iface.model.parameters():
                 p.add_(0.02 * torch.randn(p.shape, generator=gen))
         ifaces.append(iface)
+    return ifaces
+
+
+def test_model_forward_on_card_matches_cpu(dev, graph):
+    cpu, card = _interfaces(graph)
     x = torch.randn(1, 2, 1, graph["data"].num_nodes, 4, generator=torch.Generator().manual_seed(6))
-    ref = ifaces[0].forward(x)
+    ref = cpu.forward(x)
     before = dict(ea.LAUNCHES)
-    out = ifaces[1].to(dev).forward(x.to(dev)).cpu()
-    assert {k: ea.LAUNCHES[k] - before[k] for k in before} == {"kv_proj": 4, "edge_attn_csr": 4}
+    out = card.to(dev).forward(x.to(dev)).cpu()
+    assert {k: ea.LAUNCHES[k] - before[k] for k in before} == {"kv_proj": 4, "edge_attn_csr": 4, "edge_attn_csr_bwd": 0}
     bound = 1e-4 * max(1.0, ref.abs().mean().item())
     assert (out - ref).abs().max().item() <= bound
+
+
+@pytest.mark.parametrize("remat_policy", ["full", "none"])
+def test_model_gradients_on_card_match_cpu(dev, graph, remat_policy):
+    """Every parameter's gradient of the MSE loss, kernels on the card against
+    the plain versions on the CPU, fp32; with "full" the two processor chunks
+    are recomputed in the backward (2 more forward launches of each kernel)."""
+    from anemoi_models_tpu_torch.training import weighted_mse
+
+    cpu, card = _interfaces(graph, remat_policy)
+    card.to(dev)
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn(1, 2, 1, graph["data"].num_nodes, 4, generator=gen)
+    y = torch.randn(1, 1, graph["data"].num_nodes, 4, generator=gen)
+    weighted_mse(cpu.model(x), y).backward()
+    before = dict(ea.LAUNCHES)
+    weighted_mse(card.model(x.to(dev)), y.to(dev)).backward()
+    torch.cuda.synchronize()
+    recompute = 2 if remat_policy == "full" else 0
+    assert {k: ea.LAUNCHES[k] - before[k] for k in before} == {
+        "kv_proj": 4 + recompute, "edge_attn_csr": 4 + recompute, "edge_attn_csr_bwd": 4,
+    }
+    card_grads = dict(card.model.named_parameters())
+    for name, p in cpu.model.named_parameters():
+        assert _normwise(card_grads[name].grad.cpu(), p.grad) <= BWD_TOL, name

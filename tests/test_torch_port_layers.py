@@ -23,7 +23,7 @@ from anemoi_models_tpu_torch.layers import graph as tgraph
 from anemoi_models_tpu_torch.layers import mapper as tmapper
 from anemoi_models_tpu_torch.layers import processor as tproc
 from anemoi_models_tpu_torch.layers import utils as tutils
-from anemoi_models_tpu_torch.ops.edge_attention import csr_from_edge_index
+from anemoi_models_tpu_torch.ops.edge_attention import CSRTranspose, csr_from_edge_index, csr_transpose
 from anemoi_models_tpu_torch.weights import load_flax_params
 
 C, HEADS, TRAINABLE = 16, 4, 2
@@ -97,7 +97,8 @@ def _edge_inputs(es, trainable, num_src, num_dst):
     static = es.attr_tensor(EDGE_ATTRS)
     attr = np.concatenate([static, trainable], axis=-1)
     rowptr, src = csr_from_edge_index(es.edge_index, num_src, num_dst)
-    return attr, torch.from_numpy(rowptr), torch.from_numpy(src)
+    csr_t = CSRTranspose(*map(torch.from_numpy, csr_transpose(rowptr, src, num_src)))
+    return attr, torch.from_numpy(rowptr), torch.from_numpy(src), csr_t
 
 
 def test_processor_block_matches_flax(graph):
@@ -108,7 +109,7 @@ def test_processor_block_matches_flax(graph):
     rng = np.random.RandomState(2)
     x = rng.randn(2, n, C).astype(np.float32)
     trainable = rng.randn(es.num_edges, TRAINABLE).astype(np.float32) * 0.1
-    attr, rowptr, src = _edge_inputs(es, trainable, n, n)
+    attr, rowptr, src, csr_t = _edge_inputs(es, trainable, n, n)
     blk = jblock.GraphTransformerProcessorBlock(
         in_channels=C, hidden_dim=4 * C, out_channels=C, num_heads=HEADS
     )
@@ -120,7 +121,7 @@ def test_processor_block_matches_flax(graph):
         tblock.GraphTransformerProcessorBlock(C, 4 * C, C, attr.shape[1], num_heads=HEADS),
         params,
     )
-    out = port(torch.from_numpy(x), torch.from_numpy(attr), rowptr, src)
+    out = port(torch.from_numpy(x), torch.from_numpy(attr), rowptr, src, csr_t)
     np.testing.assert_allclose(out.numpy(), _np(ref), **TOL)
 
 

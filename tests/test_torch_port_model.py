@@ -56,7 +56,7 @@ def setup():
 
 
 def _port_model(cfg, di, graph, params):
-    model = AnemoiModelEncProcDec(model_config=cfg.to_dict(), data_indices=di, graph_data=graph)
+    model = AnemoiModelEncProcDec(model_config=cfg.to_dict(), data_indices=di, graph_data=graph, device="cpu")
     model.load_state_dict(load_flax_params(params), strict=True)
     return model.eval()
 
@@ -85,7 +85,7 @@ def test_predict_step_matches_jax(setup):
 
     jax_iface = JaxInterface(config=cfg, graph_data=graph, statistics=stats, data_indices=di)
     ref = np.asarray(jax_iface.make_predict_fn()(params, jnp.asarray(batch)))
-    iface = AnemoiModelInterface(config=cfg, graph_data=graph, statistics=stats, data_indices=di)
+    iface = AnemoiModelInterface(config=cfg, graph_data=graph, statistics=stats, data_indices=di, device="cpu")
     iface.load_params(params)
     out = iface.predict_step(torch.from_numpy(batch)).numpy()
     assert out.shape == ref.shape == (1, 1, x.shape[3], len(di.data.output.full))
@@ -131,12 +131,13 @@ def test_config_targets_resolve_to_port_classes(setup):
     cfg = DotDict(make_config("graphtransformer").to_dict())
     cfg.model.bounding = [{"_target_": "anemoi.models.layers.bounding.ReluBounding", "variables": ["tp"]}]
     with pytest.raises(NotImplementedError, match="bounding"):
-        AnemoiModelEncProcDec(model_config=cfg, data_indices=setup[1], graph_data=graph)
+        AnemoiModelEncProcDec(model_config=cfg, data_indices=setup[1], graph_data=graph, device="cpu")
 
 
 def test_port_runs_without_jax():
-    """Importing the port and serving a CPU forward leaves jax and flax out of
-    sys.modules (the card's machine has neither)."""
+    """Importing the port, serving a CPU forward and taking a CPU train step
+    leave jax, flax and the JAX package out of sys.modules (the card's
+    machine has neither)."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -144,6 +145,7 @@ def test_port_runs_without_jax():
         from anemoi_models_tpu_torch.data_indices import IndexCollection
         from anemoi_models_tpu_torch.graphs import build_enc_proc_dec_graph
         from anemoi_models_tpu_torch.interface import AnemoiModelInterface
+        from anemoi_models_tpu_torch.training import make_optimizer, make_train_step
         from anemoi_models_tpu_torch.utils import DotDict
 
         mapper = {"trainable_size": 2, "num_heads": 4, "sub_graph_edge_attributes": ["edge_length", "edge_dirs"]}
@@ -168,9 +170,14 @@ def test_port_runs_without_jax():
         iface = AnemoiModelInterface(config=cfg, graph_data=graph, statistics=stats,
                                      data_indices=IndexCollection(cfg, n2i), device="cpu")
         iface.init_params(torch.Generator().manual_seed(0))
-        y = iface.predict_step(torch.randn(1, 2, graph["data"].num_nodes, 4))
-        assert y.shape == (1, 1, graph["data"].num_nodes, 4) and bool(torch.isfinite(y).all())
-        leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
+        n = graph["data"].num_nodes
+        y = iface.predict_step(torch.randn(1, 2, n, 4))
+        assert y.shape == (1, 1, n, 4) and bool(torch.isfinite(y).all())
+        step = make_train_step(iface.model, make_optimizer(iface.model.parameters(), warmup_steps=1))
+        loss = step(torch.randn(1, 2, 1, n, 4), torch.randn(1, 1, n, 4))
+        assert bool(torch.isfinite(loss))
+        leaked = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "anemoi_models_tpu"))
         print("LEAKED", leaked)
     """)
     env = {**os.environ, "PYTHONPATH": REPO}

@@ -49,11 +49,13 @@ def _inputs(num_nodes, num_edges, seed, batch=1):
 
 
 def _port_conv(x, edge_index, num_dst):
-    rowptr, src = ea.csr_from_edge_index(edge_index, x["feats"].shape[1], num_dst)
+    num_src = x["feats"].shape[1]
+    rowptr, src = ea.csr_from_edge_index(edge_index, num_src, num_dst)
     t = torch.from_numpy
     out = graph_transformer_conv(
         t(x["q"]), t(x["feats"]), t(x["w_kv"]).t(), t(x["b_kv"]), t(x["a"]),
         t(x["w_e"]).t(), t(x["b_e"]), t(rowptr), t(src),
+        ea.CSRTranspose(*map(t, ea.csr_transpose(rowptr, src, num_src))),
     )
     return out.numpy()
 
