@@ -1,0 +1,54 @@
+"""Multi-head self-attention with a sliding window.
+
+Counterpart of ``anemoi_models_tpu/layers/attention.py:MultiHeadSelfAttention``:
+a fused ``lin_qkv`` (no bias), split into q, k, v in the (B, H, N, D) layout,
+attention, and ``projection`` (with bias). The q, k and v handed to the
+attention are strided views of ``lin_qkv``'s output, which the kernel reads
+in place; its output is laid out (B, N, H, D), so the merge of the heads is
+free. The ``halo`` path (sequence-parallel windowed attention) needs a mesh
+and waits for the parallel port.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from anemoi_models_tpu_torch.layers.utils import Dense
+from anemoi_models_tpu_torch.ops.attention import dot_product_attention
+
+__all__ = ["MultiHeadSelfAttention"]
+
+
+class MultiHeadSelfAttention(nn.Module):
+    """MHSA over (batch, seq, channels) tensors."""
+
+    def __init__(self, num_heads: int, embed_dim: int, *, bias: bool = False, is_causal: bool = False,
+                 window_size: Optional[int] = None, dropout_p: float = 0.0, attention_impl: str = "auto",
+                 dtype: torch.dtype = torch.float32, device=None) -> None:
+        super().__init__()
+        if embed_dim % num_heads:
+            raise ValueError(f"Head split impossible: embed_dim {embed_dim} is not a multiple of ({num_heads})")
+        if attention_impl == "halo":
+            raise NotImplementedError("halo attention needs a mesh; the parallel port has not landed")
+        self.num_heads = num_heads
+        self.embed_dim = embed_dim
+        self.is_causal = is_causal
+        self.window_size = window_size
+        self.dropout_p = dropout_p
+        self.attention_impl = attention_impl
+        self.lin_qkv = Dense(embed_dim, 3 * embed_dim, bias=bias, dtype=dtype, device=device)
+        self.projection = Dense(embed_dim, embed_dim, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
+        batch, seq, _ = x.shape
+        head_dim = self.embed_dim // self.num_heads
+        qkv = self.lin_qkv(x).view(batch, seq, 3, self.num_heads, head_dim)
+        query, key, value = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # (B, H, N, D) views
+        out = dot_product_attention(
+            query, key, value, window_size=self.window_size, is_causal=self.is_causal,
+            impl=self.attention_impl, dropout_rate=0.0 if deterministic else self.dropout_p,
+        )
+        return self.projection(out.transpose(1, 2).reshape(batch, seq, self.embed_dim))

@@ -1,8 +1,15 @@
-"""GraphTransformer blocks for the processor and the mappers.
+"""Blocks of the three processor families and their mappers.
 
-Counterparts of ``GraphTransformerProcessorBlock`` and
-``GraphTransformerMapperBlock`` in ``anemoi_models_tpu/layers/block.py``, in
-the wide form: k/v are projected per source node, then attended
+Counterparts of ``anemoi_models_tpu/layers/block.py``:
+
+- :class:`TransformerProcessorBlock`: pre-LN sliding-window transformer
+  block (``fc1`` / ``fc2`` are the flax ``Dense_0`` / ``Dense_1``).
+- :class:`GraphConvProcessorBlock` and :class:`GraphConvMapperBlock`: the
+  GNN flavor's message passing (edge-MLP conv, then ``node_mlp`` on
+  ``cat[x, aggregated]`` with a residual). The JAX package's edge chunking
+  (``num_chunks``) sums the same messages, so it has no code path here.
+- :class:`GraphTransformerProcessorBlock` and
+  :class:`GraphTransformerMapperBlock`, in the wide form: k/v are projected per source node, then attended
 (:func:`~anemoi_models_tpu_torch.layers.conv.graph_transformer_conv`). The JAX
 commuted form computes the same function; it drops the k-side bias, which is
 softmax-invariant, and differs only in rounding.
@@ -14,14 +21,88 @@ one contiguous block for the projection kernel (``weights.py`` splits it).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
-from anemoi_models_tpu_torch.layers.conv import graph_transformer_conv
+from anemoi_models_tpu_torch.layers.attention import MultiHeadSelfAttention
+from anemoi_models_tpu_torch.layers.conv import GraphConv, graph_transformer_conv
+from anemoi_models_tpu_torch.layers.mlp import MLP
 from anemoi_models_tpu_torch.layers.utils import AutocastLayerNorm, Dense, get_activation
 from anemoi_models_tpu_torch.ops.edge_attention import CSRTranspose
 
-__all__ = ["GraphTransformerProcessorBlock", "GraphTransformerMapperBlock"]
+__all__ = [
+    "TransformerProcessorBlock",
+    "GraphConvProcessorBlock",
+    "GraphConvMapperBlock",
+    "GraphTransformerProcessorBlock",
+    "GraphTransformerMapperBlock",
+]
+
+
+class TransformerProcessorBlock(nn.Module):
+    """Pre-LN transformer block: x + attn(LN(x)); x + fc2(act(fc1(LN(x))))."""
+
+    def __init__(self, num_channels: int, hidden_dim: int, num_heads: int, *, activation: str = "GELU",
+                 window_size: Optional[int] = None, dropout_p: float = 0.0, attention_impl: str = "auto",
+                 dtype: torch.dtype = torch.float32, device=None) -> None:
+        super().__init__()
+        self.layer_norm1 = AutocastLayerNorm(num_channels, device=device)
+        self.attention = MultiHeadSelfAttention(
+            num_heads, num_channels, window_size=window_size, bias=False, is_causal=False,
+            dropout_p=dropout_p, attention_impl=attention_impl, dtype=dtype, device=device,
+        )
+        self.layer_norm2 = AutocastLayerNorm(num_channels, device=device)
+        self.fc1 = Dense(num_channels, hidden_dim, dtype=dtype, device=device)
+        self.fc2 = Dense(hidden_dim, num_channels, dtype=dtype, device=device)
+        self.act = get_activation(activation)
+
+    def forward(self, x: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
+        x = x + self.attention(self.layer_norm1(x), deterministic)
+        return x + self.fc2(self.act(self.fc1(self.layer_norm2(x))))
+
+
+class _GraphConvBase(nn.Module):
+    def __init__(self, in_channels: int, out_channels: int, *, mlp_extra_layers: int = 0,
+                 activation: str = "SiLU", num_chunks: int = 1, dtype: torch.dtype = torch.float32,
+                 device=None) -> None:
+        super().__init__()
+        del num_chunks  # edge chunks sum to the same aggregate
+        self.conv = GraphConv(in_channels, out_channels, mlp_extra_layers=mlp_extra_layers,
+                              activation=activation, dtype=dtype, device=device)
+        self.node_mlp = MLP(2 * in_channels, out_channels, out_channels, n_extra_layers=mlp_extra_layers,
+                            activation=activation, dtype=dtype, device=device)
+
+
+class GraphConvProcessorBlock(_GraphConvBase):
+    """Homogeneous-graph message-passing block."""
+
+    def forward(self, x: torch.Tensor, edge_attr: torch.Tensor, rowptr: torch.Tensor,
+                src: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """x (B, N, C), edge_attr (B, E, C) -> (new x, new edge_attr)."""
+        out, edges_new = self.conv(x, edge_attr, rowptr, src)
+        return self.node_mlp(torch.cat([x, out], dim=-1)) + x, edges_new
+
+
+class GraphConvMapperBlock(_GraphConvBase):
+    """Bipartite-graph message-passing block. ``update_src_nodes`` (the
+    forward mapper) runs the same ``node_mlp`` on ``cat[x_src, x_src]``."""
+
+    def __init__(self, in_channels: int, out_channels: int, *, update_src_nodes: bool = True, **kwargs) -> None:
+        super().__init__(in_channels, out_channels, **kwargs)
+        self.update_src_nodes = update_src_nodes
+
+    def forward(self, x: tuple[torch.Tensor, torch.Tensor], edge_attr: torch.Tensor, rowptr: torch.Tensor,
+                src: torch.Tensor) -> tuple[tuple[torch.Tensor, torch.Tensor], torch.Tensor]:
+        """(x_src (B, Ns, C), x_dst (B, Nd, C)), edge_attr (B, E, C) ->
+        ((new x_src, new x_dst), new edge_attr)."""
+        x_src, x_dst = x
+        out, edges_new = self.conv((x_src, x_dst), edge_attr, rowptr, src)
+        nodes_new_dst = self.node_mlp(torch.cat([x_dst, out], dim=-1)) + x_dst
+        if self.update_src_nodes:
+            x_src = self.node_mlp(torch.cat([x_src, x_src], dim=-1)) + x_src
+        return (x_src, nodes_new_dst), edges_new
 
 
 class DstMLP(nn.Module):

@@ -1,40 +1,115 @@
 """Processor chunks: groups of blocks, the rematerialisation unit.
 
-Counterpart of ``GraphTransformerProcessorChunk`` in
-``anemoi_models_tpu/layers/chunk.py``. As the JAX package wraps each chunk in
-``nn.remat`` (``layers/processor.py:_remat``), ``remat_policy="full"`` runs a
-chunk under ``torch.utils.checkpoint`` while gradients are recorded: its
-activations are dropped after the forward and recomputed in the backward.
-``"none"`` keeps them. The JAX package's other policies (``"auto"``,
-``"save_dots"``) are XLA-specific and not ported.
+Counterparts of ``TransformerProcessorChunk``, ``GNNProcessorChunk`` and
+``GraphTransformerProcessorChunk`` in ``anemoi_models_tpu/layers/chunk.py``.
+As the JAX package wraps each chunk in ``nn.remat``
+(``layers/processor.py:_remat``), ``remat_policy="full"`` runs a chunk under
+``torch.utils.checkpoint`` while gradients are recorded: its activations are
+dropped after the forward and recomputed in the backward. ``"none"`` keeps
+them. The JAX package's other policies (``"auto"``, ``"save_dots"``) are
+XLA-specific and not ported.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from anemoi_models_tpu_torch.layers.block import GraphTransformerProcessorBlock
+from anemoi_models_tpu_torch.layers.block import (
+    GraphConvProcessorBlock,
+    GraphTransformerProcessorBlock,
+    TransformerProcessorBlock,
+)
+from anemoi_models_tpu_torch.layers.mlp import MLP
 from anemoi_models_tpu_torch.ops.edge_attention import CSRTranspose
 
-__all__ = ["GraphTransformerProcessorChunk"]
+__all__ = ["TransformerProcessorChunk", "GNNProcessorChunk", "GraphTransformerProcessorChunk"]
 
 REMAT_POLICIES = ("full", "none")
 
 
-class GraphTransformerProcessorChunk(nn.Module):
-    """``num_layers`` per-edge-attention blocks."""
+class _Chunk(nn.Module):
+    """Runs ``_run`` under ``torch.utils.checkpoint`` with ``"full"``."""
 
-    def __init__(self, num_channels: int, num_layers: int, edge_dim: int, *, num_heads: int = 16,
-                 mlp_hidden_ratio: int = 4, activation: str = "GELU", remat_policy: str = "full",
-                 dtype: torch.dtype = torch.float32, device=None) -> None:
+    def __init__(self, remat_policy: str) -> None:
         super().__init__()
         if remat_policy not in REMAT_POLICIES:
             raise NotImplementedError(
                 f"remat_policy {remat_policy!r} is not ported; the port takes {REMAT_POLICIES}"
             )
         self.remat_policy = remat_policy
+
+    def forward(self, *args):
+        if self.remat_policy == "full" and torch.is_grad_enabled():
+            return checkpoint(self._run, *args, use_reentrant=False)
+        return self._run(*args)
+
+
+class TransformerProcessorChunk(_Chunk):
+    """``num_layers`` sliding-window transformer blocks."""
+
+    def __init__(self, num_channels: int, num_layers: int, window_size: Optional[int], *, num_heads: int = 16,
+                 mlp_hidden_ratio: int = 4, activation: str = "GELU", dropout_p: float = 0.0,
+                 attention_impl: str = "auto", deterministic: bool = True, remat_policy: str = "full",
+                 dtype: torch.dtype = torch.float32, device=None) -> None:
+        super().__init__(remat_policy)
+        self.deterministic = deterministic
+        self.blocks = nn.ModuleList(
+            TransformerProcessorBlock(
+                num_channels, mlp_hidden_ratio * num_channels, num_heads, activation=activation,
+                window_size=window_size, dropout_p=dropout_p, attention_impl=attention_impl,
+                dtype=dtype, device=device,
+            )
+            for _ in range(num_layers)
+        )
+
+    def _run(self, x: torch.Tensor) -> torch.Tensor:
+        for block in self.blocks:
+            x = block(x, self.deterministic)
+        return x
+
+
+class GNNProcessorChunk(_Chunk):
+    """``num_layers`` message-passing blocks; a chunk given ``edge_dim``
+    (the first) embeds the edge attributes (``emb_edges``)."""
+
+    def __init__(self, num_channels: int, num_layers: int, *, mlp_extra_layers: int = 0, activation: str = "SiLU",
+                 edge_dim: Optional[int] = None, remat_policy: str = "full", dtype: torch.dtype = torch.float32,
+                 device=None) -> None:
+        super().__init__(remat_policy)
+        self.emb_edges = MLP(
+            edge_dim, num_channels, num_channels, n_extra_layers=mlp_extra_layers, activation=activation,
+            dtype=dtype, device=device,
+        ) if edge_dim else None
+        self.blocks = nn.ModuleList(
+            GraphConvProcessorBlock(
+                num_channels, num_channels, mlp_extra_layers=mlp_extra_layers, activation=activation,
+                dtype=dtype, device=device,
+            )
+            for _ in range(num_layers)
+        )
+
+    def _run(self, x: torch.Tensor, edge_attr: torch.Tensor, rowptr: torch.Tensor,
+             src: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """x (B, N, C); edge_attr (E, edge_dim) raw for the embedding chunk,
+        else (B, E, C) -> (x, edge_attr (B, E, C))."""
+        if self.emb_edges is not None:
+            edge_attr = self.emb_edges(edge_attr).unsqueeze(0).expand(x.shape[0], -1, -1)
+        for block in self.blocks:
+            x, edge_attr = block(x, edge_attr, rowptr, src)
+        return x, edge_attr
+
+
+class GraphTransformerProcessorChunk(_Chunk):
+    """``num_layers`` per-edge-attention blocks."""
+
+    def __init__(self, num_channels: int, num_layers: int, edge_dim: int, *, num_heads: int = 16,
+                 mlp_hidden_ratio: int = 4, activation: str = "GELU", remat_policy: str = "full",
+                 dtype: torch.dtype = torch.float32, device=None) -> None:
+        super().__init__(remat_policy)
         self.blocks = nn.ModuleList(
             GraphTransformerProcessorBlock(
                 num_channels, mlp_hidden_ratio * num_channels, num_channels, edge_dim,
@@ -48,9 +123,3 @@ class GraphTransformerProcessorChunk(nn.Module):
         for block in self.blocks:
             x = block(x, edge_attr, rowptr, src, csr_t)
         return x
-
-    def forward(self, x: torch.Tensor, edge_attr: torch.Tensor, rowptr: torch.Tensor,
-                src: torch.Tensor, csr_t: CSRTranspose) -> torch.Tensor:
-        if self.remat_policy == "full" and torch.is_grad_enabled():
-            return checkpoint(self._run, x, edge_attr, rowptr, src, csr_t, use_reentrant=False)
-        return self._run(x, edge_attr, rowptr, src, csr_t)

@@ -1,13 +1,22 @@
-"""GraphTransformer convolution: per-edge multi-head attention.
+"""Graph convolutions over a CSR edge list.
 
-Counterpart of ``anemoi_models_tpu/layers/conv.py:graph_transformer_conv``:
-``alpha = softmax_dst(q_i . (k_j + e) / sqrt(d))``, message ``(v_j + e) alpha``.
-One function carries the processor and both mappers. It projects k/v once per
-source node (:class:`KVProj`), computes the partials over the CSR edge list
-(:class:`EdgeAttnCSR`) and normalises them. Both autograd Functions have
-hand-written kernels on CUDA tensors (forward and backward) and the plain
-versions on CPU tensors; autograd carries the edge gradient ``da`` on to the
-trainable edge attributes and ``dw_aug`` on to ``lin_edge``.
+Counterparts of ``anemoi_models_tpu/layers/conv.py``:
+
+- :class:`GraphConv`: edge-MLP message ``MLP(cat[x_i, x_j, e]) + e`` and its
+  sum over each destination's edges, for a self-graph and a bipartite
+  ``(x_src, x_dst)`` pair alike, through :class:`GNNConv` (the hand-written
+  kernel on CUDA tensors, the plain version on CPU tensors). The JAX package
+  runs its bipartite mappers on the dense gather path only because its slot
+  kernel needs a self-graph; the function is the same.
+- :func:`graph_transformer_conv`:
+  ``alpha = softmax_dst(q_i . (k_j + e) / sqrt(d))``, message
+  ``(v_j + e) alpha``. One function carries the processor and both mappers.
+  It projects k/v once per source node (:class:`KVProj`), computes the
+  partials over the CSR edge list (:class:`EdgeAttnCSR`) and normalises
+  them. Both autograd Functions have hand-written kernels on CUDA tensors
+  (forward and backward) and the plain versions on CPU tensors; autograd
+  carries the edge gradient ``da`` on to the trainable edge attributes and
+  ``dw_aug`` on to ``lin_edge``.
 
 The JAX package's dense bucketed path, slot plan and outlier split are TPU
 layouts of this same function and have no counterpart here.
@@ -15,8 +24,12 @@ layouts of this same function and have no counterpart here.
 
 from __future__ import annotations
 
-import torch
+from typing import Union
 
+import torch
+from torch import nn
+
+from anemoi_models_tpu_torch.layers.mlp import MLP
 from anemoi_models_tpu_torch.ops.edge_attention import (
     AttentionPartials,
     CSRTranspose,
@@ -24,8 +37,36 @@ from anemoi_models_tpu_torch.ops.edge_attention import (
     KVProj,
     finalize_partials,
 )
+from anemoi_models_tpu_torch.ops.gnn_conv import GNNConv
 
-__all__ = ["graph_transformer_conv"]
+__all__ = ["GraphConv", "graph_transformer_conv"]
+
+
+class GraphConv(nn.Module):
+    """Edge-MLP message passing with sum aggregation. The edge MLP
+    (``mlp``: 3C -> C -> ... -> C, LayerNorm) is the flax ``MLP_0``."""
+
+    def __init__(self, in_channels: int, out_channels: int, *, mlp_extra_layers: int = 0,
+                 activation: str = "SiLU", dtype: torch.dtype = torch.float32, device=None) -> None:
+        super().__init__()
+        self.activation = activation
+        self.mlp = MLP(3 * in_channels, out_channels, out_channels, n_extra_layers=mlp_extra_layers,
+                       activation=activation, dtype=dtype, device=device)
+
+    def forward(self, x: Union[torch.Tensor, tuple[torch.Tensor, torch.Tensor]], edge_attr: torch.Tensor,
+                rowptr: torch.Tensor, src: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """x (B, N, C) or (x_src (B, Ns, C), x_dst (B, Nd, C)); edge_attr
+        (B, E, C) in CSR order -> (aggregated (B, Nd, C), edges_new (B, E, C)),
+        both in edge_attr's dtype."""
+        dt = edge_attr.dtype
+        x_src, x_dst = (t.to(dt).contiguous() for t in (x if isinstance(x, tuple) else (x, x)))
+        params = [t for layer in self.mlp.dense() for t in (layer.weight, layer.bias)]
+        norm = self.mlp.AutocastLayerNorm_0
+        agg, msg = GNNConv.apply(
+            x_dst, x_src, edge_attr.contiguous(), rowptr, src, self.activation,
+            *params, norm.weight, norm.bias,
+        )
+        return agg.to(dt), msg
 
 
 def graph_transformer_conv(

@@ -1,11 +1,19 @@
-"""GraphTransformer mappers: grid <-> mesh cross attention.
+"""Mappers: grid <-> mesh encoders and decoders over bipartite graphs.
 
-Counterparts of ``GraphTransformerForwardMapper`` (data -> hidden encoder) and
-``GraphTransformerBackwardMapper`` (hidden -> data decoder) in
-``anemoi_models_tpu/layers/mapper.py``, in the wide form: the forward mapper
-embeds its source rows (``emb_nodes_src``) before the block. Under the JAX
-commuted dataflow the same parameter sits at ``encoder/proc/emb_nodes_src``;
-``weights.py`` accepts both places.
+Counterparts of the mappers in ``anemoi_models_tpu/layers/mapper.py``:
+
+- ``GraphTransformerForwardMapper`` (data -> hidden encoder) and
+  ``GraphTransformerBackwardMapper`` (hidden -> data decoder), cross
+  attention in the wide form: the forward mapper embeds its source rows
+  (``emb_nodes_src``) before the block. Under the JAX commuted dataflow the
+  same parameter sits at ``encoder/proc/emb_nodes_src``; ``weights.py``
+  accepts both places.
+- ``GNNForwardMapper`` and ``GNNBackwardMapper``, edge-MLP message passing.
+  The forward mapper embeds both node sets with MLPs and returns the
+  updated source at hidden width; the backward mapper ends in the
+  ``node_data_extractor`` MLP (no LayerNorm, no final activation). The JAX
+  package rematerialises the mapper block; that changes memory, not
+  values, and is not done here.
 """
 
 from __future__ import annotations
@@ -15,11 +23,20 @@ from typing import Optional
 import torch
 from torch import nn
 
-from anemoi_models_tpu_torch.layers.block import GraphTransformerMapperBlock
+from anemoi_models_tpu_torch.layers.block import GraphConvMapperBlock, GraphTransformerMapperBlock
+from anemoi_models_tpu_torch.layers.mlp import MLP
 from anemoi_models_tpu_torch.layers.processor import edge_csr_t, register_edge_buffers
 from anemoi_models_tpu_torch.layers.utils import AutocastLayerNorm, Dense
 
-__all__ = ["GraphTransformerForwardMapper", "GraphTransformerBackwardMapper"]
+__all__ = [
+    "GraphTransformerForwardMapper",
+    "GraphTransformerBackwardMapper",
+    "GNNForwardMapper",
+    "GNNBackwardMapper",
+]
+
+# graph_impl values the JAX GNN mappers take (the slot kernel needs a self-graph)
+GNN_MAPPER_GRAPH_IMPLS = ("dense", "segment")
 
 
 class _GraphTransformerBaseMapper(nn.Module):
@@ -87,3 +104,78 @@ class GraphTransformerBackwardMapper(_GraphTransformerBaseMapper):
         x_src, x_dst_in = x
         x_dst = self._run(x_src, x_dst_in)
         return self.node_data_extractor(self.node_data_extractor_norm(x_dst))
+
+
+class _GNNBaseMapper(nn.Module):
+    def __init__(
+        self,
+        *,
+        in_channels_src: int = 0,
+        in_channels_dst: int = 0,
+        hidden_dim: int = 128,
+        trainable_size: int = 8,
+        out_channels_dst: Optional[int] = None,
+        num_chunks: int = 1,
+        activation: str = "SiLU",
+        mlp_extra_layers: int = 0,
+        sub_graph=None,
+        sub_graph_edge_attributes: Optional[list[str]] = ("edge_length", "edge_dirs"),
+        src_grid_size: int = 0,
+        dst_grid_size: int = 0,
+        graph_impl: str = "dense",
+        update_src_nodes: bool,
+        dtype: torch.dtype = torch.float32,
+        device=None,
+    ) -> None:
+        super().__init__()
+        if graph_impl not in GNN_MAPPER_GRAPH_IMPLS:
+            raise ValueError(
+                f"GNN mappers support graph_impl {GNN_MAPPER_GRAPH_IMPLS} (the slot kernel needs a "
+                f"self-graph; mapper convs are bipartite), got {graph_impl!r}"
+            )
+        self.dtype = dtype
+        self.mlp_kw = dict(n_extra_layers=mlp_extra_layers, activation=activation, dtype=dtype, device=device)
+        edge_dim = register_edge_buffers(
+            self, sub_graph, sub_graph_edge_attributes, trainable_size,
+            src_grid_size, dst_grid_size, graph_impl, device, GNN_MAPPER_GRAPH_IMPLS,
+        )
+        self.emb_edges = MLP(edge_dim, hidden_dim, hidden_dim, **self.mlp_kw)
+        self.proc = GraphConvMapperBlock(
+            hidden_dim, hidden_dim, mlp_extra_layers=mlp_extra_layers, activation=activation,
+            update_src_nodes=update_src_nodes, num_chunks=num_chunks, dtype=dtype, device=device,
+        )
+
+    def _run(self, x_src: torch.Tensor, x_dst: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        edge_attr = self.emb_edges(self.trainable(self.edge_attr.to(self.dtype)))
+        edge_attr = edge_attr.unsqueeze(0).expand(x_src.shape[0], -1, -1)
+        return self.proc((x_src, x_dst), edge_attr, self.rowptr, self.src)[0]
+
+
+class GNNForwardMapper(_GNNBaseMapper):
+    """data -> hidden. Returns ``(x_src_hidden_updated, x_dst_hidden)``: the
+    source side is embedded to hidden width and updated, and the decoder
+    consumes it at hidden width."""
+
+    def __init__(self, *, in_channels_src: int, in_channels_dst: int, hidden_dim: int = 128, **kwargs) -> None:
+        super().__init__(in_channels_src=in_channels_src, in_channels_dst=in_channels_dst,
+                         hidden_dim=hidden_dim, update_src_nodes=True, **kwargs)
+        self.emb_nodes_src = MLP(in_channels_src, hidden_dim, hidden_dim, **self.mlp_kw)
+        self.emb_nodes_dst = MLP(in_channels_dst, hidden_dim, hidden_dim, **self.mlp_kw)
+
+    def forward(self, x: tuple[torch.Tensor, torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
+        x_src_in, x_dst_in = x
+        return self._run(self.emb_nodes_src(x_src_in), self.emb_nodes_dst(x_dst_in))
+
+
+class GNNBackwardMapper(_GNNBaseMapper):
+    """hidden -> data, then the ``node_data_extractor`` MLP to
+    ``out_channels_dst``."""
+
+    def __init__(self, *, out_channels_dst: int, hidden_dim: int = 128, **kwargs) -> None:
+        super().__init__(out_channels_dst=out_channels_dst, hidden_dim=hidden_dim, update_src_nodes=False,
+                         **kwargs)
+        self.node_data_extractor = MLP(hidden_dim, hidden_dim, out_channels_dst, layer_norm=False, **self.mlp_kw)
+
+    def forward(self, x: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+        x_src, x_dst = x
+        return self.node_data_extractor(self._run(x_src, x_dst)[1])

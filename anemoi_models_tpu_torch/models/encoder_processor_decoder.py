@@ -12,6 +12,7 @@ the card (``device="cuda"``) unless the caller names another device.
 
 from __future__ import annotations
 
+import inspect
 from typing import Any
 
 import numpy as np
@@ -19,7 +20,7 @@ import torch
 from torch import nn
 
 from anemoi_models_tpu_torch.layers.graph import NamedNodesAttributes
-from anemoi_models_tpu_torch.utils.config import DotDict, instantiate
+from anemoi_models_tpu_torch.utils.config import DotDict, instantiate, resolve_target
 
 __all__ = ["AnemoiModelEncProcDec", "resolve_device"]
 
@@ -40,7 +41,7 @@ class AnemoiModelEncProcDec(nn.Module):
         super().__init__()
         device = resolve_device(device)
         # attention dropout (deterministic=False) is not ported: the training
-        # step refuses such a model
+        # step refuses such a model, and the Transformer processor raises
         self.deterministic = deterministic
         cfg = DotDict(model_config)
         name_data, name_hidden = cfg.graph.data, cfg.graph.hidden
@@ -65,7 +66,7 @@ class AnemoiModelEncProcDec(nn.Module):
         num_nodes = self.node_attributes.num_nodes
         attr_ndims = self.node_attributes.attr_ndims
         input_dim = self.multi_step * self.num_input_channels + attr_ndims[name_data]
-        common = dict(dtype=dtype, device=device)
+        common = dict(deterministic=deterministic, dtype=dtype, device=device)
 
         self.encoder = instantiate(
             cfg.model.encoder,
@@ -75,15 +76,18 @@ class AnemoiModelEncProcDec(nn.Module):
             sub_graph=graph_data[(name_data, "to", name_hidden)],
             src_grid_size=num_nodes[name_data],
             dst_grid_size=num_nodes[name_hidden],
-            **common,
+            **_accepted(cfg.model.encoder, common),
         )
+        # the Transformer processor attends over mesh positions: no graph
         self.processor = instantiate(
             cfg.model.processor,
             num_channels=self.num_channels,
-            sub_graph=graph_data[(name_hidden, "to", name_hidden)],
-            src_grid_size=num_nodes[name_hidden],
-            dst_grid_size=num_nodes[name_hidden],
-            **common,
+            **_accepted(cfg.model.processor, {
+                **common,
+                "sub_graph": graph_data[(name_hidden, "to", name_hidden)],
+                "src_grid_size": num_nodes[name_hidden],
+                "dst_grid_size": num_nodes[name_hidden],
+            }),
         )
         self.decoder = instantiate(
             cfg.model.decoder,
@@ -94,7 +98,7 @@ class AnemoiModelEncProcDec(nn.Module):
             sub_graph=graph_data[(name_hidden, "to", name_data)],
             src_grid_size=num_nodes[name_hidden],
             dst_grid_size=num_nodes[name_data],
-            **common,
+            **_accepted(cfg.model.decoder, common),
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -115,3 +119,17 @@ class AnemoiModelEncProcDec(nn.Module):
         # residual connection for the prognostic variables only
         residual = x[:, -1].index_select(-1, self._internal_input_idx)
         return x_out.index_add(-1, self._internal_output_idx, residual)
+
+
+def _accepted(cfg: Any, extra: dict) -> dict:
+    """The entries of ``extra`` that the config's target takes: the
+    parameters of its ``__init__`` and, through ``**kwargs``, its bases'."""
+    names: set[str] = set()
+    for klass in inspect.getmro(resolve_target(cfg["_target_"])):
+        if "__init__" not in vars(klass):
+            continue
+        params = inspect.signature(klass.__init__).parameters
+        names |= set(params)
+        if not any(p.kind is inspect.Parameter.VAR_KEYWORD for p in params.values()):
+            break
+    return {k: v for k, v in extra.items() if k in names}

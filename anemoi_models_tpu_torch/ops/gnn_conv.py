@@ -1,0 +1,177 @@
+"""The GNN flavor's edge-MLP convolution over a CSR edge list: the Hopper
+kernel, its plain PyTorch version and the autograd Function.
+
+Replaces ``anemoi_models_tpu/ops/pallas/gnn_conv.py:_kernel`` (with its
+plain twin ``ops/slot_gnn.py:_slot_gnn_once`` / ``apply_mlp_params``):
+
+    msg = LN(MLP(cat[x_i, x_j, e])) * gamma + beta + e     (per edge)
+    agg = sum over each destination's edges of msg         (fp32)
+
+with x_i the destination's row, x_j the source's, and the MLP's Dense
+layers, biases and LayerNorm affine cast to the compute dtype. The TPU
+kernel's slot layout, slab window and outlier list exist because Mosaic
+cannot gather in VMEM; the port runs straight off the destination-sorted
+edge list (no cap). Edge features stay in the edge set's own order, which
+the graph functions sort by destination, so it is the CSR order.
+
+- :func:`gnn_conv_plain` follows the kernel's rounding points: fp32
+  accumulation, the activation in fp32 then rounded, LayerNorm statistics
+  in fp32 and the normalised value rounded before gamma and beta, ``agg``
+  summed from the rounded ``msg``. It takes any MLP depth.
+- :func:`gnn_conv` takes it for CPU tensors and launches
+  ``csrc/gnn_conv.cu`` for CUDA tensors (or raises), counting its launches
+  in :data:`LAUNCHES`. The kernel takes exactly three Dense layers
+  (``mlp_extra_layers=0``), as the TPU kernel does.
+- :class:`GNNConv` is the Function GraphConv runs through: its backward
+  recomputes through the plain version and differentiates it, as
+  ``ops/slot_gnn.py:conv_bwd`` recomputes through ``_slot_gnn_once``.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from anemoi_models_tpu_torch.layers.utils import get_activation
+from anemoi_models_tpu_torch.ops.edge_attention import _check_launch, _on_cpu, _require, _require_contiguous
+
+__all__ = ["GNNConv", "LAUNCHES", "aggregate", "gnn_conv", "gnn_conv_plain", "mlp_operands"]
+
+_WIDTHS = (32, 64, 128, 256)  # channel widths csrc/gnn_conv.cu is built for
+_DTYPES = (torch.float32, torch.bfloat16)
+_ACT_CODES = {"identity": 0, "silu": 1, "swish": 1, "gelu": 2, "relu": 3, "tanh": 4, "sigmoid": 5}
+
+# kernel launches (one per call: the message and aggregation kernels); a CPU
+# call runs the plain version and adds nothing
+LAUNCHES: dict[str, int] = {"gnn_conv": 0}
+
+
+def mlp_operands(dense: Sequence[tuple[torch.Tensor, torch.Tensor]], norm: tuple[torch.Tensor, torch.Tensor],
+                 dtype: torch.dtype) -> list[torch.Tensor]:
+    """The edge MLP as the kernel reads it, differentiably: each Dense
+    ``(weight (out, in), bias)`` as ``weight^T`` (in, out) and ``bias`` in
+    ``dtype``, then the LayerNorm's ``(gamma, beta)`` in ``dtype``."""
+    ops = []
+    for w, b in dense:
+        ops += [w.to(dtype).t().contiguous(), b.to(dtype)]
+    return ops + [norm[0].to(dtype), norm[1].to(dtype)]
+
+
+def aggregate(msg: torch.Tensor, rowptr: torch.Tensor) -> torch.Tensor:
+    """(B, Nd, C) fp32: each destination's sum of its CSR row of ``msg``."""
+    nd = rowptr.numel() - 1
+    dst = torch.repeat_interleave(torch.arange(nd, device=msg.device), rowptr.long().diff())
+    agg = torch.zeros(msg.shape[0], nd, msg.shape[-1], dtype=torch.float32, device=msg.device)
+    return agg.index_add_(1, dst, msg.float())
+
+
+def gnn_conv_plain(
+    x_dst: torch.Tensor,  # (B, Nd, C) destination rows
+    x_src: torch.Tensor,  # (B, Ns, C) source rows (x_dst itself on a self-graph)
+    e: torch.Tensor,  # (B, E, C) edge features in CSR order
+    rowptr: torch.Tensor,  # (Nd + 1,) int32
+    src: torch.Tensor,  # (E,) int32
+    ops: Sequence[torch.Tensor],  # mlp_operands(...): w0, b0, ..., gamma, beta
+    activation: str,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(agg (B, Nd, C) fp32, msg (B, E, C) in e's dtype)."""
+    dt = e.dtype
+    act = get_activation(activation)
+    nd = rowptr.numel() - 1
+    dst = torch.repeat_interleave(torch.arange(nd, device=e.device), rowptr.long().diff())
+    h = torch.cat([x_dst[:, dst], x_src[:, src.long()], e], dim=-1)
+    *dense, gamma, beta = ops
+    for i in range(0, len(dense), 2):
+        h = h.float() @ dense[i].float() + dense[i + 1].float()
+        if i + 2 < len(dense):
+            h = act(h).to(dt)
+    mu = h.mean(-1, keepdim=True)
+    var = ((h - mu) ** 2).mean(-1, keepdim=True)
+    hn = ((h - mu) * torch.rsqrt(var + 1e-6)).to(dt)
+    msg = hn * gamma + beta + e
+    return aggregate(msg, rowptr), msg
+
+
+def gnn_conv(
+    x_dst: torch.Tensor,
+    x_src: torch.Tensor,
+    e: torch.Tensor,
+    rowptr: torch.Tensor,
+    src: torch.Tensor,
+    ops: Sequence[torch.Tensor],
+    activation: str,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`gnn_conv_plain`'s function; on the card every operand shares
+    the compute dtype (fp32 or bf16) and is contiguous."""
+    if _on_cpu(x_dst, x_src, e, rowptr, src, *ops):
+        return gnn_conv_plain(x_dst, x_src, e, rowptr, src, ops, activation)
+    if len(ops) != 8:
+        raise NotImplementedError(
+            f"the GNN conv kernel takes the 3-Dense edge MLP (mlp_extra_layers=0), got {(len(ops) - 2) // 2} Dense"
+        )
+    code = _ACT_CODES.get(activation.lower())
+    if code is None:
+        raise NotImplementedError(f"the GNN conv kernel has no activation {activation!r}; it takes {sorted(_ACT_CODES)}")
+    dt = e.dtype
+    _require(dt in _DTYPES, f"compute dtype must be fp32 or bf16, got {dt}")
+    _require(all(t.dtype == dt for t in (x_dst, x_src, *ops)), "x_dst, x_src, e and the MLP must share one dtype")
+    _require(rowptr.dtype == torch.int32 and src.dtype == torch.int32, "rowptr and src must be int32")
+    _require(x_dst.dim() == 3 and x_src.dim() == 3 and e.dim() == 3, "x_dst, x_src, e must be (B, N, C)")
+    batch, nd, c = x_dst.shape
+    ns, num_edges = x_src.shape[1], src.numel()
+    _require(c in _WIDTHS, f"the GNN conv kernel takes C in {_WIDTHS}, got {c}")
+    _require(nd == rowptr.numel() - 1 and nd > 0 and ns > 0, f"x_dst has {nd} rows for {rowptr.numel() - 1} destinations")
+    _require(x_src.shape[0] == batch and x_src.shape[2] == c, f"x_src shape {tuple(x_src.shape)}")
+    _require(e.shape == (batch, num_edges, c), f"e shape {tuple(e.shape)} != ({batch}, {num_edges}, {c})")
+    w0, b0, w1, b1, w2, b2, gamma, beta = ops
+    _require(w0.shape == (3 * c, c) and w1.shape == (c, c) and w2.shape == (c, c),
+             f"weights {tuple(w0.shape)}, {tuple(w1.shape)}, {tuple(w2.shape)} for C={c}")
+    _require(all(t.shape == (c,) for t in (b0, b1, b2, gamma, beta)), "biases and LayerNorm affine must be (C,)")
+    _require_contiguous(x_dst=x_dst, x_src=x_src, e=e, rowptr=rowptr, src=src, w0=w0, b0=b0, w1=w1,
+                        b1=b1, w2=w2, b2=b2, gamma=gamma, beta=beta)
+    _require(all(t.data_ptr() % 16 == 0 for t in (x_dst, x_src, e, w0, w1, w2)), "rows must be 16-byte aligned")
+    msg = torch.empty_like(e)
+    agg = torch.empty((batch, nd, c), dtype=torch.float32, device=e.device)
+    from anemoi_models_tpu_torch.ops.kernels import load_kernels
+
+    lib = load_kernels()
+    fn = lib.gnn_conv_bf16 if dt == torch.bfloat16 else lib.gnn_conv_f32
+    with torch.cuda.device(e.device):
+        stream = torch.cuda.current_stream(e.device).cuda_stream
+        rc = fn(
+            x_dst.data_ptr(), x_src.data_ptr(), e.data_ptr(), rowptr.data_ptr(), src.data_ptr(),
+            *(t.data_ptr() for t in ops), msg.data_ptr(), agg.data_ptr(),
+            batch, nd, ns, num_edges, c, code, stream,
+        )
+    _check_launch(rc, "gnn_conv")
+    LAUNCHES["gnn_conv"] += 1
+    return agg, msg
+
+
+class GNNConv(torch.autograd.Function):
+    """:func:`gnn_conv` with the edge MLP's parameters as inputs
+    (``params``: each Dense's fp32 ``weight``, ``bias``, then the
+    LayerNorm's ``weight``, ``bias``); the backward recomputes through
+    :func:`gnn_conv_plain`. Returns ``(agg fp32, msg)``."""
+
+    @staticmethod
+    def forward(ctx, x_dst, x_src, e, rowptr, src, activation: str, *params):
+        ctx.save_for_backward(x_dst, x_src, e, rowptr, src, *params)
+        ctx.activation = activation
+        return gnn_conv(x_dst, x_src, e, rowptr, src, _operands(params, e.dtype), activation)
+
+    @staticmethod
+    def backward(ctx, g_agg, g_msg):
+        x_dst, x_src, e, rowptr, src, *params = ctx.saved_tensors
+        leaves = [t.detach().requires_grad_() for t in (x_dst, x_src, e, *params)]
+        with torch.enable_grad():
+            xd, xs, ee, *ps = leaves
+            agg, msg = gnn_conv_plain(xd, xs, ee, rowptr, src, _operands(ps, e.dtype), ctx.activation)
+        grads = torch.autograd.grad((agg, msg), leaves, (g_agg, g_msg))
+        return (*grads[:3], None, None, None, *grads[3:])
+
+
+def _operands(params: Sequence[torch.Tensor], dtype: torch.dtype) -> list[torch.Tensor]:
+    dense = [(params[i], params[i + 1]) for i in range(0, len(params) - 2, 2)]
+    return mlp_operands(dense, (params[-2], params[-1]), dtype)

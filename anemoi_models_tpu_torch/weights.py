@@ -7,6 +7,11 @@ port's modules:
 - a flax ``Dense`` kernel is (in, out) (``x @ kernel``); ``nn.Linear.weight``
   is (out, in), so kernels are transposed;
 - flax ``LayerNorm`` ``scale``/``bias`` become ``weight``/``bias``;
+- the two-layer MLPs written inline in flax (a GraphTransformer block's
+  ``node_dst_mlp``, a Transformer block's ``Dense_0``/``Dense_1``) are
+  ``norm``/``fc1``/``fc2`` here; a GraphConv's ``MLP_0`` is ``mlp``; the
+  ``MLP`` modules (GNN flavor) keep flax's ``Dense_i`` and
+  ``AutocastLayerNorm_0``;
 - the processor's fused ``lin_qkvs`` (columns ``[q | k | v | r]``) splits into
   ``lin_qr`` (``[q | r]``) and ``lin_kv`` (``[k | v]``);
 - under the commuted dataflow the encoder's ``emb_nodes_src`` sits at
@@ -34,15 +39,19 @@ from torch import nn
 
 __all__ = ["load_flax_params", "to_flax_params", "init_params"]
 
-_RENAME = {
-    "AutocastLayerNorm_0": "norm",
-    "Dense_0": "fc1",
-    "Dense_1": "fc2",
-    "kernel": "weight",
-    "scale": "weight",
-}
+_RENAME = {"kernel": "weight", "scale": "weight"}
+_INLINE_MLP = {"AutocastLayerNorm_0": "norm", "Dense_0": "fc1", "Dense_1": "fc2"}
 _LAYER_INDEX = re.compile(r"^(proc|blocks)_(\d+)$")
-_FLAX_NAME = {"norm": "AutocastLayerNorm_0", "fc1": "Dense_0", "fc2": "Dense_1"}
+_FLAX_NAME = {**{port: flax for flax, port in _INLINE_MLP.items()}, "mlp": "MLP_0"}
+
+
+def _rename(parent: str, token: str) -> str:
+    """The port's name of flax module ``token`` under ``parent``."""
+    if parent == "node_dst_mlp" or (parent.startswith("blocks_") and token in ("Dense_0", "Dense_1")):
+        return _INLINE_MLP.get(token, token)
+    if parent == "conv" and token == "MLP_0":
+        return "mlp"
+    return _RENAME.get(token, token)
 
 
 def _flatten(tree: Mapping, prefix: tuple = ()) -> dict[tuple, np.ndarray]:
@@ -63,11 +72,11 @@ def _port_name(path: tuple) -> str:
     if len(path) == 2 and path[0] == "node_attributes" and path[1].startswith("trainable_"):
         path = ("node_attributes", "trainable", path[1][len("trainable_"):])
     tokens = []
-    for token in path:
+    for parent, token in zip(("", *path), path):
         if token == "LayerNorm_0":  # flax LayerNorm wrapped by AutocastLayerNorm
             continue
         match = _LAYER_INDEX.match(token)
-        tokens.append(f"{match[1]}.{match[2]}" if match else _RENAME.get(token, token))
+        tokens.append(f"{match[1]}.{match[2]}" if match else _rename(parent, token))
     return ".".join(tokens)
 
 

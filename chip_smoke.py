@@ -28,14 +28,34 @@ Builds the port's CUDA kernels from ``anemoi_models_tpu_torch/csrc``, then:
    warm-up step and three timed steps on one seeded batch, finite losses,
    the last below the first, launches per step (18 kv_proj, 18 edge_attn_csr:
    10 forward + 8 recomputed, and 10 edge_attn_csr_bwd), peak memory; then
-   one step with ``remat_policy="none"`` (10 of each).
+   one step with ``remat_policy="none"`` (10 of each);
+6. holds the GNN conv kernel (gnn_conv) against its plain version at the
+   three O96 edge sets (the processor's as a self-graph, the mappers'
+   bipartite) and the dead-destination set, two calls bit-identical: agg
+   within 1e-5 of the plain sum of the kernel's own msg; msg and agg
+   against plain within fp32 1e-5 (elementwise) and bf16 2e-2 (normwise,
+   ``max |kernel - plain| <= 2e-2 * max(1, max |plain|)``: both round at the
+   same points from fp32 sums taken in another order, and a bf16 step taken
+   before ``+ beta`` or ``+ e`` stays as an absolute error where that sum
+   cancels); and the band-masked attention kernel
+   (flash_attention) at (B*H, N, D) = (4, 10,242, 64) with w = 512, no
+   window, a ragged N and a causal window, fp32 1e-5 and bf16 2e-2, reading
+   q, k, v as strided views of one fused projection, as the model does;
+7. for each of the GNN and Transformer flavors (the other two processor
+   families of ``__graft_entry__._build``): the reduced fp32 check of 3.,
+   three O96 bf16 ``predict_step`` requests (per request 10 gnn_conv
+   launches: 8 processor layers and 2 mappers; or 8 flash_attention, 2
+   kv_proj and 2 edge_attn_csr) and four O96 bf16 train steps with
+   ``remat_policy="full"`` (finite losses, the last below the first;
+   launches per step: 18 gnn_conv; or 16 flash_attention and 2 of each
+   GraphTransformer mapper kernel).
 
 Prints the card's name and power limit, per-phase numbers, one JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``. Exits
 non-zero, with no result line, on any failure or when there is no card.
 
     python3 chip_smoke.py                      # what the checks need
-    python3 chip_smoke.py --profile OUT_DIR    # also profile one train step
+    python3 chip_smoke.py --profile OUT_DIR    # also profile a train step (and a request) per flavor
     python3 chip_smoke.py --build-times DIR    # also time cold kernel builds
 """
 
@@ -55,6 +75,8 @@ from anemoi_models_tpu_torch.data_indices import IndexCollection
 from anemoi_models_tpu_torch.graphs import build_enc_proc_dec_graph
 from anemoi_models_tpu_torch.interface import AnemoiModelInterface
 from anemoi_models_tpu_torch.ops import edge_attention as ea
+from anemoi_models_tpu_torch.ops import flash_attention as fa
+from anemoi_models_tpu_torch.ops import gnn_conv as gc
 from anemoi_models_tpu_torch.ops import kernels
 from anemoi_models_tpu_torch.ops.kernels import build_log, load_kernels
 from anemoi_models_tpu_torch.training import make_optimizer, make_train_step, weighted_mse
@@ -67,6 +89,20 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                       "anemoi_models_tpu/ops/pallas/edge_attention.py:626"),  # _feats_kernel
     "edge_attn_csr_bwd": ("anemoi_models_tpu_torch/csrc/edge_attention_bwd.cu",
                           "anemoi_models_tpu/ops/pallas/edge_attention.py:781"),  # _feats_bwd_kernel
+    "gnn_conv": ("anemoi_models_tpu_torch/csrc/gnn_conv.cu",
+                 "anemoi_models_tpu/ops/pallas/gnn_conv.py:30"),  # _kernel
+    "flash_attention": ("anemoi_models_tpu_torch/csrc/flash_attention.cu",
+                        "anemoi_models_tpu/ops/pallas/flash_attention.py:38"),  # _flash_kernel
+}
+LAUNCH_TABLES = (ea.LAUNCHES, gc.LAUNCHES, fa.LAUNCHES)
+FLAVOR_KERNEL = {"graphtransformer": "edge_attn_csr", "gnn": "gnn_conv", "transformer": "flash_attention"}
+# launches per request and per train step (remat "full") of each flavor's O96 flagship
+EXPECTED = {
+    "graphtransformer": ({"kv_proj": 10, "edge_attn_csr": 10},
+                         {"kv_proj": 18, "edge_attn_csr": 18, "edge_attn_csr_bwd": 10}),
+    "gnn": ({"gnn_conv": 10}, {"gnn_conv": 18}),
+    "transformer": ({"flash_attention": 8, "kv_proj": 2, "edge_attn_csr": 2},
+                    {"flash_attention": 16, "kv_proj": 2, "edge_attn_csr": 2, "edge_attn_csr_bwd": 2}),
 }
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 BWD_TOL = 1e-4
@@ -79,6 +115,8 @@ PEAK_FLOPS = {"bf16 tensor": 989e12, "fp32": 67e12}
 # device kernels of a profiled step, grouped by what they do (first match)
 PROFILE_KINDS = [
     ("edge_attn_csr_bwd (4 phases)", ("edge_attn_bwd_", "dw_reduce_kernel")),
+    ("gnn_conv (2 phases)", ("gnn_msg_kernel", "gnn_agg_kernel")),
+    ("flash_attention", ("flash_attn_kernel",)),
     ("kv_proj", ("kv_proj_kernel",)),
     ("edge_attn_csr", ("edge_attn_csr_kernel",)),
     ("optimizer (multi-tensor)", ("multi_tensor", "lpnorm")),
@@ -138,8 +176,19 @@ def build_times(out_dir: str, repeats: int = 2) -> dict:
 
 
 def reset_launches() -> None:
-    for key in ea.LAUNCHES:
-        ea.LAUNCHES[key] = 0
+    for table in LAUNCH_TABLES:
+        for key in table:
+            table[key] = 0
+
+
+def launches() -> dict:
+    """Every kernel wrapper's launch count."""
+    return {k: v for table in LAUNCH_TABLES for k, v in table.items()}
+
+
+def expect(counts: dict, nonzero: dict) -> dict:
+    """``nonzero`` with every other kernel at 0."""
+    return {k: nonzero.get(k, 0) for k in counts}
 
 
 def max_err(got, want, tol: float, what: str) -> float:
@@ -152,25 +201,31 @@ def max_err(got, want, tol: float, what: str) -> float:
     return (got - want).abs().max().item()
 
 
-def normwise_err(got, want, what: str) -> float:
-    """max |got - want| / max(1, max |want|), checked against BWD_TOL."""
+def normwise_err(got, want, what: str, tol: float = BWD_TOL) -> float:
+    """max |got - want| / max(1, max |want|), checked against ``tol``."""
     got, want = got.float(), want.float()
     if not torch.isfinite(got).all():
         raise AssertionError(f"{what}: non-finite values")
     err = (got - want).abs().max().item() / max(1.0, want.abs().max().item())
-    if err > BWD_TOL:
-        raise AssertionError(f"{what}: normwise error {err:.3e} > {BWD_TOL}")
+    if err > tol:
+        raise AssertionError(f"{what}: normwise error {err:.3e} > {tol}")
     return err
 
 
 def model_config(num_channels: int, num_layers: int, num_chunks: int, dtype: str,
-                 remat_policy: str = "full") -> DotDict:
-    """The flagship config of the JAX package's entry point, written for the port."""
-    mapper = {
-        "trainable_size": TRAINABLE_EDGES,
-        "num_heads": 4,
-        "sub_graph_edge_attributes": EDGE_ATTRS,
-    }
+                 remat_policy: str = "full", flavor: str = "graphtransformer") -> DotDict:
+    """The flagship config of the JAX package's entry point
+    (``__graft_entry__._build``), written for the port."""
+    edges = {"trainable_size": TRAINABLE_EDGES, "sub_graph_edge_attributes": EDGE_ATTRS}
+    mapper = {**edges, "num_heads": 4} if flavor != "gnn" else edges
+    prefix = "GNN" if flavor == "gnn" else "GraphTransformer"
+    processor = {
+        "graphtransformer": {"_target_": "anemoi.models.layers.processor.GraphTransformerProcessor",
+                             "graph_impl": "pallas", **mapper},
+        "gnn": {"_target_": "anemoi.models.layers.processor.GNNProcessor", **edges},
+        "transformer": {"_target_": "anemoi.models.layers.processor.TransformerProcessor",
+                        "num_heads": 4, "window_size": 512, "dropout_p": 0.0},
+    }[flavor]
     return DotDict({
         "data": {
             "forcing": ["lsm"],
@@ -189,16 +244,10 @@ def model_config(num_channels: int, num_layers: int, num_chunks: int, dtype: str
             "compute_dtype": dtype,
             "trainable_parameters": {"hidden": 8},
             "model": {"_target_": "anemoi.models.models.encoder_processor_decoder.AnemoiModelEncProcDec"},
-            "encoder": {"_target_": "anemoi.models.layers.mapper.GraphTransformerForwardMapper", **mapper},
-            "processor": {
-                "_target_": "anemoi.models.layers.processor.GraphTransformerProcessor",
-                "num_layers": num_layers,
-                "num_chunks": num_chunks,
-                "graph_impl": "pallas",
-                "remat_policy": remat_policy,
-                **mapper,
-            },
-            "decoder": {"_target_": "anemoi.models.layers.mapper.GraphTransformerBackwardMapper", **mapper},
+            "encoder": {"_target_": f"anemoi.models.layers.mapper.{prefix}ForwardMapper", **mapper},
+            "processor": {"num_layers": num_layers, "num_chunks": num_chunks, "remat_policy": remat_policy,
+                          **processor},
+            "decoder": {"_target_": f"anemoi.models.layers.mapper.{prefix}BackwardMapper", **mapper},
         },
     })
 
@@ -396,11 +445,144 @@ def phase_backward_kernels(graph, dev) -> tuple[dict, list]:
     return {**summary, "max_abs_err": bf16_err}, rows
 
 
-def phase_reduced_model(dev) -> dict:
+def gnn_case(graph, label: str, dev, gen, c: int = 256, keep=None) -> dict:
+    """One real edge set with seeded GNN conv inputs on the card (fp32); the
+    processor's is a self-graph (x_src is x_dst)."""
+    s_name, d_name = {"processor": ("hidden", "hidden"), "encoder": ("data", "hidden"),
+                      "decoder": ("hidden", "data")}[label]
+    ei = graph[(s_name, "to", d_name)].edge_index
+    ei = ei if keep is None else ei[:, keep]
+    ns, nd = graph[s_name].num_nodes, graph[d_name].num_nodes
+    rowptr, src = (torch.from_numpy(t).to(dev) for t in ea.csr_from_edge_index(ei, ns, nd))
+    x_dst = torch.randn(1, nd, c, generator=gen)
+    x_src = x_dst if label == "processor" else torch.randn(1, ns, c, generator=gen)
+    dense = [(torch.randn(c, k, generator=gen) * k ** -0.5, torch.randn(c, generator=gen) * 0.1)
+             for k in (3 * c, c, c)]
+    norm = (1 + 0.1 * torch.randn(c, generator=gen), 0.1 * torch.randn(c, generator=gen))
+    return {"ns": ns, "nd": nd, "num_edges": ei.shape[1], "self_graph": label == "processor",
+            "rowptr": rowptr, "src": src, "x_dst": x_dst.to(dev), "x_src": x_src.to(dev),
+            "e": torch.randn(1, ei.shape[1], c, generator=gen).to(dev),
+            "ops": gc.mlp_operands([(w.to(dev), b.to(dev)) for w, b in dense], tuple(t.to(dev) for t in norm),
+                                   torch.float32)}
+
+
+def gnn_bound(case: dict, c: int, dtype: torch.dtype) -> dict:
+    """The least time of one GNN conv call (batch 1): x_dst, x_src (once on a
+    self-graph), e and the MLP read once, msg and the fp32 agg written once;
+    the fewest operations factor x_i . W0[0:C] and x_j . W0[C:2C] once per
+    node (2 C^2 each) and leave 2 * 3 C^2 per edge (e . W0[2C:3C], W1, W2)."""
+    nd, ns, e = case["nd"], case["ns"], case["num_edges"]
+    itemsize = torch.finfo(dtype).bits // 8
+    rows = nd + (0 if case["self_graph"] else ns)
+    nbytes = (rows * c + 2 * e * c + 5 * c * c + 5 * c) * itemsize + nd * c * 4 + (nd + 1 + e) * 4
+    flops = 2 * c * c * (nd + ns) + 6 * c * c * e
+    return bound(nbytes, flops, "bf16 tensor" if dtype == torch.bfloat16 else "fp32")
+
+
+def phase_gnn_kernels(graph, dev) -> tuple[dict, list]:
+    """gnn_conv against plain at the three O96 edge sets and with dead
+    destinations, fp32 and bf16, two calls bit-identical; the summary is
+    bf16 on the processor's edges."""
+    gen = torch.Generator().manual_seed(2)
+    c = 256
+    rows, summary, bf16_err = [], {}, 0.0
+    cases = [(label, None) for label in ("processor", "encoder", "decoder")]
+    cases.append(("processor", graph[("hidden", "to", "hidden")].edge_index[1] % 7 != 3))
+    for label, keep in cases:
+        case = gnn_case(graph, label, dev, gen, c, keep)
+        shape = f"{label}{' dead' if keep is not None else ''} E={case['num_edges']} Nd={case['nd']} Ns={case['ns']}"
+        for dt in (torch.float32, torch.bfloat16):
+            xd, xs, e = (case[k].to(dt) for k in ("x_dst", "x_src", "e"))
+            if case["self_graph"]:
+                xs = xd
+            ops = [t.to(dt) for t in case["ops"]]
+            args = (xd, xs, e, case["rowptr"], case["src"], ops, "SiLU")
+            got, again = gc.gnn_conv(*args), gc.gnn_conv(*args)
+            want = gc.gnn_conv_plain(*args)
+            torch.cuda.synchronize()
+            what = f"gnn_conv {shape} {dt}"
+            for name, g, g2 in zip(("agg", "msg"), got, again):
+                if not torch.equal(g, g2):
+                    raise AssertionError(f"{what} {name}: two calls differ (not run-to-run deterministic)")
+            # agg is the fp32 sum of the kernel's own msg; msg and agg against plain: elementwise in
+            # fp32, normwise in bf16 (both sides round at the same points from fp32 sums taken in
+            # another order, so a value can land one bf16 step apart, and a step taken before
+            # "+ beta" or "+ e" stays as an absolute error where that sum cancels)
+            max_err(got[0], gc.aggregate(got[1], case["rowptr"]), TOL[torch.float32], f"{what} agg of msg")
+            for g, w_, n in zip(got, want, ("agg", "msg")):
+                if dt == torch.float32:
+                    max_err(g, w_, TOL[dt], f"{what} {n}")
+                else:
+                    normwise_err(g, w_, f"{what} {n}", TOL[dt])
+            err = max((g.float() - w_.float()).abs().max().item() for g, w_ in zip(got, want))
+            row = {"kernel": "gnn_conv", "shape": shape, "dtype": str(dt).split(".")[-1], "max_abs_err": err,
+                   "normwise_err": max(normwise_err(g, w_, what, 1.0) for g, w_ in zip(got, want)),
+                   "bit_identical": True}
+            if keep is not None:
+                dead = torch.from_numpy(np.arange(case["nd"]) % 7 == 3).to(dev)
+                if not bool((got[0][0, dead] == 0).all()):
+                    raise AssertionError(f"{what}: dead destinations aggregate non-zero")
+                row["dead_destinations"] = int(dead.sum())
+            else:
+                row.update({"ms": cuda_ms(lambda: gc.gnn_conv(*args)),
+                            "plain_ms": cuda_ms(lambda: gc.gnn_conv_plain(*args), iters=3, warmup=1),
+                            **gnn_bound(case, c, dt), "library_ms": None})
+            if dt == torch.bfloat16:
+                bf16_err = max(bf16_err, err)
+                if label == "processor" and keep is None:
+                    summary = {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            rows.append(row)
+    return {**summary, "max_abs_err": bf16_err}, rows
+
+
+def phase_flash_kernels(dev, n0: int = 10242, w0: int = 512) -> tuple[dict, list]:
+    """flash_attention against plain at the O96 processor's shape (B = 1,
+    H = 4, N = 10,242, D = 64): w = 512, no window, a ragged N (4,098) and a
+    causal window, fp32 and bf16, with q, k, v strided views of one fused
+    projection; library_ms is SDPA with the same boolean mask. The summary
+    is bf16 with w = 512."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator().manual_seed(3)
+    h, d = 4, 64
+    rows, summary, bf16_err = [], {}, 0.0
+    for n, window, causal in ((n0, w0, False), (n0, None, False), (2 * n0 // 5 + 2, w0, False), (n0, w0, True)):
+        qkv32 = torch.randn(1, n, 3, h, d, generator=gen)
+        pos = torch.arange(n, device=dev)
+        mask = torch.ones(n, n, dtype=torch.bool, device=dev)
+        if window is not None:
+            mask &= (pos[:, None] - pos[None, :]).abs() <= window
+        if causal:
+            mask &= pos[:, None] >= pos[None, :]
+        shape = f"B*H={h} N={n} D={d} w={window}{' causal' if causal else ''}"
+        for dt in (torch.float32, torch.bfloat16):
+            qkv = qkv32.to(dev, dt)
+            q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+            got = fa.flash_attention(q, k, v, window, causal)
+            want = fa.blockwise_attention(q, k, v, window_size=window, is_causal=causal)
+            torch.cuda.synchronize()
+            err = max_err(got, want, TOL[dt], f"flash_attention {shape} {dt}")
+            flops = 4.0 * h * fa.live_pairs(n, window, causal) * d
+            nbytes = 4 * h * n * d * qkv.element_size()
+            row = {"kernel": "flash_attention", "shape": shape, "dtype": str(dt).split(".")[-1], "max_abs_err": err,
+                   "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, window, causal)),
+                   "plain_ms": cuda_ms(lambda: fa.blockwise_attention(q, k, v, window_size=window,
+                                                                      is_causal=causal), iters=3, warmup=1),
+                   **bound(nbytes, flops, "bf16 tensor" if dt == torch.bfloat16 else "fp32"),
+                   "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+                                         iters=5, warmup=1)}
+            if dt == torch.bfloat16:
+                bf16_err = max(bf16_err, err)
+                if n == n0 and window == w0 and not causal:
+                    summary = {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            rows.append(row)
+    return {**summary, "max_abs_err": bf16_err}, rows
+
+
+def phase_reduced_model(graph, dev, flavor: str = "graphtransformer") -> dict:
     """Reduced fp32 model: kernels on the card against plain on the CPU, in
     the forward, the gradients and a 3-step train trace."""
-    graph = build_enc_proc_dec_graph(grid_lat=48, mesh_refinements=4, grid="octahedral")
-    cfg = model_config(num_channels=64, num_layers=2, num_chunks=1, dtype="float32")
+    cfg = model_config(num_channels=64, num_layers=2, num_chunks=1, dtype="float32", flavor=flavor)
     cpu = interface(graph, cfg, "cpu", seed=1)
     gpu = interface(graph, cfg, "cpu", seed=1).to(dev)
     n_grid = graph["data"].num_nodes
@@ -408,7 +590,10 @@ def phase_reduced_model(dev) -> dict:
     t0 = time.perf_counter()
     ref = cpu.forward(x)
     cpu_s = time.perf_counter() - t0
+    reset_launches()
     out = gpu.forward(x.to(dev)).cpu()
+    if launches()[FLAVOR_KERNEL[flavor]] == 0:
+        raise AssertionError(f"reduced {flavor} model: {FLAVOR_KERNEL[flavor]} was not launched")
     scale = max(1.0, ref.abs().mean().item())
     err = (out - ref).abs().max().item()
     if not torch.isfinite(out).all() or err > 1e-4 * scale:
@@ -433,9 +618,9 @@ def phase_reduced_model(dev) -> dict:
             "loss_trace_gpu": traces[1], "loss_trace_rel_err": trace_err}
 
 
-def phase_serving(graph, dev) -> dict:
+def phase_serving(graph, dev, flavor: str = "graphtransformer", profile_dir: str | None = None) -> dict:
     """Flagship bf16 serving through predict_step; per-request launch counts."""
-    cfg = model_config(num_channels=256, num_layers=8, num_chunks=2, dtype="bfloat16")
+    cfg = model_config(num_channels=256, num_layers=8, num_chunks=2, dtype="bfloat16", flavor=flavor)
     iface = interface(graph, cfg, dev, seed=3)
     n_grid = graph["data"].num_nodes
     di = iface.data_indices
@@ -454,29 +639,32 @@ def phase_serving(graph, dev) -> dict:
     reset_launches()
     ms, per_request = [], []
     for batch in requests[1:]:
-        before = dict(ea.LAUNCHES)
+        before = launches()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         y = iface.predict_step(batch)
         end.record()
         torch.cuda.synchronize()
         ms.append(start.elapsed_time(end))
-        per_request.append({k: ea.LAUNCHES[k] - before[k] for k in ea.LAUNCHES})
+        per_request.append({k: v - before[k] for k, v in launches().items()})
         if tuple(y.shape) != (1, 1, n_grid, n_out) or not bool(torch.isfinite(y).all()):
-            raise AssertionError(f"serving: bad output shape {tuple(y.shape)} or non-finite values")
-    launches = dict(ea.LAUNCHES)
-    for counts in per_request:
-        if counts != {"kv_proj": 10, "edge_attn_csr": 10, "edge_attn_csr_bwd": 0}:
-            raise AssertionError(f"serving: expected 10 launches of each forward kernel per request, got {counts}")
-    return {"request_ms": ms, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-            "launches": launches, "per_request": per_request}
+            raise AssertionError(f"serving {flavor}: bad output shape {tuple(y.shape)} or non-finite values")
+    counts = launches()
+    expected = expect(counts, EXPECTED[flavor][0])
+    if any(c != expected for c in per_request):
+        raise AssertionError(f"serving {flavor}: expected {expected} launches per request, got {per_request}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    profile = (phase_profile(lambda: iface.predict_step(requests[1]), profile_dir, f"request_{flavor}")
+               if profile_dir else None)
+    return {"request_ms": ms, "peak_mem_gib": peak, "launches": counts, "per_request": per_request,
+            "profile": profile}
 
 
 def timed_steps(step, x, y, n: int) -> tuple[list, list, list]:
     """Losses, CUDA-event ms and kernel launches of ``n`` train steps."""
-    losses, ms, launches = [], [], []
+    losses, ms, per_step = [], [], []
     for _ in range(n):
-        before = dict(ea.LAUNCHES)
+        before = launches()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         loss = step(x, y)
@@ -484,13 +672,16 @@ def timed_steps(step, x, y, n: int) -> tuple[list, list, list]:
         torch.cuda.synchronize()
         losses.append(loss.item())
         ms.append(start.elapsed_time(end))
-        launches.append({k: ea.LAUNCHES[k] - before[k] for k in ea.LAUNCHES})
-    return losses, ms, launches
+        per_step.append({k: v - before[k] for k, v in launches().items()})
+    return losses, ms, per_step
 
 
-def phase_train(graph, dev, profile_dir: str | None) -> dict:
-    """Flagship bf16 train steps at full width (remat "full", then "none")."""
-    cfg = model_config(num_channels=256, num_layers=8, num_chunks=2, dtype="bfloat16", remat_policy="full")
+def phase_train(graph, dev, profile_dir: str | None, flavor: str = "graphtransformer",
+                remat_none: bool = True) -> dict:
+    """Flagship bf16 train steps at full width (remat "full", then, with
+    ``remat_none``, "none")."""
+    cfg = model_config(num_channels=256, num_layers=8, num_chunks=2, dtype="bfloat16", remat_policy="full",
+                       flavor=flavor)
     iface = interface(graph, cfg, dev, seed=4)
     model = iface.model
     x, y = (t.to(dev) for t in train_batch(iface, graph["data"].num_nodes, seed=20))
@@ -499,48 +690,49 @@ def phase_train(graph, dev, profile_dir: str | None) -> dict:
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
     losses, ms, per_step = timed_steps(step, x, y, 4)  # the first is the warm-up, at lr 0
-    launches = dict(ea.LAUNCHES)
+    counts = launches()
     peak_full = torch.cuda.max_memory_allocated() / 2**30
     if not np.all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"train: losses {losses} are not finite or do not fall")
-    expected = {"kv_proj": 18, "edge_attn_csr": 18, "edge_attn_csr_bwd": 10}
-    if any(counts != expected for counts in per_step):
-        raise AssertionError(f"train (remat full): expected {expected} launches per step, got {per_step}")
-
-    profile = phase_profile(step, x, y, profile_dir) if profile_dir else None
+        raise AssertionError(f"train {flavor}: losses {losses} are not finite or do not fall")
+    expected = expect(counts, EXPECTED[flavor][1])
+    if any(c != expected for c in per_step):
+        raise AssertionError(f"train {flavor} (remat full): expected {expected} launches per step, got {per_step}")
+    out = {"losses": losses, "step_ms": ms[1:], "warmup_step_ms": ms[0], "peak_mem_gib": peak_full,
+           "launches": counts, "per_step": per_step[1]}
+    out["profile"] = phase_profile(lambda: step(x, y), profile_dir, f"train_step_{flavor}") if profile_dir else None
+    if not remat_none:
+        return out
 
     for chunk in model.processor.proc:
         chunk.remat_policy = "none"
     torch.cuda.reset_peak_memory_stats()
     losses_none, ms_none, per_step_none = timed_steps(step, x, y, 2)
     peak_none = torch.cuda.max_memory_allocated() / 2**30
-    expected = {"kv_proj": 10, "edge_attn_csr": 10, "edge_attn_csr_bwd": 10}
-    if any(counts != expected for counts in per_step_none) or not np.all(np.isfinite(losses_none)):
+    expected = expect(counts, {"kv_proj": 10, "edge_attn_csr": 10, "edge_attn_csr_bwd": 10})
+    if any(c != expected for c in per_step_none) or not np.all(np.isfinite(losses_none)):
         raise AssertionError(f"train (remat none): expected {expected} launches per step, got {per_step_none}")
-    return {"losses": losses, "step_ms": ms[1:], "warmup_step_ms": ms[0], "peak_mem_gib": peak_full,
-            "launches": launches, "per_step": per_step[1],
-            "remat_none": {"losses": losses_none, "step_ms": ms_none[1:], "peak_mem_gib": peak_none,
-                           "per_step": per_step_none[1]},
-            "profile": profile}
+    out["remat_none"] = {"losses": losses_none, "step_ms": ms_none[1:], "peak_mem_gib": peak_none,
+                         "per_step": per_step_none[1]}
+    return out
 
 
-def phase_profile(step, x, y, out_dir: str) -> dict:
-    """One train step under torch.profiler: device time by kernel, and the
-    device's busy share (union of kernel intervals over the step's span)."""
+def phase_profile(run, out_dir: str, label: str) -> dict:
+    """One call of ``run`` under torch.profiler: device time by kernel, and
+    the device's busy share (union of kernel intervals over the span)."""
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(out_dir, exist_ok=True)
-    step(x, y)
+    run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(x, y)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=60)
-    with open(os.path.join(out_dir, "profile_train_step.txt"), "w") as fh:
+    with open(os.path.join(out_dir, f"profile_{label}.txt"), "w") as fh:
         fh.write(table)
-    prof.export_chrome_trace(os.path.join(out_dir, "profile_train_step.json"))
+    prof.export_chrome_trace(os.path.join(out_dir, f"profile_{label}.json"))
     kernels = [e for e in prof.events()  # device kernels and copies, not the annotations that span them
                if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
     by_name: dict[str, list] = {}
@@ -574,7 +766,8 @@ def phase_profile(step, x, y, out_dir: str) -> dict:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--profile", metavar="OUT_DIR", help="also profile one train step into OUT_DIR")
+    parser.add_argument("--profile", metavar="OUT_DIR",
+                        help="also profile one train step and one request per flavor into OUT_DIR")
     parser.add_argument("--build-times", metavar="OUT_DIR",
                         help="also time cold kernel builds, parallel against one nvcc call, in OUT_DIR")
     args = parser.parse_args()
@@ -601,32 +794,38 @@ def main() -> None:
           f"built in {time.perf_counter() - t0:.1f} s")
 
     summary, rows = phase_kernels(graph, dev)
-    bwd_summary, bwd_rows = phase_backward_kernels(graph, dev)
-    summary["edge_attn_csr_bwd"] = bwd_summary
-    for row in rows + bwd_rows:
+    summary["edge_attn_csr_bwd"], bwd_rows = phase_backward_kernels(graph, dev)
+    summary["gnn_conv"], gnn_rows = phase_gnn_kernels(graph, dev)
+    summary["flash_attention"], flash_rows = phase_flash_kernels(dev)
+    for row in rows + bwd_rows + gnn_rows + flash_rows:
         print("kernel-vs-plain", json.dumps(row))
-    reduced = phase_reduced_model(dev)
-    print("reduced-model", json.dumps(reduced))
-    serving = phase_serving(graph, dev)
-    print("serving", json.dumps(serving))
-    train = phase_train(graph, dev, args.profile)
-    print("train", json.dumps(train))
+    reduced_graph = build_enc_proc_dec_graph(grid_lat=48, mesh_refinements=4, grid="octahedral")
+    for flavor in FLAVOR_KERNEL:
+        print(f"reduced-model {flavor}", json.dumps(phase_reduced_model(reduced_graph, dev, flavor)))
+    serving, train = {}, {}
+    for flavor in FLAVOR_KERNEL:  # each path: counts reset just before it, read just after
+        serving[flavor] = phase_serving(graph, dev, flavor, args.profile)
+        print(f"serving {flavor}", json.dumps(serving[flavor]))
+        train[flavor] = phase_train(graph, dev, args.profile, flavor, remat_none=flavor == "graphtransformer")
+        print(f"train {flavor}", json.dumps(train[flavor]))
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "anemoi_models_tpu"))
     if leaked:
         raise AssertionError(f"the port imported {leaked}")
     print(f"total: {time.perf_counter() - t_start:.1f} s")
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    home = {kernel: flavor for flavor, kernel in FLAVOR_KERNEL.items()}  # the train path a kernel is counted on
     kernels = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": train["launches"][name],
-         "launches_by_path": {"serving": serving["launches"][name], "train": train["launches"][name]},
+         "launches": train[home.get(name, "graphtransformer")]["launches"][name],
+         "launches_by_path": {f"{path} {flavor}": runs[flavor]["launches"][name]
+                              for path, runs in (("serving", serving), ("train", train)) for flavor in runs},
          **{k: summary[name][k] for k in keys}}
         for name, (source, replaces) in KERNELS.items()
     ]
     for k in kernels:
         if k["launches"] == 0:
-            raise AssertionError(f"{k['name']} was not launched on the train path")
+            raise AssertionError(f"{k['name']} was not launched on its train path")
     print(name_power)  # as nvidia-smi prints it: name, power limit
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

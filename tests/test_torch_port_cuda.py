@@ -1,6 +1,7 @@
 """PyTorch port on the card: the CUDA kernels against their plain versions,
-the wrappers' checks and launch counts, and a small model forward on the card
-against the CPU. Marked ``cuda``; skipped where there is no CUDA card.
+the wrappers' checks and launch counts, and small models of the three
+flavors on the card against the CPU. Marked ``cuda``; skipped where there is
+no CUDA card.
 
 On a machine with a card and without jax (the repository's conftest imports
 jax), run it as::
@@ -20,6 +21,8 @@ import torch
 
 from anemoi_models_tpu_torch.graphs import build_enc_proc_dec_graph
 from anemoi_models_tpu_torch.ops import edge_attention as ea
+from anemoi_models_tpu_torch.ops import flash_attention as fa
+from anemoi_models_tpu_torch.ops import gnn_conv as gc
 
 pytestmark = pytest.mark.cuda
 
@@ -162,6 +165,118 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev, graph):
                              _csr_t(rowptr, src, n))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels", [64, 128, 256])
+@pytest.mark.parametrize("edges", ["hidden-hidden", "data-hidden", "hidden-data", "dead"])
+def test_gnn_conv_matches_plain_and_repeats_bit_for_bit(dev, graph, dtype, channels, edges):
+    """agg and msg against the plain version, batch 2; the processor's edge
+    set as a self-graph, the mappers' bipartite; two calls bit-identical."""
+    names = {"hidden-hidden": ("hidden", "hidden"), "data-hidden": ("data", "hidden"),
+             "hidden-data": ("hidden", "data"), "dead": ("hidden", "hidden")}[edges]
+    es = graph[(names[0], "to", names[1])]
+    ns, nd = graph[names[0]].num_nodes, graph[names[1]].num_nodes
+    keep = es.edge_index[1] % 4 != 1 if edges == "dead" else None
+    rowptr, src, num_edges = _csr(es, ns, nd, dev, keep)
+    gen = torch.Generator().manual_seed(3)
+    batch, c = 2, channels
+    x_dst = torch.randn(batch, nd, c, generator=gen).to(dev, dtype)
+    x_src = x_dst if names[0] == names[1] else torch.randn(batch, ns, c, generator=gen).to(dev, dtype)
+    e = torch.randn(batch, num_edges, c, generator=gen).to(dev, dtype)
+    dense = [(torch.randn(c, k, generator=gen) * k ** -0.5, torch.randn(c, generator=gen) * 0.1) for k in (3 * c, c, c)]
+    norm = (1 + 0.1 * torch.randn(c, generator=gen), 0.1 * torch.randn(c, generator=gen))
+    ops = [t.to(dev) for t in gc.mlp_operands(dense, norm, dtype)]
+    before = gc.LAUNCHES["gnn_conv"]
+    got = gc.gnn_conv(x_dst, x_src, e, rowptr, src, ops, "SiLU")
+    again = gc.gnn_conv(x_dst, x_src, e, rowptr, src, ops, "SiLU")
+    assert gc.LAUNCHES["gnn_conv"] == before + 2
+    want = gc.gnn_conv_plain(x_dst, x_src, e, rowptr, src, ops, "SiLU")
+    torch.cuda.synchronize()
+    for name, g, g2, w in zip(("agg", "msg"), got, again, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g, g2), f"{name} differs between two calls"
+    # agg is the fp32 sum of the kernel's own msg; both against plain: elementwise in fp32, normwise in
+    # bf16 (the two round at the same points from fp32 sums taken in another order, so a value can land
+    # one bf16 step apart, and a step taken before "+ beta" or "+ e" stays where that sum cancels)
+    torch.testing.assert_close(got[0], gc.aggregate(got[1], rowptr), atol=TOL[torch.float32],
+                               rtol=TOL[torch.float32], msg="agg of msg")
+    for name, g, w in zip(("agg", "msg"), got, want):
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, atol=TOL[dtype], rtol=TOL[dtype], msg=name)
+        else:
+            assert _normwise(g, w) <= TOL[dtype], f"{name}: normwise error {_normwise(g, w):.3e}"
+    if edges == "dead":
+        assert bool((got[0][:, torch.from_numpy(np.arange(nd) % 4 == 1).to(dev)] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
+@pytest.mark.parametrize("n,window,causal", [(700, 64, False), (700, None, False), (333, 40, False),
+                                             (700, 64, True), (450, None, True)])
+def test_flash_attention_matches_plain(dev, dtype, head_dim, n, window, causal):
+    """Band-masked attention against the plain blockwise version, with q, k
+    and v strided views of one fused (B, N, 3, H, D) projection (as the
+    attention layer passes them) and ragged sequence lengths."""
+    gen = torch.Generator().manual_seed(4)
+    b, h = 2, 3
+    qkv = torch.randn(b, n, 3, h, head_dim, generator=gen).to(dev, dtype)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, window, causal)
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    want = fa.blockwise_attention(q, k, v, window_size=window, is_causal=causal)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (b, h, n, head_dim) and got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    contiguous = [t.contiguous() for t in (q, k, v)]
+    torch.testing.assert_close(fa.flash_attention(*contiguous, window, causal), got, atol=0, rtol=0)
+
+
+def test_new_wrappers_reject_what_the_kernels_do_not_take(dev, graph):
+    es = graph[("hidden", "to", "hidden")]
+    n = graph["hidden"].num_nodes
+    rowptr, src, num_edges = _csr(es, n, n, dev)
+    c = 64
+    x, e = torch.randn(1, n, c, device=dev), torch.randn(1, num_edges, c, device=dev)
+    dense = [(torch.randn(c, k), torch.randn(c)) for k in (3 * c, c, c)]
+    ops = [t.to(dev) for t in gc.mlp_operands(dense, (torch.ones(c), torch.zeros(c)), torch.float32)]
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        gc.gnn_conv(x.half(), x.half(), e.half(), rowptr, src, [t.half() for t in ops], "SiLU")
+    with pytest.raises(ValueError, match="share one dtype"):
+        gc.gnn_conv(x.bfloat16(), x.bfloat16(), e.bfloat16(), rowptr, src, ops, "SiLU")
+    with pytest.raises(ValueError, match="contiguous"):
+        gc.gnn_conv(x, x, torch.randn(1, c, num_edges, device=dev).transpose(1, 2), rowptr, src, ops, "SiLU")
+    deep = [t.to(dev) for t in gc.mlp_operands(dense[:1] + dense[1:2] * 2 + dense[2:], (torch.ones(c), torch.zeros(c)),
+                                               torch.float32)]
+    with pytest.raises(NotImplementedError, match="mlp_extra_layers"):
+        gc.gnn_conv(x, x, e, rowptr, src, deep, "SiLU")
+    with pytest.raises(NotImplementedError, match="activation"):
+        gc.gnn_conv(x, x, e, rowptr, src, ops, "mish")
+    q = torch.randn(1, 2, 100, 64, device=dev)
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        fa.flash_attention(q.half(), q.half(), q.half(), 8)
+    with pytest.raises(ValueError, match="contiguous channels"):
+        strided = torch.randn(1, 2, 100, 128, device=dev)[..., ::2]
+        fa.flash_attention(strided, strided, strided, 8)
+    with pytest.raises(ValueError, match="head widths"):
+        fa.flash_attention(q[..., :48], q[..., :48], q[..., :48], 8)
+
+
+def test_graph_conv_with_extra_mlp_layers_raises_on_the_card(dev, graph):
+    """mlp_extra_layers > 0 runs the plain version on the CPU and raises on
+    a CUDA tensor: the kernel takes exactly three Dense layers."""
+    from anemoi_models_tpu_torch.layers.conv import GraphConv
+
+    es = graph[("hidden", "to", "hidden")]
+    n = graph["hidden"].num_nodes
+    rowptr, src, num_edges = _csr(es, n, n, torch.device("cpu"))
+    conv = GraphConv(32, 32, mlp_extra_layers=1, device="cpu")
+    x, e = torch.randn(1, n, 32), torch.randn(1, num_edges, 32)
+    agg, msg = conv(x, e, rowptr, src)
+    assert agg.shape == (1, n, 32) and msg.shape == e.shape
+    with pytest.raises(NotImplementedError, match="mlp_extra_layers"):
+        conv.to(dev)(x.to(dev), e.to(dev), rowptr.to(dev), src.to(dev))
+
+
 def _interfaces(graph, remat_policy="full"):
     from anemoi_models_tpu_torch.data_indices import IndexCollection
     from anemoi_models_tpu_torch.interface import AnemoiModelInterface
@@ -229,3 +344,70 @@ def test_model_gradients_on_card_match_cpu(dev, graph, remat_policy):
     card_grads = dict(card.model.named_parameters())
     for name, p in cpu.model.named_parameters():
         assert _normwise(card_grads[name].grad.cpu(), p.grad) <= BWD_TOL, name
+
+
+def _flavor_interfaces(graph, flavor):
+    from anemoi_models_tpu_torch.data_indices import IndexCollection
+    from anemoi_models_tpu_torch.interface import AnemoiModelInterface
+    from anemoi_models_tpu_torch.utils import DotDict
+
+    edges = {"trainable_size": 4, "sub_graph_edge_attributes": ["edge_length", "edge_dirs"]}
+    gt = {**edges, "num_heads": 4}
+    layers = "anemoi.models.layers."
+    mapper, mkw, processor = {
+        "gnn": ("GNN", edges, {"_target_": layers + "processor.GNNProcessor", **edges}),
+        "transformer": ("GraphTransformer", gt, {"_target_": layers + "processor.TransformerProcessor",
+                                                 "num_heads": 4, "window_size": 64, "dropout_p": 0.0}),
+    }[flavor]
+    cfg = DotDict({
+        "data": {"forcing": ["lsm"], "diagnostic": ["tp"], "processors": {}},
+        "graph": {"data": "data", "hidden": "hidden"},
+        "training": {"multistep_input": 2},
+        "model": {
+            "num_channels": 64, "trainable_parameters": {"hidden": 8},
+            "model": {"_target_": "anemoi.models.models.encoder_processor_decoder.AnemoiModelEncProcDec"},
+            "encoder": {"_target_": layers + f"mapper.{mapper}ForwardMapper", **mkw},
+            "processor": {"num_layers": 2, "num_chunks": 2, **processor},
+            "decoder": {"_target_": layers + f"mapper.{mapper}BackwardMapper", **mkw},
+        },
+    })
+    di = IndexCollection(cfg, {"lsm": 0, "z_500": 1, "t_850": 2, "t2m": 3, "tp": 4})
+    ifaces = []
+    for _ in range(2):
+        iface = AnemoiModelInterface(config=cfg, graph_data=graph, statistics={}, data_indices=di, device="cpu")
+        gen = torch.Generator().manual_seed(8)
+        iface.init_params(gen)
+        with torch.no_grad():
+            for p in iface.model.parameters():
+                p.add_(0.02 * torch.randn(p.shape, generator=gen))
+        ifaces.append(iface)
+    return ifaces
+
+
+@pytest.mark.parametrize("flavor", ["gnn", "transformer"])
+def test_flavor_model_on_card_matches_cpu(dev, graph, flavor):
+    """The GNN and Transformer flavors (C=64, 2 layers, fp32): forward and
+    every parameter's gradient, kernels on the card against the plain
+    versions on the CPU, and the new kernel launched on the path (with the
+    two processor chunks recomputed in the backward)."""
+    from anemoi_models_tpu_torch.training import weighted_mse
+
+    cpu, card = _flavor_interfaces(graph, flavor)
+    card.to(dev)
+    gen = torch.Generator().manual_seed(9)
+    x = torch.randn(1, 2, 1, graph["data"].num_nodes, 4, generator=gen)
+    y = torch.randn(1, 1, graph["data"].num_nodes, 4, generator=gen)
+    ref = cpu.forward(x)
+    table, name, n_fwd = (gc.LAUNCHES, "gnn_conv", 4) if flavor == "gnn" else (fa.LAUNCHES, "flash_attention", 2)
+    before = table[name]
+    out = card.forward(x.to(dev)).cpu()
+    assert table[name] == before + n_fwd
+    assert (out - ref).abs().max().item() <= 1e-4 * max(1.0, ref.abs().mean().item())
+    weighted_mse(cpu.model(x), y).backward()
+    before = table[name]
+    weighted_mse(card.model(x.to(dev)), y.to(dev)).backward()
+    torch.cuda.synchronize()
+    assert table[name] == before + n_fwd + 2  # the two processor layers again under remat "full"
+    card_grads = dict(card.model.named_parameters())
+    for pname, p in cpu.model.named_parameters():
+        assert _normwise(card_grads[pname].grad.cpu(), p.grad) <= BWD_TOL, pname

@@ -25,8 +25,11 @@ from anemoi_models_tpu.graphs import build_enc_proc_dec_graph
 from anemoi_models_tpu.interface import AnemoiModelInterface as JaxInterface
 from anemoi_models_tpu.models import AnemoiModelEncProcDec as JaxModel
 from anemoi_models_tpu_torch.interface import AnemoiModelInterface
-from anemoi_models_tpu_torch.layers.mapper import GraphTransformerForwardMapper
-from anemoi_models_tpu_torch.layers.processor import GraphTransformerProcessor
+from anemoi_models_tpu_torch.layers.attention import MultiHeadSelfAttention
+from anemoi_models_tpu_torch.layers.mapper import GNNBackwardMapper, GNNForwardMapper, GraphTransformerForwardMapper
+from anemoi_models_tpu_torch.layers.mlp import MLP
+from anemoi_models_tpu_torch.layers.processor import GNNProcessor, GraphTransformerProcessor, TransformerProcessor
+from anemoi_models_tpu_torch.ops.attention import dot_product_attention
 from anemoi_models_tpu_torch.models import AnemoiModelEncProcDec
 from anemoi_models_tpu_torch.utils import DotDict, resolve_target
 from anemoi_models_tpu_torch.weights import init_params, load_flax_params
@@ -122,6 +125,21 @@ def test_config_targets_resolve_to_port_classes(setup):
     graph, _, _, _ = setup
     assert resolve_target("anemoi.models.layers.mapper.GraphTransformerForwardMapper") is GraphTransformerForwardMapper
     assert resolve_target("anemoi.models.layers.processor.GraphTransformerProcessor") is GraphTransformerProcessor
+    for target, cls in [
+        ("anemoi.models.layers.processor.TransformerProcessor", TransformerProcessor),
+        ("anemoi.models.layers.processor.GNNProcessor", GNNProcessor),
+        ("anemoi.models.layers.mapper.GNNForwardMapper", GNNForwardMapper),
+        ("anemoi.models.layers.mapper.GNNBackwardMapper", GNNBackwardMapper),
+        ("anemoi.models.layers.mlp.MLP", MLP),
+        ("anemoi.models.layers.attention.MultiHeadSelfAttention", MultiHeadSelfAttention),
+    ]:
+        assert resolve_target(target) is cls, target
+    with pytest.raises(ValueError, match="graph_impl"):  # the JAX GNN mappers take dense | segment
+        GNNForwardMapper(
+            in_channels_src=8, in_channels_dst=8, hidden_dim=16, trainable_size=2,
+            sub_graph=graph[("data", "to", "hidden")], src_grid_size=graph["data"].num_nodes,
+            dst_grid_size=graph["hidden"].num_nodes, graph_impl="pallas",
+        )
     with pytest.raises(ValueError, match="graph_impl"):
         GraphTransformerProcessor(
             2, num_channels=16, num_heads=4, trainable_size=2,
@@ -134,10 +152,29 @@ def test_config_targets_resolve_to_port_classes(setup):
         AnemoiModelEncProcDec(model_config=cfg, data_indices=setup[1], graph_data=graph, device="cpu")
 
 
+def test_unported_options_raise():
+    """Attention-weight dropout raises before any device dispatch (on the
+    CPU as on the card), and so does a Transformer processor built
+    non-deterministic with dropout_p > 0. (A GraphConv with
+    mlp_extra_layers > 0 raises on a CUDA tensor only: the CPU runs the plain
+    version at any depth; tests/test_torch_port_cuda.py holds that case.)"""
+    q = torch.randn(1, 2, 8, 16)
+    with pytest.raises(NotImplementedError, match="dropout"):
+        dot_product_attention(q, q, q, window_size=2, dropout_rate=0.1)
+    with pytest.raises(ValueError, match="impl"):
+        dot_product_attention(q, q, q, impl="halo")
+    proc = TransformerProcessor(2, window_size=2, num_channels=16, num_chunks=1, num_heads=2, dropout_p=0.1,
+                                deterministic=False, device="cpu")
+    with pytest.raises(NotImplementedError, match="dropout"):
+        proc(torch.randn(1, 8, 16))
+    with pytest.raises(NotImplementedError, match="halo"):
+        MultiHeadSelfAttention(2, 16, window_size=2, attention_impl="halo")
+
+
 def test_port_runs_without_jax():
     """Importing the port, serving a CPU forward and taking a CPU train step
-    leave jax, flax and the JAX package out of sys.modules (the card's
-    machine has neither)."""
+    of each flavor leave jax, flax and the JAX package out of sys.modules
+    (the card's machine has neither)."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -148,34 +185,43 @@ def test_port_runs_without_jax():
         from anemoi_models_tpu_torch.training import make_optimizer, make_train_step
         from anemoi_models_tpu_torch.utils import DotDict
 
-        mapper = {"trainable_size": 2, "num_heads": 4, "sub_graph_edge_attributes": ["edge_length", "edge_dirs"]}
-        cfg = DotDict({
-            "data": {"forcing": ["lsm"], "diagnostic": ["tp"], "processors": {"normalizer": {
-                "_target_": "anemoi.models.preprocessing.normalizer.InputNormalizer",
-                "config": {"default": "mean-std"}}}},
-            "graph": {"data": "data", "hidden": "hidden"},
-            "training": {"multistep_input": 2},
-            "model": {
-                "num_channels": 16, "trainable_parameters": {"hidden": 4},
-                "model": {"_target_": "anemoi.models.models.encoder_processor_decoder.AnemoiModelEncProcDec"},
-                "encoder": {"_target_": "anemoi.models.layers.mapper.GraphTransformerForwardMapper", **mapper},
-                "processor": {"_target_": "anemoi.models.layers.processor.GraphTransformerProcessor",
-                              "num_layers": 2, "num_chunks": 1, **mapper},
-                "decoder": {"_target_": "anemoi.models.layers.mapper.GraphTransformerBackwardMapper", **mapper},
-            },
-        })
+        edges = {"trainable_size": 2, "sub_graph_edge_attributes": ["edge_length", "edge_dirs"]}
+        gt = {**edges, "num_heads": 4}
+        layers = "anemoi.models.layers."
+        flavors = {
+            "graphtransformer": ("GraphTransformer", {"_target_": layers + "processor.GraphTransformerProcessor", **gt}),
+            "gnn": ("GNN", {"_target_": layers + "processor.GNNProcessor", **edges}),
+            "transformer": ("GraphTransformer", {"_target_": layers + "processor.TransformerProcessor",
+                                                 "num_heads": 4, "window_size": 8, "dropout_p": 0.0}),
+        }
         graph = build_enc_proc_dec_graph(grid_lat=6, mesh_refinements=2)
         n2i = {"lsm": 0, "z_500": 1, "t_850": 2, "t2m": 3, "tp": 4}
         stats = {"mean": np.zeros(5), "stdev": np.ones(5), "minimum": np.zeros(5), "maximum": np.ones(5)}
-        iface = AnemoiModelInterface(config=cfg, graph_data=graph, statistics=stats,
-                                     data_indices=IndexCollection(cfg, n2i), device="cpu")
-        iface.init_params(torch.Generator().manual_seed(0))
         n = graph["data"].num_nodes
-        y = iface.predict_step(torch.randn(1, 2, n, 4))
-        assert y.shape == (1, 1, n, 4) and bool(torch.isfinite(y).all())
-        step = make_train_step(iface.model, make_optimizer(iface.model.parameters(), warmup_steps=1))
-        loss = step(torch.randn(1, 2, 1, n, 4), torch.randn(1, 1, n, 4))
-        assert bool(torch.isfinite(loss))
+        for mapper, processor in flavors.values():
+            mkw = gt if mapper == "GraphTransformer" else edges
+            cfg = DotDict({
+                "data": {"forcing": ["lsm"], "diagnostic": ["tp"], "processors": {"normalizer": {
+                    "_target_": "anemoi.models.preprocessing.normalizer.InputNormalizer",
+                    "config": {"default": "mean-std"}}}},
+                "graph": {"data": "data", "hidden": "hidden"},
+                "training": {"multistep_input": 2},
+                "model": {
+                    "num_channels": 16, "trainable_parameters": {"hidden": 4},
+                    "model": {"_target_": "anemoi.models.models.encoder_processor_decoder.AnemoiModelEncProcDec"},
+                    "encoder": {"_target_": layers + f"mapper.{mapper}ForwardMapper", **mkw},
+                    "processor": {"num_layers": 2, "num_chunks": 1, **processor},
+                    "decoder": {"_target_": layers + f"mapper.{mapper}BackwardMapper", **mkw},
+                },
+            })
+            iface = AnemoiModelInterface(config=cfg, graph_data=graph, statistics=stats,
+                                         data_indices=IndexCollection(cfg, n2i), device="cpu")
+            iface.init_params(torch.Generator().manual_seed(0))
+            y = iface.predict_step(torch.randn(1, 2, n, 4))
+            assert y.shape == (1, 1, n, 4) and bool(torch.isfinite(y).all())
+            step = make_train_step(iface.model, make_optimizer(iface.model.parameters(), warmup_steps=1))
+            loss = step(torch.randn(1, 2, 1, n, 4), torch.randn(1, 1, n, 4))
+            assert bool(torch.isfinite(loss))
         leaked = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "anemoi_models_tpu"))
         print("LEAKED", leaked)
