@@ -9,7 +9,9 @@
 // list, with no slab window, slot plan or outlier split:
 //
 //   kv_proj        kv = f . w^T + b, fp32 accumulation, rounded to the compute
-//                  dtype (the rounding point of _feats_kernel's projection).
+//                  dtype (the rounding point of _feats_kernel's projection):
+//                  the Hopper GEMM of gemm_sm90.cuh (wgmma fed by TMA in bf16,
+//                  the CUDA cores in fp32), instantiated here under kv_proj_tag.
 //   edge_attn_csr  one CTA per (batch, destination) walks the destination's
 //                  edges with an online softmax per head and writes num, den
 //                  and m in the m-gauge contract of ops/slot_attention.py.
@@ -23,101 +25,14 @@
 
 #include <cmath>
 
+#include "gemm_sm90.cuh"
+
 namespace {
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) { return __float2bfloat16(x); }
-
-// ---------------------------------------------------------------------------
-// kv_proj: out (M, N) = f (M, K) . w (N, K)^T + b (N), fp32 accumulation.
-//
-// Bound on the H100: at the O96 processor shape (M=10,242, K=256, N=512) it is
-// 2.7 GFLOP over 16 MB of traffic: bytes-bound in bf16 at the tensor-core
-// peak (0.0048 ms), operation-bound in fp32 (0.040 ms). This first version is a
-// plain shared-memory tiled GEMM on the CUDA cores (64x64 tile per CTA, 4x4
-// outputs per thread, operands converted to fp32 on the way into shared
-// memory); the tensor-core (wgmma) version is later work.
-// ---------------------------------------------------------------------------
-
-constexpr int kBM = 64;
-constexpr int kBN = 64;
-constexpr int kBK = 16;
-constexpr int kTM = 4;
-constexpr int kTN = 4;
-constexpr int kProjThreads = (kBM / kTM) * (kBN / kTN);  // 256
-
-template <typename T>
-__global__ void __launch_bounds__(kProjThreads)
-kv_proj_kernel(const T* __restrict__ f, const T* __restrict__ w, const float* __restrict__ b,
-               T* __restrict__ out, int M, int N, int K) {
-  __shared__ float As[kBK][kBM + 4];
-  __shared__ float Bs[kBK][kBN + 4];
-  const int tid = threadIdx.x;
-  const int tx = tid % (kBN / kTN);
-  const int ty = tid / (kBN / kTN);
-  const int m0 = blockIdx.x * kBM;
-  const int n0 = blockIdx.y * kBN;
-
-  float acc[kTM][kTN];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    for (int idx = tid; idx < kBM * kBK; idx += kProjThreads) {
-      const int r = idx / kBK;
-      const int c = idx % kBK;
-      const int gk = k0 + c;
-      const int gm = m0 + r;
-      const int gn = n0 + r;
-      As[c][r] = (gm < M && gk < K) ? to_f(f[(int64_t)gm * K + gk]) : 0.f;
-      Bs[c][r] = (gn < N && gk < K) ? to_f(w[(int64_t)gn * K + gk]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float av[kTM], bv[kTN];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) av[i] = As[kk][ty * kTM + i];
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) bv[j] = Bs[kk][tx * kTN + j];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int gm = m0 + ty * kTM + i;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int gn = n0 + tx * kTN + j;
-      if (gn < N) out[(int64_t)gm * N + gn] = from_f<T>(acc[i][j] + b[gn]);
-    }
-  }
-}
-
-template <typename T>
-int launch_kv_proj(const void* f, const void* w, const void* b, void* out, int M, int N, int K,
-                   void* stream) {
-  const dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN);
-  kv_proj_kernel<T><<<grid, kProjThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(f), static_cast<const T*>(w), static_cast<const float*>(b),
-      static_cast<T*>(out), M, N, K);
-  return static_cast<int>(cudaGetLastError());
-}
+struct kv_proj_tag {};  // names the kv_proj instantiations of gemm_sm90.cuh
 
 // ---------------------------------------------------------------------------
 // edge_attn_csr: merge-form attention partials over a CSR edge list.
@@ -241,14 +156,24 @@ int launch_edge_attn_csr(const void* q, const void* kv, const void* rowptr, cons
 
 extern "C" {
 
-int kv_proj_f32(const void* f, const void* w, const void* b, void* out, int M, int N, int K,
-                void* stream) {
-  return launch_kv_proj<float>(f, w, b, out, M, N, K, stream);
+int kv_proj_f32(const void* f, const void* w, const void* b, void* out, int M, int N, int K, void* stream) {
+  sm90::ProjF32Batch batch{};
+  batch.p[0] = {static_cast<const float*>(f), static_cast<const float*>(w), static_cast<const float*>(b),
+                static_cast<float*>(out), M, N, K, K, N};
+  batch.k = K;
+  return sm90::launch_proj_f32<kv_proj_tag>(batch, 1, static_cast<cudaStream_t>(stream));
 }
 
-int kv_proj_bf16(const void* f, const void* w, const void* b, void* out, int M, int N, int K,
+// bf16 operands; the output is bf16, or fp32 with out_f32
+int kv_proj_bf16(const void* f, const void* w, const void* b, void* out, int M, int N, int K, int out_f32,
                  void* stream) {
-  return launch_kv_proj<__nv_bfloat16>(f, w, b, out, M, N, K, stream);
+  sm90::ProjBatch batch{};
+  int rc = sm90::set_proj_problem(&batch.p[0], f, K, w, K, b, sm90::kBiasF32, out, N, M, N, K);
+  if (rc != 0) return rc;
+  batch.k = K;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return out_f32 ? sm90::launch_proj_bf16<kv_proj_tag, float>(batch, 1, s)
+                 : sm90::launch_proj_bf16<kv_proj_tag, __nv_bfloat16>(batch, 1, s);
 }
 
 int edge_attn_csr_f32(const void* q, const void* kv, const void* rowptr, const void* src,

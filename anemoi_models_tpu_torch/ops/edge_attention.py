@@ -10,7 +10,8 @@ straight off the destination-sorted edge list in two kernels
 
 - :func:`kv_proj` projects the narrow source features to ``[k|v]`` once per
   node (fp32 accumulation, rounded to the compute dtype, the rounding point of
-  ``_feats_kernel``). A per-edge projection inside the attention kernel
+  ``_feats_kernel``): the Hopper GEMM of ``csrc/gemm_sm90.cuh`` (``wgmma``
+  fed by TMA in bf16). A per-edge projection inside the attention kernel
   would cost about mean-degree times as many operations.
 - :func:`edge_attn_csr` computes the partials ``(num, den, m)`` with one CTA
   per (batch, destination). Bound by the gathered row reads, which the 50 MB
@@ -132,9 +133,11 @@ def csr_transpose(rowptr, src, num_src: int) -> tuple[np.ndarray, np.ndarray, np
 # ---------------------------------------------------------------------------
 
 
-def kv_proj_plain(f: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(M, K) . (N, K)^T + b in fp32, rounded to f's dtype."""
-    return (f.float() @ w.float().t() + b.float()).to(f.dtype)
+def kv_proj_plain(f: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                  out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """(M, K) . (N, K)^T + b in fp32, rounded once to ``out_dtype`` (f's
+    dtype by default)."""
+    return (f.float() @ w.float().t() + b.float()).to(out_dtype or f.dtype)
 
 
 def edge_attn_csr_plain(
@@ -245,28 +248,39 @@ def _check_launch(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
 
 
-def kv_proj(f: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def kv_proj(f: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+            out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """``[k|v] = f . w^T + b``: f (M, K) and w (N, K) in the compute dtype
-    (fp32 or bf16), b (N,) fp32; returns (M, N) in the compute dtype."""
+    (fp32 or bf16), b (N,) fp32; returns (M, N) in ``out_dtype``: the compute
+    dtype (the default) or, for bf16 operands, fp32. On the card the rows
+    must be 16-byte aligned (K and N multiples of 8 in bf16)."""
     if _on_cpu(f, w, b):
-        return kv_proj_plain(f, w, b)
+        return kv_proj_plain(f, w, b, out_dtype)
+    out_dtype = out_dtype or f.dtype
     _require(f.dtype in _DTYPES and w.dtype == f.dtype, f"f, w must share fp32|bf16, got {f.dtype}, {w.dtype}")
+    _require(out_dtype in (f.dtype, torch.float32), f"out_dtype must be {f.dtype} or fp32, got {out_dtype}")
     _require(b.dtype == torch.float32, f"b must be fp32, got {b.dtype}")
     _require(f.dim() == 2 and w.dim() == 2 and w.shape[1] == f.shape[1], f"bad shapes {f.shape}, {w.shape}")
     _require(b.shape == (w.shape[0],), f"bias shape {tuple(b.shape)} != ({w.shape[0]},)")
     _require_contiguous(f=f, w=w, b=b)
     m, k = f.shape
     n = w.shape[0]
-    out = torch.empty((m, n), dtype=f.dtype, device=f.device)
+    if f.dtype == torch.bfloat16:
+        _require(k % 8 == 0 and n % 8 == 0 and f.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0,
+                 f"kv_proj in bf16 needs 16-byte aligned rows (K, N multiples of 8), got K={k}, N={n}")
+    out = torch.empty((m, n), dtype=out_dtype, device=f.device)
     if m == 0:
         return out
     from anemoi_models_tpu_torch.ops.kernels import load_kernels
 
     lib = load_kernels()
-    fn = lib.kv_proj_bf16 if f.dtype == torch.bfloat16 else lib.kv_proj_f32
     with torch.cuda.device(f.device):
         stream = torch.cuda.current_stream(f.device).cuda_stream
-        rc = fn(f.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, stream)
+        if f.dtype == torch.bfloat16:
+            rc = lib.kv_proj_bf16(f.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
+                                  int(out_dtype == torch.float32), stream)
+        else:
+            rc = lib.kv_proj_f32(f.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, stream)
     _check_launch(rc, "kv_proj")
     LAUNCHES["kv_proj"] += 1
     return out

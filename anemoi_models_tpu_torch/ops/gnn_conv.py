@@ -14,13 +14,20 @@ cannot gather in VMEM; the port runs straight off the destination-sorted
 edge list (no cap). Edge features stay in the edge set's own order, which
 the graph functions sort by destination, so it is the CSR order.
 
+- The first Dense factors as the TPU kernel computes it, in three fp32
+  dots: ``x_i . W0[:, 0:C]`` and ``x_j . W0[:, C:2C]`` are computed once per
+  node (:func:`node_products`, with ``b0`` folded into the destination's)
+  and gathered per edge, so only ``e . W0[:, 2C:3C]`` and the two C x C
+  layers run per edge (6 C^2 operations per edge in place of 10 C^2).
 - :func:`gnn_conv_plain` follows the kernel's rounding points: fp32
   accumulation, the activation in fp32 then rounded, LayerNorm statistics
   in fp32 and the normalised value rounded before gamma and beta, ``agg``
   summed from the rounded ``msg``. It takes any MLP depth.
-- :func:`gnn_conv` takes it for CPU tensors and launches
-  ``csrc/gnn_conv.cu`` for CUDA tensors (or raises), counting its launches
-  in :data:`LAUNCHES`. The kernel takes exactly three Dense layers
+- :func:`gnn_conv` takes it for CPU tensors and, for CUDA tensors, launches
+  ``csrc/gnn_conv.cu`` (or raises): the per-node pre-pass (the Hopper GEMM
+  of ``csrc/gemm_sm90.cuh`` in bf16, the CUDA cores in fp32), then the
+  message and aggregation kernels, counting one launch per call in
+  :data:`LAUNCHES`. The kernel takes exactly three Dense layers
   (``mlp_extra_layers=0``), as the TPU kernel does.
 - :class:`GNNConv` is the Function GraphConv runs through: its backward
   recomputes through the plain version and differentiates it, as
@@ -36,25 +43,27 @@ import torch
 from anemoi_models_tpu_torch.layers.utils import get_activation
 from anemoi_models_tpu_torch.ops.edge_attention import _check_launch, _on_cpu, _require, _require_contiguous
 
-__all__ = ["GNNConv", "LAUNCHES", "aggregate", "gnn_conv", "gnn_conv_plain", "mlp_operands"]
+__all__ = ["GNNConv", "LAUNCHES", "aggregate", "gnn_conv", "gnn_conv_plain", "gnn_prepass", "mlp_operands", "node_products"]
 
 _WIDTHS = (32, 64, 128, 256)  # channel widths csrc/gnn_conv.cu is built for
 _DTYPES = (torch.float32, torch.bfloat16)
 _ACT_CODES = {"identity": 0, "silu": 1, "swish": 1, "gelu": 2, "relu": 3, "tanh": 4, "sigmoid": 5}
 
-# kernel launches (one per call: the message and aggregation kernels); a CPU
-# call runs the plain version and adds nothing
-LAUNCHES: dict[str, int] = {"gnn_conv": 0}
+# kernel launches (one per gnn_conv call: the pre-pass, message and
+# aggregation kernels; gnn_prepass alone is counted apart); a CPU call runs
+# the plain version and adds nothing
+LAUNCHES: dict[str, int] = {"gnn_conv": 0, "gnn_prepass": 0}
 
 
 def mlp_operands(dense: Sequence[tuple[torch.Tensor, torch.Tensor]], norm: tuple[torch.Tensor, torch.Tensor],
                  dtype: torch.dtype) -> list[torch.Tensor]:
     """The edge MLP as the kernel reads it, differentiably: each Dense
-    ``(weight (out, in), bias)`` as ``weight^T`` (in, out) and ``bias`` in
-    ``dtype``, then the LayerNorm's ``(gamma, beta)`` in ``dtype``."""
+    ``(weight (out, in), bias)`` in ``dtype``, the weight contiguous in
+    torch's Linear layout (K-major, as the tensor cores read it), then the
+    LayerNorm's ``(gamma, beta)`` in ``dtype``."""
     ops = []
     for w, b in dense:
-        ops += [w.to(dtype).t().contiguous(), b.to(dtype)]
+        ops += [w.to(dtype).contiguous(), b.to(dtype)]
     return ops + [norm[0].to(dtype), norm[1].to(dtype)]
 
 
@@ -64,6 +73,16 @@ def aggregate(msg: torch.Tensor, rowptr: torch.Tensor) -> torch.Tensor:
     dst = torch.repeat_interleave(torch.arange(nd, device=msg.device), rowptr.long().diff())
     agg = torch.zeros(msg.shape[0], nd, msg.shape[-1], dtype=torch.float32, device=msg.device)
     return agg.index_add_(1, dst, msg.float())
+
+
+def node_products(x_dst: torch.Tensor, x_src: torch.Tensor, w0: torch.Tensor,
+                  b0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The first Dense's per-node terms, fp32: ``x_dst . W0[:, 0:C]^T + b0``
+    and ``x_src . W0[:, C:2C]^T``, with ``w0`` (C, 3C) as
+    :func:`mlp_operands` gives it."""
+    c = x_dst.shape[-1]
+    return (x_dst.float() @ w0[:, :c].float().t() + b0.float(),
+            x_src.float() @ w0[:, c:2 * c].float().t())
 
 
 def gnn_conv_plain(
@@ -80,12 +99,12 @@ def gnn_conv_plain(
     act = get_activation(activation)
     nd = rowptr.numel() - 1
     dst = torch.repeat_interleave(torch.arange(nd, device=e.device), rowptr.long().diff())
-    h = torch.cat([x_dst[:, dst], x_src[:, src.long()], e], dim=-1)
     *dense, gamma, beta = ops
-    for i in range(0, len(dense), 2):
-        h = h.float() @ dense[i].float() + dense[i + 1].float()
-        if i + 2 < len(dense):
-            h = act(h).to(dt)
+    c = e.shape[-1]
+    p_dst, p_src = node_products(x_dst, x_src, dense[0], dense[1])
+    h = e.float() @ dense[0][:, 2 * c:].float().t() + p_dst[:, dst] + p_src[:, src.long()]
+    for i in range(2, len(dense), 2):
+        h = act(h).to(dt).float() @ dense[i].float().t() + dense[i + 1].float()
     mu = h.mean(-1, keepdim=True)
     var = ((h - mu) ** 2).mean(-1, keepdim=True)
     hn = ((h - mu) * torch.rsqrt(var + 1e-6)).to(dt)
@@ -125,14 +144,17 @@ def gnn_conv(
     _require(x_src.shape[0] == batch and x_src.shape[2] == c, f"x_src shape {tuple(x_src.shape)}")
     _require(e.shape == (batch, num_edges, c), f"e shape {tuple(e.shape)} != ({batch}, {num_edges}, {c})")
     w0, b0, w1, b1, w2, b2, gamma, beta = ops
-    _require(w0.shape == (3 * c, c) and w1.shape == (c, c) and w2.shape == (c, c),
-             f"weights {tuple(w0.shape)}, {tuple(w1.shape)}, {tuple(w2.shape)} for C={c}")
+    _require(w0.shape == (c, 3 * c) and w1.shape == (c, c) and w2.shape == (c, c),
+             f"weights {tuple(w0.shape)}, {tuple(w1.shape)}, {tuple(w2.shape)} for C={c} (torch Linear layout)")
     _require(all(t.shape == (c,) for t in (b0, b1, b2, gamma, beta)), "biases and LayerNorm affine must be (C,)")
     _require_contiguous(x_dst=x_dst, x_src=x_src, e=e, rowptr=rowptr, src=src, w0=w0, b0=b0, w1=w1,
                         b1=b1, w2=w2, b2=b2, gamma=gamma, beta=beta)
-    _require(all(t.data_ptr() % 16 == 0 for t in (x_dst, x_src, e, w0, w1, w2)), "rows must be 16-byte aligned")
+    _require(all(t.data_ptr() % 16 == 0 for t in (x_dst, x_src, e, *ops)), "rows must be 16-byte aligned")
     msg = torch.empty_like(e)
     agg = torch.empty((batch, nd, c), dtype=torch.float32, device=e.device)
+    # the pre-pass's fp32 per-node tables, scratch of this call
+    p_dst = torch.empty((batch, nd, c), dtype=torch.float32, device=e.device)
+    p_src = torch.empty((batch, ns, c), dtype=torch.float32, device=e.device)
     from anemoi_models_tpu_torch.ops.kernels import load_kernels
 
     lib = load_kernels()
@@ -141,12 +163,42 @@ def gnn_conv(
         stream = torch.cuda.current_stream(e.device).cuda_stream
         rc = fn(
             x_dst.data_ptr(), x_src.data_ptr(), e.data_ptr(), rowptr.data_ptr(), src.data_ptr(),
-            *(t.data_ptr() for t in ops), msg.data_ptr(), agg.data_ptr(),
+            *(t.data_ptr() for t in ops), p_dst.data_ptr(), p_src.data_ptr(), msg.data_ptr(), agg.data_ptr(),
             batch, nd, ns, num_edges, c, code, stream,
         )
     _check_launch(rc, "gnn_conv")
     LAUNCHES["gnn_conv"] += 1
     return agg, msg
+
+
+def gnn_prepass(x_dst: torch.Tensor, x_src: torch.Tensor, w0: torch.Tensor,
+                b0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The pre-pass that :func:`gnn_conv` launches first, alone, on the card:
+    :func:`node_products` of (B, N, C) rows in fp32 or bf16 through
+    ``csrc/gnn_conv.cu``'s ``gnn_prepass_*`` (one launch, counted in
+    :data:`LAUNCHES`). For timing it apart from the message kernel and for
+    holding it against :func:`node_products`; no model path calls it."""
+    _require(x_dst.is_cuda, "gnn_prepass runs on the card only; node_products is its plain version")
+    dt = x_dst.dtype
+    _require(dt in _DTYPES and all(t.dtype == dt for t in (x_src, w0, b0)), "x_dst, x_src, w0, b0 must share fp32|bf16")
+    batch, nd, c = x_dst.shape
+    _require(c in _WIDTHS and w0.shape == (c, 3 * c) and b0.shape == (c,) and x_src.shape[::2] == (batch, c),
+             f"shapes {tuple(x_dst.shape)}, {tuple(x_src.shape)}, {tuple(w0.shape)}")
+    _require_contiguous(x_dst=x_dst, x_src=x_src, w0=w0, b0=b0)
+    ns = x_src.shape[1]
+    p_dst = torch.empty((batch, nd, c), dtype=torch.float32, device=x_dst.device)
+    p_src = torch.empty((batch, ns, c), dtype=torch.float32, device=x_dst.device)
+    from anemoi_models_tpu_torch.ops.kernels import load_kernels
+
+    lib = load_kernels()
+    fn = lib.gnn_prepass_bf16 if dt == torch.bfloat16 else lib.gnn_prepass_f32
+    with torch.cuda.device(x_dst.device):
+        stream = torch.cuda.current_stream(x_dst.device).cuda_stream
+        rc = fn(x_dst.data_ptr(), x_src.data_ptr(), w0.data_ptr(), b0.data_ptr(), p_dst.data_ptr(),
+                p_src.data_ptr(), batch * nd, batch * ns, c, stream)
+    _check_launch(rc, "gnn_prepass")
+    LAUNCHES["gnn_prepass"] += 1
+    return p_dst, p_src
 
 
 class GNNConv(torch.autograd.Function):

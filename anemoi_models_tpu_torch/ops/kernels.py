@@ -40,13 +40,15 @@ _L = ctypes.c_int64
 _F = ctypes.c_float
 _SIGNATURES = {
     "kv_proj_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "kv_proj_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "kv_proj_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "edge_attn_csr_f32": [_P] * 9 + [_I] * 6 + [_P],
     "edge_attn_csr_bf16": [_P] * 9 + [_I] * 6 + [_P],
     "edge_attn_csr_bwd_f32": [_P] * 20 + [_I] * 8 + [_P],
     "edge_attn_csr_bwd_bf16": [_P] * 20 + [_I] * 8 + [_P],
-    "gnn_conv_f32": [_P] * 15 + [_I] * 6 + [_P],
-    "gnn_conv_bf16": [_P] * 15 + [_I] * 6 + [_P],
+    "gnn_conv_f32": [_P] * 17 + [_I] * 6 + [_P],
+    "gnn_conv_bf16": [_P] * 17 + [_I] * 6 + [_P],
+    "gnn_prepass_f32": [_P] * 6 + [_I] * 3 + [_P],
+    "gnn_prepass_bf16": [_P] * 6 + [_I] * 3 + [_P],
     "flash_attn_f32": [_P] * 4 + [_I] * 4 + [_L] * 6 + [_I, _I, _F, _P],
     "flash_attn_bf16": [_P] * 4 + [_I] * 4 + [_L] * 6 + [_I, _I, _F, _P],
 }

@@ -3,11 +3,14 @@
 Builds the port's CUDA kernels from ``anemoi_models_tpu_torch/csrc``, then:
 
 1. holds each forward kernel against its plain PyTorch version on the card,
-   at the shapes of the O96 / refinement-5 main path (kv_proj on the
-   processor's 10,242 nodes; edge_attn_csr on the real processor, encoder and
-   decoder edge sets; a case with destinations that have no edge), fp32
-   within atol = rtol = 1e-5 (only the summation order differs) and bf16
-   within 2e-2, and times both with CUDA events;
+   at the shapes of the O96 / refinement-5 main path (kv_proj on the mesh's
+   10,242 nodes and the grid's 40,320, two calls bit-identical, with
+   torch.addmm as its library call; edge_attn_csr on the real processor,
+   encoder and decoder edge sets; a case with destinations that have no
+   edge), fp32 within atol = rtol = 1e-5 (only the summation order differs)
+   and bf16 within 2e-2, and times both with CUDA events around launches
+   queued behind a device sleep (kernel_turns.cuda_ms: device time, not the
+   host's issue rate), and each wrapper's host microseconds per call;
 2. holds the backward kernel (edge_attn_csr_bwd) against its plain version at
    the same three edge sets and the dead-destination case, in fp32 and bf16:
    ``max |kernel - plain| <= 1e-4 * max(1, max |plain|)`` per output (both
@@ -31,7 +34,9 @@ Builds the port's CUDA kernels from ``anemoi_models_tpu_torch/csrc``, then:
    one step with ``remat_policy="none"`` (10 of each);
 6. holds the GNN conv kernel (gnn_conv) against its plain version at the
    three O96 edge sets (the processor's as a self-graph, the mappers'
-   bipartite) and the dead-destination set, two calls bit-identical: agg
+   bipartite) and the dead-destination set, its per-node pre-pass
+   (gnn_prepass) alone against node_products at fp32 1e-5 and timed apart,
+   two calls bit-identical: agg
    within 1e-5 of the plain sum of the kernel's own msg; msg and agg
    against plain within fp32 1e-5 (elementwise) and bf16 2e-2 (normwise,
    ``max |kernel - plain| <= 2e-2 * max(1, max |plain|)``: both round at the
@@ -50,8 +55,9 @@ Builds the port's CUDA kernels from ``anemoi_models_tpu_torch/csrc``, then:
    launches per step: 18 gnn_conv; or 16 flash_attention and 2 of each
    GraphTransformer mapper kernel).
 
-Prints the card's name and power limit, per-phase numbers, one JSON line
-``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``. Exits
+Prints the card's name and power limit, per-phase numbers, each wrapper's
+host microseconds per call (``host-us``), one JSON line ``{"kernels":
+[...]}`` and, last, ``{"ok": true, "device": {...}}``. Exits
 non-zero, with no result line, on any failure or when there is no card.
 
     python3 chip_smoke.py                      # what the checks need
@@ -81,9 +87,10 @@ from anemoi_models_tpu_torch.ops import kernels
 from anemoi_models_tpu_torch.ops.kernels import build_log, load_kernels
 from anemoi_models_tpu_torch.training import make_optimizer, make_train_step, weighted_mse
 from anemoi_models_tpu_torch.utils import DotDict
+from kernel_turns import card, cuda_ms, host_us
 
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
-    "kv_proj": ("anemoi_models_tpu_torch/csrc/edge_attention.cu",
+    "kv_proj": ("anemoi_models_tpu_torch/csrc/gemm_sm90.cuh",
                 "anemoi_models_tpu/ops/pallas/edge_attention.py:626"),  # _feats_kernel
     "edge_attn_csr": ("anemoi_models_tpu_torch/csrc/edge_attention.cu",
                       "anemoi_models_tpu/ops/pallas/edge_attention.py:626"),  # _feats_kernel
@@ -115,9 +122,9 @@ PEAK_FLOPS = {"bf16 tensor": 989e12, "fp32": 67e12}
 # device kernels of a profiled step, grouped by what they do (first match)
 PROFILE_KINDS = [
     ("edge_attn_csr_bwd (4 phases)", ("edge_attn_bwd_", "dw_reduce_kernel")),
-    ("gnn_conv (2 phases)", ("gnn_msg_kernel", "gnn_agg_kernel")),
+    ("gnn_conv (3 phases)", ("gnn_prepass_tag", "gnn_msg_", "gnn_agg_kernel")),
     ("flash_attention", ("flash_attn_kernel",)),
-    ("kv_proj", ("kv_proj_kernel",)),
+    ("kv_proj", ("kv_proj_tag",)),
     ("edge_attn_csr", ("edge_attn_csr_kernel",)),
     ("optimizer (multi-tensor)", ("multi_tensor", "lpnorm")),
     ("LayerNorm forward + backward", ("layer_norm", "GammaBeta")),
@@ -126,27 +133,6 @@ PROFILE_KINDS = [
     ("reductions", ("reduce_kernel",)),
     ("GELU forward + backward", ("Gelu",)),
 ]
-
-
-def card() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean ms per call from CUDA events over ``iters`` calls after warm-up."""
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def bound(nbytes: float, flops: float, peak: str) -> dict:
@@ -353,21 +339,27 @@ def phase_kernels(graph, dev) -> tuple[dict, list]:
             if shape.startswith("processor"):
                 s.update({"ms": ms, "plain_ms": plain_ms, **(extra or {})})
 
-    f32 = torch.randn(n_hidden, c, generator=gen)
+    # kv_proj at both main-path shapes: the processor's and decoder's source (the mesh) and the
+    # encoder's (the grid), K = 256, N = 512; two calls bit-identical; torch.addmm as library_ms
     w32 = torch.randn(2 * c, c, generator=gen) * c ** -0.5
     b32 = torch.randn(2 * c, generator=gen) * 0.1
-    for dt in (torch.float32, torch.bfloat16):
-        f, w, b = f32.to(dev, dt), w32.to(dev, dt), b32.to(dev)
-        got, want = ea.kv_proj(f, w, b), ea.kv_proj_plain(f, w, b)
-        torch.cuda.synchronize()
-        err = max_err(got, want, TOL[dt], f"kv_proj {dt}")
-        nbytes = (f.numel() + w.numel() + got.numel()) * f.element_size() + b.numel() * 4
-        peak = "bf16 tensor" if dt == torch.bfloat16 else "fp32"
-        b_dt = b.to(dt)
-        extra = {**bound(nbytes, 2.0 * n_hidden * 2 * c * c, peak),
-                 "library_ms": cuda_ms(lambda: torch.addmm(b_dt, f, w.t()))}
-        record("kv_proj", f"processor {n_hidden}x{c} . {c}x{2 * c}", dt, err,
-               cuda_ms(lambda: ea.kv_proj(f, w, b)), cuda_ms(lambda: ea.kv_proj_plain(f, w, b)), extra)
+    for label, m in (("processor", n_hidden), ("encoder", graph["data"].num_nodes)):
+        f32 = torch.randn(m, c, generator=gen)
+        for dt in (torch.float32, torch.bfloat16):
+            f, w, b = f32.to(dev, dt), w32.to(dev, dt), b32.to(dev)
+            got, again, want = ea.kv_proj(f, w, b), ea.kv_proj(f, w, b), ea.kv_proj_plain(f, w, b)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"kv_proj {label} {dt}: two calls differ (not run-to-run deterministic)")
+            err = max_err(got, want, TOL[dt], f"kv_proj {label} {dt}")
+            nbytes = (f.numel() + w.numel() + got.numel()) * f.element_size() + b.numel() * 4
+            peak = "bf16 tensor" if dt == torch.bfloat16 else "fp32"
+            b_dt = b.to(dt)
+            extra = {**bound(nbytes, 2.0 * m * 2 * c * c, peak), "bit_identical": True,
+                     "library_ms": cuda_ms(lambda: torch.addmm(b_dt, f, w.t())),
+                     "host_us": host_us(lambda: ea.kv_proj(f, w, b))}
+            record("kv_proj", f"{label} {m}x{c} . {c}x{2 * c}", dt, err,
+                   cuda_ms(lambda: ea.kv_proj(f, w, b)), cuda_ms(lambda: ea.kv_proj_plain(f, w, b)), extra)
 
     for label in ("processor", "encoder", "decoder"):
         case = edge_case(graph, label, dev, gen, c)
@@ -379,7 +371,8 @@ def phase_kernels(graph, dev) -> tuple[dict, list]:
             torch.cuda.synchronize()
             err = max(max_err(g, w_, TOL[dt], f"edge_attn_csr {label} {dt} {n}")
                       for g, w_, n in zip(got, want, ("num", "den", "m")))
-            extra = {**attn_bounds(case, c, h, dt)[0], "library_ms": None}
+            extra = {**attn_bounds(case, c, h, dt)[0], "library_ms": None,
+                     "host_us": host_us(lambda: ea.edge_attn_csr(q, kv, rp, sr, a, wa, h))}
             record("edge_attn_csr", f"{label} E={case['num_edges']} Nd={case['nd']} Ns={case['ns']}", dt, err,
                    cuda_ms(lambda: ea.edge_attn_csr(q, kv, rp, sr, a, wa, h)),
                    cuda_ms(lambda: ea.edge_attn_csr_plain(q, kv, rp, sr, a, wa, h), iters=5), extra)
@@ -434,13 +427,14 @@ def phase_backward_kernels(graph, dev) -> tuple[dict, list]:
             if keep is None:
                 row.update({
                     "ms": cuda_ms(lambda: ea.edge_attn_csr_bwd(*args, csr_t)),
+                    "host_us": host_us(lambda: ea.edge_attn_csr_bwd(*args, csr_t), iters=20),
                     "plain_ms": cuda_ms(lambda: ea.edge_attn_csr_bwd_plain(*args), iters=3, warmup=1),
                     **attn_bounds(case, c, h, dt)[1], "library_ms": None,
                 })
             if dt == torch.bfloat16:
                 bf16_err = max(bf16_err, abs_err)
                 if label == "processor" and keep is None:
-                    summary = {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                    summary = {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_us")}
             rows.append(row)
     return {**summary, "max_abs_err": bf16_err}, rows
 
@@ -524,13 +518,23 @@ def phase_gnn_kernels(graph, dev) -> tuple[dict, list]:
                     raise AssertionError(f"{what}: dead destinations aggregate non-zero")
                 row["dead_destinations"] = int(dead.sum())
             else:
+                # the per-node pre-pass alone (gnn_conv launches it first), against its plain version
+                pre = gc.gnn_prepass(xd, xs, ops[0], ops[1])
+                pre_want = gc.node_products(xd, xs, ops[0], ops[1])
+                torch.cuda.synchronize()
+                for g, w_, n in zip(pre, pre_want, ("P_dst", "P_src")):
+                    max_err(g, w_, TOL[torch.float32], f"{what} pre-pass {n}")
                 row.update({"ms": cuda_ms(lambda: gc.gnn_conv(*args)),
                             "plain_ms": cuda_ms(lambda: gc.gnn_conv_plain(*args), iters=3, warmup=1),
-                            **gnn_bound(case, c, dt), "library_ms": None})
+                            **gnn_bound(case, c, dt), "library_ms": None,
+                            "host_us": host_us(lambda: gc.gnn_conv(*args), iters=20),
+                            "prepass_ms": cuda_ms(lambda: gc.gnn_prepass(xd, xs, ops[0], ops[1])),
+                            "prepass_plain_ms": cuda_ms(lambda: gc.node_products(xd, xs, ops[0], ops[1]))})
             if dt == torch.bfloat16:
                 bf16_err = max(bf16_err, err)
                 if label == "processor" and keep is None:
-                    summary = {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                    summary = {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_us",
+                                                  "prepass_ms")}
             rows.append(row)
     return {**summary, "max_abs_err": bf16_err}, rows
 
@@ -574,7 +578,8 @@ def phase_flash_kernels(dev, n0: int = 10242, w0: int = 512) -> tuple[dict, list
             if dt == torch.bfloat16:
                 bf16_err = max(bf16_err, err)
                 if n == n0 and window == w0 and not causal:
-                    summary = {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                    row["host_us"] = host_us(lambda: fa.flash_attention(q, k, v, window, causal))
+                    summary = {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_us")}
             rows.append(row)
     return {**summary, "max_abs_err": bf16_err}, rows
 
@@ -826,6 +831,7 @@ def main() -> None:
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was not launched on its train path")
+    print("host-us", json.dumps({k["name"]: summary[k["name"]]["host_us"] for k in kernels}))
     print(name_power)  # as nvidia-smi prints it: name, power limit
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

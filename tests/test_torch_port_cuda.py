@@ -59,21 +59,61 @@ def _normwise(got, want):
     return (got.float() - want.float()).abs().max().item() / max(1.0, want.abs().max().item())
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(1000, 64, 128), (257, 40, 96)])
-def test_kv_proj_matches_plain(dev, dtype, shape):
+KV_SHAPES = [(1000, 64, 128), (257, 40, 96)] + [(m, k, 512) for m in (1, 63, 10242, 40320) for k in (40, 256)]
+
+
+@pytest.mark.parametrize("dtype,out_dtype", [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+                                             (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("shape", KV_SHAPES)
+def test_kv_proj_matches_plain(dev, dtype, out_dtype, shape):
+    """The Hopper GEMM (wgmma + TMA in bf16, the CUDA cores in fp32) against
+    its plain version, ragged M, N and K included; two calls bit-identical."""
     m, k, n = shape
     gen = torch.Generator().manual_seed(0)
     f = torch.randn(m, k, generator=gen).to(dev, dtype)
     w = (torch.randn(n, k, generator=gen) * k ** -0.5).to(dev, dtype)
     b = torch.randn(n, generator=gen).to(dev)
     before = ea.LAUNCHES["kv_proj"]
-    got = ea.kv_proj(f, w, b)
-    assert ea.LAUNCHES["kv_proj"] == before + 1
-    want = ea.kv_proj_plain(f, w, b)
+    got = ea.kv_proj(f, w, b, out_dtype)
+    again = ea.kv_proj(f, w, b, out_dtype)
+    assert ea.LAUNCHES["kv_proj"] == before + 2
+    want = ea.kv_proj_plain(f, w, b, out_dtype)
     torch.cuda.synchronize()
-    assert got.dtype == dtype
-    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    assert torch.equal(got, again), "two calls differ"
+    tol = TOL[out_dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_kv_proj_rejects_misaligned_rows(dev):
+    f = torch.randn(64, 36, device=dev).bfloat16()  # 72-byte rows
+    w = torch.randn(128, 36, device=dev).bfloat16()
+    with pytest.raises(ValueError, match="16-byte"):
+        ea.kv_proj(f, w, torch.zeros(128, device=dev))
+    flat = torch.randn(64 * 64 + 1, device=dev).bfloat16()
+    with pytest.raises(ValueError, match="16-byte"):
+        ea.kv_proj(flat[1:].view(64, 64), torch.randn(128, 64, device=dev).bfloat16(), torch.zeros(128, device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels", [32, 64, 128, 256])
+def test_gnn_prepass_matches_node_products(dev, graph, dtype, channels):
+    """The GNN conv's per-node pre-pass (one launch, two products) against
+    its plain version, on a bipartite set's node counts."""
+    gen = torch.Generator().manual_seed(5)
+    nd, ns, c = graph["hidden"].num_nodes, graph["data"].num_nodes, channels
+    x_dst = torch.randn(2, nd, c, generator=gen).to(dev, dtype)
+    x_src = torch.randn(2, ns, c, generator=gen).to(dev, dtype)
+    w0 = (torch.randn(c, 3 * c, generator=gen) * (3 * c) ** -0.5).to(dev, dtype)
+    b0 = torch.randn(c, generator=gen).to(dev, dtype)
+    before = gc.LAUNCHES["gnn_prepass"]
+    got = gc.gnn_prepass(x_dst, x_src, w0, b0)
+    assert gc.LAUNCHES["gnn_prepass"] == before + 1
+    want = gc.node_products(x_dst, x_src, w0, b0)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        torch.testing.assert_close(g, w, atol=TOL[torch.float32], rtol=TOL[torch.float32])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
