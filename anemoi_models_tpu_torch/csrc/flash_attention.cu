@@ -1,119 +1,367 @@
-// Hopper (sm_90a) kernel for band-masked (sliding-window) flash attention.
+// Hopper (sm_90a) kernels for band-masked (sliding-window) flash attention.
 //
 // Replaces anemoi_models_tpu/ops/pallas/flash_attention.py:_flash_kernel, the
 // TPU kernel of the Transformer processor flavor: per (batch*head, q-block) a
 // sequential grid axis walked the k-blocks of the window with an online
 // softmax in VMEM scratch. On Hopper the CTAs run in parallel and in no order,
-// so the k-loop is a loop inside the CTA:
+// so the k-loop is a loop inside the CTA. Both kernels walk only the key
+// blocks that intersect [q0 - w, q1 - 1 + w] (every block when there is no
+// window; none past q1 - 1 when causal), mask |i - j| <= w, j <= i (causal)
+// and the ragged end of the sequence, and keep the running max m, sum l and
+// output rows in fp32 registers. Masked logits count as -1e30 with zero
+// weight; the output is acc / max(l, 1e-30), as the TPU kernel divides.
 //
-//   flash_attn  one CTA per (q-block of 64 queries, batch*head). It walks only
-//               the 64-key blocks that intersect [q0 - w, q1 - 1 + w] (every
-//               block when there is no window; none past q1 - 1 when causal),
-//               masks |i - j| <= w, j <= i (causal) and the ragged end of the
-//               sequence per element, and keeps the running max m, sum l and
-//               output rows in fp32 registers. Masked logits count as -1e30
-//               with zero weight; the output is acc / max(l, 1e-30), as the TPU
-//               kernel divides.
+// flash_attn_bf16_kernel (bf16, every head width 16, 32, 64, 128), in the
+// style of FlashAttention-3, specialised by warp:
+//   - one CTA per (128 queries, batch*head): warps 0-7 are two consumer
+//     warpgroups of 64 query rows each, warp 8 the producer;
+//   - the producer's lane 0 copies the CTA's Q tile once and the K and V tiles
+//     of each key block into a ring of stages by TMA (4-D tensor maps over the
+//     strided (batch, head, position, channel) views: q, k and v may be the
+//     column blocks of one fused projection), each stage guarded by a "full"
+//     mbarrier (bytes landed) and an "empty" one (all 256 consumer threads
+//     done with it);
+//   - S = Q . K^T by wgmma.mma_async m64nBNk16 from shared memory (128-, 64-
+//     or 32-byte swizzle, the TMA's), the fp32 accumulator in registers;
+//   - the online softmax runs in the accumulator's register layout (each row
+//     lives on the four lanes of a quad), with exp2 and scale * log2(e)
+//     folded into one fmaf; only blocks that straddle the band's edges, the
+//     causal diagonal or the ragged end evaluate the mask, interior blocks
+//     take none, and blocks outside a warpgroup's band are skipped;
+//   - P is rounded to bf16 in registers and fed to O += P . V as the register
+//     A operand of wgmma (the accumulator layout is the A-fragment layout), V
+//     read MN-major from its row-major tile (imm-trans-b); O stays in
+//     registers and is rescaled there;
+//   - the output goes through a padded shared-memory tile and out in 16-byte
+//     stores.
+// Key blocks are 128 wide (64 for D = 128, where S, O and P would not fit a
+// thread's registers), 3 stages (2 for D = 128).
 //
-// q, k and v are read by stride (batch, head, position; the channel stride is
-// 1), so the caller can pass the three column blocks of a fused [q | k | v]
-// projection without copies; the output is written by stride too.
+// flash_attn_f32_kernel (fp32): exact fp32 on the CUDA cores, one CTA per 64
+// queries and (batch*head), two lanes a query row, K and V staged through
+// shared memory one block at a time.
 //
 // Bound on the H100: operations. At O96 (B*H = 4, N = 10,242, D = 64,
 // w = 512) about 1,025 keys per query live in the band: 4 * B*H * N * 1,025 *
 // D = 10.7 GFLOP per layer, 0.011 ms at the bf16 tensor-core peak, against
-// 21 MB of q, k, v and o (0.006 ms). This first version runs Q.K^T and P.V on
-// the tensor cores through nvcuda::wmma (bf16 16x16x16 fragments, fp32
-// accumulate) with the K/V tiles staged through shared memory one block at a
-// time (no cp.async pipeline); fp32 inputs take the CUDA cores. wgmma with a
-// TMA-fed ring of tiles is later work.
+// 21 MB of q, k, v and o (0.006 ms).
 //
 // Every entry point has a plain C interface, launches on the stream it is
 // given, allocates nothing and returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include "gemm_sm90.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
-
-constexpr int kBM = 64;       // queries per CTA, 16 per warp
-constexpr int kBN = 64;       // keys per block
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
 constexpr float kNeg = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+// ---------------------------------------------------------------------------
+// bf16: wgmma + TMA
+// ---------------------------------------------------------------------------
 
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16(x); }
-
-template <typename T, int D>
-struct FlashLayout {
-  static constexpr int kPad = 16 / sizeof(T);  // one 16-byte vector per row
-  static constexpr int kLdT = D + kPad;        // Q, K, V tile rows
-  static constexpr int kLdP = kBN + kPad;      // P rows
-  static constexpr int kLdS = (kBN > D ? kBN : D) + 4;  // fp32 staging rows
-  static constexpr size_t kTile = (size_t)kBM * kLdT * sizeof(T);
-  static constexpr size_t kS = (size_t)kWarps * 16 * kLdS * sizeof(float);
-  static constexpr size_t kP = (size_t)kWarps * 16 * kLdP * sizeof(T);
-  static constexpr size_t kBytes = 3 * kTile + kS + kP;
+template <int D>
+struct Flash {
+  static constexpr int kBM = 128;                   // queries per CTA
+  static constexpr int kBN = D <= 64 ? 128 : 64;    // keys per block
+  static constexpr int kStages = D <= 64 ? 3 : 2;
+  static constexpr int kSw = D >= 64 ? 128 : 2 * D;  // swizzle bytes = bytes of a box row
+  static constexpr int kBoxCols = kSw / 2;           // bf16 columns per TMA box
+  static constexpr int kBoxes = D / kBoxCols;        // boxes across D (2 for D = 128)
+  static constexpr int kConsumers = 256;             // two warpgroups
+  static constexpr int kThreads = kConsumers + 32;   // and the producer warp
+  static constexpr int kQBox = kBM * kSw;            // bytes of one Q box
+  static constexpr int kKVBox = kBN * kSw;           // bytes of one K or V box
+  static constexpr int kQBytes = kBoxes * kQBox;
+  static constexpr int kKVBytes = kBoxes * kKVBox;   // one K (or V) tile
+  static constexpr int kStage = 2 * kKVBytes;
+  static constexpr int kLdO = D + 8;                 // padded output rows (bf16)
+  static constexpr int kOOff = kQBytes + kStages * kStage;
+  static constexpr int kBarOff = kOOff + kBM * kLdO * 2;
+  static constexpr size_t kSmem = 1024 + kBarOff + 8 * (2 * kStages + 1);
 };
 
-// Copies rows [row0, row0 + 64) of one (N, D) head matrix, rows past N as 0.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int64_t sn, int row0, int n) {
-  using L = FlashLayout<T, D>;
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kPerRow = D / kVec;
-  for (int idx = threadIdx.x; idx < kBM * kPerRow; idx += kThreads) {
-    const int r = idx / kPerRow;
-    const int c = (idx % kPerRow) * kVec;
-    int4 val = make_int4(0, 0, 0, 0);
-    if (row0 + r < n) val = *reinterpret_cast<const int4*>(src + (int64_t)(row0 + r) * sn + c);
-    *reinterpret_cast<int4*>(dst + r * L::kLdT + c) = val;
+struct FlashMaps {
+  CUtensorMap q, k, v;  // (D, N, H, B) bf16, boxes of kBoxCols x rows
+};
+
+template <int D>
+__global__ void __launch_bounds__(Flash<D>::kThreads, 1)
+flash_attn_bf16_kernel(const __grid_constant__ FlashMaps maps, bf16* __restrict__ o, int H, int N, int64_t ob,
+                       int64_t oh, int64_t on, int window, int causal, float scale) {
+  using F = Flash<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = sm90::align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + F::kBarOff);
+  uint64_t* empty = full + F::kStages;
+  uint64_t* qbar = empty + F::kStages;
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * F::kBM;
+  const int bh = blockIdx.y;
+  const int bidx = bh / H, hidx = bh % H;
+
+  int lo = 0, hi = N - 1;  // the keys this CTA can see
+  const int q1 = min(q0 + F::kBM, N) - 1;
+  if (window >= 0) {
+    lo = max(0, q0 - window);
+    hi = min(N - 1, q1 + window);
+  }
+  if (causal) hi = min(hi, q1);
+  const int kb0 = lo / F::kBN;
+  const int nblocks = hi / F::kBN - kb0 + 1;
+
+  if (tid == 0) {
+    for (int s = 0; s < F::kStages; ++s) {
+      sm90::mbar_init(full + s, 1);
+      sm90::mbar_init(empty + s, F::kConsumers);
+    }
+    sm90::mbar_init(qbar, 1);
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= F::kConsumers) {  // the producer warp: lane 0 issues every copy
+    if (tid == F::kConsumers) {
+      sm90::mbar_expect_tx(qbar, F::kQBytes);
+      for (int x = 0; x < F::kBoxes; ++x)
+        sm90::tma_load_4d(smem + x * F::kQBox, &maps.q, qbar, x * F::kBoxCols, q0, hidx, bidx);
+      for (int i = 0; i < nblocks; ++i) {
+        const int s = i % F::kStages;
+        if (i >= F::kStages) sm90::mbar_wait(empty + s, ((i / F::kStages) - 1) & 1);
+        uint8_t* stage = smem + F::kQBytes + s * F::kStage;
+        const int k0 = (kb0 + i) * F::kBN;
+        sm90::mbar_expect_tx(full + s, F::kStage);
+        for (int x = 0; x < F::kBoxes; ++x) {
+          sm90::tma_load_4d(stage + x * F::kKVBox, &maps.k, full + s, x * F::kBoxCols, k0, hidx, bidx);
+          sm90::tma_load_4d(stage + F::kKVBytes + x * F::kKVBox, &maps.v, full + s, x * F::kBoxCols, k0, hidx,
+                            bidx);
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: 64 query rows
+  const int wg = tid / 128;
+  const int t = tid % 128;
+  const int lane = t % 32;
+  const int r0 = q0 + 64 * wg;                              // the warpgroup's first row
+  const int rowa = r0 + 16 * (t / 32) + lane / 4;           // this thread's rows: rowa, rowa + 8
+  const float sl2 = scale * kLog2e;
+
+  constexpr int kS = F::kBN / 2;  // S accumulator registers
+  constexpr int kO = D / 2;       // O accumulator registers
+  float sacc[kS], oacc[kO];
+#pragma unroll
+  for (int i = 0; i < kO; ++i) oacc[i] = 0.f;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+
+  const uint8_t* q_tile = smem + 64 * wg * F::kSw;  // this warpgroup's rows of box 0
+  sm90::mbar_wait(qbar, 0);
+
+  for (int i = 0; i < nblocks; ++i) {
+    const int s = i % F::kStages;
+    const uint8_t* k_tile = smem + F::kQBytes + s * F::kStage;
+    const uint8_t* v_tile = k_tile + F::kKVBytes;
+    const int k0 = (kb0 + i) * F::kBN;
+    const int k1 = k0 + F::kBN - 1;
+    // what this warpgroup's 64 rows need of the block
+    bool dead = r0 >= N;
+    bool masked = k1 >= N;
+    if (window >= 0) {
+      dead = dead || k0 > r0 + 63 + window || k1 < r0 - window;
+      masked = masked || k1 - r0 > window || r0 + 63 - k0 > window;
+    }
+    if (causal) {
+      dead = dead || k0 > r0 + 63;
+      masked = masked || k1 > r0;
+    }
+    sm90::mbar_wait(full + s, (i / F::kStages) & 1);
+    if (!dead) {
+      // S = Q . K^T
+      sm90::fence_regs<kS>(sacc);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int box = kk * 16 / F::kBoxCols;
+        const int off = (kk * 16 % F::kBoxCols) * 2;
+        sm90::Wgmma<F::kBN>::mma(sacc, sm90::make_desc<F::kSw>(q_tile + box * F::kQBox + off),
+                                 sm90::make_desc<F::kSw>(k_tile + box * F::kKVBox + off), kk > 0);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait_all();
+      sm90::fence_regs<kS>(sacc);
+
+      // register r: row rowa + 8 ((r / 2) % 2), key k0 + 8 (r / 4) + 2 (lane % 4) + r % 2
+      if (masked) {
+#pragma unroll
+        for (int r = 0; r < kS; ++r) {
+          const int qi = rowa + 8 * ((r / 2) % 2);
+          const int kj = k0 + 8 * (r / 4) + 2 * (lane % 4) + (r % 2);
+          bool live = kj < N;
+          if (window >= 0) live = live && abs(qi - kj) <= window;
+          if (causal) live = live && kj <= qi;
+          if (!live) sacc[r] = kNeg;
+        }
+      }
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int r = 0; r < kS; ++r) mx[(r / 2) % 2] = fmaxf(mx[(r / 2) % 2], sacc[r]);
+      float corr[2], msc[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        corr[h] = exp2f((m[h] - mx[h]) * sl2);
+        msc[h] = mx[h] * sl2;
+        m[h] = mx[h];
+      }
+      uint32_t pf[F::kBN / 16][4];  // P in bf16, as the A fragments of P . V
+      float ls[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < kS; r += 2) {
+        const int h = (r / 2) % 2;
+        float p0 = exp2f(fmaf(sacc[r], sl2, -msc[h]));
+        float p1 = exp2f(fmaf(sacc[r + 1], sl2, -msc[h]));
+        if (masked) {
+          p0 = sacc[r] > 0.5f * kNeg ? p0 : 0.f;
+          p1 = sacc[r + 1] > 0.5f * kNeg ? p1 : 0.f;
+        }
+        ls[h] += p0 + p1;
+        const __nv_bfloat162 pair = __floats2bfloat162_rn(p0, p1);
+        pf[r / 8][(r % 8) / 2] = *reinterpret_cast<const uint32_t*>(&pair);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) l[h] = fmaf(l[h], corr[h], ls[h]);
+#pragma unroll
+      for (int r = 0; r < kO; ++r) oacc[r] *= corr[(r / 2) % 2];
+
+      // O += P . V, V MN-major
+      sm90::fence_regs<kO>(oacc);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < F::kBN / 16; ++kk)
+        sm90::WgmmaRS<D>::mma(oacc, pf[kk], sm90::make_desc_mn_bits(v_tile + kk * 16 * F::kSw, F::kSw, F::kKVBox), 1);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait_all();
+      sm90::fence_regs<kO>(oacc);
+    }
+    sm90::mbar_arrive(empty + s);
+  }
+
+  // epilogue: O / max(l, 1e-30) in bf16 through a padded shared tile, out in 16-byte stores
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float lt = l[h] + __shfl_xor_sync(0xffffffffu, l[h], 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    inv[h] = 1.f / fmaxf(lt, 1e-30f);
+  }
+  bf16* otile = reinterpret_cast<bf16*>(smem + F::kOOff) + 64 * wg * F::kLdO;
+  const int orow = 16 * (t / 32) + lane / 4;
+#pragma unroll
+  for (int r = 0; r < kO; r += 2) {
+    const int h = (r / 2) % 2;
+    const int col = 8 * (r / 4) + 2 * (lane % 4);
+    *reinterpret_cast<__nv_bfloat162*>(otile + (orow + 8 * h) * F::kLdO + col) =
+        __floats2bfloat162_rn(oacc[r] * inv[h], oacc[r + 1] * inv[h]);
+  }
+  sm90::named_barrier(1 + wg, 128);
+  bf16* out = o + (int64_t)bidx * ob + (int64_t)hidx * oh;
+  constexpr int kChunks = D / 8;  // 16-byte chunks a row
+  for (int idx = t; idx < 64 * kChunks; idx += 128) {
+    const int r = idx / kChunks;
+    const int c = (idx % kChunks) * 8;
+    if (r0 + r < N)
+      *reinterpret_cast<int4*>(out + (int64_t)(r0 + r) * on + c) =
+          *reinterpret_cast<const int4*>(otile + r * F::kLdO + c);
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                  T* __restrict__ o, int H, int N, int64_t sb, int64_t sh, int64_t sn, int64_t ob,
-                  int64_t oh, int64_t on, int window, int causal, float scale) {
-  using L = FlashLayout<T, D>;
-  constexpr bool kTensor = std::is_same<T, bf16>::value;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem);
-  T* Ks = reinterpret_cast<T*>(smem + L::kTile);
-  T* Vs = reinterpret_cast<T*>(smem + 2 * L::kTile);
-  float* Sw = reinterpret_cast<float*>(smem + 3 * L::kTile) + (threadIdx.x / 32) * 16 * L::kLdS;
-  T* Pw = reinterpret_cast<T*>(smem + 3 * L::kTile + L::kS) + (threadIdx.x / 32) * 16 * L::kLdP;
+template <int D>
+int launch_flash_bf16(const void* q, const void* k, const void* v, void* o, int B, int H, int N, int64_t sb,
+                      int64_t sh, int64_t sn, int64_t ob, int64_t oh, int64_t on, int window, int causal,
+                      float scale, cudaStream_t stream) {
+  using F = Flash<D>;
+  FlashMaps maps;
+  const int64_t dims[4] = {D, N, H, B};
+  const int64_t strides[3] = {sn, sh, sb};
+  int rc = sm90::make_map_bf16_4d(&maps.q, q, dims, strides, F::kBM, F::kBoxCols);
+  if (rc == 0) rc = sm90::make_map_bf16_4d(&maps.k, k, dims, strides, F::kBN, F::kBoxCols);
+  if (rc == 0) rc = sm90::make_map_bf16_4d(&maps.v, v, dims, strides, F::kBN, F::kBoxCols);
+  if (rc != 0) return rc;
+  auto kernel = flash_attn_bf16_kernel<D>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(F::kSmem));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid((N + F::kBM - 1) / F::kBM, B * H);
+  kernel<<<grid, F::kThreads, F::kSmem, stream>>>(maps, static_cast<bf16*>(o), H, N, ob, oh, on, window, causal,
+                                                  scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// fp32: the CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int kF32BM = 64;  // queries per CTA, 16 per warp, two lanes a row
+constexpr int kF32BN = 64;  // keys per block
+constexpr int kF32Threads = 128;
+
+template <int D>
+struct F32Layout {
+  static constexpr int kLdT = D + 4;       // Q, K, V tile rows
+  static constexpr int kLdP = kF32BN + 4;  // P rows
+  static constexpr size_t kTile = (size_t)kF32BM * kLdT * sizeof(float);
+  static constexpr size_t kP = (size_t)kF32BM * kLdP * sizeof(float);
+  static constexpr size_t kBytes = 3 * kTile + kP;
+};
+
+// Copies rows [row0, row0 + 64) of one (N, D) head matrix, rows past N as 0.
+template <int D>
+__device__ __forceinline__ void load_tile_f32(float* dst, const float* src, int64_t sn, int row0, int n) {
+  using L = F32Layout<D>;
+  constexpr int kPerRow = D / 4;
+  for (int idx = threadIdx.x; idx < kF32BM * kPerRow; idx += kF32Threads) {
+    const int r = idx / kPerRow;
+    const int c = (idx % kPerRow) * 4;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < n) val = *reinterpret_cast<const float4*>(src + (int64_t)(row0 + r) * sn + c);
+    *reinterpret_cast<float4*>(dst + r * L::kLdT + c) = val;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kF32Threads)
+flash_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                      float* __restrict__ o, int H, int N, int64_t sb, int64_t sh, int64_t sn, int64_t ob,
+                      int64_t oh, int64_t on, int window, int causal, float scale) {
+  using L = F32Layout<D>;
+  extern __shared__ __align__(128) unsigned char smem_f32[];
+  float* Qs = reinterpret_cast<float*>(smem_f32);
+  float* Ks = reinterpret_cast<float*>(smem_f32 + L::kTile);
+  float* Vs = reinterpret_cast<float*>(smem_f32 + 2 * L::kTile);
+  float* Pw = reinterpret_cast<float*>(smem_f32 + 3 * L::kTile) + (threadIdx.x / 32) * 16 * L::kLdP;
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int r = lane >> 1;     // this lane's row within the warp's 16
   const int half = lane & 1;   // and which half of the keys / channels
-  const int q0 = blockIdx.x * kBM;
+  const int q0 = blockIdx.x * kF32BM;
   const int bh = blockIdx.y;
   const int64_t in_off = (int64_t)(bh / H) * sb + (int64_t)(bh % H) * sh;
   const int64_t out_off = (int64_t)(bh / H) * ob + (int64_t)(bh % H) * oh;
   const int qpos = q0 + warp * 16 + r;
 
-  load_tile<T, D>(Qs, q + in_off, sn, q0, N);
+  load_tile_f32<D>(Qs, q + in_off, sn, q0, N);
 
   int lo = 0, hi = N - 1;  // key range this CTA can see
-  const int q1 = min(q0 + kBM, N) - 1;
+  const int q1 = min(q0 + kF32BM, N) - 1;
   if (window >= 0) {
     lo = max(0, q0 - window);
     hi = min(N - 1, q1 + window);
@@ -125,53 +373,29 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
 #pragma unroll
   for (int c = 0; c < D / 2; ++c) acc[c] = 0.f;
 
-  for (int kb = lo / kBN; kb <= hi / kBN; ++kb) {
-    const int k0 = kb * kBN;
+  for (int kb = lo / kF32BN; kb <= hi / kF32BN; ++kb) {
+    const int k0 = kb * kF32BN;
     __syncthreads();  // the previous block's K and V are consumed
-    load_tile<T, D>(Ks, k + in_off, sn, k0, N);
-    load_tile<T, D>(Vs, v + in_off, sn, k0, N);
+    load_tile_f32<D>(Ks, k + in_off, sn, k0, N);
+    load_tile_f32<D>(Vs, v + in_off, sn, k0, N);
     __syncthreads();
 
-    // s = Q_w . K^T for this lane's 32 keys
-    float s[kBN / 2];
-    if constexpr (kTensor) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sf[kBN / 16];
+    // s = q_row . K^T for this lane's 32 keys
+    float s[kF32BN / 2];
 #pragma unroll
-      for (int j = 0; j < kBN / 16; ++j) wmma::fill_fragment(sf[j], 0.f);
+    for (int c = 0; c < kF32BN / 2; ++c) s[c] = 0.f;
+    const float* qrow = Qs + (warp * 16 + r) * L::kLdT;
+    for (int d = 0; d < D; ++d) {
+      const float qd = qrow[d];
 #pragma unroll
-      for (int kk = 0; kk < D; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, Qs + warp * 16 * L::kLdT + kk, L::kLdT);
-#pragma unroll
-        for (int j = 0; j < kBN / 16; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-          wmma::load_matrix_sync(b, Ks + j * 16 * L::kLdT + kk, L::kLdT);
-          wmma::mma_sync(sf[j], a, b, sf[j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kBN / 16; ++j)
-        wmma::store_matrix_sync(Sw + j * 16, sf[j], L::kLdS, wmma::mem_row_major);
-      __syncwarp();
-#pragma unroll
-      for (int c = 0; c < kBN / 2; ++c) s[c] = Sw[r * L::kLdS + half * (kBN / 2) + c];
-    } else {
-#pragma unroll
-      for (int c = 0; c < kBN / 2; ++c) s[c] = 0.f;
-      const T* qrow = Qs + (warp * 16 + r) * L::kLdT;
-      for (int d = 0; d < D; ++d) {
-        const float qd = to_f(qrow[d]);
-#pragma unroll
-        for (int c = 0; c < kBN / 2; ++c)
-          s[c] = fmaf(qd, to_f(Ks[(half * (kBN / 2) + c) * L::kLdT + d]), s[c]);
-      }
+      for (int c = 0; c < kF32BN / 2; ++c) s[c] = fmaf(qd, Ks[(half * (kF32BN / 2) + c) * L::kLdT + d], s[c]);
     }
 
     // online softmax over this block (two lanes per row)
     float mloc = kNeg;
 #pragma unroll
-    for (int c = 0; c < kBN / 2; ++c) {
-      const int kpos = k0 + half * (kBN / 2) + c;
+    for (int c = 0; c < kF32BN / 2; ++c) {
+      const int kpos = k0 + half * (kF32BN / 2) + c;
       bool live = kpos < N && qpos < N;
       if (window >= 0) live = live && abs(qpos - kpos) <= window;
       if (causal) live = live && kpos <= qpos;
@@ -182,12 +406,11 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
     const float m_new = fmaxf(m, mloc);
     const float corr = expf(m - m_new);
     float lsum = 0.f;
-    __syncwarp();  // every lane has read its logits out of Sw
 #pragma unroll
-    for (int c = 0; c < kBN / 2; ++c) {
+    for (int c = 0; c < kF32BN / 2; ++c) {
       const float p = s[c] > 0.5f * kNeg ? expf(s[c] - m_new) : 0.f;
       lsum += p;
-      Pw[r * L::kLdP + half * (kBN / 2) + c] = from_f<T>(p);
+      Pw[r * L::kLdP + half * (kF32BN / 2) + c] = p;
     }
     lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
     l = fmaf(l, corr, lsum);
@@ -195,84 +418,39 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
     __syncwarp();
 
     // acc = acc * corr + P . V over this lane's D / 2 channels
-    if constexpr (kTensor) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> of[D / 16];
 #pragma unroll
-      for (int j = 0; j < D / 16; ++j) wmma::fill_fragment(of[j], 0.f);
+    for (int c = 0; c < D / 2; ++c) acc[c] *= corr;
+    for (int j = 0; j < kF32BN; ++j) {
+      const float p = Pw[r * L::kLdP + j];
+      const float* vrow = Vs + j * L::kLdT + half * (D / 2);
 #pragma unroll
-      for (int kk = 0; kk < kBN; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, Pw + kk, L::kLdP);
-#pragma unroll
-        for (int j = 0; j < D / 16; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-          wmma::load_matrix_sync(b, Vs + kk * L::kLdT + j * 16, L::kLdT);
-          wmma::mma_sync(of[j], a, b, of[j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j)
-        wmma::store_matrix_sync(Sw + j * 16, of[j], L::kLdS, wmma::mem_row_major);
-      __syncwarp();
-#pragma unroll
-      for (int c = 0; c < D / 2; ++c)
-        acc[c] = fmaf(acc[c], corr, Sw[r * L::kLdS + half * (D / 2) + c]);
-      __syncwarp();  // Sw is free for the next block's logits
-    } else {
-#pragma unroll
-      for (int c = 0; c < D / 2; ++c) acc[c] *= corr;
-      for (int j = 0; j < kBN; ++j) {
-        const float p = to_f(Pw[r * L::kLdP + j]);
-        const T* vrow = Vs + j * L::kLdT + half * (D / 2);
-#pragma unroll
-        for (int c = 0; c < D / 2; ++c) acc[c] = fmaf(p, to_f(vrow[c]), acc[c]);
-      }
-      __syncwarp();
+      for (int c = 0; c < D / 2; ++c) acc[c] = fmaf(p, vrow[c], acc[c]);
     }
+    __syncwarp();
   }
 
   if (qpos < N) {
     const float inv = 1.f / fmaxf(l, 1e-30f);
-    T* orow = o + out_off + (int64_t)qpos * on + half * (D / 2);
+    float* orow = o + out_off + (int64_t)qpos * on + half * (D / 2);
 #pragma unroll
-    for (int c = 0; c < D / 2; ++c) orow[c] = from_f<T>(acc[c] * inv);
+    for (int c = 0; c < D / 2; ++c) orow[c] = acc[c] * inv;
   }
 }
 
-template <typename T, int D>
-int launch_flash_d(const void* q, const void* k, const void* v, void* o, int BH, int H, int N,
-                   int64_t sb, int64_t sh, int64_t sn, int64_t ob, int64_t oh, int64_t on,
-                   int window, int causal, float scale, cudaStream_t stream) {
-  using L = FlashLayout<T, D>;
-  auto kernel = flash_attn_kernel<T, D>;
+template <int D>
+int launch_flash_f32(const void* q, const void* k, const void* v, void* o, int B, int H, int N, int64_t sb,
+                     int64_t sh, int64_t sn, int64_t ob, int64_t oh, int64_t on, int window, int causal, float scale,
+                     cudaStream_t stream) {
+  using L = F32Layout<D>;
+  auto kernel = flash_attn_f32_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(L::kBytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((N + kBM - 1) / kBM, BH);
-  kernel<<<grid, kThreads, L::kBytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), H, N, sb, sh, sn, ob, oh, on, window, causal, scale);
+  const dim3 grid((N + kF32BM - 1) / kF32BM, B * H);
+  kernel<<<grid, kF32Threads, L::kBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), H, N, sb, sh, sn, ob, oh, on, window, causal, scale);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_flash(const void* q, const void* k, const void* v, void* o, int B, int H, int N, int D,
-                 int64_t sb, int64_t sh, int64_t sn, int64_t ob, int64_t oh, int64_t on,
-                 int window, int causal, float scale, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int BH = B * H;
-  switch (D) {  // the wrapper admits these head widths only
-    case 16:
-      return launch_flash_d<T, 16>(q, k, v, o, BH, H, N, sb, sh, sn, ob, oh, on, window, causal, scale, s);
-    case 32:
-      return launch_flash_d<T, 32>(q, k, v, o, BH, H, N, sb, sh, sn, ob, oh, on, window, causal, scale, s);
-    case 64:
-      return launch_flash_d<T, 64>(q, k, v, o, BH, H, N, sb, sh, sn, ob, oh, on, window, causal, scale, s);
-    case 128:
-      return launch_flash_d<T, 128>(q, k, v, o, BH, H, N, sb, sh, sn, ob, oh, on, window, causal, scale, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 }  // namespace
@@ -282,15 +460,27 @@ extern "C" {
 int flash_attn_f32(const void* q, const void* k, const void* v, void* o, int B, int H, int N, int D,
                    int64_t sb, int64_t sh, int64_t sn, int64_t ob, int64_t oh, int64_t on,
                    int window, int causal, float scale, void* stream) {
-  return launch_flash<float>(q, k, v, o, B, H, N, D, sb, sh, sn, ob, oh, on, window, causal, scale,
-                             stream);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {  // the wrapper admits these head widths only
+    case 16: return launch_flash_f32<16>(q, k, v, o, B, H, N, sb, sh, sn, ob, oh, on, window, causal, scale, s);
+    case 32: return launch_flash_f32<32>(q, k, v, o, B, H, N, sb, sh, sn, ob, oh, on, window, causal, scale, s);
+    case 64: return launch_flash_f32<64>(q, k, v, o, B, H, N, sb, sh, sn, ob, oh, on, window, causal, scale, s);
+    case 128: return launch_flash_f32<128>(q, k, v, o, B, H, N, sb, sh, sn, ob, oh, on, window, causal, scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 int flash_attn_bf16(const void* q, const void* k, const void* v, void* o, int B, int H, int N, int D,
                     int64_t sb, int64_t sh, int64_t sn, int64_t ob, int64_t oh, int64_t on,
                     int window, int causal, float scale, void* stream) {
-  return launch_flash<bf16>(q, k, v, o, B, H, N, D, sb, sh, sn, ob, oh, on, window, causal, scale,
-                            stream);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16: return launch_flash_bf16<16>(q, k, v, o, B, H, N, sb, sh, sn, ob, oh, on, window, causal, scale, s);
+    case 32: return launch_flash_bf16<32>(q, k, v, o, B, H, N, sb, sh, sn, ob, oh, on, window, causal, scale, s);
+    case 64: return launch_flash_bf16<64>(q, k, v, o, B, H, N, sb, sh, sn, ob, oh, on, window, causal, scale, s);
+    case 128: return launch_flash_bf16<128>(q, k, v, o, B, H, N, sb, sh, sn, ob, oh, on, window, causal, scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

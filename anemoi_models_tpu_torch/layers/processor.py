@@ -4,7 +4,7 @@ Counterparts of ``TransformerProcessor``, ``GNNProcessor``,
 ``GraphTransformerProcessor`` and ``register_edges`` in
 ``anemoi_models_tpu/layers/processor.py``. A graph processor's edge set is
 registered once at construction as a CSR list (``rowptr``, ``src``), its
-transpose for the attention backward (``perm_t``, ``colptr_t``, ``dst_t``)
+transpose for the attention backward (``perm_t``, ``colptr_t``, ``dst_t``, ``pos_t``)
 and its static attributes. The Transformer processor attends over mesh
 positions and takes no graph.
 """
@@ -57,15 +57,16 @@ def register_edge_buffers(
     num_src: int, num_dst: int, graph_impl: str, device, graph_impls: tuple = GRAPH_IMPLS,
 ) -> int:
     """Give ``module`` the edge set: buffers ``edge_attr``, ``rowptr``, ``src``
-    and the transposed CSR ``perm_t``, ``colptr_t``, ``dst_t`` (graph-derived,
+    and the transposed CSR ``perm_t``, ``colptr_t``, ``dst_t``, ``pos_t`` (graph-derived,
     not saved in the state dict) and the parameter ``trainable.trainable``.
     Returns the edge feature width."""
     if graph_impl not in graph_impls:
         raise ValueError(f"graph_impl must be one of {graph_impls}, got {graph_impl!r}")
     edge_attr, edge_index, edge_dim = register_edges(sub_graph, edge_attributes, trainable_size)
     rowptr, src = csr_from_edge_index(edge_index, num_src, num_dst)
-    perm_t, colptr_t, dst_t = csr_transpose(rowptr, src, num_src)
-    buffers = dict(edge_attr=edge_attr, rowptr=rowptr, src=src, perm_t=perm_t, colptr_t=colptr_t, dst_t=dst_t)
+    perm_t, colptr_t, dst_t, pos_t = csr_transpose(rowptr, src, num_src)
+    buffers = dict(edge_attr=edge_attr, rowptr=rowptr, src=src, perm_t=perm_t, colptr_t=colptr_t, dst_t=dst_t,
+                   pos_t=pos_t)
     for name, value in buffers.items():
         module.register_buffer(name, torch.as_tensor(value, device=device), persistent=False)
     module.trainable = TrainableTensor(edge_attr.shape[0], trainable_size, device=device)
@@ -74,7 +75,7 @@ def register_edge_buffers(
 
 def edge_csr_t(module: nn.Module) -> CSRTranspose:
     """The transposed CSR that :func:`register_edge_buffers` gave ``module``."""
-    return CSRTranspose(module.perm_t, module.colptr_t, module.dst_t)
+    return CSRTranspose(module.perm_t, module.colptr_t, module.dst_t, module.pos_t)
 
 
 def _chunk_size(num_layers: int, num_chunks: int) -> int:

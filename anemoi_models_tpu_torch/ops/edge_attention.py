@@ -19,9 +19,12 @@ straight off the destination-sorted edge list in two kernels
 
 The backward (``csrc/edge_attention_bwd.cu``) replaces
 ``_feats_bwd_kernel``: :func:`edge_attn_csr_bwd` walks the same CSR edge list
-for ``dq`` and the edge gradients and the transposed list
-(:func:`csr_transpose`) for the per-source ``[dk|dv]``, with fixed-order sums
-only. :class:`EdgeAttnCSR` and :class:`KVProj` are the autograd Functions the
+for ``dq`` and the edge gradients (a warp per destination on a persistent
+grid, its edges' k/v rows several at a time in flight) and the transposed list
+(:func:`csr_transpose`) for the per-source ``[dk|dv]``, reading the edge
+scalars at each edge's position there (the inverse permutation ``pos``),
+and sums ``dw_aug`` in per-warp partials, one row a CTA, then in a fixed
+order; fixed-order sums only. :class:`EdgeAttnCSR` and :class:`KVProj` are the autograd Functions the
 conv runs through; the chain through ``w_kv`` is ``torch.matmul``, as the JAX
 package leaves it to XLA.
 
@@ -60,8 +63,9 @@ __all__ = [
 
 _NEG = -1e30
 _MAX_A2 = 16  # kMaxA2 in csrc/edge_attention.cu
-_MAX_BWD_THREADS = 256  # kMaxRowThreads in csrc/edge_attention_bwd.cu
-_DW_PARTS = 1024  # destination-row partition of the backward's dw_aug partials
+_BWD_CHANNELS = (64, 128, 256, 512)  # C = 32 lanes x VB in csrc/edge_attention_bwd.cu
+_BWD_WARPS = 4  # kWarps in csrc/edge_attention_bwd.cu: warps (destinations at a time) a CTA
+_DW_PARTS_PER_SM = 8  # the backward's dw_aug partials: at most this many CTAs of its dst pass an SM
 _DTYPES = (torch.float32, torch.bfloat16)
 
 # kernel launches per wrapper; a CPU call runs the plain version and adds nothing
@@ -113,19 +117,22 @@ class CSRTranspose(NamedTuple):
     perm: torch.Tensor  # (E,) int32 edge ids by source, ascending within a source
     colptr: torch.Tensor  # (Ns + 1,) int32 offsets of each source's edges in perm
     dst: torch.Tensor  # (E,) int32 destination of each edge
+    pos: torch.Tensor  # (E,) int32 position of each edge in perm: perm[pos[e]] == e
 
 
-def csr_transpose(rowptr, src, num_src: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+def csr_transpose(rowptr, src, num_src: int) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """The source-sorted view of a destination-sorted CSR edge list, on the
-    host, once per edge set: (perm, colptr, dst) int32 (see
+    host, once per edge set: (perm, colptr, dst, pos) int32 (see
     :class:`CSRTranspose`). ``rowptr`` and ``src`` are numpy arrays or CPU
     tensors."""
     rowptr, src = np.asarray(rowptr, dtype=np.int64), np.asarray(src, dtype=np.int64)
     dst = np.repeat(np.arange(rowptr.size - 1), np.diff(rowptr))
     perm = np.argsort(src, kind="stable")
+    pos = np.empty_like(perm)
+    pos[perm] = np.arange(perm.size)
     colptr = np.zeros(num_src + 1, dtype=np.int64)
     colptr[1:] = np.cumsum(np.bincount(src, minlength=num_src))
-    return perm.astype(np.int32), colptr.astype(np.int32), dst.astype(np.int32)
+    return perm.astype(np.int32), colptr.astype(np.int32), dst.astype(np.int32), pos.astype(np.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -368,16 +375,16 @@ def edge_attn_csr_bwd(
     _require(dt in _DTYPES, f"compute dtype must be fp32 or bf16, got {dt}")
     _require(all(t.dtype == dt for t in (kv, a, w_aug)), "q, kv, a, w_aug must share one dtype")
     _require(all(t.dtype == torch.float32 for t in (m, g_num, g_den)), "m, g_num, g_den must be fp32")
-    perm, colptr, dst = csr_t
-    _require(all(t.dtype == torch.int32 for t in (rowptr, src, perm, colptr, dst)),
+    perm, colptr, dst, pos = csr_t
+    _require(all(t.dtype == torch.int32 for t in (rowptr, src, perm, colptr, dst, pos)),
              "rowptr, src and the transposed CSR must be int32")
-    _require(all(t.device == q.device for t in (perm, colptr, dst)), "the transposed CSR must be on q's device")
+    _require(all(t.device == q.device for t in csr_t), "the transposed CSR must be on q's device")
     bnd, c = q.shape
     nd = rowptr.numel() - 1
     _check_heads(c, num_heads)
-    d = c // num_heads
-    _require(c // (d // 32 if d > 32 else 1) <= _MAX_BWD_THREADS,
-             f"edge_attn_csr_bwd takes at most {_MAX_BWD_THREADS} threads per row; got C={c}, H={num_heads}")
+    _require(c in _BWD_CHANNELS and num_heads <= 32,
+             f"edge_attn_csr_bwd takes C in {_BWD_CHANNELS} (C / 32 channels per lane of a warp, at most "
+             f"{_BWD_CHANNELS[-1]} channels per row) and at most 32 heads; got C={c}, H={num_heads}")
     _require(nd > 0 and bnd % nd == 0, f"q rows {bnd} not a multiple of {nd} destinations")
     batch = bnd // nd
     _require(kv.shape[1] == 2 * c and kv.shape[0] % batch == 0, f"kv shape {tuple(kv.shape)} for C={c}, B={batch}")
@@ -387,19 +394,20 @@ def edge_attn_csr_bwd(
     _require(w_aug.shape == (a2, c), f"w_aug shape {tuple(w_aug.shape)} != ({a2}, {c})")
     _require(m.shape == (bnd, num_heads) and g_den.shape == (bnd, num_heads) and g_num.shape == (bnd, c),
              f"m, g_num, g_den shapes {tuple(m.shape)}, {tuple(g_num.shape)}, {tuple(g_den.shape)}")
-    _require(perm.numel() == num_edges and dst.numel() == num_edges and colptr.numel() == ns + 1,
+    _require(all(t.numel() == num_edges for t in (perm, dst, pos)) and colptr.numel() == ns + 1,
              "the transposed CSR does not match the edge list")
     _require_contiguous(q=q, kv=kv, rowptr=rowptr, src=src, a=a, w_aug=w_aug, m=m, g_num=g_num,
-                        g_den=g_den, perm=perm, colptr=colptr, dst=dst)
+                        g_den=g_den, perm=perm, colptr=colptr, dst=dst, pos=pos)
+    _require(all(t.data_ptr() % 16 == 0 for t in (q, kv, w_aug, g_num)),
+             "q, kv, w_aug and g_num must start on 16-byte boundaries (rows are read as 16-byte vectors)")
     dev = q.device
-    parts = min(bnd, _DW_PARTS)
+    # rows of the dw_aug partials: one a CTA of the dst pass's persistent grid (occupancy-sized)
+    parts = min(-(-nd // _BWD_WARPS), _DW_PARTS_PER_SM * torch.cuda.get_device_properties(dev).multi_processor_count)
     dq = torch.empty((bnd, c), dtype=torch.float32, device=dev)
     dkv = torch.empty((batch * ns, 2 * c), dtype=torch.float32, device=dev)
     da = torch.empty((num_edges, a2), dtype=torch.float32, device=dev)
     dw = torch.empty((a2, c), dtype=torch.float32, device=dev)
-    dl = torch.empty((batch, num_edges, num_heads), dtype=torch.float32, device=dev)
-    w = torch.empty_like(dl)
-    pg = torch.empty((bnd, 2, a2, num_heads), dtype=torch.float32, device=dev)
+    dlw = torch.empty((batch, num_edges, num_heads, 2), dtype=torch.float32, device=dev)  # (dl, w) by position
     dw_part = torch.empty((parts, a2, c), dtype=torch.float32, device=dev)
     from anemoi_models_tpu_torch.ops.kernels import load_kernels
 
@@ -410,9 +418,9 @@ def edge_attn_csr_bwd(
         rc = fn(
             q.data_ptr(), kv.data_ptr(), rowptr.data_ptr(), src.data_ptr(), a.data_ptr(),
             w_aug.data_ptr(), m.data_ptr(), g_num.data_ptr(), g_den.data_ptr(),
-            colptr.data_ptr(), perm.data_ptr(), dst.data_ptr(),
+            colptr.data_ptr(), perm.data_ptr(), dst.data_ptr(), pos.data_ptr(),
             dq.data_ptr(), dkv.data_ptr(), da.data_ptr(), dw.data_ptr(),
-            dl.data_ptr(), w.data_ptr(), pg.data_ptr(), dw_part.data_ptr(),
+            dlw.data_ptr(), dw_part.data_ptr(),
             batch, nd, ns, num_edges, c, num_heads, a2, parts, stream,
         )
     _check_launch(rc, "edge_attn_csr_bwd")

@@ -43,8 +43,8 @@ _SIGNATURES = {
     "kv_proj_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "edge_attn_csr_f32": [_P] * 9 + [_I] * 6 + [_P],
     "edge_attn_csr_bf16": [_P] * 9 + [_I] * 6 + [_P],
-    "edge_attn_csr_bwd_f32": [_P] * 20 + [_I] * 8 + [_P],
-    "edge_attn_csr_bwd_bf16": [_P] * 20 + [_I] * 8 + [_P],
+    "edge_attn_csr_bwd_f32": [_P] * 19 + [_I] * 8 + [_P],
+    "edge_attn_csr_bwd_bf16": [_P] * 19 + [_I] * 8 + [_P],
     "gnn_conv_f32": [_P] * 17 + [_I] * 6 + [_P],
     "gnn_conv_bf16": [_P] * 17 + [_I] * 6 + [_P],
     "gnn_prepass_f32": [_P] * 6 + [_I] * 3 + [_P],

@@ -45,7 +45,8 @@ Builds the port's CUDA kernels from ``anemoi_models_tpu_torch/csrc``, then:
    cancels); and the band-masked attention kernel
    (flash_attention) at (B*H, N, D) = (4, 10,242, 64) with w = 512, no
    window, a ragged N and a causal window, fp32 1e-5 and bf16 2e-2, reading
-   q, k, v as strided views of one fused projection, as the model does;
+   q, k, v as strided views of one fused projection, as the model does, two
+   calls bit-identical;
 7. for each of the GNN and Transformer flavors (the other two processor
    families of ``__graft_entry__._build``): the reduced fp32 check of 3.,
    three O96 bf16 ``predict_step`` requests (per request 10 gnn_conv
@@ -55,7 +56,8 @@ Builds the port's CUDA kernels from ``anemoi_models_tpu_torch/csrc``, then:
    launches per step: 18 gnn_conv; or 16 flash_attention and 2 of each
    GraphTransformer mapper kernel).
 
-Prints the card's name and power limit, per-phase numbers, each wrapper's
+Prints the card's name and power limit, each kernel's registers and spills
+from the compiler's report (``ptxas``), per-phase numbers, each wrapper's
 host microseconds per call (``host-us``), one JSON line ``{"kernels":
 [...]}`` and, last, ``{"ok": true, "device": {...}}``. Exits
 non-zero, with no result line, on any failure or when there is no card.
@@ -70,6 +72,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -121,9 +124,9 @@ HBM_BPS = 3.35e12
 PEAK_FLOPS = {"bf16 tensor": 989e12, "fp32": 67e12}
 # device kernels of a profiled step, grouped by what they do (first match)
 PROFILE_KINDS = [
-    ("edge_attn_csr_bwd (4 phases)", ("edge_attn_bwd_", "dw_reduce_kernel")),
+    ("edge_attn_csr_bwd (3 phases)", ("bwd_dst_kernel", "bwd_src_kernel", "dw_reduce_kernel")),
     ("gnn_conv (3 phases)", ("gnn_prepass_tag", "gnn_msg_", "gnn_agg_kernel")),
-    ("flash_attention", ("flash_attn_kernel",)),
+    ("flash_attention", ("flash_attn_bf16_kernel", "flash_attn_f32_kernel")),
     ("kv_proj", ("kv_proj_tag",)),
     ("edge_attn_csr", ("edge_attn_csr_kernel",)),
     ("optimizer (multi-tensor)", ("multi_tensor", "lpnorm")),
@@ -159,6 +162,27 @@ def build_times(out_dir: str, repeats: int = 2) -> dict:
         subprocess.run(one_call, check=True, capture_output=True, timeout=900)
         times["one_call_s"].append(time.perf_counter() - t0)
     return {"sources": len(cu), **times}
+
+
+def ptxas_summary(log: str) -> list[dict]:
+    """Registers, spills and stack per kernel from nvcc's ``-Xptxas -v``
+    report, each kernel's mangled name cut to its template-id."""
+    rows, name = [], None
+    for line in log.splitlines():
+        found = re.search(r"Compiling entry function '([^']+)'", line)
+        if found:
+            mangled = found.group(1)
+            short = re.search(r"\d+((?:bwd|dw|flash|edge|gnn|proj)_\w*?kernel\w*?)E+(?=v|P)", mangled)
+            name = short.group(1) if short else mangled[:80]
+            continue
+        spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill and name:
+            rows.append({"kernel": name, "stack": int(spill.group(1)), "spill_stores": int(spill.group(2)),
+                         "spill_loads": int(spill.group(3))})
+        used = re.search(r"Used (\d+) registers", line)
+        if used and rows and rows[-1]["kernel"] == name and "registers" not in rows[-1]:
+            rows[-1]["registers"] = int(used.group(1))
+    return rows
 
 
 def reset_launches() -> None:
@@ -562,13 +586,16 @@ def phase_flash_kernels(dev, n0: int = 10242, w0: int = 512) -> tuple[dict, list
         for dt in (torch.float32, torch.bfloat16):
             qkv = qkv32.to(dev, dt)
             q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-            got = fa.flash_attention(q, k, v, window, causal)
+            got, again = fa.flash_attention(q, k, v, window, causal), fa.flash_attention(q, k, v, window, causal)
             want = fa.blockwise_attention(q, k, v, window_size=window, is_causal=causal)
             torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"flash_attention {shape} {dt}: two calls differ (not run-to-run deterministic)")
             err = max_err(got, want, TOL[dt], f"flash_attention {shape} {dt}")
             flops = 4.0 * h * fa.live_pairs(n, window, causal) * d
             nbytes = 4 * h * n * d * qkv.element_size()
             row = {"kernel": "flash_attention", "shape": shape, "dtype": str(dt).split(".")[-1], "max_abs_err": err,
+                   "bit_identical": True,
                    "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, window, causal)),
                    "plain_ms": cuda_ms(lambda: fa.blockwise_attention(q, k, v, window_size=window,
                                                                       is_causal=causal), iters=3, warmup=1),
@@ -789,7 +816,8 @@ def main() -> None:
     t0 = time.perf_counter()
     load_kernels()
     print(f"build: {time.perf_counter() - t0:.1f} s")
-    print(build_log().strip())
+    for row in ptxas_summary(build_log()):  # registers and spills of every kernel (nvcc -Xptxas -v)
+        print("ptxas", json.dumps(row))
     if args.build_times:
         print("build-times", json.dumps(build_times(args.build_times)))
 

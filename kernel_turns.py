@@ -1,19 +1,28 @@
-"""Time the port's redesigned kernels (kv_proj, gnn_conv) of two checkouts
-in turns on one CUDA card, and the timing helpers chip_smoke.py shares.
+"""Time the port's redesigned kernels of two checkouts in turns on one CUDA
+card, and the timing helpers chip_smoke.py shares.
 
-    python3 kernel_turns.py PARENT_ROOT .      # runs parent, this, this, parent
-    python3 kernel_turns.py --worker ROOT      # one turn: JSON of ROOT's kernels
+    python3 kernel_turns.py PARENT_ROOT .                 # parent, this, this, parent; every kernel
+    python3 kernel_turns.py PARENT_ROOT . --kernels bwd,flash
+    python3 kernel_turns.py --worker ROOT [--kernels ...]  # one turn: JSON of ROOT's kernels
 
 Each turn is its own process that imports ``anemoi_models_tpu_torch`` from
 its root (so each builds its own kernels into ``ROOT/build``) and times, at
-the O96 main path's shapes with seeded inputs: ``kv_proj`` at M = 10,242 and
-M = 40,320 (K = 256, N = 512) in bf16 and fp32 with ``torch.addmm`` beside
-it, and ``gnn_conv`` on the processor (self-graph), encoder and decoder edge
-sets in bf16 and fp32. Device ms come from CUDA events around launches
-queued behind a ``torch.cuda._sleep`` that outlasts the host's enqueue, so
-they bracket device work only; host us is the wrapper's enqueue time per
-call. Prints one ``turn`` JSON line per turn and the card's name and power
-limit.
+the O96 main path's shapes with seeded inputs:
+
+- ``kv``: ``kv_proj`` at M = 10,242 and M = 40,320 (K = 256, N = 512) in
+  bf16 and fp32 with ``torch.addmm`` beside it;
+- ``gnn``: ``gnn_conv`` on the processor (self-graph), encoder and decoder
+  edge sets in bf16 and fp32;
+- ``bwd``: ``edge_attn_csr_bwd`` (C = 256, 4 heads, A2 = 8, batch 1) on the
+  processor, encoder and decoder edge sets in bf16 and fp32;
+- ``flash``: ``flash_attention`` at (B*H, N, D) = (4, 10,242, 64) with
+  w = 512, no window, ragged N = 4,098 (w = 512) and causal (w = 512), q, k
+  and v strided views of one fused projection, in bf16 and fp32.
+
+Device ms come from CUDA events around launches queued behind a
+``torch.cuda._sleep`` that outlasts the host's enqueue, so they bracket
+device work only; host us is the wrapper's enqueue time per call. Prints one
+``turn`` JSON line per turn and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -90,13 +99,18 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _worker(root: str) -> dict:
+KERNELS = ("kv", "gnn", "bwd", "flash")
+EDGE_SETS = (("processor", ("hidden", "hidden")), ("encoder", ("data", "hidden")), ("decoder", ("hidden", "data")))
+
+
+def _worker(root: str, which: tuple) -> dict:
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     import torch
 
     from anemoi_models_tpu_torch.graphs import build_enc_proc_dec_graph
     from anemoi_models_tpu_torch.ops import edge_attention as ea
+    from anemoi_models_tpu_torch.ops import flash_attention as fa
     from anemoi_models_tpu_torch.ops import gnn_conv as gc
     from anemoi_models_tpu_torch.ops.kernels import load_kernels
 
@@ -104,11 +118,12 @@ def _worker(root: str) -> dict:
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
     load_kernels()
-    out = {"package": os.path.dirname(ea.__file__), "build_s": time.perf_counter() - t0, "kv_proj": [], "gnn_conv": []}
+    out = {"package": os.path.dirname(ea.__file__), "build_s": time.perf_counter() - t0, "kv_proj": [],
+           "gnn_conv": [], "edge_attn_csr_bwd": [], "flash_attention": []}
     graph = build_enc_proc_dec_graph(grid_lat=96, mesh_refinements=5, grid="octahedral")
     gen = torch.Generator().manual_seed(0)
     c = 256
-    for m in (graph["hidden"].num_nodes, graph["data"].num_nodes):
+    for m in (graph["hidden"].num_nodes, graph["data"].num_nodes) if "kv" in which else ():
         f32, w32 = torch.randn(m, c, generator=gen), torch.randn(2 * c, c, generator=gen) * c ** -0.5
         b32 = torch.randn(2 * c, generator=gen) * 0.1
         for dt in (torch.bfloat16, torch.float32):
@@ -118,8 +133,7 @@ def _worker(root: str) -> dict:
                                    "ms": cuda_ms(lambda: ea.kv_proj(f, w, b)),
                                    "host_us": host_us(lambda: ea.kv_proj(f, w, b)),
                                    "addmm_ms": cuda_ms(lambda: torch.addmm(b_dt, f, w.t()))})
-    for label, (s_name, d_name) in (("processor", ("hidden", "hidden")), ("encoder", ("data", "hidden")),
-                                    ("decoder", ("hidden", "data"))):
+    for label, (s_name, d_name) in EDGE_SETS if "gnn" in which else ():
         ei = graph[(s_name, "to", d_name)].edge_index
         ns, nd = graph[s_name].num_nodes, graph[d_name].num_nodes
         rowptr, src = (torch.from_numpy(t).to(dev) for t in ea.csr_from_edge_index(ei, ns, nd))
@@ -137,23 +151,65 @@ def _worker(root: str) -> dict:
             out["gnn_conv"].append({"shape": f"{label} E={ei.shape[1]}", "dtype": str(dt).split(".")[-1],
                                     "ms": cuda_ms(lambda: gc.gnn_conv(*args)),
                                     "host_us": host_us(lambda: gc.gnn_conv(*args), iters=20)})
+    for label, (s_name, d_name) in EDGE_SETS if "bwd" in which else ():
+        ei = graph[(s_name, "to", d_name)].edge_index
+        ns, nd = graph[s_name].num_nodes, graph[d_name].num_nodes
+        rowptr_np, src_np = ea.csr_from_edge_index(ei, ns, nd)
+        rowptr, src = torch.from_numpy(rowptr_np).to(dev), torch.from_numpy(src_np).to(dev)
+        csr_t = ea.CSRTranspose(*(torch.from_numpy(t).to(dev) for t in ea.csr_transpose(rowptr_np, src_np, ns)))
+        h, a2 = 4, 8
+        q32, kv32 = torch.randn(nd, c, generator=gen), torch.randn(ns, 2 * c, generator=gen)
+        a32, wa32 = torch.randn(ei.shape[1], a2, generator=gen), torch.randn(a2, c, generator=gen) * 0.3
+        g_num, g_den = torch.randn(nd, c, generator=gen).to(dev), torch.randn(nd, h, generator=gen).to(dev)
+        for dt in (torch.bfloat16, torch.float32):
+            q, kv, a, wa = (t.to(dev, dt) for t in (q32, kv32, a32, wa32))
+            m = ea.edge_attn_csr(q, kv, rowptr, src, a, wa, h).m
+            args = (q, kv, rowptr, src, a, wa, m, g_num, g_den, h, csr_t)
+            out["edge_attn_csr_bwd"].append({
+                "shape": f"{label} E={ei.shape[1]}", "dtype": str(dt).split(".")[-1],
+                "ms": cuda_ms(lambda: ea.edge_attn_csr_bwd(*args)),
+                "host_us": host_us(lambda: ea.edge_attn_csr_bwd(*args), iters=20)})
+    n0, w0, h, d = 10242, 512, 4, 64
+    for n, window, causal in ((n0, w0, False), (n0, None, False), (2 * n0 // 5 + 2, w0, False), (n0, w0, True)) \
+            if "flash" in which else ():
+        qkv32 = torch.randn(1, n, 3, h, d, generator=gen)
+        for dt in (torch.bfloat16, torch.float32):
+            qkv = qkv32.to(dev, dt)
+            q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+            out["flash_attention"].append({
+                "shape": f"B*H={h} N={n} D={d} w={window}{' causal' if causal else ''}",
+                "dtype": str(dt).split(".")[-1],
+                "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, window, causal)),
+                "host_us": host_us(lambda: fa.flash_attention(q, k, v, window, causal))})
     return out
 
 
+def _which(args: list) -> tuple:
+    if "--kernels" not in args:
+        return KERNELS
+    which = tuple(args[args.index("--kernels") + 1].split(","))
+    if not set(which) <= set(KERNELS):
+        raise SystemExit(f"kernel_turns: --kernels takes a comma list of {KERNELS}")
+    return which
+
+
 def main() -> None:
-    if sys.argv[1:2] == ["--worker"]:
-        print("turn", json.dumps(_worker(sys.argv[2])), flush=True)
+    args = sys.argv[1:]
+    which = _which(args)
+    if args[:1] == ["--worker"]:
+        print("turn", json.dumps(_worker(args[1], which)), flush=True)
         return
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("kernel_turns: no CUDA card")
-    roots = sys.argv[1:]
+    roots = [a for i, a in enumerate(args) if a != "--kernels" and (i == 0 or args[i - 1] != "--kernels")]
     if len(roots) != 2:
-        raise SystemExit("usage: kernel_turns.py PARENT_ROOT ROOT")
+        raise SystemExit("usage: kernel_turns.py PARENT_ROOT ROOT [--kernels kv,gnn,bwd,flash]")
     print("card:", card(), flush=True)
     for root in (roots[0], roots[1], roots[1], roots[0]):
-        subprocess.run([sys.executable, __file__, "--worker", root], check=True, timeout=900)
+        subprocess.run([sys.executable, __file__, "--worker", root, "--kernels", ",".join(which)], check=True,
+                       timeout=900)
 
 
 if __name__ == "__main__":

@@ -143,19 +143,52 @@ def test_edge_attn_csr_matches_plain(dev, graph, dtype, channels, heads, edges):
         assert bool((got.num[dead] == 0).all())
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("channels,heads", [(64, 4), (256, 4), (512, 4), (128, 16)])
-@pytest.mark.parametrize("edges", ["hidden-hidden", "data-hidden", "hidden-data", "dead"])
-def test_edge_attn_csr_bwd_matches_plain_and_repeats_bit_for_bit(dev, graph, dtype, channels, heads, edges):
+def _bwd_edge_set(graph, edges, dev):
+    """(rowptr, src, num_edges, ns, nd, dead) of a named edge set: the small
+    graph's three sets; "dead", the processor's with every fourth
+    destination cut off; "hub", the processor's plus 96 more edges into one
+    destination (degree >= 96: the dst pass's subgroup walks several rounds
+    of 32 source ids); "knn3", a bipartite knn-3 set with more destinations
+    than sources and destinations 7 and the last with no edge."""
+    if edges in ("hub", "knn3"):
+        rng = np.random.RandomState(11)
+        if edges == "hub":
+            base = graph[("hidden", "to", "hidden")].edge_index
+            ns = nd = graph["hidden"].num_nodes
+            extra = np.stack([rng.randint(0, ns, 96), np.full(96, 5)])
+            ei = np.concatenate([base, extra], axis=1)
+            ei = ei[:, np.argsort(ei[1], kind="stable")]
+        else:
+            ns, nd = 300, 2000
+            dst = np.repeat(np.arange(nd), 3)
+            ei = np.stack([rng.randint(0, ns, dst.size), dst])
+            ei = ei[:, (ei[1] != 7) & (ei[1] != nd - 1)]
+        rowptr, src = ea.csr_from_edge_index(ei, ns, nd)
+        deg = np.diff(rowptr)
+        return (torch.from_numpy(rowptr).to(dev), torch.from_numpy(src).to(dev), ei.shape[1], ns, nd, deg == 0)
     names = {"hidden-hidden": ("hidden", "hidden"), "data-hidden": ("data", "hidden"),
              "hidden-data": ("hidden", "data"), "dead": ("hidden", "hidden")}[edges]
     es = graph[(names[0], "to", names[1])]
     ns, nd = graph[names[0]].num_nodes, graph[names[1]].num_nodes
     keep = es.edge_index[1] % 4 != 1 if edges == "dead" else None
     rowptr, src, num_edges = _csr(es, ns, nd, dev, keep)
+    return rowptr, src, num_edges, ns, nd, np.diff(rowptr.cpu().numpy()) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels,heads", [(64, 4), (256, 4), (512, 4), (128, 16)])
+@pytest.mark.parametrize("edges", ["hidden-hidden", "data-hidden", "hidden-data", "dead", "hub", "knn3"])
+@pytest.mark.parametrize("batch", [1, 2])
+def test_edge_attn_csr_bwd_matches_plain_and_repeats_bit_for_bit(dev, graph, dtype, channels, heads, edges, batch):
+    """All four gradients against the plain version (normwise 1e-4), two
+    calls bit-identical and zero dq at destinations without edges, on the
+    small graph's sets and the cases the dst pass's layout introduces: a
+    destination of degree >= 96, a knn-3 set with more destinations than
+    sources, destinations with no edge, and the batch loop (B = 2) that da
+    is summed over inside the CTA."""
+    rowptr, src, num_edges, ns, nd, dead = _bwd_edge_set(graph, edges, dev)
     csr_t = _csr_t(rowptr, src, ns)
     gen = torch.Generator().manual_seed(2)
-    batch = 2
     q = torch.randn(batch * nd, channels, generator=gen).to(dev, dtype)
     kv = torch.randn(batch * ns, 2 * channels, generator=gen).to(dev, dtype)
     a = torch.randn(num_edges, 8, generator=gen).to(dev, dtype)
@@ -175,9 +208,8 @@ def test_edge_attn_csr_bwd_matches_plain_and_repeats_bit_for_bit(dev, graph, dty
         assert bool(torch.isfinite(g).all()), name
         assert torch.equal(g, g2), f"{name} differs between two calls"
         assert _normwise(g, w) <= BWD_TOL, f"{name}: normwise error {_normwise(g, w):.3e}"
-    if edges == "dead":
-        dead = torch.from_numpy(np.tile(np.arange(nd) % 4 == 1, batch)).to(dev)
-        assert bool((got[0][dead] == 0).all())
+    assert edges not in ("dead", "knn3") or dead.any()
+    assert bool((got[0][torch.from_numpy(np.tile(dead, batch)).to(dev)] == 0).all())
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev, graph):
@@ -198,9 +230,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev, graph):
         ea.kv_proj(torch.randn(4, 8, device=dev), torch.randn(6, 8), torch.randn(6))
     with pytest.raises(ValueError, match="fp32"):
         ea.kv_proj(torch.randn(4, 8, device=dev), torch.randn(6, 8, device=dev), torch.randn(6, device=dev).bfloat16())
-    q, kv = torch.randn(n, 1024, device=dev), torch.randn(n, 2048, device=dev)  # 512 threads per row
+    q, kv = torch.randn(n, 1024, device=dev), torch.randn(n, 2048, device=dev)  # 32 channels a lane
     m = g_den = torch.zeros(n, 16, device=dev)
-    with pytest.raises(ValueError, match="threads per row"):
+    with pytest.raises(ValueError, match="channels per row"):
         ea.edge_attn_csr_bwd(q, kv, rowptr, src, a, torch.randn(8, 1024, device=dev), m, q, g_den, 16,
                              _csr_t(rowptr, src, n))
 
@@ -251,11 +283,17 @@ def test_gnn_conv_matches_plain_and_repeats_bit_for_bit(dev, graph, dtype, chann
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
 @pytest.mark.parametrize("n,window,causal", [(700, 64, False), (700, None, False), (333, 40, False),
-                                             (700, 64, True), (450, None, True)])
+                                             (700, 64, True), (450, None, True), (700, 40, False),
+                                             (700, 100, False), (100, None, False), (100, 30, True),
+                                             (1, None, False), (1, 0, True), (129, 64, False),
+                                             (257, None, True)])
 def test_flash_attention_matches_plain(dev, dtype, head_dim, n, window, causal):
     """Band-masked attention against the plain blockwise version, with q, k
     and v strided views of one fused (B, N, 3, H, D) projection (as the
-    attention layer passes them) and ragged sequence lengths."""
+    attention layer passes them) and ragged sequence lengths: windows
+    narrower than a key block and not a multiple of 64, N below one
+    128-query tile, N = 1 and N one past a 128 boundary; two calls
+    bit-identical."""
     gen = torch.Generator().manual_seed(4)
     b, h = 2, 3
     qkv = torch.randn(b, n, 3, h, head_dim, generator=gen).to(dev, dtype)
@@ -267,6 +305,7 @@ def test_flash_attention_matches_plain(dev, dtype, head_dim, n, window, causal):
     torch.cuda.synchronize()
     assert got.shape == want.shape == (b, h, n, head_dim) and got.dtype == dtype
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    assert torch.equal(fa.flash_attention(q, k, v, window, causal), got), "two calls differ"
     contiguous = [t.contiguous() for t in (q, k, v)]
     torch.testing.assert_close(fa.flash_attention(*contiguous, window, causal), got, atol=0, rtol=0)
 

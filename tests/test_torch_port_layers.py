@@ -181,3 +181,24 @@ def test_backward_mapper_matches_flax(graph):
     port = _load(tmapper.GraphTransformerBackwardMapper(src_grid_size=nh, dst_grid_size=nd, **kw), params)
     out = port((torch.from_numpy(x_src), torch.from_numpy(x_dst)))
     np.testing.assert_allclose(out.numpy(), _np(ref), **TOL)
+
+
+@pytest.mark.parametrize("edges", [("hidden", "hidden"), ("data", "hidden"), ("hidden", "data")])
+def test_edge_buffers_carry_the_inverse_of_perm(graph, edges):
+    """The transposed CSR a layer registers for the attention backward:
+    ``pos_t`` inverts ``perm_t`` (the backward writes each edge's (dl, w) at
+    its position in the source-sorted list) and ``dst_t[perm_t]`` runs source
+    by source, in ascending edge order within a source."""
+    es = graph[(edges[0], "to", edges[1])]
+    ns, nd = graph[edges[0]].num_nodes, graph[edges[1]].num_nodes
+    module = torch.nn.Module()
+    tproc.register_edge_buffers(module, es, EDGE_ATTRS, TRAINABLE, ns, nd, "pallas", "cpu")
+    perm, colptr, dst, pos = (t.numpy() for t in tproc.edge_csr_t(module))
+    e = np.arange(es.edge_index.shape[1])
+    np.testing.assert_array_equal(perm[pos], e)
+    np.testing.assert_array_equal(pos[perm], e)
+    src = module.src.numpy()
+    for s in range(ns):
+        edge_ids = perm[colptr[s]:colptr[s + 1]]
+        assert np.all(src[edge_ids] == s) and np.all(np.diff(edge_ids) > 0)
+    np.testing.assert_array_equal(dst, es.edge_index[1])

@@ -237,9 +237,11 @@ def test_csr_transpose_orders_edges_by_source():
     dst = np.sort(rng.randint(0, nd, 30))
     ei = np.stack([rng.randint(0, ns - 1, 30), dst])  # source 6 has no edge
     rowptr, src = ea.csr_from_edge_index(ei, ns, nd)
-    perm, colptr, dst_t = ea.csr_transpose(rowptr, src, ns)
-    assert perm.dtype == colptr.dtype == dst_t.dtype == np.int32
+    perm, colptr, dst_t, pos = ea.csr_transpose(rowptr, src, ns)
+    assert perm.dtype == colptr.dtype == dst_t.dtype == pos.dtype == np.int32
     np.testing.assert_array_equal(dst_t, ei[1])
+    np.testing.assert_array_equal(perm[pos], np.arange(ei.shape[1]))  # pos inverts perm
+    np.testing.assert_array_equal(pos[perm], np.arange(ei.shape[1]))
     np.testing.assert_array_equal(src[perm], np.sort(src, kind="stable"))
     np.testing.assert_array_equal(np.diff(colptr), np.bincount(src, minlength=ns))
     for s in range(ns):  # ascending edge ids within a source: a fixed summation order
