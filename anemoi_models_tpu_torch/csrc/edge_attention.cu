@@ -12,9 +12,11 @@
 //                  dtype (the rounding point of _feats_kernel's projection):
 //                  the Hopper GEMM of gemm_sm90.cuh (wgmma fed by TMA in bf16,
 //                  the CUDA cores in fp32), instantiated here under kv_proj_tag.
-//   edge_attn_csr  one CTA per (batch, destination) walks the destination's
-//                  edges with an online softmax per head and writes num, den
-//                  and m in the m-gauge contract of ops/slot_attention.py.
+//   edge_attn_csr  a warp per (destination, head group) on a persistent grid
+//                  walks the destination's edges, k/v rows in flight in a
+//                  cp.async ring, with an online softmax per head, and writes
+//                  num, den and m in the m-gauge contract of
+//                  ops/slot_attention.py.
 //
 // Every entry point has a plain C interface, launches on the stream it is
 // given, allocates nothing and returns cudaGetLastError().
@@ -23,14 +25,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <cmath>
 
+#include "edge_logit.cuh"
 #include "gemm_sm90.cuh"
 
 namespace {
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 struct kv_proj_tag {};  // names the kv_proj instantiations of gemm_sm90.cuh
 
@@ -43,113 +44,268 @@ struct kv_proj_tag {};  // names the kv_proj instantiations of gemm_sm90.cuh
 //   den    = sum exp(logit - m)
 //   num    = sum exp(logit - m) (v[src] + e)
 //
-// One CTA per (batch, destination), C / V threads, thread t owning channels
-// [t*V, t*V + V) of head t*V / D; the D / V lanes of a head reduce the logit
-// with warp shuffles. The CTA walks its edges once with an online softmax, so
-// any degree works and the forward has no atomics (run-to-run deterministic).
+// The backward's destination pass without the gradient work. A persistent
+// grid, sized by occupancy; a CTA serves one head group (the lane layout of
+// edge_logit.cuh: G channels of whole heads, VB a lane, at most 32 lanes) and
+// its warps take destinations cta, cta + ctas, ... one at a time. Per warp:
+// the source ids and attributes of 32 edges at a time in registers, one edge a
+// lane, shuffled out per edge; a ring of kRing k/v row slices in shared memory
+// filled by cp.async kRing - 1 edges ahead, each lane copying its own VB
+// channels where they are whole 16-byte copies (else the warp, 16 bytes a
+// lane);
+// one online softmax per head over the destination's edges; and, while it
+// stores a destination, the next one's edge range, ids, attributes, q row and
+// first k/v rows already in flight (the decoder's destinations have 3 edges).
+// w_aug's slice of the group sits in shared memory in its own dtype with rows
+// past A2 zero, so the attribute loops run MAXA2 long with no branch; HC, when
+// not 0, is the heads of a group at compile time (4: the flagship's C = 256,
+// and C = 1024 with 16 heads) and unrolls the shuffle trees; FLAT, one group
+// of 32 lanes (C = 32 VB at compile time: the row strides fold into the
+// addresses). No atomics: two calls give the same bits.
 //
-// Bound on the H100: the row reads, 2C compute-dtype values per edge (k and v)
-// plus A2 attributes, about 90 MB per O96 processor layer in bf16, which sit
-// in the 50 MB L2 for the most part (kv is 10.5 MB). This first version keeps
-// one edge in flight per warp and leans on the many resident CTAs (16 per SM)
-// to hide the dependent src -> row load latency.
+// The arithmetic is the first version's (one CTA a destination, one thread per
+// VF channels): edge_logit.cuh's edge term and exact_dot, then the same
+// sequential online softmax with expf, so num, den and m keep its bits (up to
+// the sign of an exact zero from the zero rows) and the backward's replay of
+// the logit stays exact.
+//
+// Bound on the H100: at O96 the function's bytes (q, kv, a once, the fp32
+// outputs) take 8-23 us at 3.35 TB/s, but every edge gathers a k/v row from L2
+// and recomputes a_e . w_aug per channel (A2 fmaf), so the kernel is bound by
+// its instruction issue: about 300 a warp an edge at C = 256 in bf16 (SASS),
+// 64 of them the edge term's fmaf and as many its bf16 unpacking, 21 the
+// shuffles (attributes, source id, the exact tree).
 // ---------------------------------------------------------------------------
 
+using edge_logit::kFull;
+using edge_logit::kNeg;
+using edge_logit::Layout;
+using edge_logit::Row;
+using edge_logit::to_f;
+
 constexpr int kMaxA2 = 16;
-constexpr float kNeg = -1e30f;
+constexpr int kWarps = 4;  // warps a CTA
+constexpr int kThreads = 32 * kWarps;
+// ring stages a warp: kRing - 1 edges in flight (a fourth stage gains 1-3 % in bf16, loses as much in fp32)
+template <typename T>
+constexpr int kRingOf = sizeof(T) == 2 ? 4 : 3;
 
-template <typename T, int V>
-__global__ void edge_attn_csr_kernel(const T* __restrict__ q, const T* __restrict__ kv,
-                                     const int* __restrict__ rowptr, const int* __restrict__ src,
-                                     const T* __restrict__ a, const T* __restrict__ w_aug,
-                                     float* __restrict__ num, float* __restrict__ den,
-                                     float* __restrict__ m_out, int num_dst, int num_src, int C,
-                                     int H, int A2, int lanes, float scale) {
-  const int row = blockIdx.x;  // batch * num_dst + destination
-  const int bidx = row / num_dst;
-  const int dst = row - bidx * num_dst;
-  const int t = threadIdx.x;
-  const int c0 = t * V;
+template <typename T, int VB, int MAXA2, int HC, bool FLAT>
+__global__ void __launch_bounds__(kThreads) edge_attn_csr_kernel(
+    const T* __restrict__ q, const T* __restrict__ kv, const int* __restrict__ rowptr,
+    const int* __restrict__ src, const T* __restrict__ a, const T* __restrict__ w_aug,
+    float* __restrict__ num, float* __restrict__ den, float* __restrict__ m_out, int batch, int num_dst,
+    int num_src, int c_arg, int H, Layout L, int A2, float scale) {
+  constexpr int kTs = static_cast<int>(sizeof(T));
+  constexpr int kRing = kRingOf<T>;
+  const int C = FLAT ? 32 * VB : c_arg;
+  const int G = (HC || FLAT) ? 32 * VB : L.G;
+  const int LB = HC ? 32 / HC : L.LB;  // lanes of a head
+  const int HG = HC ? HC : L.HG;
+  const int lanes = (HC || FLAT) ? 32 : L.lanes;
+  const int groups = FLAT ? 1 : L.groups;
+  const int vf = HC ? (VB >= 4 ? VB / 4 : 1) : L.vf;  // HC = 4: D = 8 VB
+  const int stage = 2 * G * kTs;  // a k slice, then a v slice
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int grp = blockIdx.x % groups;
+  const int ctas = gridDim.x / groups;
+  // idle lanes (lanes < 32) shadow the first head's lanes: finite work, shuffles among themselves, no stores
+  const bool active = lane < lanes;
+  const int ll = active ? lane : lane % LB;
+  const int c0 = ll * VB;  // within the group
+  const int head = grp * HG + ll / LB;
+  const T* w_s = reinterpret_cast<const T*>(smem) + c0;  // row r at r * G
+  uint8_t* ring = smem + MAXA2 * G * kTs + warp * kRing * stage;
+  const int64_t gc0 = static_cast<int64_t>(grp) * G;  // the group's first channel
 
-  float w_e[kMaxA2][V];
+  int cnt = 0, sid = 0;
+  float areg[MAXA2];
+  auto load_batch = [&](int base, int end) {  // lane l: edge base + l's source and attributes
+    cnt = min(32, end - base);
+    const int64_t mine = base + lane;
+    const bool have = lane < cnt;
+    sid = have ? src[mine] : 0;
 #pragma unroll
-  for (int r = 0; r < kMaxA2; ++r)
+    for (int r = 0; r < MAXA2; ++r) areg[r] = have && r < A2 ? to_f(a[mine * A2 + r]) : 0.f;
+  };
+  constexpr int kChunk = VB * kTs;  // a lane's bytes of a slice
+  auto copy_rows = [&](uint8_t* st, const T* krow) {  // the group's k and v slices of one row
+    edge_logit::slice_copy_async<kChunk>(st, krow, c0 * kTs, G * kTs, lane);
+    edge_logit::slice_copy_async<kChunk>(st + G * kTs, krow + C, c0 * kTs, G * kTs, lane);
+  };
+  auto prime = [&](int b) {  // the batch's first kRing - 1 rows, into stages 0 .. kRing - 2
+    const T* kv_b = kv + (int64_t)b * num_src * 2 * C + gc0;
+    edge_logit::slice_sync<kChunk>();  // every lane is done with the stages it overwrites
 #pragma unroll
-    for (int v = 0; v < V; ++v) w_e[r][v] = r < A2 ? to_f(w_aug[r * C + c0 + v]) : 0.f;
+    for (int d = 0; d < kRing - 1; ++d) {
+      if (d < cnt) copy_rows(ring + d * stage, kv_b + (int64_t)__shfl_sync(kFull, sid, d) * 2 * C);
+      edge_logit::copy_commit();
+    }
+  };
 
-  float qv[V], acc[V];
-#pragma unroll
-  for (int v = 0; v < V; ++v) {
-    qv[v] = to_f(q[(int64_t)row * C + c0 + v]);
-    acc[v] = 0.f;
+  int t = (blockIdx.x / groups) * kWarps + warp;
+  const int step = ctas * kWarps;
+  int e_begin = t < num_dst ? rowptr[t] : 0;
+  int e_end = t < num_dst ? rowptr[t + 1] : 0;
+  Row<T, VB> q_next;  // the next destination's q (batch 0), in flight during the current one's stores
+  if (t < num_dst) q_next.load(q + (int64_t)t * C + gc0 + c0);
+  load_batch(e_begin, e_end);
+  prime(0);
+  // w_aug's slice of the group, a word at a time, zero rows past A2
+  {
+    const int words = G * kTs / 4;
+    for (int i = threadIdx.x; i < MAXA2 * words; i += kThreads) {
+      const int r = i / words;
+      reinterpret_cast<uint32_t*>(smem)[i] =
+          r < A2 ? reinterpret_cast<const uint32_t*>(w_aug + r * C + gc0)[i - r * words] : 0u;
+    }
   }
-  float m = kNeg;
-  float l = 0.f;
+  __syncthreads();
 
-  const T* kv_b = kv + (int64_t)bidx * num_src * 2 * C;
-  const int e_end = rowptr[dst + 1];
-  for (int e = rowptr[dst]; e < e_end; ++e) {
-    const T* krow = kv_b + (int64_t)src[e] * 2 * C;
-    const T* arow = a + (int64_t)e * A2;
-    float ev[V];
+  for (; t < num_dst; t += step) {
+    const int tn = t + step;
+    const int next_begin = tn < num_dst ? rowptr[tn] : 0;
+    const int next_end = tn < num_dst ? rowptr[tn + 1] : 0;
+    for (int b = 0; b < batch; ++b) {
+      const int64_t row = (int64_t)b * num_dst + t;
+      float qv[VB], acc[VB];
+      {
+        Row<T, VB> qr;
+        if (b == 0) {
+          qr = q_next;
+        } else {
+          qr.load(q + row * C + gc0 + c0);
+        }
 #pragma unroll
-    for (int v = 0; v < V; ++v) ev[v] = 0.f;
+        for (int c = 0; c < VB; ++c) {
+          qv[c] = qr[c];
+          acc[c] = 0.f;
+        }
+      }
+      float m = kNeg;
+      float l = 0.f;
+      const T* kv_b = kv + (int64_t)b * num_src * 2 * C + gc0;
+      for (int base = e_begin; base < e_end; base += 32) {
+        if (b > 0 || base != e_begin) {  // the first batch of b = 0 was loaded and primed ahead
+          load_batch(base, e_end);
+          prime(b);
+        }
+        for (int n = 0, rd = 0; n < cnt; ++n, rd = rd == kRing - 1 ? 0 : rd + 1) {  // rd: edge n's stage
+          {  // the row kRing - 1 edges on, into the stage edge n - 1 freed
+            edge_logit::slice_sync<kChunk>();
+            const int nx = n + kRing - 1;
+            if (nx < cnt)
+              copy_rows(ring + (rd == 0 ? kRing - 1 : rd - 1) * stage,
+                        kv_b + (int64_t)__shfl_sync(kFull, sid, nx) * 2 * C);
+            edge_logit::copy_commit();
+          }
+          float ar[MAXA2];
 #pragma unroll
-    for (int r = 0; r < kMaxA2; ++r) {
-      if (r < A2) {
-        const float ar = to_f(arow[r]);
+          for (int r = 0; r < MAXA2; ++r) ar[r] = __shfl_sync(kFull, areg[r], n);
+          edge_logit::copy_wait<kRing - 1>();  // this lane's copies of edge n have landed,
+          edge_logit::slice_sync<kChunk>();     // and every other lane's
+          const uint8_t* st = ring + rd * stage + c0 * kTs;
+          Row<T, VB> kr, vr;
+          kr.load_shared(st);
+          vr.load_shared(st + G * kTs);
+          float ev[VB];
+          edge_logit::edge_term<T, VB, MAXA2>(ev, ar, w_s, G);
+          const float s = edge_logit::exact_dot_vf<T, VB>(vf, qv, kr, ev, LB);
+          const float logit = s * scale;
+          const float m_new = fmaxf(m, logit);
+          const float corr = expf(m - m_new);
+          const float p = expf(logit - m_new);
+          l = fmaf(l, corr, p);
 #pragma unroll
-        for (int v = 0; v < V; ++v) ev[v] = fmaf(ar, w_e[r][v], ev[v]);
+          for (int c = 0; c < VB; ++c) acc[c] = fmaf(acc[c], corr, p * (vr[c] + ev[c]));
+          m = m_new;
+        }
+      }
+      if (b == batch - 1) {  // the next destination's edges and q, in flight during the stores
+        load_batch(next_begin, next_end);
+        if (tn < num_dst) q_next.load(q + (int64_t)tn * C + gc0 + c0);
+      }
+      if (active) {
+        edge_logit::store_row<VB>(num + row * C + gc0 + c0, acc);
+        if (ll % LB == 0) {
+          den[row * H + head] = l;
+          m_out[row * H + head] = m;
+        }
       }
     }
-    float s = 0.f;
-#pragma unroll
-    for (int v = 0; v < V; ++v) s = fmaf(qv[v], to_f(krow[c0 + v]) + ev[v], s);
-    for (int off = lanes >> 1; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    const float logit = s * scale;
-    const float m_new = fmaxf(m, logit);
-    const float corr = expf(m - m_new);
-    const float p = expf(logit - m_new);
-    l = fmaf(l, corr, p);
-#pragma unroll
-    for (int v = 0; v < V; ++v) acc[v] = fmaf(acc[v], corr, p * (to_f(krow[C + c0 + v]) + ev[v]));
-    m = m_new;
-  }
-
-#pragma unroll
-  for (int v = 0; v < V; ++v) num[(int64_t)row * C + c0 + v] = acc[v];
-  if (t % lanes == 0) {
-    const int head = c0 / (C / H);
-    den[(int64_t)row * H + head] = l;
-    m_out[(int64_t)row * H + head] = m;
+    prime(0);  // the next destination's first k/v rows
+    e_begin = next_begin;
+    e_end = next_end;
   }
 }
 
-template <typename T>
-int launch_edge_attn_csr(const void* q, const void* kv, const void* rowptr, const void* src,
-                         const void* a, const void* w_aug, void* num, void* den, void* m,
-                         int batch, int num_dst, int num_src, int C, int H, int A2, void* stream) {
-  const int D = C / H;
-  const int V = D > 32 ? D / 32 : 1;  // channels per thread; the wrapper checks D
-  const int lanes = D / V;
-  const dim3 grid(batch * num_dst);
-  const dim3 block(C / V);
-  const float scale = 1.0f / std::sqrt(static_cast<float>(D));
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define EDGE_ATTN_ARGS                                                                          \
-  static_cast<const T*>(q), static_cast<const T*>(kv), static_cast<const int*>(rowptr),         \
-      static_cast<const int*>(src), static_cast<const T*>(a), static_cast<const T*>(w_aug),     \
-      static_cast<float*>(num), static_cast<float*>(den), static_cast<float*>(m), num_dst,      \
-      num_src, C, H, A2, lanes, scale
-  if (V == 1) {
-    edge_attn_csr_kernel<T, 1><<<grid, block, 0, s>>>(EDGE_ATTN_ARGS);
-  } else if (V == 2) {
-    edge_attn_csr_kernel<T, 2><<<grid, block, 0, s>>>(EDGE_ATTN_ARGS);
-  } else {
-    edge_attn_csr_kernel<T, 4><<<grid, block, 0, s>>>(EDGE_ATTN_ARGS);
+template <typename K>
+int set_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return static_cast<int>(
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
+}
+
+struct FwdArgs {
+  const void *q, *kv, *rowptr, *src, *a, *w_aug;
+  void *num, *den, *m;
+  int batch, num_dst, num_src, C, H, A2, G, VB;
+};
+
+template <typename T, int VB, int MAXA2, int HC, bool FLAT>
+int launch_fwd(const FwdArgs& x, const Layout& L, cudaStream_t s) {
+  auto kernel = edge_attn_csr_kernel<T, VB, MAXA2, HC, FLAT>;
+  const size_t smem = static_cast<size_t>(MAXA2 + 2 * kWarps * kRingOf<T>) * L.G * sizeof(T);
+  int rc = set_smem(kernel, smem);
+  if (rc != 0) return rc;
+  // a persistent grid: as many CTAs as fit the card at once, split evenly over the head groups
+  static size_t sized_for = 0;  // the occupancy of this instantiation, per shared-memory size
+  static int per_sm = 0;
+  if (sized_for != smem) {
+    rc = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem));
+    if (rc != 0) return rc;
+    sized_for = smem;
   }
-#undef EDGE_ATTN_ARGS
+  int device = 0, sms = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const int ctas = std::max(1, std::min((x.num_dst + kWarps - 1) / kWarps, std::max(per_sm, 1) * sms / L.groups));
+  const float scale = 1.0f / std::sqrt(static_cast<float>(L.D));
+  kernel<<<ctas * L.groups, kThreads, smem, s>>>(
+      static_cast<const T*>(x.q), static_cast<const T*>(x.kv), static_cast<const int*>(x.rowptr),
+      static_cast<const int*>(x.src), static_cast<const T*>(x.a), static_cast<const T*>(x.w_aug),
+      static_cast<float*>(x.num), static_cast<float*>(x.den), static_cast<float*>(x.m), x.batch, x.num_dst,
+      x.num_src, x.C, x.H, L, x.A2, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// attributes padded to 8 (16 past 8); the heads of a group compile-time for 4 on 32 lanes, the
+// whole row one such group (C = 32 VB) compile-time too
+template <typename T, int VB>
+int launch_vb(const FwdArgs& x, cudaStream_t s) {
+  Layout L;
+  if (!edge_logit::make_layout<VB>(x.C, x.H, x.G, sizeof(T), &L)) return static_cast<int>(cudaErrorInvalidValue);
+  if (x.A2 > 8) return launch_fwd<T, VB, kMaxA2, 0, false>(x, L, s);
+  if (L.lanes == 32 && L.HG == 4) {
+    return L.groups == 1 ? launch_fwd<T, VB, 8, 4, true>(x, L, s) : launch_fwd<T, VB, 8, 4, false>(x, L, s);
+  }
+  return launch_fwd<T, VB, 8, 0, false>(x, L, s);
+}
+
+template <typename T>
+int launch_edge_attn_csr(const FwdArgs& x, void* stream) {
+  if (x.A2 <= 0 || x.A2 > kMaxA2 || x.num_dst <= 0 || x.batch <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (x.VB) {
+    case 1: return launch_vb<T, 1>(x, s);
+    case 2: return launch_vb<T, 2>(x, s);
+    case 4: return launch_vb<T, 4>(x, s);
+    case 8: return launch_vb<T, 8>(x, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -176,18 +332,19 @@ int kv_proj_bf16(const void* f, const void* w, const void* b, void* out, int M, 
                  : sm90::launch_proj_bf16<kv_proj_tag, __nv_bfloat16>(batch, 1, s);
 }
 
+// G and VB: the lane layout of ops/edge_attention.py:_lane_layout
 int edge_attn_csr_f32(const void* q, const void* kv, const void* rowptr, const void* src,
                       const void* a, const void* w_aug, void* num, void* den, void* m, int batch,
-                      int num_dst, int num_src, int C, int H, int A2, void* stream) {
-  return launch_edge_attn_csr<float>(q, kv, rowptr, src, a, w_aug, num, den, m, batch, num_dst,
-                                     num_src, C, H, A2, stream);
+                      int num_dst, int num_src, int C, int H, int A2, int G, int VB, void* stream) {
+  return launch_edge_attn_csr<float>(
+      FwdArgs{q, kv, rowptr, src, a, w_aug, num, den, m, batch, num_dst, num_src, C, H, A2, G, VB}, stream);
 }
 
 int edge_attn_csr_bf16(const void* q, const void* kv, const void* rowptr, const void* src,
                        const void* a, const void* w_aug, void* num, void* den, void* m, int batch,
-                       int num_dst, int num_src, int C, int H, int A2, void* stream) {
-  return launch_edge_attn_csr<__nv_bfloat16>(q, kv, rowptr, src, a, w_aug, num, den, m, batch,
-                                             num_dst, num_src, C, H, A2, stream);
+                       int num_dst, int num_src, int C, int H, int A2, int G, int VB, void* stream) {
+  return launch_edge_attn_csr<__nv_bfloat16>(
+      FwdArgs{q, kv, rowptr, src, a, w_aug, num, den, m, batch, num_dst, num_src, C, H, A2, G, VB}, stream);
 }
 
 }  // extern "C"

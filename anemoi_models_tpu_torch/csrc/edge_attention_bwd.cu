@@ -10,15 +10,18 @@
 // same CSR edge lists as the forward (csrc/edge_attention.cu) in three launches:
 //
 //   dst pass   a persistent grid (as many CTAs as fit the card) in which a warp
-//              owns a destination, one edge at a time across all C channels:
-//              each lane VB = C / 32 consecutive channels (a head is D / VB
-//              lanes). The warp keeps kRing - 1 edges' k/v rows in flight in
-//              its own ring of shared memory (cp.async), the source ids,
-//              positions and attributes of 32 edges at a time in registers, and
-//              the next destination's edge range, q and g_num rows and first
-//              k/v rows in flight while it finishes the current one. w_aug
-//              sits in shared memory in its own dtype. Per edge e = (s -> t),
-//              head h, batch b:
+//              owns a destination and walks its head groups in sequence, one
+//              edge at a time: the forward's lane layout (edge_logit.cuh; a
+//              group of G <= 256 channels of whole heads, VB consecutive
+//              channels a lane, at most 32 lanes, so any width the forward
+//              takes), each group reading only its slice of the k/v rows. The
+//              warp keeps kRing - 1 edges' k/v row slices in flight in its own
+//              ring of shared memory (cp.async by the whole warp), the source
+//              ids, positions and attributes of 32 edges at a time in
+//              registers, and the next destination's edge range, q and g_num
+//              slices and first k/v rows in flight while it finishes the
+//              current one. w_aug sits in shared memory in its own dtype. Per
+//              edge e = (s -> t), head h, batch b:
 //                k_e = k[s] + a_e.w_aug,  v_e = v[s] + a_e.w_aug
 //                w   = exp(min(scale <q[t], k_e>_h - m[t,h], 0))
 //                dl  = w (<g_num[t], v_e>_h + g_den[t,h])
@@ -32,7 +35,8 @@
 //              (adl = sum_e a_e[r] dl, aw = sum_e a_e[r] w) into its own
 //              partial in shared memory, and the CTA writes the sum of its
 //              warps' partials: one row of dw_part a CTA.
-//   src pass   a warp per (batch, source) over the transposed CSR, reading
+//   src pass   a warp per (batch, source, head group) over the transposed
+//              CSR, reading
 //              (dl, w) contiguously and q[t], g_num[t] as 16-byte vectors, the
 //              next edge's rows loaded before the current edge's arithmetic:
 //                dk[s] = sum_e scale dl_e q[t],  dv[s] = sum_e w_e g_num[t].
@@ -58,8 +62,9 @@
 // keep the logit exact, so the dst pass is bound by its instruction issue
 // (about 250 a warp an edge at C = 256): the attribute loops are padded to
 // MAXA2 with zeros (a zero term changes at most the sign of an exact zero) and
-// the head count is a compile-time constant for 4 heads, so that they unroll
-// with no branch.
+// the heads of a group are a compile-time constant for 4, so that they unroll
+// with no branch. The logit's arithmetic is edge_logit.cuh's, which the
+// forward includes too.
 //
 // Every entry point has a plain C interface, launches on the stream it is
 // given, allocates nothing and returns cudaGetLastError().
@@ -71,215 +76,101 @@
 #include <algorithm>
 #include <cmath>
 
+#include "edge_logit.cuh"
+
 namespace {
 
+using edge_logit::group_sum;
+using edge_logit::kFull;
+using edge_logit::Layout;
+using edge_logit::Row;
+using edge_logit::store_row;
+using edge_logit::to_f;
+
 constexpr int kMaxA2 = 16;  // kMaxA2 in csrc/edge_attention.cu
-constexpr int kWarps = 4;   // warps per CTA of every pass
+constexpr int kWarps = 4;   // warps per CTA of every pass (the dst pass takes fewer where its partials need it)
 constexpr int kThreads = 32 * kWarps;
 constexpr int kReduceCols = 32;
 constexpr int kReduceRows = 32;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// N consecutive values of T held as raw words: one load of 4, 8 or 16 bytes,
-// or several 16-byte loads, converted to fp32 where used (N = VB >= 2).
-template <typename T, int N>
-struct Row {
-  static constexpr int kBytes = N * static_cast<int>(sizeof(T));
-  static_assert(kBytes == 4 || kBytes == 8 || kBytes % 16 == 0, "a row chunk is 4, 8 or 16n bytes");
-  uint32_t w[kBytes / 4];
-
-  __device__ __forceinline__ void load(const T* p) {
-    if constexpr (kBytes % 16 == 0) {
-#pragma unroll
-      for (int i = 0; i < kBytes / 16; ++i) {
-        const int4 v = __ldg(reinterpret_cast<const int4*>(p) + i);
-        w[4 * i] = v.x;
-        w[4 * i + 1] = v.y;
-        w[4 * i + 2] = v.z;
-        w[4 * i + 3] = v.w;
-      }
-    } else if constexpr (kBytes == 8) {
-      const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
-      w[0] = v.x;
-      w[1] = v.y;
-    } else {
-      w[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
-    }
-  }
-
-  __device__ __forceinline__ void load_shared(const uint8_t* p) {  // this lane's own chunk of a ring stage
-    if constexpr (kBytes % 16 == 0) {
-#pragma unroll
-      for (int i = 0; i < kBytes / 16; ++i) {
-        const int4 v = reinterpret_cast<const int4*>(p)[i];
-        w[4 * i] = v.x;
-        w[4 * i + 1] = v.y;
-        w[4 * i + 2] = v.z;
-        w[4 * i + 3] = v.w;
-      }
-    } else if constexpr (kBytes == 8) {
-      const uint2 v = *reinterpret_cast<const uint2*>(p);
-      w[0] = v.x;
-      w[1] = v.y;
-    } else {
-      w[0] = *reinterpret_cast<const unsigned int*>(p);
-    }
-  }
-
-  __device__ __forceinline__ float operator[](int i) const {  // i is a compile-time index after unrolling
-    if constexpr (sizeof(T) == 4) {
-      return __uint_as_float(w[i]);
-    } else {
-      return __uint_as_float((i & 1) ? (w[i >> 1] & 0xffff0000u) : (w[i >> 1] << 16));
-    }
-  }
-};
-
-template <int N>
-__device__ __forceinline__ void store_row(float* p, const float* v) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < N / 4; ++i)
-      reinterpret_cast<float4*>(p)[i] = make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
-  } else {
-    static_assert(N == 2, "a lane stores 2 or 4n floats");
-    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-  }
-}
-
-// cp.async of this lane's N values of T (4 to 64 bytes) into shared memory
-template <typename T, int N>
-__device__ __forceinline__ void copy_async(uint8_t* dst, const T* src) {
-  constexpr int kBytes = N * static_cast<int>(sizeof(T));
-  static_assert(kBytes >= 4, "cp.async moves 4 bytes at least");
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  if constexpr (kBytes % 16 == 0) {
-#pragma unroll
-    for (int i = 0; i < kBytes / 16; ++i)
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d + 16 * i),
-                   "l"(reinterpret_cast<const uint8_t*>(src) + 16 * i)
-                   : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src), "n"(kBytes) : "memory");
-  }
-}
-
-__device__ __forceinline__ void copy_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void copy_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// the sum over the `lanes` lanes of an aligned group (a head), every lane
-// getting the same bits
-__device__ __forceinline__ float group_sum(float s, int lanes) {
-#pragma unroll
-  for (int off = lanes >> 1; off > 0; off >>= 1) s += __shfl_xor_sync(kFull, s, off);
-  return s;
-}
+constexpr size_t kMaxSmem = 227 * 1024;  // shared memory a CTA can have on the H100
 
 // ---------------------------------------------------------------------------
-// dst pass. C = 32 VB channels; lane l owns channels [l VB, l VB + VB) of head
-// l / LB (LB = D / VB lanes a head, H = 32 / LB heads). Warp g of the
-// persistent grid takes destinations g, g + warps, ... Each warp keeps
-// kRing - 1 edges' k/v rows in flight in its own ring of shared memory
-// (cp.async, each lane copying and later reading only its own chunk), and the
-// attributes of 32 edges at a time in registers, one edge a lane, shuffled out
-// per edge. With SLOT (A2 <= LB) lane l keeps only attribute r = l % LB of its
-// head's P, G, adl and aw, so da_e is one fmaf and a shuffle sum over the
-// heads; otherwise every lane keeps all A2. HC, when not 0, is the head count
-// at compile time. Shared memory: w_aug, the warps' rings, their q and g_num
-// chunks of the next destination, their dw_aug partials.
+// dst pass. The lane layout of edge_logit.cuh: a head group of G channels,
+// lane l < lanes = G / VB owning channels [l VB, l VB + VB) of the group, of
+// head l / LB of the group (LB = D / VB lanes a head); the other lanes shadow
+// the first head's lanes and store nothing. Warp g of the persistent grid
+// takes destinations g, g + warps, ... and walks each destination's head
+// groups in sequence, so every sum over heads runs in one fixed order. Each
+// warp keeps kRing - 1 edges' k/v row slices in flight in its own ring of
+// shared memory (cp.async, each lane its own VB channels where they are whole
+// 16-byte copies, else the warp 16 bytes a lane), and the
+// attributes of 32 edges at a time in registers, one edge a lane, shuffled
+// out per edge. With SLOT (A2 <= LB) lane l keeps only attribute r = l % LB
+// of its head's P, G, adl and aw, so da_e is one fmaf and a shuffle sum over
+// the heads; otherwise every lane keeps all A2. HC, when not 0, is the heads
+// of a group at compile time (on 32 lanes); FLAT, one group of 32 lanes (C =
+// 32 VB at compile time, the flagship's C = 256: the row strides fold into
+// the addresses). Shared memory: w_aug, the warps' rings, their q and g_num
+// slices of the next destination's first group, and their dw_aug partials
+// (A2 x C fp32 a warp: at C = 1024 these bound the CTA to one an SM).
 // ---------------------------------------------------------------------------
 
 constexpr int kRing = 3;  // ring stages a warp: kRing - 1 edges in flight
 
-// The logit's dot product exactly as the forward sums it: the forward's
-// thread owns VF channels (one fmaf chain), a lane holds P = VB / VF of those
-// chains; the forward's shuffle tree runs across lanes for its levels of P
-// threads and more, then inside the lane.
-template <typename T, int VB, int VF>
-__device__ __forceinline__ float exact_dot(const float* qv, const Row<T, VB>& kr, const float* ev, int LB) {
-  constexpr int P = VB / VF;
-  float s[P];
-#pragma unroll
-  for (int u = 0; u < P; ++u) {
-    float x = 0.f;
-#pragma unroll
-    for (int f = 0; f < VF; ++f) x = fmaf(qv[u * VF + f], kr[u * VF + f] + ev[u * VF + f], x);
-    s[u] = x;
-  }
-#pragma unroll
-  for (int off = LB >> 1; off > 0; off >>= 1) {
-#pragma unroll
-    for (int u = 0; u < P; ++u) s[u] += __shfl_xor_sync(kFull, s[u], off);
-  }
-#pragma unroll
-  for (int off = P >> 1; off > 0; off >>= 1) {
-#pragma unroll
-    for (int u = 0; u < off; ++u) s[u] = s[u] + s[u + off];
-  }
-  return s[0];
+size_t dst_smem_bytes(int C, int G, int A2, int maxa2, int item, int warps) {
+  return static_cast<size_t>(maxa2) * C * item +
+         static_cast<size_t>(warps) * (kRing * 2 * G * item + G * (item + 4) + static_cast<size_t>(A2) * C * 4);
 }
 
-template <typename T, int VB>
-__device__ __forceinline__ float exact_dot_vf(int vf, const float* qv, const Row<T, VB>& kr, const float* ev,
-                                              int LB) {
-  if constexpr (VB >= 4) {
-    if (vf == 4) return exact_dot<T, VB, 4>(qv, kr, ev, LB);
-  }
-  if constexpr (VB >= 2) {
-    if (vf == 2) return exact_dot<T, VB, 2>(qv, kr, ev, LB);
-  }
-  return exact_dot<T, VB, 1>(qv, kr, ev, LB);
-}
-
-template <typename T, int VB, int MAXA2, bool SLOT, int HC>
+template <typename T, int VB, int MAXA2, bool SLOT, int HC, bool FLAT>
 __global__ void __launch_bounds__(kThreads) bwd_dst_kernel(
     const T* __restrict__ q, const T* __restrict__ kv, const int* __restrict__ rowptr,
     const int* __restrict__ src, const T* __restrict__ a, const T* __restrict__ w_aug,
     const float* __restrict__ m_in, const float* __restrict__ g_num, const float* __restrict__ g_den,
     const int* __restrict__ pos, float* __restrict__ dq, float* __restrict__ da,
     float* __restrict__ dlw, float* __restrict__ dw_part, int batch, int num_dst, int num_src,
-    int num_edges, int h_arg, int A2, float scale) {
-  constexpr int C = 32 * VB;
-  const int H = HC ? HC : h_arg;  // compile-time on the main path (HC = 4)
-  const int vf = VB > H ? VB / H : 1;  // the forward's channels a thread: max(1, D / 32)
-  constexpr int kChunk = VB * static_cast<int>(sizeof(T));      // a lane's bytes of a row
-  constexpr int kStage = 2 * C * static_cast<int>(sizeof(T));  // k and v rows
-  constexpr int RL = SLOT ? 1 : MAXA2;                          // attribute slots a lane keeps
-  // w_aug (MAXA2, C) in T, the warps' rings, then the warps' dw_aug partials (MAXA2, C) in fp32
+    int num_edges, int c_arg, int h_arg, Layout L, int A2, float scale) {
+  constexpr int kTs = static_cast<int>(sizeof(T));
+  constexpr int RL = SLOT ? 1 : MAXA2;  // attribute slots a lane keeps
+  const int C = FLAT ? 32 * VB : c_arg;
+  const int H = FLAT && HC ? HC : h_arg;
+  const int G = (HC || FLAT) ? 32 * VB : L.G;
+  const int LB = HC ? 32 / HC : L.LB;  // lanes of a head
+  const int HG = HC ? HC : L.HG;
+  const int lanes = (HC || FLAT) ? 32 : L.lanes;
+  const int vf = HC ? (VB >= 4 ? VB / 4 : 1) : L.vf;  // HC = 4: D = 8 VB
+  const int groups = FLAT ? 1 : L.groups;
+  const int nwarps = blockDim.x / 32;
+  const int stage = 2 * G * kTs;  // a k slice, then a v slice
+  // w_aug (MAXA2, C) in T, the warps' rings, their q and g_num slices, then their dw_aug partials (A2, C) fp32
   extern __shared__ __align__(16) uint8_t smem[];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int LB = 32 / H;
-  const int head = lane / LB;
-  const int j = lane % LB;  // SLOT: the attribute this lane keeps
-  const bool head_lead = j == 0;
-  const int c0 = lane * VB;
-  const T* w_s = reinterpret_cast<const T*>(smem) + c0;  // this lane's channels of w_aug row r at r * C
-  uint8_t* ring = smem + MAXA2 * C * sizeof(T) + warp * kRing * kStage + lane * kChunk;
-  // this lane's chunks of the next destination's q and g_num rows (cp.async, read back by the lane)
-  uint8_t* qg_q = smem + MAXA2 * C * sizeof(T) + kWarps * kRing * kStage + warp * C * (sizeof(T) + 4) +
-                  lane * kChunk;
-  uint8_t* qg_g = qg_q - lane * kChunk + C * sizeof(T) + lane * 4 * VB;
-  float* dw_all = reinterpret_cast<float*>(smem + MAXA2 * C * sizeof(T) + kWarps * (kRing * kStage + C * (sizeof(T) + 4)));
-  float* dw_s = dw_all + warp * MAXA2 * C + c0;  // this lane's channels of its warp's partial, row r at r * C
-#pragma unroll
-  for (int r = 0; r < MAXA2; ++r) {
-    const float zero[VB] = {};
-    store_row<VB>(dw_s + r * C, zero);
-  }
+  const bool active = lane < lanes;
+  const int ll = active ? lane : lane % LB;
+  const int hl = ll / LB;   // head of the group
+  const int j = ll % LB;    // SLOT: the attribute this lane keeps
+  const bool head_lead = active && j == 0;
+  const int c0 = ll * VB;   // within the group
+  // w_aug by group: group k's rows at k * MAXA2 * G, row r of it at r * G
+  const T* w_s = reinterpret_cast<const T*>(smem) + c0;
+  constexpr int kChunk = VB * kTs;  // a lane's bytes of a k or v slice
+  constexpr bool kOwn = kChunk % 16 == 0;  // each lane copies and reads only its own chunk
+  // own chunks: the lane's offset folds into the ring's and the rows' base addresses
+  uint8_t* ring = smem + MAXA2 * C * kTs + warp * kRing * stage + (kOwn ? c0 * kTs : 0);
+  const int own = kOwn ? 0 : c0 * kTs;
+  uint8_t* qg_q = smem + MAXA2 * C * kTs + nwarps * kRing * stage + warp * G * (kTs + 4);
+  uint8_t* qg_g = qg_q + G * kTs;
+  float* dw_all = reinterpret_cast<float*>(smem + MAXA2 * C * kTs + nwarps * (kRing * stage + G * (kTs + 4)));
+  float* dw_w = dw_all + warp * A2 * C;  // this warp's partial, row r at r * C
+  for (int i = 4 * lane; i < A2 * C; i += 4 * 32)
+    *reinterpret_cast<float4*>(dw_w + i) = make_float4(0.f, 0.f, 0.f, 0.f);
   // persistent: warp g of the grid takes destinations g, g + warps, g + 2 warps, ...
-  const int warps = gridDim.x * kWarps;
-  int t = blockIdx.x * kWarps + warp;
+  const int warps = gridDim.x * nwarps;
+  int t = blockIdx.x * nwarps + warp;
 
   // a batch of this warp's edges (at most 32): lane l holds edge l's source, position and
-  // attributes; prime(b) starts the batch's first kRing - 1 k/v rows of batch index b into the ring
+  // attributes; prime(b, k) starts the first kRing - 1 k/v row slices of group k, batch index b
   int cnt = 0, sid = 0, spos = 0;
   float areg[MAXA2];
   auto load_batch = [&](int base, int end) {
@@ -291,39 +182,49 @@ __global__ void __launch_bounds__(kThreads) bwd_dst_kernel(
 #pragma unroll
     for (int r = 0; r < MAXA2; ++r) areg[r] = have && r < A2 ? to_f(a[mine * A2 + r]) : 0.f;
   };
-  auto prime = [&](int b) {
-    const T* kv_b = kv + (int64_t)b * num_src * 2 * C + c0;
+  auto copy_rows = [&](uint8_t* st, const T* krow) {
+    edge_logit::slice_copy_async<kChunk>(st, krow, own, G * kTs, lane);
+    edge_logit::slice_copy_async<kChunk>(st + G * kTs, krow + C, own, G * kTs, lane);
+  };
+  auto prime = [&](int b, int k) {
+    const T* kv_b = kv + (int64_t)b * num_src * 2 * C + k * G + (kOwn ? c0 : 0);
+    edge_logit::slice_sync<kChunk>();  // every lane is done with the stages it overwrites
 #pragma unroll
     for (int d = 0; d < kRing - 1; ++d) {
-      if (d < cnt) {
-        const T* krow = kv_b + (int64_t)__shfl_sync(kFull, sid, d) * 2 * C;
-        copy_async<T, VB>(ring + d * kStage, krow);
-        copy_async<T, VB>(ring + d * kStage + C * sizeof(T), krow + C);
-      }
-      copy_commit();
+      if (d < cnt) copy_rows(ring + d * stage, kv_b + (int64_t)__shfl_sync(kFull, sid, d) * 2 * C);
+      edge_logit::copy_commit();
     }
+  };
+  // the first group's q and g_num slices of destination tt (batch 0)
+  auto fetch_qg = [&](int tt) {
+    edge_logit::slice_sync<kChunk>();
+    edge_logit::slice_sync<VB * 4>();
+    if (tt < num_dst) {
+      edge_logit::slice_copy_async<kChunk>(qg_q, q + (int64_t)tt * C, c0 * kTs, G * kTs, lane);
+      edge_logit::slice_copy_async<VB * 4>(qg_g, g_num + (int64_t)tt * C, c0 * 4, G * 4, lane);
+    }
+    edge_logit::copy_commit();
   };
 
   int e_begin = t < num_dst ? rowptr[t] : 0;
   int e_end = t < num_dst ? rowptr[t + 1] : 0;
-  // the first destination's edges, q and g_num rows and m, g_den, in flight together
-  auto fetch_qg = [&](int tt) {
-    if (tt < num_dst) {
-      copy_async<T, VB>(qg_q, q + (int64_t)tt * C + c0);
-      copy_async<float, VB>(qg_g, g_num + (int64_t)tt * C + c0);
-    }
-    copy_commit();
-  };
+  // the first destination's edges, q and g_num slices and m, g_den, in flight together
   load_batch(e_begin, e_end);
-  float m_next = t < num_dst ? m_in[(int64_t)t * H + head] : 0.f;
-  float gd_next = t < num_dst ? g_den[(int64_t)t * H + head] : 0.f;
+  float m_next = t < num_dst ? m_in[(int64_t)t * H + hl] : 0.f;
+  float gd_next = t < num_dst ? g_den[(int64_t)t * H + hl] : 0.f;
   fetch_qg(t);
-  prime(0);
-  // w_aug, a word at a time, zero rows past A2: every loop over attributes runs MAXA2 long with
-  // no branch, and a zero term changes at most the sign of an exact zero in the edge term
-  for (int i = threadIdx.x; i < MAXA2 * C * static_cast<int>(sizeof(T)) / 4; i += kThreads)
-    reinterpret_cast<uint32_t*>(smem)[i] =
-        i < A2 * C * static_cast<int>(sizeof(T)) / 4 ? reinterpret_cast<const uint32_t*>(w_aug)[i] : 0u;
+  prime(0, 0);
+  // w_aug by group, a word at a time, zero rows past A2: every loop over attributes runs MAXA2
+  // long with no branch, and a zero term changes at most the sign of an exact zero in the edge term
+  {
+    const int words = G * kTs / 4;  // a row of a group
+    for (int i = threadIdx.x; i < groups * MAXA2 * words; i += blockDim.x) {
+      const int kr = i / words;  // group k * MAXA2 + row r
+      const int k = kr / MAXA2, r = kr - k * MAXA2;
+      reinterpret_cast<uint32_t*>(smem)[i] =
+          r < A2 ? reinterpret_cast<const uint32_t*>(w_aug + r * C + k * G)[i - kr * words] : 0u;
+    }
+  }
   __syncthreads();
 
   for (; t < num_dst; t += warps) {
@@ -334,211 +235,215 @@ __global__ void __launch_bounds__(kThreads) bwd_dst_kernel(
 
     for (int b = 0; b < batch; ++b) {
       const int64_t row = (int64_t)b * num_dst + t;
-      float qv[VB], gv[VB], dqa[VB];
-      float m_h, gd_h;
-      {
-        Row<T, VB> qr;
-        Row<float, VB> gr;
-        if (b == 0) {  // fetched while the previous destination finished
-          copy_wait<kRing - 1>();
-          qr.load_shared(qg_q);
-          gr.load_shared(qg_g);
-          m_h = m_next;
-          gd_h = gd_next;
-        } else {
-          qr.load(q + row * C + c0);
-          gr.load(g_num + row * C + c0);
-          m_h = m_in[row * H + head];
-          gd_h = g_den[row * H + head];
-        }
-#pragma unroll
-        for (int c = 0; c < VB; ++c) {
-          qv[c] = qr[c];
-          gv[c] = gr[c];
-          dqa[c] = 0.f;
-        }
-      }
-
-      // per-destination factors of da: P[r] = <q, w_aug[r]>_h, G[r] = <g_num, w_aug[r]>_h
-      float pf[RL], gf[RL], adl[RL], aw[RL];
-#pragma unroll
-      for (int x = 0; x < RL; ++x) pf[x] = gf[x] = adl[x] = aw[x] = 0.f;
-      if constexpr (SLOT && HC != 0 && 32 / (HC ? HC : 1) == MAXA2) {
-        // a lane per attribute of its head: each lane's partial dots for every r, then
-        // recursive halving across the head's lanes leaves lane j with attribute j's sums
-        float vp[MAXA2], vg[MAXA2];
-#pragma unroll
-        for (int r = 0; r < MAXA2; ++r) {
-          Row<T, VB> wv;
-          wv.load_shared(reinterpret_cast<const uint8_t*>(w_s + r * C));
-          float p = 0.f, g = 0.f;
-#pragma unroll
-          for (int c = 0; c < VB; ++c) {
-            p = fmaf(qv[c], wv[c], p);
-            g = fmaf(gv[c], wv[c], g);
-          }
-          vp[r] = p;
-          vg[r] = g;
-        }
-#pragma unroll
-        for (int half = MAXA2 / 2; half >= 1; half /= 2) {
-          const bool upper = (lane & half) != 0;
-#pragma unroll
-          for (int i = 0; i < half; ++i) {
-            const float sp = upper ? vp[i] : vp[i + half];
-            const float sg = upper ? vg[i] : vg[i + half];
-            vp[i] = (upper ? vp[i + half] : vp[i]) + __shfl_xor_sync(kFull, sp, half);
-            vg[i] = (upper ? vg[i + half] : vg[i]) + __shfl_xor_sync(kFull, sg, half);
-          }
-        }
-        pf[0] = vp[0];
-        gf[0] = vg[0];
-      } else {
-#pragma unroll
-      for (int r = 0; r < MAXA2; ++r) {
-        if (r < A2) {
-          Row<T, VB> wv;
-          wv.load_shared(reinterpret_cast<const uint8_t*>(w_s + r * C));
-          float p = 0.f, g = 0.f;
-#pragma unroll
-          for (int c = 0; c < VB; ++c) {
-            p = fmaf(qv[c], wv[c], p);
-            g = fmaf(gv[c], wv[c], g);
-          }
-          p = group_sum(p, LB);
-          g = group_sum(g, LB);
-          if constexpr (SLOT) {
-            if (r == j) {
-              pf[0] = p;
-              gf[0] = g;
-            }
+      for (int k = 0; k < groups; ++k) {
+        const int ck = k * G + c0;  // this lane's first channel
+        const int head = k * HG + hl;
+        const bool first = b == 0 && k == 0;
+        float qv[VB], gv[VB], dqa[VB];
+        float m_h, gd_h;
+        {
+          Row<T, VB> qr;
+          Row<float, VB> gr;
+          if (first) {  // fetched while the previous destination finished
+            edge_logit::copy_wait<kRing - 1>();
+            edge_logit::slice_sync<kChunk>();
+            edge_logit::slice_sync<VB * 4>();
+            qr.load_shared(qg_q + c0 * kTs);
+            gr.load_shared(qg_g + c0 * 4);
+            m_h = m_next;
+            gd_h = gd_next;
           } else {
-            pf[r] = p;
-            gf[r] = g;
+            qr.load(q + row * C + ck);
+            gr.load(g_num + row * C + ck);
+            m_h = m_in[row * H + head];
+            gd_h = g_den[row * H + head];
+          }
+#pragma unroll
+          for (int c = 0; c < VB; ++c) {
+            qv[c] = qr[c];
+            gv[c] = gr[c];
+            dqa[c] = 0.f;
           }
         }
-      }
-      }
+        const T* w_k = w_s + k * MAXA2 * G;  // this lane's channels of group k's w_aug row r at r * G
 
-      const T* kv_b = kv + (int64_t)b * num_src * 2 * C + c0;
-      float* dlw_b = dlw + (int64_t)b * num_edges * H * 2;
-      for (int base = e_begin; base < e_end; base += 32) {
-        if (b > 0 || base != e_begin) {  // the first batch of b = 0 was loaded and primed ahead
-          load_batch(base, e_end);
-          prime(b);
-        }
-        for (int n = 0; n < cnt; ++n) {
-          const int e = base + n;
-          {  // the row kRing - 1 edges on, into the stage edge n - 1 freed
-            const int nx = n + kRing - 1;
-            if (nx < cnt) {
-              uint8_t* st = ring + (nx % kRing) * kStage;
-              const T* krow = kv_b + (int64_t)__shfl_sync(kFull, sid, nx) * 2 * C;
-              copy_async<T, VB>(st, krow);
-              copy_async<T, VB>(st + C * sizeof(T), krow + C);
-            }
-            copy_commit();
-          }
-          const int epos = __shfl_sync(kFull, spos, n);
-          float ar[MAXA2];
+        // per-destination factors of da: P[r] = <q, w_aug[r]>_h, G[r] = <g_num, w_aug[r]>_h
+        float pf[RL], gf[RL], adl[RL], aw[RL];
 #pragma unroll
-          for (int r = 0; r < MAXA2; ++r) ar[r] = __shfl_sync(kFull, areg[r], n);
-          copy_wait<kRing - 1>();  // this lane's copies of edge n have landed
-          Row<T, VB> kr, vr;
-          kr.load_shared(ring + (n % kRing) * kStage);
-          vr.load_shared(ring + (n % kRing) * kStage + C * sizeof(T));
-
-          // the edge term in the forward's order: ev = sum_r a_r w_aug[r], one fmaf chain a channel
-          float ev[VB];
-#pragma unroll
-          for (int c = 0; c < VB; ++c) ev[c] = 0.f;
+        for (int x = 0; x < RL; ++x) pf[x] = gf[x] = adl[x] = aw[x] = 0.f;
+        if constexpr (SLOT && HC != 0 && 32 / (HC ? HC : 1) == MAXA2) {
+          // a lane per attribute of its head: each lane's partial dots for every r, then
+          // recursive halving across the head's lanes leaves lane j with attribute j's sums
+          float vp[MAXA2], vg[MAXA2];
 #pragma unroll
           for (int r = 0; r < MAXA2; ++r) {
             Row<T, VB> wv;
-            wv.load_shared(reinterpret_cast<const uint8_t*>(w_s + r * C));
+            wv.load_shared(reinterpret_cast<const uint8_t*>(w_k + r * G));
+            float p = 0.f, g = 0.f;
 #pragma unroll
-            for (int c = 0; c < VB; ++c) ev[c] = fmaf(ar[r], wv[c], ev[c]);
-          }
-          const float w = expf(fminf(exact_dot_vf<T, VB>(vf, qv, kr, ev, LB) * scale - m_h, 0.f));
-          float s1 = 0.f;
-#pragma unroll
-          for (int c = 0; c < VB; ++c) s1 = fmaf(gv[c], vr[c] + ev[c], s1);
-          s1 = group_sum(s1, LB);
-          const float dl = w * (s1 + gd_h);
-          const float sdl = scale * dl;
-#pragma unroll
-          for (int c = 0; c < VB; ++c) dqa[c] = fmaf(sdl, kr[c] + ev[c], dqa[c]);
-          // da_e: this head's term, then the sum over heads (lanes LB, 2 LB, ... apart)
-          float mine_da = 0.f;
-          if constexpr (SLOT) {
-            float a_j = 0.f;
-#pragma unroll
-            for (int r = 0; r < MAXA2; ++r)
-              if (r == j) a_j = ar[r];
-            adl[0] = fmaf(a_j, dl, adl[0]);
-            aw[0] = fmaf(a_j, w, aw[0]);
-            float x = fmaf(sdl, pf[0], w * gf[0]);
-#pragma unroll
-            for (int off = LB; off < 32; off <<= 1) x += __shfl_xor_sync(kFull, x, off);
-            mine_da = x;  // lane r < A2 <= LB: attribute r
-          } else {
-            float x[MAXA2];
-#pragma unroll
-            for (int r = 0; r < MAXA2; ++r) {
-              adl[r] = fmaf(ar[r], dl, adl[r]);
-              aw[r] = fmaf(ar[r], w, aw[r]);
-              x[r] = fmaf(sdl, pf[r], w * gf[r]);
+            for (int c = 0; c < VB; ++c) {
+              p = fmaf(qv[c], wv[c], p);
+              g = fmaf(gv[c], wv[c], g);
             }
+            vp[r] = p;
+            vg[r] = g;
+          }
 #pragma unroll
-            for (int off = LB; off < 32; off <<= 1) {
+          for (int half = MAXA2 / 2; half >= 1; half /= 2) {
+            const bool upper = (lane & half) != 0;
 #pragma unroll
-              for (int r = 0; r < MAXA2; ++r) x[r] += __shfl_xor_sync(kFull, x[r], off);
+            for (int i = 0; i < half; ++i) {
+              const float sp = upper ? vp[i] : vp[i + half];
+              const float sg = upper ? vg[i] : vg[i + half];
+              vp[i] = (upper ? vp[i + half] : vp[i]) + __shfl_xor_sync(kFull, sp, half);
+              vg[i] = (upper ? vg[i + half] : vg[i]) + __shfl_xor_sync(kFull, sg, half);
             }
+          }
+          pf[0] = vp[0];
+          gf[0] = vg[0];
+        } else {
 #pragma unroll
-            for (int r = 0; r < MAXA2; ++r)
-              if (r == lane) mine_da = x[r];
+          for (int r = 0; r < MAXA2; ++r) {
+            if (r < A2) {
+              Row<T, VB> wv;
+              wv.load_shared(reinterpret_cast<const uint8_t*>(w_k + r * G));
+              float p = 0.f, g = 0.f;
+#pragma unroll
+              for (int c = 0; c < VB; ++c) {
+                p = fmaf(qv[c], wv[c], p);
+                g = fmaf(gv[c], wv[c], g);
+              }
+              p = group_sum(p, LB);
+              g = group_sum(g, LB);
+              if constexpr (SLOT) {
+                if (r == j) {
+                  pf[0] = p;
+                  gf[0] = g;
+                }
+              } else {
+                pf[r] = p;
+                gf[r] = g;
+              }
+            }
           }
-          if (lane < A2) {
-            float* p = da + (int64_t)e * A2 + lane;
-            *p = b == 0 ? mine_da : *p + mine_da;
-          }
-          if (head_lead)
-            *reinterpret_cast<float2*>(dlw_b + ((int64_t)epos * H + head) * 2) = make_float2(dl, w);
         }
-      }
-      if (b == batch - 1) {  // the next destination's edges, m and g_den, in flight during the stores
-        load_batch(next_begin, next_end);
-        m_next = tn < num_dst ? m_in[(int64_t)tn * H + head] : 0.f;
-        gd_next = tn < num_dst ? g_den[(int64_t)tn * H + head] : 0.f;
-      }
 
-      // dq[t], and this destination's dw_aug terms into the warp's partial:
-      //   dw[r, c] += scale q[t,c] adl[h(c), r] + g_num[t,c] aw[h(c), r]
-      // (with SLOT lane (h, j) holds head h's adl, aw of attribute j; otherwise every lane all of h's)
-      store_row<VB>(dq + row * C + c0, dqa);
-#pragma unroll
-      for (int r = 0; r < MAXA2; ++r) {
-        if (r < A2) {
-          float adl_r, aw_r;
-          if constexpr (SLOT) {
-            adl_r = __shfl_sync(kFull, adl[0], head * LB + r);
-            aw_r = __shfl_sync(kFull, aw[0], head * LB + r);
-          } else {
-            adl_r = adl[r];
-            aw_r = aw[r];
+        const T* kv_b = kv + (int64_t)b * num_src * 2 * C + k * G + (kOwn ? c0 : 0);
+        float* dlw_b = dlw + (int64_t)b * num_edges * H * 2;
+        for (int base = e_begin; base < e_end; base += 32) {
+          if (!first || base != e_begin) {  // the first batch of b = 0, k = 0 was loaded and primed ahead
+            load_batch(base, e_end);
+            prime(b, k);
           }
-          const float sadl = scale * adl_r;
-          Row<float, VB> part;
-          part.load_shared(reinterpret_cast<const uint8_t*>(dw_s + r * C));
-          float acc[VB];
+          for (int n = 0, rd = 0; n < cnt; ++n, rd = rd == kRing - 1 ? 0 : rd + 1) {  // rd: edge n's stage
+            const int e = base + n;
+            {  // the row kRing - 1 edges on, into the stage edge n - 1 freed
+              edge_logit::slice_sync<kChunk>();
+              const int nx = n + kRing - 1;
+              if (nx < cnt)
+                copy_rows(ring + (rd == 0 ? kRing - 1 : rd - 1) * stage,
+                          kv_b + (int64_t)__shfl_sync(kFull, sid, nx) * 2 * C);
+              edge_logit::copy_commit();
+            }
+            const int epos = __shfl_sync(kFull, spos, n);
+            float ar[MAXA2];
 #pragma unroll
-          for (int c = 0; c < VB; ++c) acc[c] = fmaf(qv[c], sadl, fmaf(gv[c], aw_r, part[c]));
-          store_row<VB>(dw_s + r * C, acc);
+            for (int r = 0; r < MAXA2; ++r) ar[r] = __shfl_sync(kFull, areg[r], n);
+            edge_logit::copy_wait<kRing - 1>();  // this lane's copies of edge n have landed,
+            edge_logit::slice_sync<kChunk>();     // and every other lane's
+            const uint8_t* st = ring + rd * stage + own;
+            Row<T, VB> kr, vr;
+            kr.load_shared(st);
+            vr.load_shared(st + G * kTs);
+
+            // the edge term in the forward's order: ev = sum_r a_r w_aug[r], one fmaf chain a channel
+            float ev[VB];
+            edge_logit::edge_term<T, VB, MAXA2>(ev, ar, w_k, G);
+            const float w =
+                expf(fminf(edge_logit::exact_dot_vf<T, VB>(vf, qv, kr, ev, LB) * scale - m_h, 0.f));
+            float s1 = 0.f;
+#pragma unroll
+            for (int c = 0; c < VB; ++c) s1 = fmaf(gv[c], vr[c] + ev[c], s1);
+            s1 = group_sum(s1, LB);
+            const float dl = w * (s1 + gd_h);
+            const float sdl = scale * dl;
+#pragma unroll
+            for (int c = 0; c < VB; ++c) dqa[c] = fmaf(sdl, kr[c] + ev[c], dqa[c]);
+            // da_e: this head's term, then the sum over the group's heads (lanes LB, 2 LB, ... apart;
+            // idle lanes add 0), added to the earlier groups' and batch indices' in that order
+            float mine_da = 0.f;
+            if constexpr (SLOT) {
+              float a_j = 0.f;
+#pragma unroll
+              for (int r = 0; r < MAXA2; ++r)
+                if (r == j) a_j = ar[r];
+              adl[0] = fmaf(a_j, dl, adl[0]);
+              aw[0] = fmaf(a_j, w, aw[0]);
+              float x = active ? fmaf(sdl, pf[0], w * gf[0]) : 0.f;
+#pragma unroll
+              for (int off = LB; off < 32; off <<= 1) x += __shfl_xor_sync(kFull, x, off);
+              mine_da = x;  // lane r < A2 <= LB: attribute r
+            } else {
+              float x[MAXA2];
+#pragma unroll
+              for (int r = 0; r < MAXA2; ++r) {
+                adl[r] = fmaf(ar[r], dl, adl[r]);
+                aw[r] = fmaf(ar[r], w, aw[r]);
+                x[r] = active ? fmaf(sdl, pf[r], w * gf[r]) : 0.f;
+              }
+              for (int off = LB; off < 32; off <<= 1) {
+#pragma unroll
+                for (int r = 0; r < MAXA2; ++r) x[r] += __shfl_xor_sync(kFull, x[r], off);
+              }
+#pragma unroll
+              for (int r = 0; r < MAXA2; ++r)
+                if (r == lane) mine_da = x[r];
+            }
+            if (lane < A2) {
+              float* p = da + (int64_t)e * A2 + lane;
+              *p = first ? mine_da : *p + mine_da;
+            }
+            if (head_lead)
+              *reinterpret_cast<float2*>(dlw_b + ((int64_t)epos * H + head) * 2) = make_float2(dl, w);
+          }
+        }
+        if (b == batch - 1 && k == groups - 1) {  // the next destination's edges, m and g_den, in flight
+          load_batch(next_begin, next_end);
+          m_next = tn < num_dst ? m_in[(int64_t)tn * H + hl] : 0.f;
+          gd_next = tn < num_dst ? g_den[(int64_t)tn * H + hl] : 0.f;
+        }
+
+        // dq[t], and this destination's dw_aug terms into the warp's partial:
+        //   dw[r, c] += scale q[t,c] adl[h(c), r] + g_num[t,c] aw[h(c), r]
+        // (with SLOT lane (h, j) holds head h's adl, aw of attribute j; otherwise every lane all of h's)
+        if (active) store_row<VB>(dq + row * C + ck, dqa);
+#pragma unroll
+        for (int r = 0; r < MAXA2; ++r) {
+          if (r < A2) {
+            float adl_r, aw_r;
+            if constexpr (SLOT) {
+              adl_r = __shfl_sync(kFull, adl[0], hl * LB + r);
+              aw_r = __shfl_sync(kFull, aw[0], hl * LB + r);
+            } else {
+              adl_r = adl[r];
+              aw_r = aw[r];
+            }
+            if (active) {
+              const float sadl = scale * adl_r;
+              float* part_p = dw_w + r * C + ck;
+              Row<float, VB> part;
+              part.load_shared(reinterpret_cast<const uint8_t*>(part_p));
+              float acc[VB];
+#pragma unroll
+              for (int c = 0; c < VB; ++c) acc[c] = fmaf(qv[c], sadl, fmaf(gv[c], aw_r, part[c]));
+              store_row<VB>(part_p, acc);
+            }
+          }
         }
       }
     }
     fetch_qg(tn);  // the next destination's q, g_num and first k/v rows
-    prime(0);
+    prime(0, 0);
     e_begin = next_begin;
     e_end = next_end;
   }
@@ -546,35 +451,41 @@ __global__ void __launch_bounds__(kThreads) bwd_dst_kernel(
   // the CTA's dw_aug partial: its warps' partials summed in warp order
   __syncthreads();
   float* out = dw_part + (int64_t)blockIdx.x * A2 * C;
-  for (int i = threadIdx.x; i < A2 * C; i += kThreads) {
+  for (int i = threadIdx.x; i < A2 * C; i += blockDim.x) {
     float sum = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) sum += dw_all[w * MAXA2 * C + i];
+    for (int w = 0; w < nwarps; ++w) sum += dw_all[w * A2 * C + i];
     out[i] = sum;
   }
 }
 
 // ---------------------------------------------------------------------------
-// src pass: a warp per (batch, source) row, walking the source's out-edges in
-// the transposed CSR (edge ids ascending within a source): the edge ids and
-// destinations 32 at a time, the next edge's q and g_num rows and (dl, w) in
-// flight in registers during the current edge's arithmetic.
+// src pass: a warp per (batch, source, head group), walking the source's
+// out-edges in the transposed CSR (edge ids ascending within a source): the
+// edge ids and destinations 32 at a time, the next edge's q and g_num slices
+// and (dl, w) in flight in registers during the current edge's arithmetic.
+// Lane l < lanes owns channels [l VB, l VB + VB) of the group, as in the dst
+// pass; the other lanes shadow lane 0 and store nothing.
 // ---------------------------------------------------------------------------
 
-template <typename T, int VB>
+template <typename T, int VB, bool FLAT>
 __global__ void __launch_bounds__(kThreads) bwd_src_kernel(
     const T* __restrict__ q, const float* __restrict__ g_num, const int* __restrict__ colptr,
     const int* __restrict__ perm, const int* __restrict__ dst_of, const float* __restrict__ dlw,
-    float* __restrict__ dkv, int num_dst, int num_src, int num_edges, int H, int rows, float scale) {
-  constexpr int C = 32 * VB;
+    float* __restrict__ dkv, int num_dst, int num_src, int num_edges, int c_arg, int H, Layout L, int units,
+    float scale) {
+  const int C = FLAT ? 32 * VB : c_arg;  // FLAT: one group of 32 lanes, as in the dst pass
+  const int groups = FLAT ? 1 : L.groups;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * kWarps + warp;  // batch * num_src + source
-  if (row >= rows) return;
+  const int unit = blockIdx.x * kWarps + warp;  // (batch * num_src + source) * groups + group
+  if (unit >= units) return;
+  const int row = unit / groups;
+  const int k = unit - row * groups;
   const int bidx = row / num_src;
   const int s = row - bidx * num_src;
-  const int head = lane / (32 / H);
-  const int c0 = lane * VB;
+  const bool active = FLAT || lane < L.lanes;
+  const int c0 = k * L.G + (active ? lane : 0) * VB;
+  const int head = c0 / L.D;
 
   float dk[VB], dv[VB];
 #pragma unroll
@@ -614,8 +525,10 @@ __global__ void __launch_bounds__(kThreads) bwd_src_kernel(
       lw = ln;
     }
   }
-  store_row<VB>(dkv + (int64_t)row * 2 * C + c0, dk);
-  store_row<VB>(dkv + (int64_t)row * 2 * C + C + c0, dv);
+  if (active) {
+    store_row<VB>(dkv + (int64_t)row * 2 * C + c0, dk);
+    store_row<VB>(dkv + (int64_t)row * 2 * C + C + c0, dv);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -643,7 +556,7 @@ __global__ void dw_reduce_kernel(const float* __restrict__ part, float* __restri
 struct BwdArgs {
   const void *q, *kv, *rowptr, *src, *a, *w_aug, *m, *g_num, *g_den, *colptr, *perm, *dst_of, *pos;
   void *dq, *dkv, *da, *dw, *dlw, *dw_part;
-  int batch, num_dst, num_src, num_edges, C, H, A2, parts;
+  int batch, num_dst, num_src, num_edges, C, H, A2, G, VB, parts;
 };
 
 template <typename K>
@@ -653,69 +566,89 @@ int set_smem(K kernel, size_t bytes) {
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
 }
 
-template <typename T, int VB, int MAXA2, bool SLOT, int HC>
-int launch_passes(const BwdArgs& x, cudaStream_t s) {
-  constexpr int C = 32 * VB;
-  const float scale = 1.0f / std::sqrt(static_cast<float>(C / x.H));
-
-  auto dst_kernel = bwd_dst_kernel<T, VB, MAXA2, SLOT, HC>;
-  const size_t dst_smem = (MAXA2 + static_cast<size_t>(kWarps) * kRing * 2) * C * sizeof(T) +
-                          kWarps * C * (sizeof(T) + 4) + sizeof(float) * kWarps * MAXA2 * C;
+// The dst pass's warps a CTA (4, fewer where its dw_aug partials do not fit), its shared memory,
+// and its persistent grid: as many CTAs as fit the card at once, at most a warp a destination.
+// With `grid_only` it sizes the grid and launches nothing: the wrapper allocates a row of
+// dw_part a CTA.
+template <typename T, int VB, int MAXA2, bool SLOT, int HC, bool FLAT>
+int launch_passes(const BwdArgs& x, const Layout& L, cudaStream_t s, int* grid_only) {
+  const float scale = 1.0f / std::sqrt(static_cast<float>(L.D));
+  auto dst_kernel = bwd_dst_kernel<T, VB, MAXA2, SLOT, HC, FLAT>;
+  int warps = kWarps;
+  size_t dst_smem = dst_smem_bytes(x.C, L.G, x.A2, MAXA2, sizeof(T), warps);
+  while (dst_smem > kMaxSmem && warps > 1) dst_smem = dst_smem_bytes(x.C, L.G, x.A2, MAXA2, sizeof(T), warps /= 2);
+  if (dst_smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   int rc = set_smem(dst_kernel, dst_smem);
   if (rc != 0) return rc;
-  // a persistent grid: as many CTAs as fit the card at once, at most a warp a destination and
-  // one CTA a row of dw_part
-  int device = 0, sms = 0, per_sm = 0;
+  static size_t sized_for = 0;  // the occupancy of this instantiation, per shared-memory size
+  static int per_sm = 0;
+  if (sized_for != dst_smem) {
+    rc = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dst_kernel, 32 * warps, dst_smem));
+    if (rc != 0) return rc;
+    sized_for = dst_smem;
+  }
+  int device = 0, sms = 0;
   cudaGetDevice(&device);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dst_kernel, kThreads, dst_smem);
   const int grid =
-      std::min(std::min((x.num_dst + kWarps - 1) / kWarps, std::max(per_sm, 1) * sms), x.parts);
-  dst_kernel<<<grid, kThreads, dst_smem, s>>>(
+      std::min(std::min((x.num_dst + warps - 1) / warps, std::max(per_sm, 1) * sms), x.parts);
+  if (grid_only) {
+    *grid_only = grid;
+    return 0;
+  }
+  dst_kernel<<<grid, 32 * warps, dst_smem, s>>>(
       static_cast<const T*>(x.q), static_cast<const T*>(x.kv), static_cast<const int*>(x.rowptr),
       static_cast<const int*>(x.src), static_cast<const T*>(x.a), static_cast<const T*>(x.w_aug),
       static_cast<const float*>(x.m), static_cast<const float*>(x.g_num), static_cast<const float*>(x.g_den),
       static_cast<const int*>(x.pos), static_cast<float*>(x.dq), static_cast<float*>(x.da),
       static_cast<float*>(x.dlw), static_cast<float*>(x.dw_part), x.batch, x.num_dst, x.num_src, x.num_edges,
-      x.H, x.A2, scale);
+      x.C, x.H, L, x.A2, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const int rows_src = x.batch * x.num_src;
-  if (rows_src > 0) {
-    bwd_src_kernel<T, VB><<<(rows_src + kWarps - 1) / kWarps, kThreads, 0, s>>>(
+  const int units = x.batch * x.num_src * L.groups;
+  if (units > 0) {
+    auto src_kernel = L.groups == 1 && L.lanes == 32 ? bwd_src_kernel<T, VB, true> : bwd_src_kernel<T, VB, false>;
+    src_kernel<<<(units + kWarps - 1) / kWarps, kThreads, 0, s>>>(
         static_cast<const T*>(x.q), static_cast<const float*>(x.g_num), static_cast<const int*>(x.colptr),
         static_cast<const int*>(x.perm), static_cast<const int*>(x.dst_of), static_cast<const float*>(x.dlw),
-        static_cast<float*>(x.dkv), x.num_dst, x.num_src, x.num_edges, x.H, rows_src, scale);
+        static_cast<float*>(x.dkv), x.num_dst, x.num_src, x.num_edges, x.C, x.H, L, units, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
 
-  const int n = x.A2 * C;
+  const int n = x.A2 * x.C;
   dw_reduce_kernel<<<(n + kReduceCols - 1) / kReduceCols, dim3(kReduceCols, kReduceRows), 0, s>>>(
       static_cast<const float*>(x.dw_part), static_cast<float*>(x.dw), grid, n);
   return static_cast<int>(cudaGetLastError());
 }
 
-// One attribute slot a lane when A2 <= D / VB lanes a head; the head count
-// compile-time for 4 heads (the flagship's), the wrapper admits D >= VB.
+// One attribute slot a lane when A2 <= LB lanes a head; the heads of a group compile-time for 4
+// on 32 lanes (the flagship's C = 256, and C = 1024 with 16 heads), the whole row one such group
+// (C = 32 VB) compile-time too.
 template <typename T, int VB>
-int launch_vb(const BwdArgs& x, cudaStream_t s) {
-  const int D = x.C / x.H;
-  if (x.A2 > 8) return launch_passes<T, VB, kMaxA2, false, 0>(x, s);
-  if (x.A2 > D / VB) return launch_passes<T, VB, 8, false, 0>(x, s);
-  if (x.H == 4) return launch_passes<T, VB, 8, true, 4>(x, s);
-  return launch_passes<T, VB, 8, true, 0>(x, s);
+int launch_vb(const BwdArgs& x, cudaStream_t s, int* grid_only) {
+  Layout L;
+  if (!edge_logit::make_layout<VB>(x.C, x.H, x.G, sizeof(T), &L)) return static_cast<int>(cudaErrorInvalidValue);
+  if (x.A2 > 8) return launch_passes<T, VB, kMaxA2, false, 0, false>(x, L, s, grid_only);
+  if (x.A2 > L.LB) return launch_passes<T, VB, 8, false, 0, false>(x, L, s, grid_only);
+  if (L.lanes == 32 && L.HG == 4) {
+    return L.groups == 1 ? launch_passes<T, VB, 8, true, 4, true>(x, L, s, grid_only)
+                         : launch_passes<T, VB, 8, true, 4, false>(x, L, s, grid_only);
+  }
+  return launch_passes<T, VB, 8, true, 0, false>(x, L, s, grid_only);
 }
 
 template <typename T>
-int launch_bwd(const BwdArgs& x, void* stream) {
+int launch_bwd(const BwdArgs& x, void* stream, int* grid_only = nullptr) {
+  if (x.A2 <= 0 || x.A2 > kMaxA2 || x.num_dst <= 0 || x.batch <= 0 || x.parts <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (x.C) {
-    case 64: return launch_vb<T, 2>(x, s);
-    case 128: return launch_vb<T, 4>(x, s);
-    case 256: return launch_vb<T, 8>(x, s);
-    case 512: return launch_vb<T, 16>(x, s);
+  switch (x.VB) {
+    case 1: return launch_vb<T, 1>(x, s, grid_only);
+    case 2: return launch_vb<T, 2>(x, s, grid_only);
+    case 4: return launch_vb<T, 4>(x, s, grid_only);
+    case 8: return launch_vb<T, 8>(x, s, grid_only);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -724,26 +657,27 @@ BwdArgs make_args(const void* q, const void* kv, const void* rowptr, const void*
                   const void* w_aug, const void* m, const void* g_num, const void* g_den, const void* colptr,
                   const void* perm, const void* dst_of, const void* pos, void* dq, void* dkv, void* da,
                   void* dw, void* dlw, void* dw_part, int batch, int num_dst, int num_src,
-                  int num_edges, int C, int H, int A2, int parts) {
+                  int num_edges, int C, int H, int A2, int G, int VB, int parts) {
   return BwdArgs{q,  kv, rowptr, src,  a,    w_aug,   m,     g_num,   g_den,   colptr,    perm, dst_of, pos,
                  dq, dkv, da,    dw,   dlw,  dw_part, batch, num_dst, num_src, num_edges, C, H,
-                 A2, parts};
+                 A2, G, VB, parts};
 }
 
 }  // namespace
 
 extern "C" {
 
-// parts: the rows of dw_part, at least one a CTA of the dst pass's persistent grid
+// G and VB: the lane layout of ops/edge_attention.py:_lane_layout; parts: the rows of dw_part, at
+// least the dst pass's grid (edge_attn_csr_bwd_grid_*)
 int edge_attn_csr_bwd_f32(const void* q, const void* kv, const void* rowptr, const void* src,
                           const void* a, const void* w_aug, const void* m, const void* g_num,
                           const void* g_den, const void* colptr, const void* perm,
                           const void* dst_of, const void* pos, void* dq, void* dkv, void* da, void* dw,
                           void* dlw, void* dw_part, int batch, int num_dst, int num_src,
-                          int num_edges, int C, int H, int A2, int parts, void* stream) {
+                          int num_edges, int C, int H, int A2, int G, int VB, int parts, void* stream) {
   return launch_bwd<float>(make_args(q, kv, rowptr, src, a, w_aug, m, g_num, g_den, colptr, perm, dst_of, pos, dq,
-                                     dkv, da, dw, dlw, dw_part, batch, num_dst, num_src, num_edges, C, H, A2,
-                                     parts),
+                                     dkv, da, dw, dlw, dw_part, batch, num_dst, num_src, num_edges, C, H, A2, G,
+                                     VB, parts),
                            stream);
 }
 
@@ -752,11 +686,24 @@ int edge_attn_csr_bwd_bf16(const void* q, const void* kv, const void* rowptr, co
                            const void* g_den, const void* colptr, const void* perm,
                            const void* dst_of, const void* pos, void* dq, void* dkv, void* da, void* dw,
                            void* dlw, void* dw_part, int batch, int num_dst, int num_src,
-                           int num_edges, int C, int H, int A2, int parts, void* stream) {
+                           int num_edges, int C, int H, int A2, int G, int VB, int parts, void* stream) {
   return launch_bwd<__nv_bfloat16>(make_args(q, kv, rowptr, src, a, w_aug, m, g_num, g_den, colptr, perm, dst_of,
                                              pos, dq, dkv, da, dw, dlw, dw_part, batch, num_dst, num_src,
-                                             num_edges, C, H, A2, parts),
+                                             num_edges, C, H, A2, G, VB, parts),
                                    stream);
+}
+
+// The dst pass's grid (the rows of dw_part the call needs) into *grid; launches nothing.
+int edge_attn_csr_bwd_grid_f32(int num_dst, int C, int H, int A2, int G, int VB, int* grid) {
+  BwdArgs x{};
+  x.batch = 1, x.num_dst = num_dst, x.C = C, x.H = H, x.A2 = A2, x.G = G, x.VB = VB, x.parts = 1 << 30;
+  return launch_bwd<float>(x, nullptr, grid);
+}
+
+int edge_attn_csr_bwd_grid_bf16(int num_dst, int C, int H, int A2, int G, int VB, int* grid) {
+  BwdArgs x{};
+  x.batch = 1, x.num_dst = num_dst, x.C = C, x.H = H, x.A2 = A2, x.G = G, x.VB = VB, x.parts = 1 << 30;
+  return launch_bwd<__nv_bfloat16>(x, nullptr, grid);
 }
 
 }  // extern "C"

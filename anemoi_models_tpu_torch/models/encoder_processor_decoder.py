@@ -53,6 +53,12 @@ class AnemoiModelEncProcDec(nn.Module):
         self.num_output_channels = len(data_indices.internal_model.output)
         prog_in = np.asarray(data_indices.internal_model.input.prognostic)
         prog_out = np.asarray(data_indices.internal_model.output.prognostic)
+        routed = len(data_indices.internal_model.output.full) - len(data_indices.internal_model.output.diagnostic)
+        if len(prog_out) != routed:
+            raise ValueError(
+                f"routing-table width check failed: {len(prog_out)} internal prognostic outputs vs {routed} "
+                "internal outputs that are not diagnostic"
+            )
         if len(prog_in) != len(prog_out):
             raise ValueError(f"prognostic input/output indices diverge: {prog_in} vs {prog_out}")
         self.register_buffer("_internal_input_idx", torch.as_tensor(prog_in, device=device), persistent=False)

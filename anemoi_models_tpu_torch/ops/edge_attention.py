@@ -13,14 +13,19 @@ straight off the destination-sorted edge list in two kernels
   ``_feats_kernel``): the Hopper GEMM of ``csrc/gemm_sm90.cuh`` (``wgmma``
   fed by TMA in bf16). A per-edge projection inside the attention kernel
   would cost about mean-degree times as many operations.
-- :func:`edge_attn_csr` computes the partials ``(num, den, m)`` with one CTA
-  per (batch, destination). Bound by the gathered row reads, which the 50 MB
-  L2 holds for the most part at O96 (the processor's kv is 10.5 MB in bf16).
+- :func:`edge_attn_csr` computes the partials ``(num, den, m)`` with a warp
+  per (destination, head group) on a persistent grid, its edges' k/v rows
+  several at a time in flight. The rows come from the 50 MB L2 for the most
+  part at O96 (the processor's kv is 10.5 MB in bf16); the per-edge
+  instructions bound it.
 
-The backward (``csrc/edge_attention_bwd.cu``) replaces
+Both kernels share one lane layout (:func:`_lane_layout`): a warp works on a
+group of whole heads of at most 256 channels, so every width the forward
+takes also trains. The backward (``csrc/edge_attention_bwd.cu``) replaces
 ``_feats_bwd_kernel``: :func:`edge_attn_csr_bwd` walks the same CSR edge list
 for ``dq`` and the edge gradients (a warp per destination on a persistent
-grid, its edges' k/v rows several at a time in flight) and the transposed list
+grid, its head groups in sequence, its edges' k/v rows several at a time in
+flight) and the transposed list
 (:func:`csr_transpose`) for the per-source ``[dk|dv]``, reading the edge
 scalars at each edge's position there (the inverse permutation ``pos``),
 and sums ``dw_aug`` in per-warp partials, one row a CTA, then in a fixed
@@ -35,6 +40,8 @@ kernel for a CUDA tensor or raises, and counts its launches in
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from typing import NamedTuple
 
@@ -63,9 +70,8 @@ __all__ = [
 
 _NEG = -1e30
 _MAX_A2 = 16  # kMaxA2 in csrc/edge_attention.cu
-_BWD_CHANNELS = (64, 128, 256, 512)  # C = 32 lanes x VB in csrc/edge_attention_bwd.cu
-_BWD_WARPS = 4  # kWarps in csrc/edge_attention_bwd.cu: warps (destinations at a time) a CTA
-_DW_PARTS_PER_SM = 8  # the backward's dw_aug partials: at most this many CTAs of its dst pass an SM
+_GROUP_CHANNELS = 256  # the most channels a warp works on at once (a head group)
+_GROUP_HEADS = 32  # the most heads in a group: a lane never holds two heads
 _DTYPES = (torch.float32, torch.bfloat16)
 
 # kernel launches per wrapper; a CPU call runs the plain version and adds nothing
@@ -293,6 +299,28 @@ def kv_proj(f: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out
 
 
+def _lane_layout(c: int, num_heads: int) -> tuple[int, int, int]:
+    """``(vb, lanes, group)``: how both edge-attention kernels lay a row of
+    ``c`` channels and ``num_heads`` heads on a warp. A warp works on one
+    head group at a time: ``group = D * g`` channels of ``g`` whole heads, g
+    the largest divisor of the head count with ``D * g <= 256``, ``g <= 32``
+    (a lane never holds two heads) and ``D * g`` a multiple of 8 (a group's
+    slice of a row is whole 16-byte copies in bf16); lane l owns ``vb``
+    consecutive channels of the group (``vb`` the smallest power of two with
+    ``32 * vb >= group``), ``lanes = group / vb <= 32`` lanes are active and a
+    head spans ``D / vb`` of them. The forward's threads of ``max(1, D / 32)``
+    channels (whose sums the backward replays) then divide a lane's. Takes
+    what :func:`_check_heads` accepts."""
+    d = c // num_heads
+    g = max(x for x in range(1, min(num_heads, _GROUP_HEADS) + 1)
+            if num_heads % x == 0 and d * x <= _GROUP_CHANNELS and d * x % 8 == 0)
+    group = d * g
+    vb = 1
+    while 32 * vb < group:
+        vb *= 2
+    return vb, group // vb, group
+
+
 def _check_heads(c: int, num_heads: int) -> None:
     _require(num_heads > 0 and c % num_heads == 0, f"C={c} not divisible by {num_heads} heads")
     d = c // num_heads
@@ -333,6 +361,9 @@ def edge_attn_csr(
     _require(a.shape[0] == src.numel() and 0 < a2 <= _MAX_A2, f"a shape {tuple(a.shape)} for {src.numel()} edges")
     _require(w_aug.shape == (a2, c), f"w_aug shape {tuple(w_aug.shape)} != ({a2}, {c})")
     _require_contiguous(q=q, kv=kv, rowptr=rowptr, src=src, a=a, w_aug=w_aug)
+    _require(all(t.data_ptr() % 16 == 0 for t in (q, kv, w_aug)),
+             "q, kv and w_aug must start on 16-byte boundaries (rows are read as 16-byte vectors)")
+    vb, _, group = _lane_layout(c, num_heads)
     num = torch.empty((bnd, c), dtype=torch.float32, device=q.device)
     den = torch.empty((bnd, num_heads), dtype=torch.float32, device=q.device)
     m = torch.empty((bnd, num_heads), dtype=torch.float32, device=q.device)
@@ -345,11 +376,27 @@ def edge_attn_csr(
         rc = fn(
             q.data_ptr(), kv.data_ptr(), rowptr.data_ptr(), src.data_ptr(),
             a.data_ptr(), w_aug.data_ptr(), num.data_ptr(), den.data_ptr(), m.data_ptr(),
-            batch, nd, kv.shape[0] // batch, c, num_heads, a2, stream,
+            batch, nd, kv.shape[0] // batch, c, num_heads, a2, group, vb, stream,
         )
     _check_launch(rc, "edge_attn_csr")
     LAUNCHES["edge_attn_csr"] += 1
     return AttentionPartials(num.view(bnd, num_heads, c // num_heads), den, m)
+
+
+@functools.lru_cache(maxsize=256)
+def _bwd_grid(device: int, dtype: torch.dtype, nd: int, c: int, num_heads: int, a2: int, group: int, vb: int) -> int:
+    """The CTAs of the backward's dst pass (its occupancy follows its shared
+    memory: w_aug, the rings and the per-warp dw_aug partials), as the
+    library sizes them."""
+    from anemoi_models_tpu_torch.ops.kernels import load_kernels
+
+    lib = load_kernels()
+    fn = lib.edge_attn_csr_bwd_grid_bf16 if dtype == torch.bfloat16 else lib.edge_attn_csr_bwd_grid_f32
+    grid = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = fn(nd, c, num_heads, a2, group, vb, ctypes.addressof(grid))
+    _check_launch(rc, "edge_attn_csr_bwd (grid)")
+    return grid.value
 
 
 def edge_attn_csr_bwd(
@@ -382,9 +429,6 @@ def edge_attn_csr_bwd(
     bnd, c = q.shape
     nd = rowptr.numel() - 1
     _check_heads(c, num_heads)
-    _require(c in _BWD_CHANNELS and num_heads <= 32,
-             f"edge_attn_csr_bwd takes C in {_BWD_CHANNELS} (C / 32 channels per lane of a warp, at most "
-             f"{_BWD_CHANNELS[-1]} channels per row) and at most 32 heads; got C={c}, H={num_heads}")
     _require(nd > 0 and bnd % nd == 0, f"q rows {bnd} not a multiple of {nd} destinations")
     batch = bnd // nd
     _require(kv.shape[1] == 2 * c and kv.shape[0] % batch == 0, f"kv shape {tuple(kv.shape)} for C={c}, B={batch}")
@@ -401,8 +445,10 @@ def edge_attn_csr_bwd(
     _require(all(t.data_ptr() % 16 == 0 for t in (q, kv, w_aug, g_num)),
              "q, kv, w_aug and g_num must start on 16-byte boundaries (rows are read as 16-byte vectors)")
     dev = q.device
-    # rows of the dw_aug partials: one a CTA of the dst pass's persistent grid (occupancy-sized)
-    parts = min(-(-nd // _BWD_WARPS), _DW_PARTS_PER_SM * torch.cuda.get_device_properties(dev).multi_processor_count)
+    vb, _, group = _lane_layout(c, num_heads)
+    # rows of the dw_aug partials: one a CTA of the dst pass's persistent grid (sized by occupancy)
+    parts = _bwd_grid(dev.index if dev.index is not None else torch.cuda.current_device(), dt, nd, c, num_heads,
+                      a2, group, vb)
     dq = torch.empty((bnd, c), dtype=torch.float32, device=dev)
     dkv = torch.empty((batch * ns, 2 * c), dtype=torch.float32, device=dev)
     da = torch.empty((num_edges, a2), dtype=torch.float32, device=dev)
@@ -421,7 +467,7 @@ def edge_attn_csr_bwd(
             colptr.data_ptr(), perm.data_ptr(), dst.data_ptr(), pos.data_ptr(),
             dq.data_ptr(), dkv.data_ptr(), da.data_ptr(), dw.data_ptr(),
             dlw.data_ptr(), dw_part.data_ptr(),
-            batch, nd, ns, num_edges, c, num_heads, a2, parts, stream,
+            batch, nd, ns, num_edges, c, num_heads, a2, group, vb, parts, stream,
         )
     _check_launch(rc, "edge_attn_csr_bwd")
     LAUNCHES["edge_attn_csr_bwd"] += 1

@@ -41,10 +41,12 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "kv_proj_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
     "kv_proj_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "edge_attn_csr_f32": [_P] * 9 + [_I] * 6 + [_P],
-    "edge_attn_csr_bf16": [_P] * 9 + [_I] * 6 + [_P],
-    "edge_attn_csr_bwd_f32": [_P] * 19 + [_I] * 8 + [_P],
-    "edge_attn_csr_bwd_bf16": [_P] * 19 + [_I] * 8 + [_P],
+    "edge_attn_csr_f32": [_P] * 9 + [_I] * 8 + [_P],
+    "edge_attn_csr_bf16": [_P] * 9 + [_I] * 8 + [_P],
+    "edge_attn_csr_bwd_f32": [_P] * 19 + [_I] * 10 + [_P],
+    "edge_attn_csr_bwd_bf16": [_P] * 19 + [_I] * 10 + [_P],
+    "edge_attn_csr_bwd_grid_f32": [_I] * 6 + [_P],
+    "edge_attn_csr_bwd_grid_bf16": [_I] * 6 + [_P],
     "gnn_conv_f32": [_P] * 17 + [_I] * 6 + [_P],
     "gnn_conv_bf16": [_P] * 17 + [_I] * 6 + [_P],
     "gnn_prepass_f32": [_P] * 6 + [_I] * 3 + [_P],

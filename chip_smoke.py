@@ -6,8 +6,9 @@ Builds the port's CUDA kernels from ``anemoi_models_tpu_torch/csrc``, then:
    at the shapes of the O96 / refinement-5 main path (kv_proj on the mesh's
    10,242 nodes and the grid's 40,320, two calls bit-identical, with
    torch.addmm as its library call; edge_attn_csr on the real processor,
-   encoder and decoder edge sets; a case with destinations that have no
-   edge), fp32 within atol = rtol = 1e-5 (only the summation order differs)
+   encoder and decoder edge sets, two calls bit-identical; a case with
+   destinations that have no edge), fp32 within atol = rtol = 1e-5 (only the
+   summation order differs)
    and bf16 within 2e-2, and times both with CUDA events around launches
    queued behind a device sleep (kernel_turns.cuda_ms: device time, not the
    host's issue rate), and each wrapper's host microseconds per call;
@@ -15,10 +16,14 @@ Builds the port's CUDA kernels from ``anemoi_models_tpu_torch/csrc``, then:
    the same three edge sets and the dead-destination case, in fp32 and bf16:
    ``max |kernel - plain| <= 1e-4 * max(1, max |plain|)`` per output (both
    read the same inputs and sum in fp32, in another order), and two calls
-   bit-identical;
-3. runs a reduced model (O48 grid, refinement-4 mesh, C=64, 2 layers) in fp32
-   through the kernels on the card and through the plain versions on the
-   CPU, from the same seeded weights: the forward within
+   bit-identical; then both edge-attention kernels at the production width
+   (C = 1024, 16 heads: four head groups a row) on the same three edge sets,
+   at the same bounds, two calls of each bit-identical;
+3. runs a reduced model (O48 grid, refinement-4 mesh, C=64, 2 layers; and,
+   for the GraphTransformer, the production width C=1024 with 16 heads on a
+   16-latitude grid and a refinement-3 mesh) in fp32 through the kernels on
+   the card and through the plain versions on the CPU, from the same seeded
+   weights: the forward within
    1e-4 * max(1, mean |ref|), every parameter's gradient within
    1e-4 * max(1, max |ref grad|), and a 3-step make_optimizer loss trace
    within rtol 6e-4 (the reference's bound for loss traces);
@@ -54,7 +59,13 @@ Builds the port's CUDA kernels from ``anemoi_models_tpu_torch/csrc``, then:
    kv_proj and 2 edge_attn_csr) and four O96 bf16 train steps with
    ``remat_policy="full"`` (finite losses, the last below the first;
    launches per step: 18 gnn_conv; or 16 flash_attention and 2 of each
-   GraphTransformer mapper kernel).
+   GraphTransformer mapper kernel);
+8. the GraphTransformer at the production width of
+   ``anemoi_models_tpu/configs.py`` (C = 1024, 16 heads; O96, r5, 8 layers in
+   2 chunks, bf16, batch 1, ``remat_policy="full"``): three ``predict_step``
+   requests and three train steps (peak learning rate 1e-5) after a warm-up
+   of each, finite outputs, finite losses with the last below the first, the
+   flagship's launches per request and step, peak memory.
 
 Prints the card's name and power limit, each kernel's registers and spills
 from the compiler's report (``ptxas``), per-phase numbers, each wrapper's
@@ -223,11 +234,12 @@ def normwise_err(got, want, what: str, tol: float = BWD_TOL) -> float:
 
 
 def model_config(num_channels: int, num_layers: int, num_chunks: int, dtype: str,
-                 remat_policy: str = "full", flavor: str = "graphtransformer") -> DotDict:
+                 remat_policy: str = "full", flavor: str = "graphtransformer", num_heads: int = 4) -> DotDict:
     """The flagship config of the JAX package's entry point
-    (``__graft_entry__._build``), written for the port."""
+    (``__graft_entry__._build``), written for the port; ``num_heads`` for
+    the GraphTransformer's mappers and processor."""
     edges = {"trainable_size": TRAINABLE_EDGES, "sub_graph_edge_attributes": EDGE_ATTRS}
-    mapper = {**edges, "num_heads": 4} if flavor != "gnn" else edges
+    mapper = {**edges, "num_heads": num_heads} if flavor != "gnn" else edges
     prefix = "GNN" if flavor == "gnn" else "GraphTransformer"
     processor = {
         "graphtransformer": {"_target_": "anemoi.models.layers.processor.GraphTransformerProcessor",
@@ -298,7 +310,7 @@ def train_batch(iface: AnemoiModelInterface, num_grid: int, seed: int) -> tuple[
     return torch.from_numpy(x), torch.from_numpy(y)
 
 
-def edge_case(graph, label: str, dev, gen, c: int = 256, keep=None) -> dict:
+def edge_case(graph, label: str, dev, gen, c: int = 256, keep=None, h: int = 4) -> dict:
     """One real edge set of the main path on the card, with seeded inputs."""
     s_name, d_name = {"processor": ("hidden", "hidden"), "encoder": ("data", "hidden"),
                       "decoder": ("hidden", "data")}[label]
@@ -318,7 +330,7 @@ def edge_case(graph, label: str, dev, gen, c: int = 256, keep=None) -> dict:
         "csr_t": ea.CSRTranspose(*(torch.from_numpy(t).to(dev) for t in ea.csr_transpose(rowptr, src, ns))),
         "q": torch.randn(nd, c, generator=gen), "kv": torch.randn(ns, 2 * c, generator=gen),
         "w_aug": torch.randn(a.shape[1], c, generator=gen) * 0.3,
-        "g_num": torch.randn(nd, c, generator=gen), "g_den": torch.randn(nd, 4, generator=gen),
+        "g_num": torch.randn(nd, c, generator=gen), "g_den": torch.randn(nd, h, generator=gen),
     }
 
 
@@ -390,12 +402,14 @@ def phase_kernels(graph, dev) -> tuple[dict, list]:
         rp, sr = case["rowptr"], case["src"]
         for dt in (torch.float32, torch.bfloat16):
             q, kv, a, wa = (case[k].to(dev, dt) for k in ("q", "kv", "a", "w_aug"))
-            got = ea.edge_attn_csr(q, kv, rp, sr, a, wa, h)
+            got, again = ea.edge_attn_csr(q, kv, rp, sr, a, wa, h), ea.edge_attn_csr(q, kv, rp, sr, a, wa, h)
             want = ea.edge_attn_csr_plain(q, kv, rp, sr, a, wa, h)
             torch.cuda.synchronize()
+            if not all(torch.equal(g, g2) for g, g2 in zip(got, again)):
+                raise AssertionError(f"edge_attn_csr {label} {dt}: two calls differ (not run-to-run deterministic)")
             err = max(max_err(g, w_, TOL[dt], f"edge_attn_csr {label} {dt} {n}")
                       for g, w_, n in zip(got, want, ("num", "den", "m")))
-            extra = {**attn_bounds(case, c, h, dt)[0], "library_ms": None,
+            extra = {**attn_bounds(case, c, h, dt)[0], "library_ms": None, "bit_identical": True,
                      "host_us": host_us(lambda: ea.edge_attn_csr(q, kv, rp, sr, a, wa, h))}
             record("edge_attn_csr", f"{label} E={case['num_edges']} Nd={case['nd']} Ns={case['ns']}", dt, err,
                    cuda_ms(lambda: ea.edge_attn_csr(q, kv, rp, sr, a, wa, h)),
@@ -461,6 +475,48 @@ def phase_backward_kernels(graph, dev) -> tuple[dict, list]:
                     summary = {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_us")}
             rows.append(row)
     return {**summary, "max_abs_err": bf16_err}, rows
+
+
+def phase_wide_kernels(graph, dev, c: int = 1024, h: int = 16) -> list:
+    """edge_attn_csr and edge_attn_csr_bwd at the production width (C =
+    1024, 16 heads: four head groups of 256 channels) on the three O96 edge
+    sets, one layer, fp32 and bf16, against their plain versions at the
+    bounds of the flagship's (forward elementwise, backward normwise), two
+    calls of each bit-identical; the kernels timed."""
+    gen = torch.Generator().manual_seed(5)
+    rows = []
+    for label in ("processor", "encoder", "decoder"):
+        case = edge_case(graph, label, dev, gen, c, h=h)
+        rp, sr, csr_t = case["rowptr"], case["src"], case["csr_t"]
+        g_num, g_den = case["g_num"].to(dev), case["g_den"].to(dev)
+        shape = f"C={c} H={h} {label} E={case['num_edges']} Nd={case['nd']} Ns={case['ns']}"
+        for dt in (torch.float32, torch.bfloat16):
+            q, kv, a, wa = (case[k].to(dev, dt) for k in ("q", "kv", "a", "w_aug"))
+            fwd = (q, kv, rp, sr, a, wa, h)
+            got, again = ea.edge_attn_csr(*fwd), ea.edge_attn_csr(*fwd)
+            want = ea.edge_attn_csr_plain(*fwd)
+            torch.cuda.synchronize()
+            what = f"edge_attn_csr {shape} {dt}"
+            if not all(torch.equal(g, g2) for g, g2 in zip(got, again)):
+                raise AssertionError(f"{what}: two calls differ (not run-to-run deterministic)")
+            fwd_err = max(max_err(g, w_, TOL[dt], f"{what} {n}") for g, w_, n in zip(got, want, ("num", "den", "m")))
+            del want
+            args = (q, kv, rp, sr, a, wa, got.m, g_num, g_den, h)
+            bgot, bagain = ea.edge_attn_csr_bwd(*args, csr_t), ea.edge_attn_csr_bwd(*args, csr_t)
+            bwant = ea.edge_attn_csr_bwd_plain(*args)
+            torch.cuda.synchronize()
+            what = f"edge_attn_csr_bwd {shape} {dt}"
+            for name, g, g2 in zip(("dq", "dkv", "da", "dw_aug"), bgot, bagain):
+                if not torch.equal(g, g2):
+                    raise AssertionError(f"{what} {name}: two calls differ (not run-to-run deterministic)")
+            bwd_err = max(normwise_err(g, w_, f"{what} {n}") for g, w_, n in zip(bgot, bwant, ("dq", "dkv", "da", "dw_aug")))
+            del bwant
+            fb, bb = attn_bounds(case, c, h, dt)
+            rows.append({"shape": shape, "dtype": str(dt).split(".")[-1], "bit_identical": True,
+                         "fwd_max_abs_err": fwd_err, "bwd_normwise_err": bwd_err,
+                         "fwd_ms": cuda_ms(lambda: ea.edge_attn_csr(*fwd)), "fwd_bound_ms": fb["bound_ms"],
+                         "bwd_ms": cuda_ms(lambda: ea.edge_attn_csr_bwd(*args, csr_t)), "bwd_bound_ms": bb["bound_ms"]})
+    return rows
 
 
 def gnn_case(graph, label: str, dev, gen, c: int = 256, keep=None) -> dict:
@@ -611,10 +667,11 @@ def phase_flash_kernels(dev, n0: int = 10242, w0: int = 512) -> tuple[dict, list
     return {**summary, "max_abs_err": bf16_err}, rows
 
 
-def phase_reduced_model(graph, dev, flavor: str = "graphtransformer") -> dict:
+def phase_reduced_model(graph, dev, flavor: str = "graphtransformer", channels: int = 64, heads: int = 4) -> dict:
     """Reduced fp32 model: kernels on the card against plain on the CPU, in
     the forward, the gradients and a 3-step train trace."""
-    cfg = model_config(num_channels=64, num_layers=2, num_chunks=1, dtype="float32", flavor=flavor)
+    cfg = model_config(num_channels=channels, num_layers=2, num_chunks=1, dtype="float32", flavor=flavor,
+                       num_heads=heads)
     cpu = interface(graph, cfg, "cpu", seed=1)
     gpu = interface(graph, cfg, "cpu", seed=1).to(dev)
     n_grid = graph["data"].num_nodes
@@ -650,9 +707,12 @@ def phase_reduced_model(graph, dev, flavor: str = "graphtransformer") -> dict:
             "loss_trace_gpu": traces[1], "loss_trace_rel_err": trace_err}
 
 
-def phase_serving(graph, dev, flavor: str = "graphtransformer", profile_dir: str | None = None) -> dict:
-    """Flagship bf16 serving through predict_step; per-request launch counts."""
-    cfg = model_config(num_channels=256, num_layers=8, num_chunks=2, dtype="bfloat16", flavor=flavor)
+def phase_serving(graph, dev, flavor: str = "graphtransformer", profile_dir: str | None = None,
+                  channels: int = 256, heads: int = 4) -> dict:
+    """Flagship bf16 serving through predict_step (or the same model at
+    another width); per-request launch counts."""
+    cfg = model_config(num_channels=channels, num_layers=8, num_chunks=2, dtype="bfloat16", flavor=flavor,
+                       num_heads=heads)
     iface = interface(graph, cfg, dev, seed=3)
     n_grid = graph["data"].num_nodes
     di = iface.data_indices
@@ -686,7 +746,7 @@ def phase_serving(graph, dev, flavor: str = "graphtransformer", profile_dir: str
     if any(c != expected for c in per_request):
         raise AssertionError(f"serving {flavor}: expected {expected} launches per request, got {per_request}")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    profile = (phase_profile(lambda: iface.predict_step(requests[1]), profile_dir, f"request_{flavor}")
+    profile = (phase_profile(lambda: iface.predict_step(requests[1]), profile_dir, f"request_{flavor}_C{channels}")
                if profile_dir else None)
     return {"request_ms": ms, "peak_mem_gib": peak, "launches": counts, "per_request": per_request,
             "profile": profile}
@@ -709,15 +769,17 @@ def timed_steps(step, x, y, n: int) -> tuple[list, list, list]:
 
 
 def phase_train(graph, dev, profile_dir: str | None, flavor: str = "graphtransformer",
-                remat_none: bool = True) -> dict:
+                remat_none: bool = True, channels: int = 256, heads: int = 4, lr: float = 1e-3) -> dict:
     """Flagship bf16 train steps at full width (remat "full", then, with
-    ``remat_none``, "none")."""
-    cfg = model_config(num_channels=256, num_layers=8, num_chunks=2, dtype="bfloat16", remat_policy="full",
-                       flavor=flavor)
+    ``remat_none``, "none"), or the same model at another width, at peak
+    learning rate ``lr``. Losses must be finite and the last below the
+    first."""
+    cfg = model_config(num_channels=channels, num_layers=8, num_chunks=2, dtype="bfloat16", remat_policy="full",
+                       flavor=flavor, num_heads=heads)
     iface = interface(graph, cfg, dev, seed=4)
     model = iface.model
     x, y = (t.to(dev) for t in train_batch(iface, graph["data"].num_nodes, seed=20))
-    step = make_train_step(model, make_optimizer(model.parameters(), 1e-3, warmup_steps=1, total_steps=100))
+    step = make_train_step(model, make_optimizer(model.parameters(), lr, warmup_steps=1, total_steps=100))
 
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
@@ -725,13 +787,14 @@ def phase_train(graph, dev, profile_dir: str | None, flavor: str = "graphtransfo
     counts = launches()
     peak_full = torch.cuda.max_memory_allocated() / 2**30
     if not np.all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"train {flavor}: losses {losses} are not finite or do not fall")
+        raise AssertionError(f"train {flavor} C={channels}: losses {losses} are not finite or do not fall")
     expected = expect(counts, EXPECTED[flavor][1])
     if any(c != expected for c in per_step):
         raise AssertionError(f"train {flavor} (remat full): expected {expected} launches per step, got {per_step}")
     out = {"losses": losses, "step_ms": ms[1:], "warmup_step_ms": ms[0], "peak_mem_gib": peak_full,
            "launches": counts, "per_step": per_step[1]}
-    out["profile"] = phase_profile(lambda: step(x, y), profile_dir, f"train_step_{flavor}") if profile_dir else None
+    out["profile"] = (phase_profile(lambda: step(x, y), profile_dir, f"train_step_{flavor}_C{channels}")
+                      if profile_dir else None)
     if not remat_none:
         return out
 
@@ -832,15 +895,30 @@ def main() -> None:
     summary["flash_attention"], flash_rows = phase_flash_kernels(dev)
     for row in rows + bwd_rows + gnn_rows + flash_rows:
         print("kernel-vs-plain", json.dumps(row))
+    for row in phase_wide_kernels(graph, dev):
+        print("wide-kernel-vs-plain", json.dumps(row))
     reduced_graph = build_enc_proc_dec_graph(grid_lat=48, mesh_refinements=4, grid="octahedral")
     for flavor in FLAVOR_KERNEL:
         print(f"reduced-model {flavor}", json.dumps(phase_reduced_model(reduced_graph, dev, flavor)))
+    # the production width (four head groups a row) through the whole model, on a smaller graph
+    small_graph = build_enc_proc_dec_graph(grid_lat=16, mesh_refinements=3)
+    print("reduced-model graphtransformer C=1024 H=16",
+          json.dumps(phase_reduced_model(small_graph, dev, "graphtransformer", channels=1024, heads=16)))
     serving, train = {}, {}
     for flavor in FLAVOR_KERNEL:  # each path: counts reset just before it, read just after
         serving[flavor] = phase_serving(graph, dev, flavor, args.profile)
         print(f"serving {flavor}", json.dumps(serving[flavor]))
         train[flavor] = phase_train(graph, dev, args.profile, flavor, remat_none=flavor == "graphtransformer")
         print(f"train {flavor}", json.dumps(train[flavor]))
+    # the GraphTransformer at the production width (C = 1024, 16 heads): serving, then training
+    serving["production"] = phase_serving(graph, dev, "graphtransformer", args.profile, channels=1024, heads=16)
+    print("serving production C=1024 H=16", json.dumps(serving["production"]))
+    # Adam's first steps move every weight by about the learning rate, and a unit of the wide layers
+    # sums 1024 to 4096 of them: this seeded model's loss rises 36-fold after the first step at the
+    # flagship's 1e-3 and 9-fold at 1e-4, so the production width trains at 1e-5
+    train["production"] = phase_train(graph, dev, args.profile, "graphtransformer", remat_none=False, channels=1024,
+                                      heads=16, lr=1e-5)
+    print("train production C=1024 H=16", json.dumps(train["production"]))
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "anemoi_models_tpu"))
     if leaked:
         raise AssertionError(f"the port imported {leaked}")

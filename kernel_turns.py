@@ -2,7 +2,7 @@
 card, and the timing helpers chip_smoke.py shares.
 
     python3 kernel_turns.py PARENT_ROOT .                 # parent, this, this, parent; every kernel
-    python3 kernel_turns.py PARENT_ROOT . --kernels bwd,flash
+    python3 kernel_turns.py PARENT_ROOT . --kernels fwd,bwd
     python3 kernel_turns.py --worker ROOT [--kernels ...]  # one turn: JSON of ROOT's kernels
 
 Each turn is its own process that imports ``anemoi_models_tpu_torch`` from
@@ -13,8 +13,12 @@ the O96 main path's shapes with seeded inputs:
   bf16 and fp32 with ``torch.addmm`` beside it;
 - ``gnn``: ``gnn_conv`` on the processor (self-graph), encoder and decoder
   edge sets in bf16 and fp32;
+- ``fwd``: ``edge_attn_csr`` (C = 256, 4 heads, A2 = 8, batch 1) on the
+  processor, encoder and decoder edge sets in bf16 and fp32, with a SHA-256
+  of its outputs (num, den, m after ``x + 0.0``, so that only the sign of an
+  exact zero may differ) per turn;
 - ``bwd``: ``edge_attn_csr_bwd`` (C = 256, 4 heads, A2 = 8, batch 1) on the
-  processor, encoder and decoder edge sets in bf16 and fp32;
+  same edge sets, with a SHA-256 of dq, dkv, da and dw_aug;
 - ``flash``: ``flash_attention`` at (B*H, N, D) = (4, 10,242, 64) with
   w = 512, no window, ragged N = 4,098 (w = 512) and causal (w = 512), q, k
   and v strided views of one fused projection, in bf16 and fp32.
@@ -22,11 +26,14 @@ the O96 main path's shapes with seeded inputs:
 Device ms come from CUDA events around launches queued behind a
 ``torch.cuda._sleep`` that outlasts the host's enqueue, so they bracket
 device work only; host us is the wrapper's enqueue time per call. Prints one
-``turn`` JSON line per turn and the card's name and power limit.
+``turn`` JSON line per turn, the card's name and power limit, and a
+``same_bits`` line: per kernel and shape, whether the two checkouts' outputs
+hash alike.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import subprocess
@@ -99,8 +106,16 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-KERNELS = ("kv", "gnn", "bwd", "flash")
+KERNELS = ("kv", "gnn", "fwd", "bwd", "flash")
 EDGE_SETS = (("processor", ("hidden", "hidden")), ("encoder", ("data", "hidden")), ("decoder", ("hidden", "data")))
+
+
+def _digest(tensors) -> str:
+    """SHA-256 of the tensors' bytes, -0.0 read as +0.0."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update((t.float() + 0.0).contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
 
 
 def _worker(root: str, which: tuple) -> dict:
@@ -119,7 +134,7 @@ def _worker(root: str, which: tuple) -> dict:
     t0 = time.perf_counter()
     load_kernels()
     out = {"package": os.path.dirname(ea.__file__), "build_s": time.perf_counter() - t0, "kv_proj": [],
-           "gnn_conv": [], "edge_attn_csr_bwd": [], "flash_attention": []}
+           "gnn_conv": [], "edge_attn_csr": [], "edge_attn_csr_bwd": [], "flash_attention": []}
     graph = build_enc_proc_dec_graph(grid_lat=96, mesh_refinements=5, grid="octahedral")
     gen = torch.Generator().manual_seed(0)
     c = 256
@@ -151,7 +166,7 @@ def _worker(root: str, which: tuple) -> dict:
             out["gnn_conv"].append({"shape": f"{label} E={ei.shape[1]}", "dtype": str(dt).split(".")[-1],
                                     "ms": cuda_ms(lambda: gc.gnn_conv(*args)),
                                     "host_us": host_us(lambda: gc.gnn_conv(*args), iters=20)})
-    for label, (s_name, d_name) in EDGE_SETS if "bwd" in which else ():
+    for label, (s_name, d_name) in EDGE_SETS if ("fwd" in which or "bwd" in which) else ():
         ei = graph[(s_name, "to", d_name)].edge_index
         ns, nd = graph[s_name].num_nodes, graph[d_name].num_nodes
         rowptr_np, src_np = ea.csr_from_edge_index(ei, ns, nd)
@@ -163,12 +178,20 @@ def _worker(root: str, which: tuple) -> dict:
         g_num, g_den = torch.randn(nd, c, generator=gen).to(dev), torch.randn(nd, h, generator=gen).to(dev)
         for dt in (torch.bfloat16, torch.float32):
             q, kv, a, wa = (t.to(dev, dt) for t in (q32, kv32, a32, wa32))
-            m = ea.edge_attn_csr(q, kv, rowptr, src, a, wa, h).m
-            args = (q, kv, rowptr, src, a, wa, m, g_num, g_den, h, csr_t)
-            out["edge_attn_csr_bwd"].append({
-                "shape": f"{label} E={ei.shape[1]}", "dtype": str(dt).split(".")[-1],
-                "ms": cuda_ms(lambda: ea.edge_attn_csr_bwd(*args)),
-                "host_us": host_us(lambda: ea.edge_attn_csr_bwd(*args), iters=20)})
+            fwd = (q, kv, rowptr, src, a, wa, h)
+            parts = ea.edge_attn_csr(*fwd)
+            shape, dtype = f"{label} E={ei.shape[1]}", str(dt).split(".")[-1]
+            if "fwd" in which:
+                out["edge_attn_csr"].append({
+                    "shape": shape, "dtype": dtype, "sha256": _digest(parts),
+                    "ms": cuda_ms(lambda: ea.edge_attn_csr(*fwd)),
+                    "host_us": host_us(lambda: ea.edge_attn_csr(*fwd))})
+            if "bwd" in which:
+                args = (q, kv, rowptr, src, a, wa, parts.m, g_num, g_den, h, csr_t)
+                out["edge_attn_csr_bwd"].append({
+                    "shape": shape, "dtype": dtype, "sha256": _digest(ea.edge_attn_csr_bwd(*args)),
+                    "ms": cuda_ms(lambda: ea.edge_attn_csr_bwd(*args)),
+                    "host_us": host_us(lambda: ea.edge_attn_csr_bwd(*args), iters=20)})
     n0, w0, h, d = 10242, 512, 4, 64
     for n, window, causal in ((n0, w0, False), (n0, None, False), (2 * n0 // 5 + 2, w0, False), (n0, w0, True)) \
             if "flash" in which else ():
@@ -205,11 +228,23 @@ def main() -> None:
         raise SystemExit("kernel_turns: no CUDA card")
     roots = [a for i, a in enumerate(args) if a != "--kernels" and (i == 0 or args[i - 1] != "--kernels")]
     if len(roots) != 2:
-        raise SystemExit("usage: kernel_turns.py PARENT_ROOT ROOT [--kernels kv,gnn,bwd,flash]")
+        raise SystemExit("usage: kernel_turns.py PARENT_ROOT ROOT [--kernels kv,gnn,fwd,bwd,flash]")
     print("card:", card(), flush=True)
+    turns = []
     for root in (roots[0], roots[1], roots[1], roots[0]):
-        subprocess.run([sys.executable, __file__, "--worker", root, "--kernels", ",".join(which)], check=True,
-                       timeout=900)
+        run = subprocess.run([sys.executable, __file__, "--worker", root, "--kernels", ",".join(which)],
+                             timeout=900, capture_output=True, text=True)
+        print(run.stdout, end="", flush=True)
+        if run.returncode != 0:
+            print(run.stderr, end="", file=sys.stderr)
+            raise SystemExit(f"kernel_turns: the turn of {root} failed ({run.returncode})")
+        turns.append(next(json.loads(line[5:]) for line in run.stdout.splitlines() if line.startswith("turn ")))
+    # the parent's and this checkout's outputs, per kernel and shape: bit for bit alike or not
+    same = {}
+    for kernel in ("edge_attn_csr", "edge_attn_csr_bwd"):
+        for old, new in zip(turns[0][kernel], turns[1][kernel]):
+            same[f"{kernel} {old['shape']} {old['dtype']}"] = old["sha256"] == new["sha256"]
+    print("same_bits", json.dumps(same), flush=True)
 
 
 if __name__ == "__main__":

@@ -116,8 +116,13 @@ def test_gnn_prepass_matches_node_products(dev, graph, dtype, channels):
         torch.testing.assert_close(g, w, atol=TOL[torch.float32], rtol=TOL[torch.float32])
 
 
+# every lane layout of ops/edge_attention.py:_lane_layout: one head group of 32 lanes (the flagship's
+# C = 256), 24 active lanes (6 heads), several groups (C >= 384), one channel a lane (C = 32)
+WIDTHS = [(64, 4), (256, 4), (512, 4), (128, 16), (32, 4), (192, 6), (384, 6), (768, 6), (1024, 8), (1024, 16)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("channels,heads", [(64, 4), (256, 4), (512, 4), (128, 16)])
+@pytest.mark.parametrize("channels,heads", WIDTHS)
 @pytest.mark.parametrize("edges", ["hidden-hidden", "data-hidden", "hidden-data", "dead"])
 def test_edge_attn_csr_matches_plain(dev, graph, dtype, channels, heads, edges):
     names = {"hidden-hidden": ("hidden", "hidden"), "data-hidden": ("data", "hidden"),
@@ -134,9 +139,11 @@ def test_edge_attn_csr_matches_plain(dev, graph, dtype, channels, heads, edges):
     w_aug = (torch.randn(8, channels, generator=gen) * 0.3).to(dev, dtype)
     got = ea.edge_attn_csr(q, kv, rowptr, src, a, w_aug, heads)
     want = ea.edge_attn_csr_plain(q, kv, rowptr, src, a, w_aug, heads)
+    again = ea.edge_attn_csr(q, kv, rowptr, src, a, w_aug, heads)
     torch.cuda.synchronize()
-    for g, w in zip(got, want):
+    for g, w, g2 in zip(got, want, again):
         torch.testing.assert_close(g, w, atol=TOL[dtype], rtol=TOL[dtype])
+        assert torch.equal(g, g2), "two calls differ"
     if edges == "dead":
         dead = torch.from_numpy(np.tile(np.arange(nd) % 4 == 1, batch)).to(dev)
         assert bool((got.m[dead] == -1e30).all()) and bool((got.den[dead] == 0).all())
@@ -176,7 +183,7 @@ def _bwd_edge_set(graph, edges, dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("channels,heads", [(64, 4), (256, 4), (512, 4), (128, 16)])
+@pytest.mark.parametrize("channels,heads", WIDTHS)
 @pytest.mark.parametrize("edges", ["hidden-hidden", "data-hidden", "hidden-data", "dead", "hub", "knn3"])
 @pytest.mark.parametrize("batch", [1, 2])
 def test_edge_attn_csr_bwd_matches_plain_and_repeats_bit_for_bit(dev, graph, dtype, channels, heads, edges, batch):
@@ -212,6 +219,38 @@ def test_edge_attn_csr_bwd_matches_plain_and_repeats_bit_for_bit(dev, graph, dty
     assert bool((got[0][torch.from_numpy(np.tile(dead, batch)).to(dev)] == 0).all())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels,heads", [(256, 4), (192, 6), (1024, 16)])
+@pytest.mark.parametrize("a2", [5, 12, 16])
+def test_edge_attention_takes_every_attribute_count(dev, graph, dtype, channels, heads, a2):
+    """Both kernels at attribute counts other than the flagship's 8: padded
+    to 8 (5) or to 16 (12, 16: every lane keeps all attributes, and at C =
+    1024 in fp32 the dst pass's dw_aug partials leave room for two warps a
+    CTA), against the plain versions, batch 2, two calls bit-identical."""
+    rowptr, src, num_edges, ns, nd, _ = _bwd_edge_set(graph, "data-hidden", dev)
+    csr_t = _csr_t(rowptr, src, ns)
+    gen = torch.Generator().manual_seed(4)
+    batch = 2
+    q = torch.randn(batch * nd, channels, generator=gen).to(dev, dtype)
+    kv = torch.randn(batch * ns, 2 * channels, generator=gen).to(dev, dtype)
+    a = torch.randn(num_edges, a2, generator=gen).to(dev, dtype)
+    w_aug = (torch.randn(a2, channels, generator=gen) * 0.3).to(dev, dtype)
+    g_num = torch.randn(batch * nd, channels, generator=gen).to(dev)
+    g_den = torch.randn(batch * nd, heads, generator=gen).to(dev)
+    got, again = (ea.edge_attn_csr(q, kv, rowptr, src, a, w_aug, heads) for _ in range(2))
+    want = ea.edge_attn_csr_plain(q, kv, rowptr, src, a, w_aug, heads)
+    args = (q, kv, rowptr, src, a, w_aug, got.m, g_num, g_den, heads)
+    bgot, bagain = (ea.edge_attn_csr_bwd(*args, csr_t) for _ in range(2))
+    bwant = ea.edge_attn_csr_bwd_plain(*args)
+    torch.cuda.synchronize()
+    for g, g2, w in zip(got, again, want):
+        torch.testing.assert_close(g, w, atol=TOL[dtype], rtol=TOL[dtype])
+        assert torch.equal(g, g2), "two forward calls differ"
+    for name, g, g2, w in zip(("dq", "dkv", "da", "dw_aug"), bgot, bagain, bwant):
+        assert torch.equal(g, g2), f"{name} differs between two calls"
+        assert _normwise(g, w) <= BWD_TOL, f"{name}: normwise error {_normwise(g, w):.3e}"
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(dev, graph):
     es = graph[("hidden", "to", "hidden")]
     n = graph["hidden"].num_nodes
@@ -230,11 +269,19 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev, graph):
         ea.kv_proj(torch.randn(4, 8, device=dev), torch.randn(6, 8), torch.randn(6))
     with pytest.raises(ValueError, match="fp32"):
         ea.kv_proj(torch.randn(4, 8, device=dev), torch.randn(6, 8, device=dev), torch.randn(6, device=dev).bfloat16())
-    q, kv = torch.randn(n, 1024, device=dev), torch.randn(n, 2048, device=dev)  # 32 channels a lane
-    m = g_den = torch.zeros(n, 16, device=dev)
-    with pytest.raises(ValueError, match="channels per row"):
-        ea.edge_attn_csr_bwd(q, kv, rowptr, src, a, torch.randn(8, 1024, device=dev), m, q, g_den, 16,
-                             _csr_t(rowptr, src, n))
+    # every width the forward takes also trains: one channel a lane (C = 32), 24 lanes (6 heads of 32)
+    # and four head groups (C = 1024, 16 heads)
+    for c, h in ((32, 4), (192, 6), (1024, 16)):
+        q, kv, w_aug = torch.randn(n, c, device=dev), torch.randn(n, 2 * c, device=dev), torch.randn(8, c, device=dev)
+        m = ea.edge_attn_csr(q, kv, rowptr, src, a, w_aug, h).m
+        before = ea.LAUNCHES["edge_attn_csr_bwd"]
+        dq, dkv, da, dw = ea.edge_attn_csr_bwd(q, kv, rowptr, src, a, w_aug, m, q, torch.zeros(n, h, device=dev), h,
+                                               _csr_t(rowptr, src, n))
+        assert ea.LAUNCHES["edge_attn_csr_bwd"] == before + 1
+        assert dq.shape == (n, c) and dkv.shape == (n, 2 * c) and da.shape == a.shape and dw.shape == (8, c)
+    misaligned = torch.randn(n * 64 + 1, device=dev)[1:].view(n, 64)  # 4 bytes past a boundary
+    with pytest.raises(ValueError, match="16-byte"):
+        ea.edge_attn_csr(misaligned, torch.randn(n, 128, device=dev), rowptr, src, a, torch.randn(8, 64, device=dev), 4)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
