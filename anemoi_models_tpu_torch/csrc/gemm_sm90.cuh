@@ -5,9 +5,10 @@
 // with A and B K-major (torch's row-major activations and Linear weights).
 // edge_attention.cu instantiates it as kv_proj ([k|v] = f . w^T + b, the
 // projection inside anemoi_models_tpu/ops/pallas/edge_attention.py:_feats_kernel)
-// and gnn_conv.cu as the per-node pre-pass of the factored edge MLP
+// and gnn_common.cuh as the per-node pre-pass of the factored edge MLP
 // (x_i . W0[:, 0:C] + b0 and x_j . W0[:, C:2C]), each under its own tag so a
-// profile tells the two apart. flash_attention.cu builds on its device parts
+// profile tells the two apart; gnn_conv_layered.cu runs its pipelines
+// (proj_bf16_start / proj_bf16_run, proj_f32_tile) under epilogues of its own. flash_attention.cu builds on its device parts
 // (4-D tensor maps over strided heads, mbarriers, wgmma with A from registers
 // and B transposed).
 //
@@ -459,21 +460,24 @@ struct ProjBatch {
   int k;
 };
 
-template <typename Tag, typename OutT>
-__global__ void __launch_bounds__(kProjThreads, 2) proj_bf16_kernel(const __grid_constant__ ProjBatch batch) {
-  const ProjProblem& pr = batch.p[blockIdx.z];
-  const int m0 = blockIdx.x * kProjBM;
-  const int n0 = blockIdx.y * kProjBN;
-  if (m0 >= pr.m || n0 >= pr.n) return;  // the other problem's grid is larger
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = align_1024(smem_raw);
+// One stage of the ring: the A and B boxes of K tile kt of the tile at (m0, n0).
+__device__ __forceinline__ void proj_bf16_load(const ProjProblem& pr, uint8_t* smem, int kt, int m0, int n0) {
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kProjBarOff);
+  const int s = kt % kProjStages;
+  uint8_t* stage = smem + s * kProjStage;
+  mbar_expect_tx(full + s, kProjStage);
+  tma_load_2d(stage, &pr.a, full + s, kt * kProjBK, m0);
+  tma_load_2d(stage + kProjTileA, &pr.b, full + s, kt * kProjBK, n0);
+}
+
+// The pipeline of proj_bf16_kernel, which the kernels with other epilogues
+// share (gnn_conv_layered.cu). proj_bf16_start: thread 0 initialises the
+// ring's barriers; the block's barrier publishes them (and whatever the
+// caller wrote to shared memory before); thread 0 issues the first stages.
+__device__ __forceinline__ void proj_bf16_start(const ProjProblem& pr, int ktiles, int m0, int n0, uint8_t* smem) {
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + kProjBarOff);
   uint64_t* empty = full + kProjStages;
-  float* bias = reinterpret_cast<float*>(smem + kProjBiasOff);
   const int tid = threadIdx.x;
-  const int ktiles = (batch.k + kProjBK - 1) / kProjBK;
-  if (tid < kProjBN) bias[tid] = n0 + tid < pr.n ? bias_at(pr.bias, pr.bias_kind, n0 + tid) : 0.f;
-
   if (tid == 0) {
     for (int s = 0; s < kProjStages; ++s) {
       mbar_init(full + s, 1);
@@ -482,21 +486,19 @@ __global__ void __launch_bounds__(kProjThreads, 2) proj_bf16_kernel(const __grid
     fence_barrier_init();
   }
   __syncthreads();
-  auto load = [&](int kt) {
-    const int s = kt % kProjStages;
-    uint8_t* stage = smem + s * kProjStage;
-    mbar_expect_tx(full + s, kProjStage);
-    tma_load_2d(stage, &pr.a, full + s, kt * kProjBK, m0);
-    tma_load_2d(stage + kProjTileA, &pr.b, full + s, kt * kProjBK, n0);
-  };
   if (tid == 0) {
-    for (int kt = 0; kt < kProjStages && kt < ktiles; ++kt) load(kt);
+    for (int kt = 0; kt < kProjStages && kt < ktiles; ++kt) proj_bf16_load(pr, smem, kt, m0, n0);
   }
+}
 
+// proj_bf16_run: acc (kProjBN / 2 floats a thread: this warpgroup's 64 rows
+// of the tile in the D-fragment layout) += A . B^T over every K tile.
+__device__ __forceinline__ void proj_bf16_run(const ProjProblem& pr, int ktiles, int m0, int n0, uint8_t* smem,
+                                              float* acc) {
   constexpr int kR = kProjBN / 2;
-  float acc[kR];
-#pragma unroll
-  for (int i = 0; i < kR; ++i) acc[i] = 0.f;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kProjBarOff);
+  uint64_t* empty = full + kProjStages;
+  const int tid = threadIdx.x;
   const int wg = tid / 128;
   for (int kt = 0; kt < ktiles; ++kt) {
     const int s = kt % kProjStages;
@@ -516,17 +518,24 @@ __global__ void __launch_bounds__(kProjThreads, 2) proj_bf16_kernel(const __grid
     mbar_arrive(empty + s);
     if (tid == 0 && kt + kProjStages < ktiles) {
       mbar_wait(empty + s, phase);
-      load(kt + kProjStages);
+      proj_bf16_load(pr, smem, kt + kProjStages, m0, n0);
     }
   }
+}
 
-  // Epilogue: bias in fp32, one rounding, through shared memory (the ring is
-  // free once both warpgroups are done) so that the stores go out as whole
-  // 16-byte chunks of consecutive columns.
+// The epilogue of proj_bf16_kernel, shared like its pipeline: acc (+ the
+// tile's fp32 bias from shared memory with kBias) rounded once to OutT into a
+// shared-memory tile (the ring is free once both warpgroups are done), then
+// stored in whole 16-byte chunks of consecutive columns, masked by m and n.
+template <typename OutT, bool kBias>
+__device__ __forceinline__ void proj_bf16_store(const float* acc, const float* bias, void* out_ptr, int m, int n,
+                                                int ldo, int m0, int n0, uint8_t* smem) {
   constexpr int kV = 16 / sizeof(OutT);       // elements per 16-byte chunk
   constexpr int kLd = kProjBN + kV;           // padded row: the fragment writes spread over banks
   static_assert(kProjBM * kLd * sizeof(OutT) <= kProjStages * kProjStage, "output tile over the ring");
   OutT* tile = reinterpret_cast<OutT*>(smem);
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
   __syncthreads();
   const int lane = tid % 32;
   const int row0 = wg * 64 + ((tid % 128) / 32) * 16 + lane / 4;
@@ -535,20 +544,44 @@ __global__ void __launch_bounds__(kProjThreads, 2) proj_bf16_kernel(const __grid
     const int col = 8 * j + 2 * (lane % 4);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      store_pair(tile + (row0 + 8 * h) * kLd + col, acc[4 * j + 2 * h] + bias[col],
-                 acc[4 * j + 2 * h + 1] + bias[col + 1]);
+      const float b0 = kBias ? bias[col] : 0.f;
+      const float b1 = kBias ? bias[col + 1] : 0.f;
+      store_pair(tile + (row0 + 8 * h) * kLd + col, acc[4 * j + 2 * h] + b0, acc[4 * j + 2 * h + 1] + b1);
     }
   }
   __syncthreads();
-  OutT* out = static_cast<OutT*>(pr.out);
+  OutT* out = static_cast<OutT*>(out_ptr);
   for (int idx = tid; idx < kProjBM * (kProjBN / kV); idx += kProjThreads) {
     const int r = idx / (kProjBN / kV);
     const int c = (idx % (kProjBN / kV)) * kV;
-    if (m0 + r < pr.m && n0 + c < pr.n) {
-      *reinterpret_cast<int4*>(out + static_cast<int64_t>(m0 + r) * pr.ldo + n0 + c) =
+    if (m0 + r < m && n0 + c < n) {
+      *reinterpret_cast<int4*>(out + static_cast<int64_t>(m0 + r) * ldo + n0 + c) =
           *reinterpret_cast<const int4*>(tile + r * kLd + c);
     }
   }
+}
+
+template <typename Tag, typename OutT>
+__global__ void __launch_bounds__(kProjThreads, 2) proj_bf16_kernel(const __grid_constant__ ProjBatch batch) {
+  const ProjProblem& pr = batch.p[blockIdx.z];
+  const int m0 = blockIdx.x * kProjBM;
+  const int n0 = blockIdx.y * kProjBN;
+  if (m0 >= pr.m || n0 >= pr.n) return;  // the other problem's grid is larger
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  float* bias = reinterpret_cast<float*>(smem + kProjBiasOff);
+  const int tid = threadIdx.x;
+  const int ktiles = (batch.k + kProjBK - 1) / kProjBK;
+  if (tid < kProjBN) bias[tid] = n0 + tid < pr.n ? bias_at(pr.bias, pr.bias_kind, n0 + tid) : 0.f;
+  proj_bf16_start(pr, ktiles, m0, n0, smem);
+
+  constexpr int kR = kProjBN / 2;
+  float acc[kR];
+#pragma unroll
+  for (int i = 0; i < kR; ++i) acc[i] = 0.f;
+  proj_bf16_run(pr, ktiles, m0, n0, smem, acc);
+
+  proj_bf16_store<OutT, true>(acc, bias, pr.out, pr.m, pr.n, pr.ldo, m0, n0, smem);
 }
 
 // Launches the products of `batch` (count 1 or 2) on `stream`.
@@ -602,20 +635,17 @@ struct ProjF32Batch {
   int k;
 };
 
-template <typename Tag>
-__global__ void __launch_bounds__(kF32Threads) proj_f32_kernel(const __grid_constant__ ProjF32Batch batch) {
-  const ProjF32Problem& pr = batch.p[blockIdx.z];
-  const int m0 = blockIdx.x * kF32BM;
-  const int n0 = blockIdx.y * kF32BN;
-  if (m0 >= pr.m || n0 >= pr.n) return;
+// The K loop of proj_f32_kernel, which the kernels with other epilogues share
+// (gnn_conv_layered.cu): acc (rows 4 ty + i, columns 4 tx + j of the 64 x 64
+// tile at (m0, n0), tx = tid % 16, ty = tid / 16) = A . B^T in exact fp32.
+// Its first barrier also publishes what the caller wrote to shared memory.
+__device__ __forceinline__ void proj_f32_tile(const ProjF32Problem& pr, int K, int m0, int n0,
+                                              float (&acc)[kF32TM][kF32TN]) {
   __shared__ float As[kF32BK][kF32BM + 4];
   __shared__ float Bs[kF32BK][kF32BN + 4];
   const int tid = threadIdx.x;
   const int tx = tid % (kF32BN / kF32TN);
   const int ty = tid / (kF32BN / kF32TN);
-  const int K = batch.k;
-
-  float acc[kF32TM][kF32TN];
 #pragma unroll
   for (int i = 0; i < kF32TM; ++i)
 #pragma unroll
@@ -646,6 +676,19 @@ __global__ void __launch_bounds__(kF32Threads) proj_f32_kernel(const __grid_cons
     }
     __syncthreads();
   }
+}
+
+template <typename Tag>
+__global__ void __launch_bounds__(kF32Threads) proj_f32_kernel(const __grid_constant__ ProjF32Batch batch) {
+  const ProjF32Problem& pr = batch.p[blockIdx.z];
+  const int m0 = blockIdx.x * kF32BM;
+  const int n0 = blockIdx.y * kF32BN;
+  if (m0 >= pr.m || n0 >= pr.n) return;
+  const int tid = threadIdx.x;
+  const int tx = tid % (kF32BN / kF32TN);
+  const int ty = tid / (kF32BN / kF32TN);
+  float acc[kF32TM][kF32TN];
+  proj_f32_tile(pr, batch.k, m0, n0, acc);
 
 #pragma unroll
   for (int i = 0; i < kF32TM; ++i) {

@@ -66,94 +66,19 @@
 //   same factoring (three C x C products per edge, the P rows added in the
 //   epilogue of the first).
 //
+// This is the route for C in {32, 64, 128, 256} with three Dense layers;
+// gnn_conv_layered.cu takes every other width (C % 8 == 0) and MLP depth.
+// The pre-pass, gnn_agg_kernel and the activations live in gnn_common.cuh.
+//
 // Every entry point has a plain C interface, launches on the stream it is
 // given, allocates nothing (the fp32 P tables are the caller's scratch) and
 // returns cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <type_traits>
-
-#include "gemm_sm90.cuh"
+#include "gnn_common.cuh"  // the activations, dst_of, the pre-pass and gnn_agg_kernel
 
 namespace {
 
 using namespace sm90;  // bf16, the GEMM, TMA and wgmma helpers
-
-struct gnn_prepass_tag {};  // names the pre-pass instantiations of gemm_sm90.cuh
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-
-__device__ __forceinline__ bf16 round_bf16(float x) { return __float2bfloat16(x); }
-
-// activation codes of ops/gnn_conv.py:_ACT_CODES. kFast (the bf16 kernel)
-// divides by __fdividef: a 2-ulp fp32 quotient, rounded to bf16 after, with no
-// slow-path call (IEEE division keeps one per element, beside a branch).
-template <int A, bool kFast>
-__device__ __forceinline__ float act_fn(float x) {
-  if constexpr (A == 1) {
-    return kFast ? __fdividef(x, 1.f + expf(-x)) : x / (1.f + expf(-x));  // SiLU
-  } else if constexpr (A == 2) {
-    return 0.5f * x * (1.f + tanhf(0.7978845608028654f * (x + 0.044715f * x * x * x)));  // GELU, tanh form
-  } else if constexpr (A == 3) {
-    return fmaxf(x, 0.f);  // ReLU
-  } else if constexpr (A == 4) {
-    return tanhf(x);
-  } else if constexpr (A == 5) {
-    return kFast ? __fdividef(1.f, 1.f + expf(-x)) : 1.f / (1.f + expf(-x));  // sigmoid
-  } else {
-    return x;
-  }
-}
-
-template <int A, int N, bool kFast>
-__device__ __forceinline__ void act_all(float* v) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) v[i] = act_fn<A, kFast>(v[i]);
-}
-
-// v[0:N] = act(v[0:N]) for a register array, with the switch outside the loop:
-// a switch per element compiles to an indirect branch per element, and the
-// epilogue then runs one element at a time
-template <int N, bool kFast>
-__device__ __forceinline__ void apply_act(float* v, int act) {
-  switch (act) {
-    case 1:
-      act_all<1, N, kFast>(v);
-      break;
-    case 2:
-      act_all<2, N, kFast>(v);
-      break;
-    case 3:
-      act_all<3, N, kFast>(v);
-      break;
-    case 4:
-      act_all<4, N, kFast>(v);
-      break;
-    case 5:
-      act_all<5, N, kFast>(v);
-      break;
-    default:
-      break;
-  }
-}
-
-// the destination of CSR edge ee: the largest d with rowptr[d] <= ee
-__device__ __forceinline__ int dst_of(const int* __restrict__ rowptr, int num_dst, int ee) {
-  int lo = 0, hi = num_dst;
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) / 2;
-    if (rowptr[mid] <= ee) {
-      lo = mid;
-    } else {
-      hi = mid - 1;
-    }
-  }
-  return lo;
-}
 
 struct MsgArgs {
   const float* p_dst;  // (B * Nd, C) fp32
@@ -625,45 +550,8 @@ int launch_msg_f32(const MsgArgs& args, const void* w0, const void* w1, const vo
 }
 
 // ---------------------------------------------------------------------------
-// aggregation, pre-pass and the whole conv
+// the whole conv
 // ---------------------------------------------------------------------------
-
-template <typename T>
-__global__ void gnn_agg_kernel(const T* __restrict__ msg, const int* __restrict__ rowptr,
-                               float* __restrict__ agg, int num_dst, int E, int C) {
-  const int row = blockIdx.x;  // batch * num_dst + destination
-  const int b = row / num_dst;
-  const int d = row - b * num_dst;
-  const T* m = msg + (int64_t)b * E * C;
-  const int lo = rowptr[d];
-  const int hi = rowptr[d + 1];
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    float s = 0.f;
-    for (int ee = lo; ee < hi; ++ee) s += to_f(m[(int64_t)ee * C + c]);
-    agg[(int64_t)row * C + c] = s;
-  }
-}
-
-// P_dst = x_dst . W0[:, 0:C]^T + b0 and P_src = x_src . W0[:, C:2C]^T, fp32, one launch
-template <typename T>
-int launch_prepass(const void* x_dst, const void* x_src, const void* w0, const void* b0, float* p_dst,
-                   float* p_src, int rows_dst, int rows_src, int C, cudaStream_t stream) {
-  const T* w = static_cast<const T*>(w0);
-  if constexpr (std::is_same<T, bf16>::value) {
-    ProjBatch batch{};
-    int rc = set_proj_problem(&batch.p[0], x_dst, C, w, 3 * C, b0, kBiasBF16, p_dst, C, rows_dst, C, C);
-    if (rc == 0) rc = set_proj_problem(&batch.p[1], x_src, C, w + C, 3 * C, nullptr, kNoBias, p_src, C, rows_src, C, C);
-    if (rc != 0) return rc;
-    batch.k = C;
-    return launch_proj_bf16<gnn_prepass_tag, float>(batch, 2, stream);
-  } else {
-    ProjF32Batch batch{};
-    batch.p[0] = {static_cast<const float*>(x_dst), w, static_cast<const float*>(b0), p_dst, rows_dst, C, C, 3 * C, C};
-    batch.p[1] = {static_cast<const float*>(x_src), w + C, nullptr, p_src, rows_src, C, C, 3 * C, C};
-    batch.k = C;
-    return launch_proj_f32<gnn_prepass_tag>(batch, 2, stream);
-  }
-}
 
 template <typename T>
 int launch_gnn_conv(const void* x_dst, const void* x_src, const void* e, const void* rowptr,
@@ -700,11 +588,7 @@ int launch_gnn_conv(const void* x_dst, const void* x_src, const void* e, const v
     }
     if (rc != 0) return rc;
   }
-  const int threads = C < 256 ? ((C + 31) / 32) * 32 : 256;
-  gnn_agg_kernel<T><<<batch * num_dst, threads, 0, s>>>(
-      static_cast<const T*>(msg), static_cast<const int*>(rowptr), static_cast<float*>(agg),
-      num_dst, E, C);
-  return static_cast<int>(cudaGetLastError());
+  return launch_agg<T>(msg, rowptr, agg, batch, num_dst, E, C, s);
 }
 
 }  // namespace

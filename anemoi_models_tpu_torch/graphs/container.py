@@ -1,7 +1,8 @@
 """Static heterogeneous graph container.
 
-The port's own copy of ``anemoi_models_tpu/graphs/container.py``, without
-its ``.npz`` serialization and with the numpy sort only. Everything here is
+The port's own copy of ``anemoi_models_tpu/graphs/container.py``, its
+``.npz`` serialization included (the same keys, so a ``graph.npz`` written
+by either package loads in the other), with the numpy sort only. Everything here is
 host-side ``numpy``: the graph is static model-build-time data; the layers
 copy edge indices and attributes to the device when they are built.
 
@@ -13,6 +14,7 @@ destination node (CSR order), the order the edge-attention kernels walk.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import Iterator
 
@@ -147,3 +149,74 @@ class HeteroGraph:
             key: es.sort_by_dst(self.nodes[key[2]].num_nodes) for key, es in self.edges.items()
         }
         return HeteroGraph(nodes=dict(self.nodes), edges=edges)
+
+    # -- serialization -----------------------------------------------------
+    # A built graph round-trips through a flat dict of numpy arrays, so it can
+    # ride an ``.npz`` file or a checkpoint's supporting arrays. Keys:
+    # ``node::<name>::coords``, ``node::<name>::attr::<a>``,
+    # ``edge::<src>::<rel>::<dst>::edge_index``, ``::dst_ptr``, ``::attr::<a>``.
+
+    def to_arrays(self) -> dict[str, np.ndarray]:
+        """Flatten to ``{key: array}``; inverse of :meth:`from_arrays`."""
+        names = list(self.nodes) + [p for k in self.edges for p in k] + [
+            a for ns in self.nodes.values() for a in ns.attrs
+        ] + [a for es in self.edges.values() for a in es.attrs]
+        bad = [n for n in names if "::" in str(n)]
+        if bad:
+            raise ValueError(f"graph names may not contain '::' (key separator): {bad}")
+        out: dict[str, np.ndarray] = {}
+        for name, ns in self.nodes.items():
+            out[f"node::{name}::coords"] = ns.coords
+            for a, v in ns.attrs.items():
+                out[f"node::{name}::attr::{a}"] = v
+        for (src, rel, dst), es in self.edges.items():
+            base = f"edge::{src}::{rel}::{dst}"
+            out[f"{base}::edge_index"] = es.edge_index
+            if es.dst_ptr is not None:
+                out[f"{base}::dst_ptr"] = es.dst_ptr
+            for a, v in es.attrs.items():
+                out[f"{base}::attr::{a}"] = v
+        return out
+
+    @classmethod
+    def from_arrays(cls, arrays: dict[str, np.ndarray]) -> "HeteroGraph":
+        """Rebuild a graph flattened by :meth:`to_arrays`."""
+        nodes: dict[str, NodeSet] = {}
+        edges: dict[tuple[str, str, str], EdgeSet] = {}
+        for key, value in arrays.items():
+            parts = key.split("::")
+            if parts[0] == "node":
+                ns = nodes.setdefault(parts[1], NodeSet(coords=np.empty((0, 2))))
+                if parts[2] == "coords":
+                    ns.coords = np.asarray(value)
+                else:
+                    ns.attrs[parts[3]] = np.asarray(value)
+            elif parts[0] == "edge":
+                es = edges.setdefault((parts[1], parts[2], parts[3]), EdgeSet(edge_index=np.empty((2, 0), np.int32)))
+                if parts[4] == "edge_index":
+                    es.edge_index = np.asarray(value)
+                elif parts[4] == "dst_ptr":
+                    es.dst_ptr = np.asarray(value)
+                else:
+                    es.attrs[parts[5]] = np.asarray(value)
+        return cls(nodes=nodes, edges=edges)
+
+    def save(self, path: str) -> str:
+        """Write the graph to an ``.npz`` file; returns the path. Atomic (a
+        tmp file, then a rename): an interrupted save leaves no truncated
+        file behind."""
+        final = path if path.endswith(".npz") else path + ".npz"
+        tmp = final + f".tmp-{os.getpid()}.npz"
+        try:
+            np.savez_compressed(tmp, **self.to_arrays())
+            os.replace(tmp, final)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+        return final
+
+    @classmethod
+    def load(cls, path: str) -> "HeteroGraph":
+        """Read a graph written by :meth:`save` (of either package)."""
+        with np.load(path) as z:
+            return cls.from_arrays({k: z[k] for k in z.files})

@@ -1,21 +1,34 @@
 """AnemoiModelInterface: pre-process -> model -> post-process.
 
-Counterpart of ``anemoi_models_tpu/interface/__init__.py`` for serving: the
-constructor, ``to``, ``init_params``, ``load_params``, ``forward`` and
-``predict_step``. The model is an ``nn.Module`` that owns its parameters;
-train it with ``anemoi_models_tpu_torch.training``. Everything is built on the
-card (``device="cuda"``) unless the caller names another device; without a
-card that raises.
+Counterpart of ``anemoi_models_tpu/interface/__init__.py``, the
+anemoi-inference serving surface: the constructor (with the checkpoint's
+``metadata``, ``supporting_arrays`` and a ``uuid4`` ``id``), ``to``,
+``init_params``, ``load_params``, ``example_input``, ``forward``,
+``predict_step``, the multi-step forecast (``make_rollout_fn``,
+``predict_rollout``) and checkpoints (``save``, ``load``,
+``from_checkpoint``, which also reads the JAX package's checkpoints). The
+model is an ``nn.Module`` that owns its parameters; train it with
+``anemoi_models_tpu_torch.training``. Everything is built on the card
+(``device="cuda"``) unless the caller names another device; without a card
+that raises.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+import os
+import uuid
+from typing import Any, Mapping, Optional
 
+import numpy as np
 import torch
 
+from anemoi_models_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
+from anemoi_models_tpu_torch.data_indices import IndexCollection
+from anemoi_models_tpu_torch.graphs import HeteroGraph
 from anemoi_models_tpu_torch.models.encoder_processor_decoder import resolve_device
 from anemoi_models_tpu_torch.preprocessing import Processors
+from anemoi_models_tpu_torch.training.rollout import make_rollout_fn
+from anemoi_models_tpu_torch.utils import DotDict
 from anemoi_models_tpu_torch.utils.config import instantiate
 from anemoi_models_tpu_torch.weights import init_params, load_flax_params
 
@@ -28,11 +41,15 @@ class AnemoiModelInterface:
     """Wraps an Anemoi model with pre- and post-processing steps."""
 
     def __init__(self, *, config: Any, graph_data: Any, statistics: dict, data_indices: Any,
+                 metadata: Optional[dict] = None, supporting_arrays: Optional[dict] = None,
                  device="cuda") -> None:
         self.config = config
+        self.id = str(uuid.uuid4())
         self.multi_step = config.training.multistep_input
         self.graph_data = graph_data
         self.statistics = statistics
+        self.metadata = metadata or {}
+        self.supporting_arrays = supporting_arrays if supporting_arrays is not None else {}
         self.data_indices = data_indices
         self.device = resolve_device(device)
 
@@ -59,14 +76,24 @@ class AnemoiModelInterface:
         self.post_processors.to(self.device)
         return self
 
+    # -- parameters ------------------------------------------------------
+    def example_input(self, batch_size: int = 1, ensemble_size: int = 1) -> torch.Tensor:
+        """Zeros of the model-forward input shape (internal input width)."""
+        grid = self.graph_data[self.config.graph.data].num_nodes
+        n_in = len(self.data_indices.internal_model.input)
+        return torch.zeros((batch_size, self.multi_step, ensemble_size, grid, n_in), device=self.device)
+
     def init_params(self, generator: torch.Generator) -> None:
         """Flax-equivalent initialisation, drawn from a CPU ``generator``."""
         init_params(self.model, generator)
 
     def load_params(self, tree: Mapping[str, Any]) -> None:
-        """Load a JAX parameter tree (nested dicts of numpy arrays)."""
-        self.model.load_state_dict(load_flax_params(tree), strict=True)
+        """Load parameters: the port's state dict, or a JAX parameter tree
+        (nested dicts of arrays)."""
+        flat = all(isinstance(v, torch.Tensor) for v in tree.values())
+        self.model.load_state_dict(dict(tree) if flat else load_flax_params(tree), strict=True)
 
+    # -- forward paths ---------------------------------------------------
     @torch.inference_mode()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x (batch, time, ensemble, grid, vars) -> (batch, ensemble, grid, vars_out)."""
@@ -83,3 +110,118 @@ class AnemoiModelInterface:
         batch = self.pre_processors(batch, in_place=False)
         x = batch[:, 0 : self.multi_step, None, ...]  # add the ensemble dim
         return self.post_processors(self.model(x), in_place=False)
+
+    def make_rollout_fn(self, n_steps: int):
+        """``training.make_rollout_fn`` bound to this interface's model."""
+        return make_rollout_fn(self.model, self.data_indices, n_steps)
+
+    @torch.inference_mode()
+    def predict_rollout(self, batch: torch.Tensor, n_steps: int,
+                        forcings: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Multi-step forecast: pre-process -> autoregressive rollout ->
+        post-process every lead time at once.
+
+        ``batch``: (batch, time, grid, vars) initial window; ``forcings``:
+        (n_steps, batch, 1, grid, n_forcing) *pre-processed* per-step
+        forcings, or None. Returns (n_steps, batch, ensemble, grid, vars_out)
+        at the post-processed (physical) level.
+        """
+        pre = self.pre_processors(batch, in_place=False)
+        x0 = pre[:, 0 : self.multi_step, None, ...]
+        _, preds = self.make_rollout_fn(n_steps)(x0, forcings)
+        # every post-processor is per (grid, variable) and broadcasts over the leading dims
+        return self.post_processors(preds, in_place=False)
+
+    # -- checkpoints -----------------------------------------------------
+    def save(self, path: str, optimizer: Optional[torch.optim.Optimizer] = None, step: Optional[int] = None,
+             include_graph: bool = True) -> str:
+        """Write the parameters, the processor state, the optimizer's state
+        (if given) and the metadata to a checkpoint directory; returns its
+        path. With ``include_graph`` the graph, the statistics and the
+        variable table all ride along, so :meth:`from_checkpoint` rebuilds
+        the serving interface from the directory alone; without it, keep the
+        graph beside it as ``graph.npz`` (``HeteroGraph.save``)."""
+        supporting = dict(self.supporting_arrays)
+        if include_graph:
+            supporting.update({f"graph::{k}": v for k, v in self.graph_data.to_arrays().items()})
+        metadata = dict(self.metadata)
+        metadata["name_to_index"] = dict(self.data_indices.name_to_index)
+        metadata["statistics"] = {k: np.asarray(v).tolist() for k, v in self.statistics.items()}
+        return save_checkpoint(
+            path,
+            params=self.model.state_dict(),
+            processor_state=self.pre_processors.state_dict(),
+            opt_state=optimizer.state_dict() if optimizer is not None else None,
+            step=step,
+            metadata=metadata,
+            config=dict(self.config),
+            supporting_arrays=supporting,
+            run_id=self.id,
+        )
+
+    def _restore(self, restored: dict) -> None:
+        self.load_params(restored["params"])
+        if restored.get("processor_state"):
+            self.pre_processors.load_state_dict(restored["processor_state"])
+            self.post_processors.load_state_dict(restored["processor_state"])
+        if restored.get("run_id"):
+            self.id = restored["run_id"]
+
+    def load(self, path: str) -> dict:
+        """Restore the parameters and the processor state from a checkpoint
+        of either package; returns the whole checkpoint dict."""
+        restored = load_checkpoint(path)
+        self._restore(restored)
+        return restored
+
+    @classmethod
+    def from_checkpoint(cls, path: str, graph_data: Any = None, device="cuda") -> "AnemoiModelInterface":
+        """Rebuild a ready-to-serve interface from a checkpoint directory that
+        either package wrote: config, variable table, statistics, graph
+        (unless given: from the ``graph::`` supporting arrays, else a
+        ``graph.npz`` in or beside the directory), parameters and processor
+        state, the anemoi-inference load path in one call."""
+        restored = load_checkpoint(path)
+        meta = dict(restored.get("metadata") or {})
+        n2i = meta.pop("name_to_index", None)
+        stats = meta.pop("statistics", None)
+        if n2i is None or stats is None:
+            raise ValueError(
+                f"checkpoint {path!r} predates self-contained saves (no variable "
+                "table/statistics in its metadata); rebuild the interface by hand "
+                "and use load() instead"
+            )
+        supporting = dict(restored.get("supporting_arrays") or {})
+        graph_arrays = {k[len("graph::"):]: supporting.pop(k) for k in list(supporting) if k.startswith("graph::")}
+        if graph_data is None:
+            if graph_arrays:
+                graph_data = HeteroGraph.from_arrays(graph_arrays)
+            else:
+                # the graph-once layout: a run keeps the (immutable) graph as a
+                # graph.npz beside its periodic checkpoints
+                for cand in (os.path.join(path, "graph.npz"),
+                             os.path.join(os.path.dirname(os.path.abspath(path)), "graph.npz")):
+                    if os.path.exists(cand):
+                        graph_data = HeteroGraph.load(cand)
+                        break
+                else:
+                    raise ValueError(
+                        f"checkpoint {path!r} was saved with include_graph=False and "
+                        "no sibling graph.npz exists; pass graph_data= "
+                        "(e.g. HeteroGraph.load(...))"
+                    )
+        config = DotDict(restored.get("config") or {})
+        # float64, as the JSON holds them: the normalizer builds its tables in
+        # float64 before casting
+        statistics = {k: np.asarray(v, np.float64) for k, v in stats.items()}
+        iface = cls(
+            config=config,
+            graph_data=graph_data,
+            statistics=statistics,
+            data_indices=IndexCollection(config, {k: int(v) for k, v in n2i.items()}),
+            metadata=meta,
+            supporting_arrays=supporting,
+            device=device,
+        )
+        iface._restore(restored)
+        return iface

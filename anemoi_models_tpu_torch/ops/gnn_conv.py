@@ -24,11 +24,17 @@ the graph functions sort by destination, so it is the CSR order.
   in fp32 and the normalised value rounded before gamma and beta, ``agg``
   summed from the rounded ``msg``. It takes any MLP depth.
 - :func:`gnn_conv` takes it for CPU tensors and, for CUDA tensors, launches
-  ``csrc/gnn_conv.cu`` (or raises): the per-node pre-pass (the Hopper GEMM
+  one of two kernel routes (or raises), chosen by :func:`_gnn_route`:
+  ``fused`` (``csrc/gnn_conv.cu``: C in {32, 64, 128, 256} with three Dense
+  layers, the TPU kernel's case) runs the per-node pre-pass (the Hopper GEMM
   of ``csrc/gemm_sm90.cuh`` in bf16, the CUDA cores in fp32), then the
-  message and aggregation kernels, counting one launch per call in
-  :data:`LAUNCHES`. The kernel takes exactly three Dense layers
-  (``mlp_extra_layers=0``), as the TPU kernel does.
+  message and aggregation kernels; ``layered`` (``csrc/gnn_conv_layered.cu``:
+  every other C % 8 == 0 and any MLP depth) runs the same pre-pass, then per
+  chunk of :data:`LAYERED_CHUNK` edges one GEMM per Dense with the factored
+  first layer's gather, the activation and the rounding in its epilogues, a
+  LayerNorm row kernel, and the same aggregation. Each call counts one
+  launch of its route in :data:`LAUNCHES`. There is no plain route on the
+  card.
 - :class:`GNNConv` is the Function GraphConv runs through: its backward
   recomputes through the plain version and differentiates it, as
   ``ops/slot_gnn.py:conv_bwd`` recomputes through ``_slot_gnn_once``.
@@ -36,6 +42,7 @@ the graph functions sort by destination, so it is the CSR order.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Sequence
 
 import torch
@@ -43,16 +50,34 @@ import torch
 from anemoi_models_tpu_torch.layers.utils import get_activation
 from anemoi_models_tpu_torch.ops.edge_attention import _check_launch, _on_cpu, _require, _require_contiguous
 
-__all__ = ["GNNConv", "LAUNCHES", "aggregate", "gnn_conv", "gnn_conv_plain", "gnn_prepass", "mlp_operands", "node_products"]
+__all__ = ["GNNConv", "LAUNCHES", "LAYERED_CHUNK", "aggregate", "gnn_conv", "gnn_conv_plain", "gnn_prepass",
+           "mlp_operands", "node_products"]
 
-_WIDTHS = (32, 64, 128, 256)  # channel widths csrc/gnn_conv.cu is built for
+_FUSED_WIDTHS = (32, 64, 128, 256)  # channel widths csrc/gnn_conv.cu's fused kernels are built for
 _DTYPES = (torch.float32, torch.bfloat16)
 _ACT_CODES = {"identity": 0, "silu": 1, "swish": 1, "gelu": 2, "relu": 3, "tanh": 4, "sigmoid": 5}
+# edge rows per chunk of the layered route: its scratch is two (chunk, C)
+# activations in the compute dtype and one in fp32 (512 MiB at C = 1024 in bf16)
+LAYERED_CHUNK = 65536
 
-# kernel launches (one per gnn_conv call: the pre-pass, message and
-# aggregation kernels; gnn_prepass alone is counted apart); a CPU call runs
-# the plain version and adds nothing
-LAUNCHES: dict[str, int] = {"gnn_conv": 0, "gnn_prepass": 0}
+# kernel launches, one per gnn_conv call of each route (the pre-pass, message
+# or Dense and LayerNorm kernels, and the aggregation; gnn_prepass alone is
+# counted apart); a CPU call runs the plain version and adds nothing
+LAUNCHES: dict[str, int] = {"gnn_conv": 0, "gnn_conv_layered": 0, "gnn_prepass": 0}
+
+
+def _gnn_route(c: int, n_dense: int) -> str:
+    """Which kernel route takes a GNN conv of width ``c`` with ``n_dense``
+    Dense layers on the card: ``"fused"`` (``csrc/gnn_conv.cu``) for the
+    widths it is built for with three Dense layers, ``"layered"``
+    (``csrc/gnn_conv_layered.cu``) for every other width and depth. Raises
+    for a width that is not a multiple of 8: the GEMM's tensor maps need
+    16-byte rows."""
+    if c <= 0 or c % 8:
+        raise ValueError(f"the GNN conv kernels take C % 8 == 0 (16-byte rows for the GEMM's tensor maps), got C={c}")
+    if n_dense < 2:
+        raise ValueError(f"the GNN conv kernels take at least two Dense layers, got {n_dense}")
+    return "fused" if c in _FUSED_WIDTHS and n_dense == 3 else "layered"
 
 
 def mlp_operands(dense: Sequence[tuple[torch.Tensor, torch.Tensor]], norm: tuple[torch.Tensor, torch.Tensor],
@@ -125,30 +150,29 @@ def gnn_conv(
     the compute dtype (fp32 or bf16) and is contiguous."""
     if _on_cpu(x_dst, x_src, e, rowptr, src, *ops):
         return gnn_conv_plain(x_dst, x_src, e, rowptr, src, ops, activation)
-    if len(ops) != 8:
-        raise NotImplementedError(
-            f"the GNN conv kernel takes the 3-Dense edge MLP (mlp_extra_layers=0), got {(len(ops) - 2) // 2} Dense"
-        )
     code = _ACT_CODES.get(activation.lower())
     if code is None:
-        raise NotImplementedError(f"the GNN conv kernel has no activation {activation!r}; it takes {sorted(_ACT_CODES)}")
+        raise NotImplementedError(f"the GNN conv kernels have no activation {activation!r}; they take {sorted(_ACT_CODES)}")
     dt = e.dtype
     _require(dt in _DTYPES, f"compute dtype must be fp32 or bf16, got {dt}")
     _require(all(t.dtype == dt for t in (x_dst, x_src, *ops)), "x_dst, x_src, e and the MLP must share one dtype")
     _require(rowptr.dtype == torch.int32 and src.dtype == torch.int32, "rowptr and src must be int32")
     _require(x_dst.dim() == 3 and x_src.dim() == 3 and e.dim() == 3, "x_dst, x_src, e must be (B, N, C)")
+    _require(len(ops) % 2 == 0, f"ops must be (weight, bias) per Dense, then gamma, beta; got {len(ops)} tensors")
     batch, nd, c = x_dst.shape
     ns, num_edges = x_src.shape[1], src.numel()
-    _require(c in _WIDTHS, f"the GNN conv kernel takes C in {_WIDTHS}, got {c}")
+    *dense, gamma, beta = ops
+    n_dense = len(dense) // 2
+    route = _gnn_route(c, n_dense)
     _require(nd == rowptr.numel() - 1 and nd > 0 and ns > 0, f"x_dst has {nd} rows for {rowptr.numel() - 1} destinations")
     _require(x_src.shape[0] == batch and x_src.shape[2] == c, f"x_src shape {tuple(x_src.shape)}")
     _require(e.shape == (batch, num_edges, c), f"e shape {tuple(e.shape)} != ({batch}, {num_edges}, {c})")
-    w0, b0, w1, b1, w2, b2, gamma, beta = ops
-    _require(w0.shape == (c, 3 * c) and w1.shape == (c, c) and w2.shape == (c, c),
-             f"weights {tuple(w0.shape)}, {tuple(w1.shape)}, {tuple(w2.shape)} for C={c} (torch Linear layout)")
-    _require(all(t.shape == (c,) for t in (b0, b1, b2, gamma, beta)), "biases and LayerNorm affine must be (C,)")
-    _require_contiguous(x_dst=x_dst, x_src=x_src, e=e, rowptr=rowptr, src=src, w0=w0, b0=b0, w1=w1,
-                        b1=b1, w2=w2, b2=b2, gamma=gamma, beta=beta)
+    weights, biases = dense[0::2], dense[1::2]
+    _require(weights[0].shape == (c, 3 * c) and all(w.shape == (c, c) for w in weights[1:]),
+             f"weights {[tuple(w.shape) for w in weights]} for C={c} (torch Linear layout)")
+    _require(all(t.shape == (c,) for t in (*biases, gamma, beta)), "biases and LayerNorm affine must be (C,)")
+    _require_contiguous(x_dst=x_dst, x_src=x_src, e=e, rowptr=rowptr, src=src, gamma=gamma, beta=beta,
+                        **{f"dense_{i}": t for i, t in enumerate(dense)})
     _require(all(t.data_ptr() % 16 == 0 for t in (x_dst, x_src, e, *ops)), "rows must be 16-byte aligned")
     msg = torch.empty_like(e)
     agg = torch.empty((batch, nd, c), dtype=torch.float32, device=e.device)
@@ -158,16 +182,29 @@ def gnn_conv(
     from anemoi_models_tpu_torch.ops.kernels import load_kernels
 
     lib = load_kernels()
-    fn = lib.gnn_conv_bf16 if dt == torch.bfloat16 else lib.gnn_conv_f32
+    suffix = "bf16" if dt == torch.bfloat16 else "f32"
     with torch.cuda.device(e.device):
         stream = torch.cuda.current_stream(e.device).cuda_stream
-        rc = fn(
-            x_dst.data_ptr(), x_src.data_ptr(), e.data_ptr(), rowptr.data_ptr(), src.data_ptr(),
-            *(t.data_ptr() for t in ops), p_dst.data_ptr(), p_src.data_ptr(), msg.data_ptr(), agg.data_ptr(),
-            batch, nd, ns, num_edges, c, code, stream,
-        )
-    _check_launch(rc, "gnn_conv")
-    LAUNCHES["gnn_conv"] += 1
+        if route == "fused":
+            rc = getattr(lib, f"gnn_conv_{suffix}")(
+                x_dst.data_ptr(), x_src.data_ptr(), e.data_ptr(), rowptr.data_ptr(), src.data_ptr(),
+                *(t.data_ptr() for t in ops), p_dst.data_ptr(), p_src.data_ptr(), msg.data_ptr(), agg.data_ptr(),
+                batch, nd, ns, num_edges, c, code, stream,
+            )
+        else:
+            # per chunk: two activations in the compute dtype (ping-pong) and the last Dense's fp32 output
+            chunk = max(1, min(LAYERED_CHUNK, batch * num_edges))
+            h0, h1 = (torch.empty((chunk, c), dtype=dt, device=e.device) for _ in range(2))
+            hf = torch.empty((chunk, c), dtype=torch.float32, device=e.device)
+            ptrs = (ctypes.c_void_p * len(dense))(*(t.data_ptr() for t in dense))
+            rc = getattr(lib, f"gnn_conv_layered_{suffix}")(
+                x_dst.data_ptr(), x_src.data_ptr(), e.data_ptr(), rowptr.data_ptr(), src.data_ptr(), ptrs, n_dense,
+                gamma.data_ptr(), beta.data_ptr(), p_dst.data_ptr(), p_src.data_ptr(), h0.data_ptr(), h1.data_ptr(),
+                hf.data_ptr(), chunk, msg.data_ptr(), agg.data_ptr(), batch, nd, ns, num_edges, c, code, stream,
+            )
+    name = "gnn_conv" if route == "fused" else "gnn_conv_layered"
+    _check_launch(rc, name)
+    LAUNCHES[name] += 1
     return agg, msg
 
 
@@ -182,7 +219,7 @@ def gnn_prepass(x_dst: torch.Tensor, x_src: torch.Tensor, w0: torch.Tensor,
     dt = x_dst.dtype
     _require(dt in _DTYPES and all(t.dtype == dt for t in (x_src, w0, b0)), "x_dst, x_src, w0, b0 must share fp32|bf16")
     batch, nd, c = x_dst.shape
-    _require(c in _WIDTHS and w0.shape == (c, 3 * c) and b0.shape == (c,) and x_src.shape[::2] == (batch, c),
+    _require(c % 8 == 0 and w0.shape == (c, 3 * c) and b0.shape == (c,) and x_src.shape[::2] == (batch, c),
              f"shapes {tuple(x_dst.shape)}, {tuple(x_src.shape)}, {tuple(w0.shape)}")
     _require_contiguous(x_dst=x_dst, x_src=x_src, w0=w0, b0=b0)
     ns = x_src.shape[1]

@@ -4,7 +4,10 @@ Counterpart of ``anemoi_models_tpu/preprocessing/__init__.py``: processors are
 plain objects holding tensors; ``transform`` / ``inverse_transform`` are
 functions of the input, and ``in_place`` is accepted for API parity (the port
 never writes into the caller's tensor). ``to(device)`` moves a processor's
-tensors.
+tensors. ``fit``, ``state_dict`` and ``load_state_dict`` carry a stateful
+processor's data-dependent buffers through a checkpoint, as the JAX
+package's do; the port's processors (the normalizer) hold none, so their
+state is ``{}``.
 """
 
 from __future__ import annotations
@@ -71,6 +74,19 @@ class BasePreprocessor:
     def to(self, device) -> "BasePreprocessor":
         return self
 
+    def fit(self, x: torch.Tensor) -> None:
+        """Compute any data-dependent state from a sample batch."""
+
+    def state_dict(self) -> dict:
+        """Buffers to persist in checkpoints (none for a stateless processor)."""
+        return {}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore what :meth:`state_dict` gave; a stateless processor takes
+        only ``{}``."""
+        if state:
+            raise ValueError(f"{type(self).__name__} holds no state; cannot load {sorted(state)}")
+
 
 class Processors:
     """An ordered pipeline of processors: config order as pre-processor,
@@ -97,3 +113,23 @@ class Processors:
         for processor in self.processors.values():
             processor.to(device)
         return self
+
+    def fit(self, x: torch.Tensor) -> None:
+        """Fit every processor in pipeline order, threading the transforms."""
+        for processor in self.processors.values():
+            processor.fit(x)
+            x = processor(x, inverse=self.inverse)
+
+    def state_dict(self) -> dict:
+        """``{name: state}`` of the processors that hold any."""
+        return {name: p.state_dict() for name, p in self.processors.items() if p.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore :meth:`state_dict`; state for a processor this pipeline
+        does not have (the JAX package's imputers are not ported) raises."""
+        missing = sorted(set(state) - set(self.processors))
+        if missing:
+            raise ValueError(f"processor state for {missing}, which this pipeline does not have "
+                             f"(it has {sorted(self.processors)}); the port has no imputers yet")
+        for name, sub in state.items():
+            self.processors[name].load_state_dict(sub)

@@ -61,6 +61,16 @@ class AdamW(torch.optim.Optimizer):
         self.clip_norm = clip_norm
         self.count = 0
 
+    def state_dict(self) -> dict:
+        """torch's optimizer state (each parameter's ``mu`` and ``nu``) and
+        ``count``, which the schedule and the bias corrections read."""
+        return {**super().state_dict(), "count": self.count}
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        state = dict(state_dict)
+        self.count = int(state.pop("count", 0))
+        super().load_state_dict(state)
+
     @torch.no_grad()
     def step(self, closure=None):
         if closure is not None:

@@ -1,8 +1,8 @@
 """Parameters: flax-tree loading and saving, and seeded initialisation.
 
 :func:`load_flax_params` turns the JAX package's parameter tree (nested dicts
-of numpy arrays, as ``model.init`` returns them) into a state dict of the
-port's modules:
+of numpy arrays, as ``model.init`` returns them, or of torch tensors where a
+JAX checkpoint held bf16) into a state dict of the port's modules:
 
 - a flax ``Dense`` kernel is (in, out) (``x @ kernel``); ``nn.Linear.weight``
   is (out, in), so kernels are transposed;
@@ -61,7 +61,7 @@ def _flatten(tree: Mapping, prefix: tuple = ()) -> dict[tuple, np.ndarray]:
         if isinstance(value, Mapping):
             out.update(_flatten(value, path))
         else:
-            out[path] = np.asarray(value)
+            out[path] = value if isinstance(value, torch.Tensor) else np.asarray(value)
     return out
 
 
@@ -86,7 +86,9 @@ def load_flax_params(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
         tree = tree["params"]
     state = {}
     for path, value in _flatten(tree).items():
-        tensor = torch.from_numpy(np.array(value, dtype=np.float32))
+        # a bf16 leaf of a JAX checkpoint arrives as a torch tensor (numpy has no bf16)
+        tensor = (value.float() if isinstance(value, torch.Tensor)
+                  else torch.from_numpy(np.array(value, dtype=np.float32)))
         if path[-1] == "kernel":
             tensor = tensor.t()
         if path[-2] == "lin_qkvs":

@@ -51,7 +51,11 @@ Builds the port's CUDA kernels from ``anemoi_models_tpu_torch/csrc``, then:
    (flash_attention) at (B*H, N, D) = (4, 10,242, 64) with w = 512, no
    window, a ragged N and a causal window, fp32 1e-5 and bf16 2e-2, reading
    q, k, v as strided views of one fused projection, as the model does, two
-   calls bit-identical;
+   calls bit-identical; then gnn_conv's layered route (every width and MLP
+   depth the fused kernels do not take) at C = 384, 512, 1024 and at C =
+   256 with one and two extra hidden Dense layers, on the three edge sets,
+   fp32 and bf16, at the same bounds, two calls bit-identical, with each
+   call's peak memory;
 7. for each of the GNN and Transformer flavors (the other two processor
    families of ``__graft_entry__._build``): the reduced fp32 check of 3.,
    three O96 bf16 ``predict_step`` requests (per request 10 gnn_conv
@@ -65,7 +69,22 @@ Builds the port's CUDA kernels from ``anemoi_models_tpu_torch/csrc``, then:
    2 chunks, bf16, batch 1, ``remat_policy="full"``): three ``predict_step``
    requests and three train steps (peak learning rate 1e-5) after a warm-up
    of each, finite outputs, finite losses with the last below the first, the
-   flagship's launches per request and step, peak memory.
+   flagship's launches per request and step, peak memory; and the GNN at C =
+   1024 (the layered route): three requests and two train steps at the same
+   learning rate, finite, with launches and peak memory, beside a reduced
+   fp32 GNN at C = 512 with ``mlp_extra_layers=1`` against the CPU;
+9. the trained flagship saved with ``AnemoiModelInterface.save`` and served
+   again through ``from_checkpoint(device="cuda")``: ``predict_step``
+   bit-identical, the bytes on disk and the save and load seconds;
+10. the flagship's forecast, ``predict_rollout`` over 4 lead times with
+    seeded forcings (a warm-up and three timed calls, 40 launches of each
+    forward kernel a call, the first lead time ``predict_step``'s bits), and
+    its rollout fine-tuning step (``make_rollout_train_step``, 2 lead times,
+    remat "full": a warm-up and three steps, finite falling losses, twice a
+    train step's launches, peak memory);
+11. for each flavor, two models built from one seed and two train steps of
+    each on one batch: the losses, every parameter and every AdamW moment
+    compared bit for bit (the GraphTransformer's must be identical).
 
 Prints the card's name and power limit, each kernel's registers and spills
 from the compiler's report (``ptxas``), per-phase numbers, each wrapper's
@@ -74,7 +93,7 @@ host microseconds per call (``host-us``), one JSON line ``{"kernels":
 non-zero, with no result line, on any failure or when there is no card.
 
     python3 chip_smoke.py                      # what the checks need
-    python3 chip_smoke.py --profile OUT_DIR    # also profile a train step (and a request) per flavor
+    python3 chip_smoke.py --profile OUT_DIR    # also profile a train step and a request per path
     python3 chip_smoke.py --build-times DIR    # also time cold kernel builds
 """
 
@@ -84,6 +103,7 @@ import argparse
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -91,6 +111,7 @@ import time
 import numpy as np
 import torch
 
+from anemoi_models_tpu_torch.checkpoint import load_checkpoint
 from anemoi_models_tpu_torch.data_indices import IndexCollection
 from anemoi_models_tpu_torch.graphs import build_enc_proc_dec_graph
 from anemoi_models_tpu_torch.interface import AnemoiModelInterface
@@ -99,7 +120,7 @@ from anemoi_models_tpu_torch.ops import flash_attention as fa
 from anemoi_models_tpu_torch.ops import gnn_conv as gc
 from anemoi_models_tpu_torch.ops import kernels
 from anemoi_models_tpu_torch.ops.kernels import build_log, load_kernels
-from anemoi_models_tpu_torch.training import make_optimizer, make_train_step, weighted_mse
+from anemoi_models_tpu_torch.training import make_optimizer, make_rollout_train_step, make_train_step, weighted_mse
 from anemoi_models_tpu_torch.utils import DotDict
 from kernel_turns import card, cuda_ms, host_us
 
@@ -112,19 +133,24 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                           "anemoi_models_tpu/ops/pallas/edge_attention.py:781"),  # _feats_bwd_kernel
     "gnn_conv": ("anemoi_models_tpu_torch/csrc/gnn_conv.cu",
                  "anemoi_models_tpu/ops/pallas/gnn_conv.py:30"),  # _kernel
+    "gnn_conv_layered": ("anemoi_models_tpu_torch/csrc/gnn_conv_layered.cu",
+                         "anemoi_models_tpu/ops/pallas/gnn_conv.py:30"),  # _kernel, every other width and depth
     "flash_attention": ("anemoi_models_tpu_torch/csrc/flash_attention.cu",
                         "anemoi_models_tpu/ops/pallas/flash_attention.py:38"),  # _flash_kernel
 }
 LAUNCH_TABLES = (ea.LAUNCHES, gc.LAUNCHES, fa.LAUNCHES)
 FLAVOR_KERNEL = {"graphtransformer": "edge_attn_csr", "gnn": "gnn_conv", "transformer": "flash_attention"}
-# launches per request and per train step (remat "full") of each flavor's O96 flagship
+# launches per request and per train step (remat "full") of each flavor's O96 flagship; the GNN at
+# C = 1024 ("gnn production") runs the same count on the layered route
 EXPECTED = {
     "graphtransformer": ({"kv_proj": 10, "edge_attn_csr": 10},
                          {"kv_proj": 18, "edge_attn_csr": 18, "edge_attn_csr_bwd": 10}),
     "gnn": ({"gnn_conv": 10}, {"gnn_conv": 18}),
     "transformer": ({"flash_attention": 8, "kv_proj": 2, "edge_attn_csr": 2},
                     {"flash_attention": 16, "kv_proj": 2, "edge_attn_csr": 2, "edge_attn_csr_bwd": 2}),
+    "gnn production": ({"gnn_conv_layered": 10}, {"gnn_conv_layered": 18}),
 }
+ROLLOUT_STEPS = 4  # lead times of the rollout phase
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 BWD_TOL = 1e-4
 NAME_TO_INDEX = {"lsm": 0, "z_500": 1, "t_850": 2, "q_700": 3, "t2m": 4, "tp": 5}
@@ -136,7 +162,8 @@ PEAK_FLOPS = {"bf16 tensor": 989e12, "fp32": 67e12}
 # device kernels of a profiled step, grouped by what they do (first match)
 PROFILE_KINDS = [
     ("edge_attn_csr_bwd (3 phases)", ("bwd_dst_kernel", "bwd_src_kernel", "dw_reduce_kernel")),
-    ("gnn_conv (3 phases)", ("gnn_prepass_tag", "gnn_msg_", "gnn_agg_kernel")),
+    ("gnn_conv layered (Dense GEMMs, LayerNorm)", ("gnn_dense", "gnn_ln_kernel")),
+    ("gnn_conv (pre-pass, message, sum)", ("gnn_prepass_tag", "gnn_msg_", "gnn_agg_kernel")),
     ("flash_attention", ("flash_attn_bf16_kernel", "flash_attn_f32_kernel")),
     ("kv_proj", ("kv_proj_tag",)),
     ("edge_attn_csr", ("edge_attn_csr_kernel",)),
@@ -234,11 +261,15 @@ def normwise_err(got, want, what: str, tol: float = BWD_TOL) -> float:
 
 
 def model_config(num_channels: int, num_layers: int, num_chunks: int, dtype: str,
-                 remat_policy: str = "full", flavor: str = "graphtransformer", num_heads: int = 4) -> DotDict:
+                 remat_policy: str = "full", flavor: str = "graphtransformer", num_heads: int = 4,
+                 mlp_extra_layers: int = 0) -> DotDict:
     """The flagship config of the JAX package's entry point
     (``__graft_entry__._build``), written for the port; ``num_heads`` for
-    the GraphTransformer's mappers and processor."""
+    the GraphTransformer's mappers and processor, ``mlp_extra_layers`` for
+    the GNN's MLPs."""
     edges = {"trainable_size": TRAINABLE_EDGES, "sub_graph_edge_attributes": EDGE_ATTRS}
+    if flavor == "gnn":
+        edges["mlp_extra_layers"] = mlp_extra_layers
     mapper = {**edges, "num_heads": num_heads} if flavor != "gnn" else edges
     prefix = "GNN" if flavor == "gnn" else "GraphTransformer"
     processor = {
@@ -519,8 +550,9 @@ def phase_wide_kernels(graph, dev, c: int = 1024, h: int = 16) -> list:
     return rows
 
 
-def gnn_case(graph, label: str, dev, gen, c: int = 256, keep=None) -> dict:
-    """One real edge set with seeded GNN conv inputs on the card (fp32); the
+def gnn_case(graph, label: str, dev, gen, c: int = 256, keep=None, extra: int = 0) -> dict:
+    """One real edge set with seeded GNN conv inputs on the card (fp32), the
+    edge MLP with ``extra`` hidden Dense layers more than three; the
     processor's is a self-graph (x_src is x_dst)."""
     s_name, d_name = {"processor": ("hidden", "hidden"), "encoder": ("data", "hidden"),
                       "decoder": ("hidden", "data")}[label]
@@ -531,7 +563,7 @@ def gnn_case(graph, label: str, dev, gen, c: int = 256, keep=None) -> dict:
     x_dst = torch.randn(1, nd, c, generator=gen)
     x_src = x_dst if label == "processor" else torch.randn(1, ns, c, generator=gen)
     dense = [(torch.randn(c, k, generator=gen) * k ** -0.5, torch.randn(c, generator=gen) * 0.1)
-             for k in (3 * c, c, c)]
+             for k in (3 * c,) + (c,) * (2 + extra)]
     norm = (1 + 0.1 * torch.randn(c, generator=gen), 0.1 * torch.randn(c, generator=gen))
     return {"ns": ns, "nd": nd, "num_edges": ei.shape[1], "self_graph": label == "processor",
             "rowptr": rowptr, "src": src, "x_dst": x_dst.to(dev), "x_src": x_src.to(dev),
@@ -544,13 +576,46 @@ def gnn_bound(case: dict, c: int, dtype: torch.dtype) -> dict:
     """The least time of one GNN conv call (batch 1): x_dst, x_src (once on a
     self-graph), e and the MLP read once, msg and the fp32 agg written once;
     the fewest operations factor x_i . W0[0:C] and x_j . W0[C:2C] once per
-    node (2 C^2 each) and leave 2 * 3 C^2 per edge (e . W0[2C:3C], W1, W2)."""
+    node (2 C^2 each) and leave 2 C^2 per edge for each Dense (e . W0[2C:3C],
+    then each C x C layer)."""
     nd, ns, e = case["nd"], case["ns"], case["num_edges"]
+    n_dense = (len(case["ops"]) - 2) // 2
     itemsize = torch.finfo(dtype).bits // 8
     rows = nd + (0 if case["self_graph"] else ns)
-    nbytes = (rows * c + 2 * e * c + 5 * c * c + 5 * c) * itemsize + nd * c * 4 + (nd + 1 + e) * 4
-    flops = 2 * c * c * (nd + ns) + 6 * c * c * e
+    nbytes = (rows * c + 2 * e * c + (n_dense + 2) * c * c + (n_dense + 2) * c) * itemsize + nd * c * 4 \
+        + (nd + 1 + e) * 4
+    flops = 2 * c * c * (nd + ns) + 2 * c * c * n_dense * e
     return bound(nbytes, flops, "bf16 tensor" if dtype == torch.bfloat16 else "fp32")
+
+
+def gnn_check(case: dict, dt: torch.dtype, what: str) -> tuple[tuple, tuple, dict]:
+    """gnn_conv on one case against plain: two calls bit-identical, agg the
+    fp32 sum of the kernel's own msg (1e-5), msg and agg against plain within
+    fp32 1e-5 elementwise or bf16 2e-2 normwise (both sides round at the same
+    points from fp32 sums taken in another order, so a value can land one
+    bf16 step apart, and a step taken before "+ beta" or "+ e" stays as an
+    absolute error where that sum cancels). Returns (args, outputs, row)."""
+    xd, xs, e = (case[k].to(dt) for k in ("x_dst", "x_src", "e"))
+    if case["self_graph"]:
+        xs = xd
+    ops = [t.to(dt) for t in case["ops"]]
+    args = (xd, xs, e, case["rowptr"], case["src"], ops, "SiLU")
+    got, again = gc.gnn_conv(*args), gc.gnn_conv(*args)
+    want = gc.gnn_conv_plain(*args)
+    torch.cuda.synchronize()
+    for name, g, g2 in zip(("agg", "msg"), got, again):
+        if not torch.equal(g, g2):
+            raise AssertionError(f"{what} {name}: two calls differ (not run-to-run deterministic)")
+    max_err(got[0], gc.aggregate(got[1], case["rowptr"]), TOL[torch.float32], f"{what} agg of msg")
+    for g, w_, n in zip(got, want, ("agg", "msg")):
+        if dt == torch.float32:
+            max_err(g, w_, TOL[dt], f"{what} {n}")
+        else:
+            normwise_err(g, w_, f"{what} {n}", TOL[dt])
+    row = {"dtype": str(dt).split(".")[-1],
+           "max_abs_err": max((g.float() - w_.float()).abs().max().item() for g, w_ in zip(got, want)),
+           "normwise_err": max(normwise_err(g, w_, what, 1.0) for g, w_ in zip(got, want)), "bit_identical": True}
+    return args, got, row
 
 
 def phase_gnn_kernels(graph, dev) -> tuple[dict, list]:
@@ -566,32 +631,11 @@ def phase_gnn_kernels(graph, dev) -> tuple[dict, list]:
         case = gnn_case(graph, label, dev, gen, c, keep)
         shape = f"{label}{' dead' if keep is not None else ''} E={case['num_edges']} Nd={case['nd']} Ns={case['ns']}"
         for dt in (torch.float32, torch.bfloat16):
-            xd, xs, e = (case[k].to(dt) for k in ("x_dst", "x_src", "e"))
-            if case["self_graph"]:
-                xs = xd
-            ops = [t.to(dt) for t in case["ops"]]
-            args = (xd, xs, e, case["rowptr"], case["src"], ops, "SiLU")
-            got, again = gc.gnn_conv(*args), gc.gnn_conv(*args)
-            want = gc.gnn_conv_plain(*args)
-            torch.cuda.synchronize()
             what = f"gnn_conv {shape} {dt}"
-            for name, g, g2 in zip(("agg", "msg"), got, again):
-                if not torch.equal(g, g2):
-                    raise AssertionError(f"{what} {name}: two calls differ (not run-to-run deterministic)")
-            # agg is the fp32 sum of the kernel's own msg; msg and agg against plain: elementwise in
-            # fp32, normwise in bf16 (both sides round at the same points from fp32 sums taken in
-            # another order, so a value can land one bf16 step apart, and a step taken before
-            # "+ beta" or "+ e" stays as an absolute error where that sum cancels)
-            max_err(got[0], gc.aggregate(got[1], case["rowptr"]), TOL[torch.float32], f"{what} agg of msg")
-            for g, w_, n in zip(got, want, ("agg", "msg")):
-                if dt == torch.float32:
-                    max_err(g, w_, TOL[dt], f"{what} {n}")
-                else:
-                    normwise_err(g, w_, f"{what} {n}", TOL[dt])
-            err = max((g.float() - w_.float()).abs().max().item() for g, w_ in zip(got, want))
-            row = {"kernel": "gnn_conv", "shape": shape, "dtype": str(dt).split(".")[-1], "max_abs_err": err,
-                   "normwise_err": max(normwise_err(g, w_, what, 1.0) for g, w_ in zip(got, want)),
-                   "bit_identical": True}
+            args, got, check = gnn_check(case, dt, what)
+            xd, xs, ops = args[0], args[1], args[5]
+            err = check["max_abs_err"]
+            row = {"kernel": "gnn_conv", "shape": shape, **check}
             if keep is not None:
                 dead = torch.from_numpy(np.arange(case["nd"]) % 7 == 3).to(dev)
                 if not bool((got[0][0, dead] == 0).all()):
@@ -616,6 +660,47 @@ def phase_gnn_kernels(graph, dev) -> tuple[dict, list]:
                     summary = {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_us",
                                                   "prepass_ms")}
             rows.append(row)
+    return {**summary, "max_abs_err": bf16_err}, rows
+
+
+GNN_WIDTHS = ((384, 0), (512, 0), (1024, 0), (256, 1), (256, 2))  # (C, mlp_extra_layers): the layered route
+
+
+def phase_gnn_widths(graph, dev) -> tuple[dict, list]:
+    """gnn_conv's layered route against plain at the three O96 edge sets for
+    every (C, mlp_extra_layers) of GNN_WIDTHS, fp32 and bf16, at the bounds
+    of the fused route, two calls bit-identical; each case timed with its
+    bound and its peak device memory. The summary is bf16 at C = 1024 on the
+    processor's edges (the production width's)."""
+    gen = torch.Generator().manual_seed(6)
+    rows, summary, bf16_err = [], {}, 0.0
+    for c, extra in GNN_WIDTHS:
+        for label in ("processor", "encoder", "decoder"):
+            case = gnn_case(graph, label, dev, gen, c, extra=extra)
+            shape = f"C={c} extra={extra} {label} E={case['num_edges']} Nd={case['nd']} Ns={case['ns']}"
+            for dt in (torch.float32, torch.bfloat16):
+                if gc._gnn_route(c, 3 + extra) != "layered":
+                    raise AssertionError(f"gnn_conv {shape}: not on the layered route")
+                before = gc.LAUNCHES["gnn_conv_layered"]
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                args, _, check = gnn_check(case, dt, f"gnn_conv {shape} {dt}")
+                if gc.LAUNCHES["gnn_conv_layered"] != before + 2:
+                    raise AssertionError(f"gnn_conv {shape}: the layered kernels were not launched")
+                peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+                row = {"kernel": "gnn_conv_layered", "shape": shape, **check, "peak_gib_over_inputs": peak,
+                       "ms": cuda_ms(lambda: gc.gnn_conv(*args), iters=10),
+                       "plain_ms": cuda_ms(lambda: gc.gnn_conv_plain(*args), iters=3, warmup=1),
+                       **gnn_bound(case, c, dt), "library_ms": None,
+                       "host_us": host_us(lambda: gc.gnn_conv(*args), iters=10)}
+                if dt == torch.bfloat16:
+                    bf16_err = max(bf16_err, check["max_abs_err"])
+                    if (c, extra, label) == (1024, 0, "processor"):
+                        summary = {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                                      "host_us")}
+                rows.append(row)
+            del case, args
     return {**summary, "max_abs_err": bf16_err}, rows
 
 
@@ -667,11 +752,14 @@ def phase_flash_kernels(dev, n0: int = 10242, w0: int = 512) -> tuple[dict, list
     return {**summary, "max_abs_err": bf16_err}, rows
 
 
-def phase_reduced_model(graph, dev, flavor: str = "graphtransformer", channels: int = 64, heads: int = 4) -> dict:
+def phase_reduced_model(graph, dev, flavor: str = "graphtransformer", channels: int = 64, heads: int = 4,
+                        kernel: str | None = None, mlp_extra_layers: int = 0) -> dict:
     """Reduced fp32 model: kernels on the card against plain on the CPU, in
-    the forward, the gradients and a 3-step train trace."""
+    the forward, the gradients and a 3-step train trace; ``kernel`` must
+    launch (the flavor's own by default)."""
     cfg = model_config(num_channels=channels, num_layers=2, num_chunks=1, dtype="float32", flavor=flavor,
-                       num_heads=heads)
+                       num_heads=heads, mlp_extra_layers=mlp_extra_layers)
+    kernel = kernel or FLAVOR_KERNEL[flavor]
     cpu = interface(graph, cfg, "cpu", seed=1)
     gpu = interface(graph, cfg, "cpu", seed=1).to(dev)
     n_grid = graph["data"].num_nodes
@@ -681,8 +769,8 @@ def phase_reduced_model(graph, dev, flavor: str = "graphtransformer", channels: 
     cpu_s = time.perf_counter() - t0
     reset_launches()
     out = gpu.forward(x.to(dev)).cpu()
-    if launches()[FLAVOR_KERNEL[flavor]] == 0:
-        raise AssertionError(f"reduced {flavor} model: {FLAVOR_KERNEL[flavor]} was not launched")
+    if launches()[kernel] == 0:
+        raise AssertionError(f"reduced {flavor} model: {kernel} was not launched")
     scale = max(1.0, ref.abs().mean().item())
     err = (out - ref).abs().max().item()
     if not torch.isfinite(out).all() or err > 1e-4 * scale:
@@ -708,9 +796,10 @@ def phase_reduced_model(graph, dev, flavor: str = "graphtransformer", channels: 
 
 
 def phase_serving(graph, dev, flavor: str = "graphtransformer", profile_dir: str | None = None,
-                  channels: int = 256, heads: int = 4) -> dict:
+                  channels: int = 256, heads: int = 4, expected: dict | None = None) -> dict:
     """Flagship bf16 serving through predict_step (or the same model at
-    another width); per-request launch counts."""
+    another width); per-request launch counts (``expected``: the flavor's
+    EXPECTED by default)."""
     cfg = model_config(num_channels=channels, num_layers=8, num_chunks=2, dtype="bfloat16", flavor=flavor,
                        num_heads=heads)
     iface = interface(graph, cfg, dev, seed=3)
@@ -742,7 +831,7 @@ def phase_serving(graph, dev, flavor: str = "graphtransformer", profile_dir: str
         if tuple(y.shape) != (1, 1, n_grid, n_out) or not bool(torch.isfinite(y).all()):
             raise AssertionError(f"serving {flavor}: bad output shape {tuple(y.shape)} or non-finite values")
     counts = launches()
-    expected = expect(counts, EXPECTED[flavor][0])
+    expected = expect(counts, expected or EXPECTED[flavor][0])
     if any(c != expected for c in per_request):
         raise AssertionError(f"serving {flavor}: expected {expected} launches per request, got {per_request}")
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -769,11 +858,15 @@ def timed_steps(step, x, y, n: int) -> tuple[list, list, list]:
 
 
 def phase_train(graph, dev, profile_dir: str | None, flavor: str = "graphtransformer",
-                remat_none: bool = True, channels: int = 256, heads: int = 4, lr: float = 1e-3) -> dict:
+                remat_none: bool = True, channels: int = 256, heads: int = 4, lr: float = 1e-3,
+                expected: dict | None = None, steps: int = 4,
+                must_fall: bool = True) -> tuple[dict, AnemoiModelInterface]:
     """Flagship bf16 train steps at full width (remat "full", then, with
     ``remat_none``, "none"), or the same model at another width, at peak
     learning rate ``lr``. Losses must be finite and the last below the
-    first."""
+    first (with ``must_fall``); ``steps`` includes the warm-up; launches per
+    step as ``expected`` (the flavor's EXPECTED by default). Returns the
+    numbers and the trained interface."""
     cfg = model_config(num_channels=channels, num_layers=8, num_chunks=2, dtype="bfloat16", remat_policy="full",
                        flavor=flavor, num_heads=heads)
     iface = interface(graph, cfg, dev, seed=4)
@@ -783,12 +876,12 @@ def phase_train(graph, dev, profile_dir: str | None, flavor: str = "graphtransfo
 
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    losses, ms, per_step = timed_steps(step, x, y, 4)  # the first is the warm-up, at lr 0
+    losses, ms, per_step = timed_steps(step, x, y, steps)  # the first is the warm-up, at lr 0
     counts = launches()
     peak_full = torch.cuda.max_memory_allocated() / 2**30
-    if not np.all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+    if not np.all(np.isfinite(losses)) or (must_fall and not losses[-1] < losses[0]):
         raise AssertionError(f"train {flavor} C={channels}: losses {losses} are not finite or do not fall")
-    expected = expect(counts, EXPECTED[flavor][1])
+    expected = expect(counts, expected or EXPECTED[flavor][1])
     if any(c != expected for c in per_step):
         raise AssertionError(f"train {flavor} (remat full): expected {expected} launches per step, got {per_step}")
     out = {"losses": losses, "step_ms": ms[1:], "warmup_step_ms": ms[0], "peak_mem_gib": peak_full,
@@ -796,7 +889,7 @@ def phase_train(graph, dev, profile_dir: str | None, flavor: str = "graphtransfo
     out["profile"] = (phase_profile(lambda: step(x, y), profile_dir, f"train_step_{flavor}_C{channels}")
                       if profile_dir else None)
     if not remat_none:
-        return out
+        return out, iface
 
     for chunk in model.processor.proc:
         chunk.remat_policy = "none"
@@ -808,7 +901,157 @@ def phase_train(graph, dev, profile_dir: str | None, flavor: str = "graphtransfo
         raise AssertionError(f"train (remat none): expected {expected} launches per step, got {per_step_none}")
     out["remat_none"] = {"losses": losses_none, "step_ms": ms_none[1:], "peak_mem_gib": peak_none,
                          "per_step": per_step_none[1]}
-    return out
+    for chunk in model.processor.proc:
+        chunk.remat_policy = "full"
+    return out, iface
+
+
+def phase_rollout(graph, dev, profile_dir: str | None = None) -> dict:
+    """The flagship GraphTransformer's multi-step forecast through
+    ``predict_rollout``: ROLLOUT_STEPS lead times with seeded pre-processed
+    forcings, one warm-up and three timed calls; ROLLOUT_STEPS times the
+    request's launches per call, finite outputs, and the first lead time
+    equal to ``predict_step`` on the same batch bit for bit."""
+    cfg = model_config(num_channels=256, num_layers=8, num_chunks=2, dtype="bfloat16")
+    iface = interface(graph, cfg, dev, seed=3)
+    di, stats = iface.data_indices, iface.statistics
+    n_grid, n_out = graph["data"].num_nodes, len(di.data.output.full)
+    in_idx = np.asarray(di.data.input.full)
+    rng = np.random.RandomState(30)
+    raw = stats["mean"][in_idx] + stats["stdev"][in_idx] * rng.randn(1, 2, n_grid, len(in_idx))
+    batch = torch.from_numpy(raw.astype(np.float32)).to(dev)
+    n_forcing = len(di.internal_model.input.forcing)
+    forcings = torch.from_numpy(rng.randn(ROLLOUT_STEPS, 1, 1, n_grid, n_forcing).astype(np.float32)).to(dev)
+    iface.predict_rollout(batch, ROLLOUT_STEPS, forcings)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    ms, per_call = [], []
+    for _ in range(3):
+        before = launches()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        y = iface.predict_rollout(batch, ROLLOUT_STEPS, forcings)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        per_call.append({k: v - before[k] for k, v in launches().items()})
+        if tuple(y.shape) != (ROLLOUT_STEPS, 1, 1, n_grid, n_out) or not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"rollout: bad output shape {tuple(y.shape)} or non-finite values")
+    counts = launches()
+    expected = expect(counts, {k: ROLLOUT_STEPS * v for k, v in EXPECTED["graphtransformer"][0].items()})
+    if any(c != expected for c in per_call):
+        raise AssertionError(f"rollout: expected {expected} launches per call, got {per_call}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    first = iface.predict_step(batch)
+    if not torch.equal(y[0], first):
+        raise AssertionError(f"rollout: the first lead time differs from predict_step "
+                             f"(max {(y[0].float() - first.float()).abs().max().item():.3e})")
+    profile = (phase_profile(lambda: iface.predict_rollout(batch, ROLLOUT_STEPS, forcings), profile_dir, "rollout")
+               if profile_dir else None)
+    return {"lead_times": ROLLOUT_STEPS, "call_ms": ms, "ms_per_lead_time": [m / ROLLOUT_STEPS for m in ms],
+            "peak_mem_gib": peak, "launches": counts, "per_call": per_call[-1], "first_equals_predict_step": True,
+            "profile": profile}
+
+
+def phase_rollout_train(graph, dev, profile_dir: str | None = None, n_steps: int = 2) -> dict:
+    """The flagship GraphTransformer's rollout fine-tuning step
+    (``make_rollout_train_step``, ``n_steps`` lead times, remat "full"): one
+    warm-up and three steps on one seeded batch; finite losses, the last
+    below the first, ``n_steps`` times a train step's launches per step."""
+    cfg = model_config(num_channels=256, num_layers=8, num_chunks=2, dtype="bfloat16", remat_policy="full")
+    iface = interface(graph, cfg, dev, seed=4)
+    di, model = iface.data_indices, iface.model
+    n_grid = graph["data"].num_nodes
+    n_in, n_out = len(di.internal_model.input), len(di.internal_model.output)
+    rng = np.random.RandomState(31)
+    x0, truth, targets = (torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev) for shape in (
+        (1, 2, 1, n_grid, n_in), (n_steps, 1, 1, n_grid, n_in), (n_steps, 1, 1, n_grid, n_out)))
+    step = make_rollout_train_step(model, di, make_optimizer(model.parameters(), 1e-3, warmup_steps=1,
+                                                             total_steps=100), n_steps)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms, per_step = timed_steps(lambda _x, _y: step(x0, truth, targets), None, None, 4)
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not np.all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"rollout train: losses {losses} are not finite or do not fall")
+    expected = expect(counts, {k: n_steps * v for k, v in EXPECTED["graphtransformer"][1].items()})
+    if any(c != expected for c in per_step):
+        raise AssertionError(f"rollout train: expected {expected} launches per step, got {per_step}")
+    profile = (phase_profile(lambda: step(x0, truth, targets), profile_dir, "rollout_train_step")
+               if profile_dir else None)
+    return {"lead_times": n_steps, "losses": losses, "step_ms": ms[1:], "warmup_step_ms": ms[0],
+            "peak_mem_gib": peak, "launches": counts, "per_step": per_step[1], "profile": profile}
+
+
+def phase_checkpoint(iface: AnemoiModelInterface, graph, dev) -> dict:
+    """The trained flagship saved (graph included) and served again through
+    ``from_checkpoint(device="cuda")``: predict_step bit-identical to the
+    source interface's; bytes on disk, save and load seconds. The directory
+    lives under the checkout's build/ and is removed after."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_checkpoint")
+    shutil.rmtree(path, ignore_errors=True)
+    iface.model.eval()
+    di, stats = iface.data_indices, iface.statistics
+    in_idx = np.asarray(di.data.input.full)
+    raw = stats["mean"][in_idx] + stats["stdev"][in_idx] * np.random.RandomState(32).randn(
+        1, 2, graph["data"].num_nodes, len(in_idx))
+    batch = torch.from_numpy(raw.astype(np.float32)).to(dev)
+    want = iface.predict_step(batch)
+    try:
+        t0 = time.perf_counter()
+        iface.save(path, step=4)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        t0 = time.perf_counter()
+        back = AnemoiModelInterface.from_checkpoint(path, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        got = back.predict_step(batch)
+        step = load_checkpoint(path)["step"]
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    if not torch.equal(got, want):
+        raise AssertionError(f"checkpoint round trip: predict_step differs "
+                             f"(max {(got.float() - want.float()).abs().max().item():.3e})")
+    if back.id != iface.id or step != 4:
+        raise AssertionError("checkpoint round trip: run id or step not restored")
+    return {"bytes_on_disk": nbytes, "save_s": save_s, "load_s": load_s, "predict_step_bit_identical": True}
+
+
+def phase_determinism(graph, dev, flavor: str) -> dict:
+    """Two models of one flavor's O96 flagship (bf16, remat "full") built
+    from the same seed, two train steps each on the same batch: the losses
+    and every parameter and AdamW moment compared bit for bit. Returns
+    whether all are identical, the first leaf that differs and the largest
+    difference."""
+    cfg = model_config(num_channels=256, num_layers=8, num_chunks=2, dtype="bfloat16", remat_policy="full",
+                       flavor=flavor)
+    runs = []
+    for _ in range(2):
+        iface = interface(graph, cfg, dev, seed=7)
+        model = iface.model
+        x, y = (t.to(dev) for t in train_batch(iface, graph["data"].num_nodes, seed=21))
+        opt = make_optimizer(model.parameters(), 1e-3, warmup_steps=1, total_steps=100)
+        step = make_train_step(model, opt)
+        losses = [step(x, y) for _ in range(2)]
+        leaves = {"losses": torch.stack(losses)}
+        for name, p in model.named_parameters():
+            leaves[f"param {name}"] = p.detach().clone()
+            leaves[f"mu {name}"] = opt.state[p]["mu"].clone()
+            leaves[f"nu {name}"] = opt.state[p]["nu"].clone()
+        runs.append(leaves)
+        del iface, model, opt, step
+        torch.cuda.synchronize()
+    first, largest = None, 0.0
+    for name, a in runs[0].items():
+        b = runs[1][name]
+        if not torch.equal(a, b):
+            first = first or name
+            largest = max(largest, (a.float() - b.float()).abs().max().item())
+    return {"bit_identical": first is None, "first_differing_leaf": first, "largest_difference": largest,
+            "leaves": len(runs[0]), "losses": runs[0]["losses"].tolist()}
 
 
 def phase_profile(run, out_dir: str, label: str) -> dict:
@@ -892,40 +1135,71 @@ def main() -> None:
     summary, rows = phase_kernels(graph, dev)
     summary["edge_attn_csr_bwd"], bwd_rows = phase_backward_kernels(graph, dev)
     summary["gnn_conv"], gnn_rows = phase_gnn_kernels(graph, dev)
+    summary["gnn_conv_layered"], width_rows = phase_gnn_widths(graph, dev)
     summary["flash_attention"], flash_rows = phase_flash_kernels(dev)
-    for row in rows + bwd_rows + gnn_rows + flash_rows:
+    for row in rows + bwd_rows + gnn_rows + width_rows + flash_rows:
         print("kernel-vs-plain", json.dumps(row))
     for row in phase_wide_kernels(graph, dev):
         print("wide-kernel-vs-plain", json.dumps(row))
     reduced_graph = build_enc_proc_dec_graph(grid_lat=48, mesh_refinements=4, grid="octahedral")
     for flavor in FLAVOR_KERNEL:
         print(f"reduced-model {flavor}", json.dumps(phase_reduced_model(reduced_graph, dev, flavor)))
-    # the production width (four head groups a row) through the whole model, on a smaller graph
+    # the production widths through the whole model, on a smaller graph: the GraphTransformer with four
+    # head groups a row, and the GNN on the layered route (C = 512, one extra hidden Dense in every MLP)
     small_graph = build_enc_proc_dec_graph(grid_lat=16, mesh_refinements=3)
     print("reduced-model graphtransformer C=1024 H=16",
           json.dumps(phase_reduced_model(small_graph, dev, "graphtransformer", channels=1024, heads=16)))
+    print("reduced-model gnn C=512 mlp_extra_layers=1",
+          json.dumps(phase_reduced_model(small_graph, dev, "gnn", channels=512, kernel="gnn_conv_layered",
+                                         mlp_extra_layers=1)))
     serving, train = {}, {}
     for flavor in FLAVOR_KERNEL:  # each path: counts reset just before it, read just after
         serving[flavor] = phase_serving(graph, dev, flavor, args.profile)
         print(f"serving {flavor}", json.dumps(serving[flavor]))
-        train[flavor] = phase_train(graph, dev, args.profile, flavor, remat_none=flavor == "graphtransformer")
+        train[flavor], trained = phase_train(graph, dev, args.profile, flavor,
+                                             remat_none=flavor == "graphtransformer")
         print(f"train {flavor}", json.dumps(train[flavor]))
+        if flavor == "graphtransformer":  # the trained flagship, saved and served again
+            print(f"card: {name_power} checkpoint", json.dumps(phase_checkpoint(trained, graph, dev)))
+        del trained
+    # the flagship's forecast (ROLLOUT_STEPS lead times) and its rollout fine-tuning step
+    serving["rollout"] = phase_rollout(graph, dev, args.profile)
+    print(f"card: {name_power} rollout", json.dumps(serving["rollout"]))
+    train["rollout"] = phase_rollout_train(graph, dev, args.profile)
+    print(f"card: {name_power} rollout-train", json.dumps(train["rollout"]))
     # the GraphTransformer at the production width (C = 1024, 16 heads): serving, then training
     serving["production"] = phase_serving(graph, dev, "graphtransformer", args.profile, channels=1024, heads=16)
     print("serving production C=1024 H=16", json.dumps(serving["production"]))
     # Adam's first steps move every weight by about the learning rate, and a unit of the wide layers
     # sums 1024 to 4096 of them: this seeded model's loss rises 36-fold after the first step at the
     # flagship's 1e-3 and 9-fold at 1e-4, so the production width trains at 1e-5
-    train["production"] = phase_train(graph, dev, args.profile, "graphtransformer", remat_none=False, channels=1024,
-                                      heads=16, lr=1e-5)
+    train["production"], _ = phase_train(graph, dev, args.profile, "graphtransformer", remat_none=False,
+                                         channels=1024, heads=16, lr=1e-5)
     print("train production C=1024 H=16", json.dumps(train["production"]))
+    # the GNN at the production width (C = 1024: the layered route), three requests and two train steps
+    # at the production width's learning rate; finite losses are the check
+    serving["gnn production"] = phase_serving(graph, dev, "gnn", args.profile, channels=1024,
+                                              expected=EXPECTED["gnn production"][0])
+    print(f"card: {name_power} serving gnn production C=1024", json.dumps(serving["gnn production"]))
+    train["gnn production"], _ = phase_train(graph, dev, args.profile, "gnn", remat_none=False, channels=1024,
+                                             lr=1e-5, expected=EXPECTED["gnn production"][1], steps=3,
+                                             must_fall=False)
+    print(f"card: {name_power} train gnn production C=1024", json.dumps(train["gnn production"]))
+    # two train steps of two models built from one seed, per flavor: bit for bit alike, or the first leaf
+    # that differs; the GraphTransformer's (the path rollout training and resume rest on) must be
+    for flavor in FLAVOR_KERNEL:
+        det = phase_determinism(graph, dev, flavor)
+        print(f"card: {name_power} determinism {flavor}", json.dumps(det))
+        if flavor == "graphtransformer" and not det["bit_identical"]:
+            raise AssertionError(f"two GraphTransformer train steps differ: {det}")
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "anemoi_models_tpu"))
     if leaked:
         raise AssertionError(f"the port imported {leaked}")
     print(f"total: {time.perf_counter() - t_start:.1f} s")
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    home = {kernel: flavor for flavor, kernel in FLAVOR_KERNEL.items()}  # the train path a kernel is counted on
+    # the train path a kernel is counted on
+    home = {**{kernel: flavor for flavor, kernel in FLAVOR_KERNEL.items()}, "gnn_conv_layered": "gnn production"}
     kernels = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": train[home.get(name, "graphtransformer")]["launches"][name],

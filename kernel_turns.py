@@ -10,9 +10,10 @@ its root (so each builds its own kernels into ``ROOT/build``) and times, at
 the O96 main path's shapes with seeded inputs:
 
 - ``kv``: ``kv_proj`` at M = 10,242 and M = 40,320 (K = 256, N = 512) in
-  bf16 and fp32 with ``torch.addmm`` beside it;
-- ``gnn``: ``gnn_conv`` on the processor (self-graph), encoder and decoder
-  edge sets in bf16 and fp32;
+  bf16 and fp32 with ``torch.addmm`` beside it, with a SHA-256 of its output;
+- ``gnn``: ``gnn_conv`` (C = 256, three Dense: the fused route) on the
+  processor (self-graph), encoder and decoder edge sets in bf16 and fp32,
+  with a SHA-256 of agg and msg;
 - ``fwd``: ``edge_attn_csr`` (C = 256, 4 heads, A2 = 8, batch 1) on the
   processor, encoder and decoder edge sets in bf16 and fp32, with a SHA-256
   of its outputs (num, den, m after ``x + 0.0``, so that only the sign of an
@@ -145,6 +146,7 @@ def _worker(root: str, which: tuple) -> dict:
             f, w, b = f32.to(dev, dt), w32.to(dev, dt), b32.to(dev)
             b_dt = b.to(dt)
             out["kv_proj"].append({"shape": f"{m}x{c} . {c}x{2 * c}", "dtype": str(dt).split(".")[-1],
+                                   "sha256": _digest([ea.kv_proj(f, w, b)]),
                                    "ms": cuda_ms(lambda: ea.kv_proj(f, w, b)),
                                    "host_us": host_us(lambda: ea.kv_proj(f, w, b)),
                                    "addmm_ms": cuda_ms(lambda: torch.addmm(b_dt, f, w.t()))})
@@ -164,6 +166,7 @@ def _worker(root: str, which: tuple) -> dict:
             ops = [t.to(dev) for t in gc.mlp_operands(dense, norm, dt)]
             args = (xd, xs, e_d, rowptr, src, ops, "SiLU")
             out["gnn_conv"].append({"shape": f"{label} E={ei.shape[1]}", "dtype": str(dt).split(".")[-1],
+                                    "sha256": _digest(gc.gnn_conv(*args)),
                                     "ms": cuda_ms(lambda: gc.gnn_conv(*args)),
                                     "host_us": host_us(lambda: gc.gnn_conv(*args), iters=20)})
     for label, (s_name, d_name) in EDGE_SETS if ("fwd" in which or "bwd" in which) else ():
@@ -241,7 +244,7 @@ def main() -> None:
         turns.append(next(json.loads(line[5:]) for line in run.stdout.splitlines() if line.startswith("turn ")))
     # the parent's and this checkout's outputs, per kernel and shape: bit for bit alike or not
     same = {}
-    for kernel in ("edge_attn_csr", "edge_attn_csr_bwd"):
+    for kernel in ("kv_proj", "gnn_conv", "edge_attn_csr", "edge_attn_csr_bwd"):
         for old, new in zip(turns[0][kernel], turns[1][kernel]):
             same[f"{kernel} {old['shape']} {old['dtype']}"] = old["sha256"] == new["sha256"]
     print("same_bits", json.dumps(same), flush=True)

@@ -371,10 +371,18 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(dev, graph):
         gc.gnn_conv(x.bfloat16(), x.bfloat16(), e.bfloat16(), rowptr, src, ops, "SiLU")
     with pytest.raises(ValueError, match="contiguous"):
         gc.gnn_conv(x, x, torch.randn(1, c, num_edges, device=dev).transpose(1, 2), rowptr, src, ops, "SiLU")
+    # a deeper edge MLP takes the layered route; a width off the 16-byte rule raises
     deep = [t.to(dev) for t in gc.mlp_operands(dense[:1] + dense[1:2] * 2 + dense[2:], (torch.ones(c), torch.zeros(c)),
                                                torch.float32)]
-    with pytest.raises(NotImplementedError, match="mlp_extra_layers"):
-        gc.gnn_conv(x, x, e, rowptr, src, deep, "SiLU")
+    before = gc.LAUNCHES["gnn_conv_layered"]
+    gc.gnn_conv(x, x, e, rowptr, src, deep, "SiLU")
+    assert gc.LAUNCHES["gnn_conv_layered"] == before + 1
+    c = 36
+    x, e = torch.randn(1, n, c, device=dev), torch.randn(1, num_edges, c, device=dev)
+    odd = [t.to(dev) for t in gc.mlp_operands([(torch.randn(c, k), torch.randn(c)) for k in (3 * c, c, c)],
+                                              (torch.ones(c), torch.zeros(c)), torch.float32)]
+    with pytest.raises(ValueError, match="C % 8 == 0"):
+        gc.gnn_conv(x, x, e, rowptr, src, odd, "SiLU")
     with pytest.raises(NotImplementedError, match="activation"):
         gc.gnn_conv(x, x, e, rowptr, src, ops, "mish")
     q = torch.randn(1, 2, 100, 64, device=dev)
@@ -388,19 +396,86 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(dev, graph):
 
 
 def test_graph_conv_with_extra_mlp_layers_raises_on_the_card(dev, graph):
-    """mlp_extra_layers > 0 runs the plain version on the CPU and raises on
-    a CUDA tensor: the kernel takes exactly three Dense layers."""
+    """mlp_extra_layers > 0 on the card: the layered route, not a refusal.
+    GraphConv's forward and its gradients on the card against the CPU's
+    plain version, fp32."""
     from anemoi_models_tpu_torch.layers.conv import GraphConv
 
     es = graph[("hidden", "to", "hidden")]
     n = graph["hidden"].num_nodes
     rowptr, src, num_edges = _csr(es, n, n, torch.device("cpu"))
     conv = GraphConv(32, 32, mlp_extra_layers=1, device="cpu")
-    x, e = torch.randn(1, n, 32), torch.randn(1, num_edges, 32)
-    agg, msg = conv(x, e, rowptr, src)
-    assert agg.shape == (1, n, 32) and msg.shape == e.shape
-    with pytest.raises(NotImplementedError, match="mlp_extra_layers"):
-        conv.to(dev)(x.to(dev), e.to(dev), rowptr.to(dev), src.to(dev))
+    gen = torch.Generator().manual_seed(6)
+    x, e = torch.randn(1, n, 32, generator=gen), torch.randn(1, num_edges, 32, generator=gen)
+    grads = []
+    for device in (torch.device("cpu"), dev):
+        layer = GraphConv(32, 32, mlp_extra_layers=1, device="cpu")
+        layer.load_state_dict(conv.state_dict())
+        layer.to(device)
+        xx, ee = (t.detach().to(device).requires_grad_() for t in (x, e))
+        before = gc.LAUNCHES["gnn_conv_layered"]
+        agg, msg = layer(xx, ee, rowptr.to(device), src.to(device))
+        assert gc.LAUNCHES["gnn_conv_layered"] == before + (device.type == "cuda")
+        (agg.sum() + (msg * msg).sum()).backward()
+        grads.append([t.detach().cpu() for t in (agg, msg, xx.grad, ee.grad)]
+                     + [p.grad.cpu() for p in layer.parameters()])
+    for got, want in zip(grads[1], grads[0]):
+        assert _normwise(got, want) <= BWD_TOL
+
+
+LAYERED = [(384, 0), (512, 0), (1024, 0), (256, 1), (256, 2), (48, 0), (40, 1), (32, 1), (136, 0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels,extra", LAYERED)
+@pytest.mark.parametrize("edges", ["hidden-hidden", "data-hidden", "hidden-data", "dead"])
+def test_gnn_conv_layered_matches_plain_and_repeats_bit_for_bit(dev, graph, dtype, channels, extra, edges,
+                                                                monkeypatch):
+    """The layered route (every width C % 8 == 0 and MLP depth the fused
+    kernels do not take) against the plain version, batch 2, in chunks of
+    1,000 edge rows (so a chunk crosses the batch boundary and the last is
+    ragged); two calls bit-identical. msg at the fused route's bounds; agg
+    exactly the fp32 sum of the kernel's own msg (1e-5) and, against plain,
+    normwise in both dtypes: at C >= 384 the plain version's own fp32 agg
+    differs from a float64 sum by up to 2.5e-5 here (cuBLAS's summation
+    order over K = C against the kernel's; the kernel's differs by up to
+    3.6e-5), so an elementwise 1e-5 on a sum of up to 30 messages would
+    judge the reference's round-off, not the kernel."""
+    names = {"hidden-hidden": ("hidden", "hidden"), "data-hidden": ("data", "hidden"),
+             "hidden-data": ("hidden", "data"), "dead": ("hidden", "hidden")}[edges]
+    es = graph[(names[0], "to", names[1])]
+    ns, nd = graph[names[0]].num_nodes, graph[names[1]].num_nodes
+    keep = es.edge_index[1] % 4 != 1 if edges == "dead" else None
+    rowptr, src, num_edges = _csr(es, ns, nd, dev, keep)
+    monkeypatch.setattr(gc, "LAYERED_CHUNK", 1000)
+    gen = torch.Generator().manual_seed(7)
+    batch, c = 2, channels
+    x_dst = torch.randn(batch, nd, c, generator=gen).to(dev, dtype)
+    x_src = x_dst if names[0] == names[1] else torch.randn(batch, ns, c, generator=gen).to(dev, dtype)
+    e = torch.randn(batch, num_edges, c, generator=gen).to(dev, dtype)
+    dense = [(torch.randn(c, k, generator=gen) * k ** -0.5, torch.randn(c, generator=gen) * 0.1)
+             for k in (3 * c,) + (c,) * (2 + extra)]
+    norm = (1 + 0.1 * torch.randn(c, generator=gen), 0.1 * torch.randn(c, generator=gen))
+    ops = [t.to(dev) for t in gc.mlp_operands(dense, norm, dtype)]
+    assert gc._gnn_route(c, 3 + extra) == "layered"
+    before = gc.LAUNCHES["gnn_conv_layered"]
+    got = gc.gnn_conv(x_dst, x_src, e, rowptr, src, ops, "SiLU")
+    again = gc.gnn_conv(x_dst, x_src, e, rowptr, src, ops, "SiLU")
+    assert gc.LAUNCHES["gnn_conv_layered"] == before + 2
+    want = gc.gnn_conv_plain(x_dst, x_src, e, rowptr, src, ops, "SiLU")
+    torch.cuda.synchronize()
+    for name, g, g2, w in zip(("agg", "msg"), got, again, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g, g2), f"{name} differs between two calls"
+    torch.testing.assert_close(got[0], gc.aggregate(got[1], rowptr), atol=TOL[torch.float32],
+                               rtol=TOL[torch.float32], msg="agg of msg")
+    if dtype == torch.float32:
+        torch.testing.assert_close(got[1], want[1], atol=TOL[dtype], rtol=TOL[dtype])
+    else:
+        assert _normwise(got[1], want[1]) <= TOL[dtype], f"msg: normwise error {_normwise(got[1], want[1]):.3e}"
+    assert _normwise(got[0], want[0]) <= TOL[dtype], f"agg: normwise error {_normwise(got[0], want[0]):.3e}"
+    if edges == "dead":
+        assert bool((got[0][:, torch.from_numpy(np.arange(nd) % 4 == 1).to(dev)] == 0).all())
 
 
 def _interfaces(graph, remat_policy="full"):
@@ -445,6 +520,27 @@ def test_model_forward_on_card_matches_cpu(dev, graph):
     assert {k: ea.LAUNCHES[k] - before[k] for k in before} == {"kv_proj": 4, "edge_attn_csr": 4, "edge_attn_csr_bwd": 0}
     bound = 1e-4 * max(1.0, ref.abs().mean().item())
     assert (out - ref).abs().max().item() <= bound
+
+
+def test_rollout_launches_on_card(dev, graph):
+    """predict_rollout on the card: 4 launches of each GraphTransformer
+    forward kernel per lead time (encoder, two processor layers, decoder),
+    none of the backward; the first lead time is predict_step's answer bit
+    for bit; every lead time against the CPU's plain versions."""
+    cpu, card = _interfaces(graph)
+    card.to(dev)
+    n_steps, n_grid = 3, graph["data"].num_nodes
+    gen = torch.Generator().manual_seed(10)
+    batch = torch.randn(1, 2, n_grid, 4, generator=gen)  # the model-input width
+    forcings = torch.randn(n_steps, 1, 1, n_grid, 1, generator=gen)
+    before = dict(ea.LAUNCHES)
+    got = card.predict_rollout(batch.to(dev), n_steps, forcings.to(dev))
+    counts = {k: ea.LAUNCHES[k] - before[k] for k in before}
+    assert counts == {"kv_proj": 4 * n_steps, "edge_attn_csr": 4 * n_steps, "edge_attn_csr_bwd": 0}
+    assert torch.equal(got[0], card.predict_step(batch.to(dev)))
+    want = cpu.predict_rollout(batch, n_steps, forcings)
+    for t in range(n_steps):
+        assert (got[t].cpu() - want[t]).abs().max().item() <= 1e-4 * max(1.0, want[t].abs().mean().item()), t
 
 
 @pytest.mark.parametrize("remat_policy", ["full", "none"])
