@@ -1,8 +1,9 @@
 """anemoi-models-tpu, PyTorch and CUDA port.
 
 The encoder-processor-decoder model in its three processor families
-(GraphTransformer, GNN, sliding-window Transformer), its serving path and
-its train step, ported from the JAX package ``anemoi_models_tpu`` (which
+(GraphTransformer, GNN, sliding-window Transformer) and the hierarchical
+model, their serving path, train step and data pipeline (normalizer,
+imputers, remappers, output boundings), ported from the JAX package ``anemoi_models_tpu`` (which
 stays the reference) to PyTorch, with every Pallas kernel rewritten by hand
 in CUDA C++ for Hopper: the edge-attention forward (``csrc/edge_attention.cu``)
 and backward (``csrc/edge_attention_bwd.cu``), bound in

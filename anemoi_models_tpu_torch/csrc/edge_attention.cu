@@ -46,7 +46,8 @@ struct kv_proj_tag {};  // names the kv_proj instantiations of gemm_sm90.cuh
 //
 // The backward's destination pass without the gradient work. A persistent
 // grid, sized by occupancy; a CTA serves one head group (the lane layout of
-// edge_logit.cuh: G channels of whole heads, VB a lane, at most 32 lanes) and
+// edge_logit.cuh: G channels of whole heads, VB a lane, at most 32 lanes, a
+// head of D channels on D / VB lanes rounded up to a power of two) and
 // its warps take destinations cta, cta + ctas, ... one at a time. Per warp:
 // the source ids and attributes of 32 edges at a time in registers, one edge a
 // lane, shuffled out per edge; a ring of kRing k/v row slices in shared memory
@@ -114,7 +115,8 @@ __global__ void __launch_bounds__(kThreads) edge_attn_csr_kernel(
   // idle lanes (lanes < 32) shadow the first head's lanes: finite work, shuffles among themselves, no stores
   const bool active = lane < lanes;
   const int ll = active ? lane : lane % LB;
-  const int c0 = ll * VB;  // within the group
+  bool owns;  // false on a lane that pads its head (D not a power of two): q reads as 0, no store
+  const int c0 = edge_logit::lane_channel(ll, LB, HC ? LB : L.DV, HC ? LB * VB : L.D, VB, &owns);  // in the group
   const int head = grp * HG + ll / LB;
   const T* w_s = reinterpret_cast<const T*>(smem) + c0;  // row r at r * G
   uint8_t* ring = smem + MAXA2 * G * kTs + warp * kRing * stage;
@@ -180,7 +182,7 @@ __global__ void __launch_bounds__(kThreads) edge_attn_csr_kernel(
         }
 #pragma unroll
         for (int c = 0; c < VB; ++c) {
-          qv[c] = qr[c];
+          qv[c] = owns ? qr[c] : 0.f;
           acc[c] = 0.f;
         }
       }
@@ -227,7 +229,7 @@ __global__ void __launch_bounds__(kThreads) edge_attn_csr_kernel(
         load_batch(next_begin, next_end);
         if (tn < num_dst) q_next.load(q + (int64_t)tn * C + gc0 + c0);
       }
-      if (active) {
+      if (active && owns) {
         edge_logit::store_row<VB>(num + row * C + gc0 + c0, acc);
         if (ll % LB == 0) {
           den[row * H + head] = l;
@@ -281,14 +283,14 @@ int launch_fwd(const FwdArgs& x, const Layout& L, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// attributes padded to 8 (16 past 8); the heads of a group compile-time for 4 on 32 lanes, the
-// whole row one such group (C = 32 VB) compile-time too
+// attributes padded to 8 (16 past 8); the heads of a group compile-time for 4 unpadded heads on 32
+// lanes, the whole row one such group (C = 32 VB) compile-time too
 template <typename T, int VB>
 int launch_vb(const FwdArgs& x, cudaStream_t s) {
   Layout L;
   if (!edge_logit::make_layout<VB>(x.C, x.H, x.G, sizeof(T), &L)) return static_cast<int>(cudaErrorInvalidValue);
   if (x.A2 > 8) return launch_fwd<T, VB, kMaxA2, 0, false>(x, L, s);
-  if (L.lanes == 32 && L.HG == 4) {
+  if (L.lanes == 32 && L.HG == 4 && L.DV == L.LB) {
     return L.groups == 1 ? launch_fwd<T, VB, 8, 4, true>(x, L, s) : launch_fwd<T, VB, 8, 4, false>(x, L, s);
   }
   return launch_fwd<T, VB, 8, 0, false>(x, L, s);

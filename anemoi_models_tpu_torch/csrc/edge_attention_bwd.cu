@@ -9,7 +9,7 @@
 // rows load by index and blocks run in no order, so the backward walks the
 // same CSR edge lists as the forward (csrc/edge_attention.cu) in three launches:
 //
-//   dst pass   a persistent grid (as many CTAs as fit the card) in which a warp
+//   dst pass   a grid of CTAs striding over the destinations, in which a warp
 //              owns a destination and walks its head groups in sequence, one
 //              edge at a time: the forward's lane layout (edge_logit.cuh; a
 //              group of G <= 256 channels of whole heads, VB consecutive
@@ -34,7 +34,9 @@
 //                dw_aug[r, c] += scale q[t,c] adl[h(c),r] + g_num[t,c] aw[h(c),r]
 //              (adl = sum_e a_e[r] dl, aw = sum_e a_e[r] w) into its own
 //              partial in shared memory, and the CTA writes the sum of its
-//              warps' partials: one row of dw_part a CTA.
+//              warps' partials: one row of dw_part a CTA. The grid, and with
+//              it which warp sums which destinations, follows the shape alone
+//              (launch_passes), so every card gives the same bits.
 //   src pass   a warp per (batch, source, head group) over the transposed
 //              CSR, reading
 //              (dl, w) contiguously and q[t], g_num[t] as 16-byte vectors, the
@@ -96,10 +98,10 @@ constexpr size_t kMaxSmem = 227 * 1024;  // shared memory a CTA can have on the 
 
 // ---------------------------------------------------------------------------
 // dst pass. The lane layout of edge_logit.cuh: a head group of G channels,
-// lane l < lanes = G / VB owning channels [l VB, l VB + VB) of the group, of
-// head l / LB of the group (LB = D / VB lanes a head); the other lanes shadow
-// the first head's lanes and store nothing. Warp g of the persistent grid
-// takes destinations g, g + warps, ... and walks each destination's head
+// lane l < lanes of head l / LB of the group (LB lanes a head: D / VB rounded
+// up to a power of two) owning VB channels of it (none on a lane that pads its
+// head); the other lanes shadow the first head's lanes and store nothing.
+// Warp g of the grid takes destinations g, g + warps, ... and walks each destination's head
 // groups in sequence, so every sum over heads runs in one fixed order. Each
 // warp keeps kRing - 1 edges' k/v row slices in flight in its own ring of
 // shared memory (cp.async, each lane its own VB channels where they are whole
@@ -151,7 +153,8 @@ __global__ void __launch_bounds__(kThreads) bwd_dst_kernel(
   const int hl = ll / LB;   // head of the group
   const int j = ll % LB;    // SLOT: the attribute this lane keeps
   const bool head_lead = active && j == 0;
-  const int c0 = ll * VB;   // within the group
+  bool owns;  // false on a lane that pads its head (D not a power of two): q, g_num read as 0, no store
+  const int c0 = edge_logit::lane_channel(ll, LB, HC ? LB : L.DV, HC ? LB * VB : L.D, VB, &owns);  // in the group
   // w_aug by group: group k's rows at k * MAXA2 * G, row r of it at r * G
   const T* w_s = reinterpret_cast<const T*>(smem) + c0;
   constexpr int kChunk = VB * kTs;  // a lane's bytes of a k or v slice
@@ -165,7 +168,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dst_kernel(
   float* dw_w = dw_all + warp * A2 * C;  // this warp's partial, row r at r * C
   for (int i = 4 * lane; i < A2 * C; i += 4 * 32)
     *reinterpret_cast<float4*>(dw_w + i) = make_float4(0.f, 0.f, 0.f, 0.f);
-  // persistent: warp g of the grid takes destinations g, g + warps, g + 2 warps, ...
+  // warp g of the grid takes destinations g, g + warps, g + 2 warps, ...
   const int warps = gridDim.x * nwarps;
   int t = blockIdx.x * nwarps + warp;
 
@@ -260,8 +263,8 @@ __global__ void __launch_bounds__(kThreads) bwd_dst_kernel(
           }
 #pragma unroll
           for (int c = 0; c < VB; ++c) {
-            qv[c] = qr[c];
-            gv[c] = gr[c];
+            qv[c] = owns ? qr[c] : 0.f;
+            gv[c] = owns ? gr[c] : 0.f;
             dqa[c] = 0.f;
           }
         }
@@ -416,7 +419,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dst_kernel(
         // dq[t], and this destination's dw_aug terms into the warp's partial:
         //   dw[r, c] += scale q[t,c] adl[h(c), r] + g_num[t,c] aw[h(c), r]
         // (with SLOT lane (h, j) holds head h's adl, aw of attribute j; otherwise every lane all of h's)
-        if (active) store_row<VB>(dq + row * C + ck, dqa);
+        if (active && owns) store_row<VB>(dq + row * C + ck, dqa);
 #pragma unroll
         for (int r = 0; r < MAXA2; ++r) {
           if (r < A2) {
@@ -428,7 +431,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dst_kernel(
               adl_r = adl[r];
               aw_r = aw[r];
             }
-            if (active) {
+            if (active && owns) {
               const float sadl = scale * adl_r;
               float* part_p = dw_w + r * C + ck;
               Row<float, VB> part;
@@ -463,8 +466,8 @@ __global__ void __launch_bounds__(kThreads) bwd_dst_kernel(
 // out-edges in the transposed CSR (edge ids ascending within a source): the
 // edge ids and destinations 32 at a time, the next edge's q and g_num slices
 // and (dl, w) in flight in registers during the current edge's arithmetic.
-// Lane l < lanes owns channels [l VB, l VB + VB) of the group, as in the dst
-// pass; the other lanes shadow lane 0 and store nothing.
+// Lane l < lanes owns the channels it owns in the dst pass; the other lanes
+// (and those that pad a head) shadow the head's first lane and store nothing.
 // ---------------------------------------------------------------------------
 
 template <typename T, int VB, bool FLAT>
@@ -483,8 +486,10 @@ __global__ void __launch_bounds__(kThreads) bwd_src_kernel(
   const int k = unit - row * groups;
   const int bidx = row / num_src;
   const int s = row - bidx * num_src;
-  const bool active = FLAT || lane < L.lanes;
-  const int c0 = k * L.G + (active ? lane : 0) * VB;
+  bool owns = true;  // as in the dst pass: a lane that pads its head stores nothing
+  const int cg = FLAT ? lane * VB : edge_logit::lane_channel(lane < L.lanes ? lane : 0, L.LB, L.DV, L.D, VB, &owns);
+  const bool active = FLAT || (lane < L.lanes && owns);
+  const int c0 = k * L.G + cg;
   const int head = c0 / L.D;
 
   float dk[VB], dv[VB];
@@ -567,11 +572,14 @@ int set_smem(K kernel, size_t bytes) {
 }
 
 // The dst pass's warps a CTA (4, fewer where its dw_aug partials do not fit), its shared memory,
-// and its persistent grid: as many CTAs as fit the card at once, at most a warp a destination.
-// With `grid_only` it sizes the grid and launches nothing: the wrapper allocates a row of
-// dw_part a CTA.
+// and its grid: `parts` CTAs, one a row of dw_part, the count the wrapper takes from the shape
+// alone (ops/edge_attention.py:_bwd_parts: at most a warp a destination, at most what an H100 SXM
+// holds at once), so which warp sums which destinations' dw_aug terms, and in what order, is the
+// same on every card. Where the card holds fewer CTAs at once, the rest wait for a free slot.
+// With `per_sm` it launches nothing and reports the CTAs an SM holds (the runtime's occupancy,
+// against which a test holds the wrapper's model of it).
 template <typename T, int VB, int MAXA2, bool SLOT, int HC, bool FLAT>
-int launch_passes(const BwdArgs& x, const Layout& L, cudaStream_t s, int* grid_only) {
+int launch_passes(const BwdArgs& x, const Layout& L, cudaStream_t s, int* per_sm = nullptr) {
   const float scale = 1.0f / std::sqrt(static_cast<float>(L.D));
   auto dst_kernel = bwd_dst_kernel<T, VB, MAXA2, SLOT, HC, FLAT>;
   int warps = kWarps;
@@ -580,22 +588,9 @@ int launch_passes(const BwdArgs& x, const Layout& L, cudaStream_t s, int* grid_o
   if (dst_smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   int rc = set_smem(dst_kernel, dst_smem);
   if (rc != 0) return rc;
-  static size_t sized_for = 0;  // the occupancy of this instantiation, per shared-memory size
-  static int per_sm = 0;
-  if (sized_for != dst_smem) {
-    rc = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dst_kernel, 32 * warps, dst_smem));
-    if (rc != 0) return rc;
-    sized_for = dst_smem;
-  }
-  int device = 0, sms = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  const int grid =
-      std::min(std::min((x.num_dst + warps - 1) / warps, std::max(per_sm, 1) * sms), x.parts);
-  if (grid_only) {
-    *grid_only = grid;
-    return 0;
-  }
+  if (per_sm) return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, dst_kernel, 32 * warps,
+                                                                                      dst_smem));
+  const int grid = x.parts;
   dst_kernel<<<grid, 32 * warps, dst_smem, s>>>(
       static_cast<const T*>(x.q), static_cast<const T*>(x.kv), static_cast<const int*>(x.rowptr),
       static_cast<const int*>(x.src), static_cast<const T*>(x.a), static_cast<const T*>(x.w_aug),
@@ -608,7 +603,8 @@ int launch_passes(const BwdArgs& x, const Layout& L, cudaStream_t s, int* grid_o
 
   const int units = x.batch * x.num_src * L.groups;
   if (units > 0) {
-    auto src_kernel = L.groups == 1 && L.lanes == 32 ? bwd_src_kernel<T, VB, true> : bwd_src_kernel<T, VB, false>;
+    auto src_kernel = L.groups == 1 && L.lanes == 32 && L.DV == L.LB ? bwd_src_kernel<T, VB, true>
+                                                                       : bwd_src_kernel<T, VB, false>;
     src_kernel<<<(units + kWarps - 1) / kWarps, kThreads, 0, s>>>(
         static_cast<const T*>(x.q), static_cast<const float*>(x.g_num), static_cast<const int*>(x.colptr),
         static_cast<const int*>(x.perm), static_cast<const int*>(x.dst_of), static_cast<const float*>(x.dlw),
@@ -627,28 +623,28 @@ int launch_passes(const BwdArgs& x, const Layout& L, cudaStream_t s, int* grid_o
 // on 32 lanes (the flagship's C = 256, and C = 1024 with 16 heads), the whole row one such group
 // (C = 32 VB) compile-time too.
 template <typename T, int VB>
-int launch_vb(const BwdArgs& x, cudaStream_t s, int* grid_only) {
+int launch_vb(const BwdArgs& x, cudaStream_t s, int* per_sm) {
   Layout L;
   if (!edge_logit::make_layout<VB>(x.C, x.H, x.G, sizeof(T), &L)) return static_cast<int>(cudaErrorInvalidValue);
-  if (x.A2 > 8) return launch_passes<T, VB, kMaxA2, false, 0, false>(x, L, s, grid_only);
-  if (x.A2 > L.LB) return launch_passes<T, VB, 8, false, 0, false>(x, L, s, grid_only);
-  if (L.lanes == 32 && L.HG == 4) {
-    return L.groups == 1 ? launch_passes<T, VB, 8, true, 4, true>(x, L, s, grid_only)
-                         : launch_passes<T, VB, 8, true, 4, false>(x, L, s, grid_only);
+  if (x.A2 > 8) return launch_passes<T, VB, kMaxA2, false, 0, false>(x, L, s, per_sm);
+  if (x.A2 > L.LB) return launch_passes<T, VB, 8, false, 0, false>(x, L, s, per_sm);
+  if (L.lanes == 32 && L.HG == 4 && L.DV == L.LB) {
+    return L.groups == 1 ? launch_passes<T, VB, 8, true, 4, true>(x, L, s, per_sm)
+                         : launch_passes<T, VB, 8, true, 4, false>(x, L, s, per_sm);
   }
-  return launch_passes<T, VB, 8, true, 0, false>(x, L, s, grid_only);
+  return launch_passes<T, VB, 8, true, 0, false>(x, L, s, per_sm);
 }
 
 template <typename T>
-int launch_bwd(const BwdArgs& x, void* stream, int* grid_only = nullptr) {
+int launch_bwd(const BwdArgs& x, void* stream, int* per_sm = nullptr) {
   if (x.A2 <= 0 || x.A2 > kMaxA2 || x.num_dst <= 0 || x.batch <= 0 || x.parts <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (x.VB) {
-    case 1: return launch_vb<T, 1>(x, s, grid_only);
-    case 2: return launch_vb<T, 2>(x, s, grid_only);
-    case 4: return launch_vb<T, 4>(x, s, grid_only);
-    case 8: return launch_vb<T, 8>(x, s, grid_only);
+    case 1: return launch_vb<T, 1>(x, s, per_sm);
+    case 2: return launch_vb<T, 2>(x, s, per_sm);
+    case 4: return launch_vb<T, 4>(x, s, per_sm);
+    case 8: return launch_vb<T, 8>(x, s, per_sm);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -667,8 +663,8 @@ BwdArgs make_args(const void* q, const void* kv, const void* rowptr, const void*
 
 extern "C" {
 
-// G and VB: the lane layout of ops/edge_attention.py:_lane_layout; parts: the rows of dw_part, at
-// least the dst pass's grid (edge_attn_csr_bwd_grid_*)
+// G and VB: the lane layout of ops/edge_attention.py:_lane_layout; parts: the rows of dw_part and
+// the dst pass's grid (ops/edge_attention.py:_bwd_parts)
 int edge_attn_csr_bwd_f32(const void* q, const void* kv, const void* rowptr, const void* src,
                           const void* a, const void* w_aug, const void* m, const void* g_num,
                           const void* g_den, const void* colptr, const void* perm,
@@ -693,17 +689,17 @@ int edge_attn_csr_bwd_bf16(const void* q, const void* kv, const void* rowptr, co
                                    stream);
 }
 
-// The dst pass's grid (the rows of dw_part the call needs) into *grid; launches nothing.
-int edge_attn_csr_bwd_grid_f32(int num_dst, int C, int H, int A2, int G, int VB, int* grid) {
+// The dst pass's CTAs an SM for this shape (the runtime's occupancy); launches nothing.
+int edge_attn_csr_bwd_per_sm_f32(int C, int H, int A2, int G, int VB, int* per_sm) {
   BwdArgs x{};
-  x.batch = 1, x.num_dst = num_dst, x.C = C, x.H = H, x.A2 = A2, x.G = G, x.VB = VB, x.parts = 1 << 30;
-  return launch_bwd<float>(x, nullptr, grid);
+  x.batch = 1, x.num_dst = 1, x.C = C, x.H = H, x.A2 = A2, x.G = G, x.VB = VB, x.parts = 1;
+  return launch_bwd<float>(x, nullptr, per_sm);
 }
 
-int edge_attn_csr_bwd_grid_bf16(int num_dst, int C, int H, int A2, int G, int VB, int* grid) {
+int edge_attn_csr_bwd_per_sm_bf16(int C, int H, int A2, int G, int VB, int* per_sm) {
   BwdArgs x{};
-  x.batch = 1, x.num_dst = num_dst, x.C = C, x.H = H, x.A2 = A2, x.G = G, x.VB = VB, x.parts = 1 << 30;
-  return launch_bwd<__nv_bfloat16>(x, nullptr, grid);
+  x.batch = 1, x.num_dst = 1, x.C = C, x.H = H, x.A2 = A2, x.G = G, x.VB = VB, x.parts = 1;
+  return launch_bwd<__nv_bfloat16>(x, nullptr, per_sm);
 }
 
 }  // extern "C"

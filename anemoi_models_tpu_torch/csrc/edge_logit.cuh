@@ -16,6 +16,12 @@
 //                   xor shuffle tree over the head's threads, highest level
 //                   first. A lane holds P = VB / VF such chains and runs the
 //                   tree's upper levels across lanes, its lower ones inside.
+//                   Where D is not a power of two (no first kernel ran it),
+//                   VF = VB: one chain a lane, then the tree over the lanes.
+//
+// A head of D channels spans LB lanes, D / VB rounded up to a power of two:
+// where D is not a power of two (D = 48, 96, 192, ...), the lanes past D / VB
+// pad the head, owning no channel and adding zeros to every sum over it.
 //
 // Plus the row and copy helpers both kernels use: rows move into shared memory
 // by cp.async, each lane copying its own VB values where they are whole
@@ -201,6 +207,9 @@ __device__ __forceinline__ float exact_dot(const float* qv, const Row<T, VB>& kr
 template <typename T, int VB>
 __device__ __forceinline__ float exact_dot_vf(int vf, const float* qv, const Row<T, VB>& kr, const float* ev,
                                               int LB) {
+  if constexpr (VB >= 8) {
+    if (vf == 8) return exact_dot<T, VB, 8>(qv, kr, ev, LB);
+  }
   if constexpr (VB >= 4) {
     if (vf == 4) return exact_dot<T, VB, 4>(qv, kr, ev, LB);
   }
@@ -213,26 +222,42 @@ __device__ __forceinline__ float exact_dot_vf(int vf, const float* qv, const Row
 // Where a layout's runtime values must agree with the compile-time ones.
 struct Layout {
   int G;      // channels of a head group
-  int lanes;  // active lanes: G / VB
+  int lanes;  // lanes of the group: HG LB (the padded lanes included)
   int D;      // channels of a head
-  int LB;     // lanes of a head: D / VB
+  int LB;     // lanes of a head: D / VB rounded up to a power of two
+  int DV;     // lanes of a head that own channels: D / VB (DV < LB pads the head)
   int HG;     // heads of a group
   int groups; // C / G
-  int vf;     // the first kernel's channels a thread: max(1, D / 32)
+  int vf;     // channels of one fmaf chain of the dot: max(1, D / 32) for a power-of-two D
+              // (the first kernel's threads), else VB
 };
 
-// The layout of (C, H) with group width G, checked: D a power of two up to
-// 128 that VB divides, a group of whole heads on at most 32 lanes (so VF
-// divides VB), and a group's rows 16-byte multiples. Returns false where the
-// kernels cannot run it.
+// The layout of (C, H) with group width G, checked: D at most 256, a power of
+// two or a multiple of 8, that VB divides; a group of whole heads, each on LB
+// lanes (a power of two: the shuffle trees run over it; its lanes past DV own
+// no channel and add zeros), HG LB <= 32 lanes in all, so VF divides VB; and a
+// group's rows 16-byte multiples. Returns false where the kernels cannot run it.
 template <int VB>
 inline bool make_layout(int C, int H, int G, int item, Layout* out) {
   if (H <= 0 || G <= 0 || C % H != 0 || C % G != 0) return false;
   const int D = C / H;
-  if (D > 128 || (D & (D - 1)) != 0 || D % VB != 0 || G % D != 0 || G / VB > 32 || (G * item) % 16 != 0)
-    return false;
-  *out = Layout{G, G / VB, D, D / VB, G / D, C / G, D > 32 ? D / 32 : 1};
+  const bool pow2 = (D & (D - 1)) == 0;
+  if (D > 256 || !(pow2 || D % 8 == 0) || D % VB != 0 || G % D != 0 || (G * item) % 16 != 0) return false;
+  const int DV = D / VB;
+  int LB = 1;
+  while (LB < DV) LB *= 2;
+  if ((G / D) * LB > 32) return false;
+  *out = Layout{G, (G / D) * LB, D, LB, DV, G / D, C / G, pow2 ? (D > 32 ? D / 32 : 1) : VB};
   return true;
+}
+
+// Lane ll's first channel within its group and whether it owns channels: lane
+// j of head h (j = ll % LB) owns [h D + j VB, h D + j VB + VB) for j < DV; a
+// padding lane (j >= DV) reads its head's first channels and must add zeros.
+__device__ __forceinline__ int lane_channel(int ll, int LB, int DV, int D, int VB, bool* owns) {
+  const int j = ll % LB;
+  *owns = j < DV;
+  return (ll / LB) * D + (j < DV ? j : 0) * VB;
 }
 
 }  // namespace edge_logit

@@ -1,6 +1,8 @@
 // Hopper (sm_90a) kernels of the GNN edge-MLP convolution's layered route:
 // every width C % 8 == 0 and every MLP depth that gnn_conv.cu's fused kernels
-// do not take (they take C in {32, 64, 128, 256} with three Dense layers).
+// do not take (they take C in {32, 64, 128, 256} with three Dense layers);
+// the wrapper pads any other width to a multiple of 8 with zero columns, and
+// the LayerNorm's statistics run over the true width.
 //
 // Replaces anemoi_models_tpu/ops/pallas/gnn_conv.py:_kernel as gnn_conv.cu
 // does, and computes the same function with the same rounding points:
@@ -241,11 +243,14 @@ __device__ __forceinline__ float2 load2(const bf16* p) {
 
 // msg (rows, C) from h (rows, C) fp32: LN with fp32 statistics and eps 1e-6;
 // in bf16 the normalised value, its product with gamma and the sum with beta
-// each rounded, then + e rounded (gnn_conv.cu's points); in fp32 none
-template <typename T>
+// each rounded, then + e rounded (gnn_conv.cu's points); in fp32 none. With
+// PAD the statistics run over the first c_ln channels only: the wrapper pads
+// a width that is not a multiple of 8 with zero columns (zero in h, and zero
+// gamma, beta and e there, so the padded msg columns are 0).
+template <typename T, bool PAD>
 __global__ void __launch_bounds__(32 * kLnRows)
 gnn_ln_kernel(const float* __restrict__ h, const T* __restrict__ e, const T* __restrict__ gamma,
-              const T* __restrict__ beta, T* __restrict__ msg, int rows, int C) {
+              const T* __restrict__ beta, T* __restrict__ msg, int rows, int C, int c_ln) {
   const int row = blockIdx.x * kLnRows + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
@@ -257,15 +262,20 @@ gnn_ln_kernel(const float* __restrict__ h, const T* __restrict__ e, const T* __r
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-  const float mu = sum / C;
+  const float mu = sum / (PAD ? c_ln : C);
   float sq = 0.f;
   for (int c = 2 * lane; c < C; c += 64) {
     const float2 v = load2(hr + c);
-    sq += (v.x - mu) * (v.x - mu) + (v.y - mu) * (v.y - mu);
+    if constexpr (PAD) {  // the padded columns' (0 - mu)^2 stay out of the variance
+      const float dx = c < c_ln ? v.x - mu : 0.f, dy = c + 1 < c_ln ? v.y - mu : 0.f;
+      sq += dx * dx + dy * dy;
+    } else {
+      sq += (v.x - mu) * (v.x - mu) + (v.y - mu) * (v.y - mu);
+    }
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);
-  const float rs = rsqrtf(sq / C + 1e-6f);
+  const float rs = rsqrtf(sq / (PAD ? c_ln : C) + 1e-6f);
   const T* er = e + static_cast<int64_t>(row) * C;
   T* out = msg + static_cast<int64_t>(row) * C;
   for (int c = 2 * lane; c < C; c += 64) {
@@ -299,9 +309,10 @@ int launch_gnn_conv_layered(const void* x_dst, const void* x_src, const void* e,
                             const void* src, const void* const* dense, int n_dense, const void* ln_g,
                             const void* ln_b, void* p_dst, void* p_src, void* h0, void* h1, void* hf,
                             int chunk_rows, void* msg, void* agg, int batch, int num_dst, int num_src, int E, int C,
-                            int act, void* stream) {
+                            int c_ln, int act, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_dense < 2 || C % 8 != 0 || chunk_rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_dense < 2 || C % 8 != 0 || chunk_rows <= 0 || c_ln <= 0 || c_ln > C)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (E > 0) {
     int rc = launch_prepass<T>(x_dst, x_src, dense[0], dense[1], static_cast<float*>(p_dst),
                                static_cast<float*>(p_src), batch * num_dst, batch * num_src, C, s);
@@ -325,9 +336,10 @@ int launch_gnn_conv_layered(const void* x_dst, const void* x_src, const void* e,
       rc = dense_layer<T, gnn_dense_last_tag, float, false>(hbuf[cur], dense[2 * (n_dense - 1)], C,
                                                             dense[2 * n_dense - 1], hf, m, epi, s);
       if (rc != 0) return rc;
-      gnn_ln_kernel<T><<<(m + kLnRows - 1) / kLnRows, 32 * kLnRows, 0, s>>>(
+      auto ln = c_ln == C ? gnn_ln_kernel<T, false> : gnn_ln_kernel<T, true>;
+      ln<<<(m + kLnRows - 1) / kLnRows, 32 * kLnRows, 0, s>>>(
           static_cast<const float*>(hf), e_c, static_cast<const T*>(ln_g), static_cast<const T*>(ln_b),
-          static_cast<T*>(msg) + r0 * C, m, C);
+          static_cast<T*>(msg) + r0 * C, m, C, c_ln);
       rc = static_cast<int>(cudaGetLastError());
       if (rc != 0) return rc;
     }
@@ -341,21 +353,22 @@ extern "C" {
 
 // dense: 2 * n_dense pointers, each Dense's weight (C, K) in torch's Linear
 // layout (K = 3C for the first) then its bias (C); h0, h1: (chunk_rows, C) in
-// the compute dtype, hf: (chunk_rows, C) fp32
+// the compute dtype, hf: (chunk_rows, C) fp32; c_ln: the channels of the
+// LayerNorm's statistics, C unless the wrapper padded the width to C
 int gnn_conv_layered_f32(const void* x_dst, const void* x_src, const void* e, const void* rowptr, const void* src,
                          const void* const* dense, int n_dense, const void* ln_g, const void* ln_b, void* p_dst,
                          void* p_src, void* h0, void* h1, void* hf, int chunk_rows, void* msg, void* agg, int batch,
-                         int num_dst, int num_src, int E, int C, int act, void* stream) {
+                         int num_dst, int num_src, int E, int C, int c_ln, int act, void* stream) {
   return launch_gnn_conv_layered<float>(x_dst, x_src, e, rowptr, src, dense, n_dense, ln_g, ln_b, p_dst, p_src, h0,
-                                        h1, hf, chunk_rows, msg, agg, batch, num_dst, num_src, E, C, act, stream);
+                                        h1, hf, chunk_rows, msg, agg, batch, num_dst, num_src, E, C, c_ln, act, stream);
 }
 
 int gnn_conv_layered_bf16(const void* x_dst, const void* x_src, const void* e, const void* rowptr, const void* src,
                           const void* const* dense, int n_dense, const void* ln_g, const void* ln_b, void* p_dst,
                           void* p_src, void* h0, void* h1, void* hf, int chunk_rows, void* msg, void* agg, int batch,
-                          int num_dst, int num_src, int E, int C, int act, void* stream) {
+                          int num_dst, int num_src, int E, int C, int c_ln, int act, void* stream) {
   return launch_gnn_conv_layered<bf16>(x_dst, x_src, e, rowptr, src, dense, n_dense, ln_g, ln_b, p_dst, p_src, h0,
-                                       h1, hf, chunk_rows, msg, agg, batch, num_dst, num_src, E, C, act, stream);
+                                       h1, hf, chunk_rows, msg, agg, batch, num_dst, num_src, E, C, c_ln, act, stream);
 }
 
 }  // extern "C"

@@ -1,9 +1,12 @@
 """Host-side graph builders: grids, icosahedral meshes, and edge builders.
 
 The port's own copy of ``anemoi_models_tpu/graphs/build.py``, limited to what
-``build_enc_proc_dec_graph`` runs and to its numpy code paths (the mesh
+``build_enc_proc_dec_graph``, ``build_hierarchical_graph`` and
+``nodes_from_coords`` run and to their numpy code paths (the mesh
 subdivision in plain Python; the JAX package can also call a native helper
-for O1280-scale builds, whose results equal these). All construction is
+for O1280-scale builds, whose coordinates differ from these in the last bit
+of some, which can flip the knn ties between the hierarchical levels'
+coincident nodes). All construction is
 ``numpy``/``scipy`` at model-build time: graphs are static.
 
 Conventions (matching what the reference's models expect of anemoi-graphs):
@@ -30,7 +33,9 @@ __all__ = [
     "cutoff_edges",
     "multiscale_edges",
     "edge_attributes",
+    "nodes_from_coords",
     "build_enc_proc_dec_graph",
+    "build_hierarchical_graph",
 ]
 
 
@@ -249,6 +254,20 @@ def edge_attributes(src: NodeSet, dst: NodeSet, edge_index: np.ndarray) -> dict[
     return {"edge_length": length, "edge_dirs": dirs}
 
 
+def nodes_from_coords(coords: np.ndarray, area_weight: np.ndarray | None = None) -> NodeSet:
+    """Wrap arbitrary (lat, lon)-radian coordinates, e.g. a dataset's own
+    grid, as a data NodeSet. Area weights default to cos(lat) normalized to
+    mean 1 (exact for any latitude-banded grid, a good proxy otherwise)."""
+    coords = np.asarray(coords, np.float64)
+    if coords.ndim != 2 or coords.shape[1] != 2:
+        raise ValueError(f"coords must be (N, 2) lat/lon radians; got {coords.shape}")
+    if area_weight is None:
+        area_weight = np.cos(coords[:, 0])
+        area_weight = area_weight / max(area_weight.mean(), 1e-12)
+    area_weight = np.asarray(area_weight, np.float32).reshape(len(coords), -1)
+    return NodeSet(coords=coords, attrs={"area_weight": area_weight})
+
+
 def build_enc_proc_dec_graph(
     *,
     grid_lat: int = 32,
@@ -324,3 +343,67 @@ def build_enc_proc_dec_graph(
         },
     )
     return graph.sorted()
+
+
+def build_hierarchical_graph(
+    *,
+    grid_lat: int = 32,
+    grid: str = "latlon",
+    data_nodes: NodeSet | None = None,
+    mesh_refinements: int = 3,
+    num_levels: int = 2,
+    encoder_cutoff_factor: float = 1.6,
+    decoder_knn: int = 3,
+    level_knn: int = 3,
+    data_name: str = "data",
+    hidden_prefix: str = "hidden",
+) -> tuple[HeteroGraph, list[str]]:
+    """Multi-level graph for the hierarchical model: the data grid and a
+    pyramid of icosahedral meshes at decreasing refinement, each in its own
+    fine-level RCM order.
+
+    Edge sets: data -> h1 (cutoff), h_i -> h_i (the level's own mesh edges),
+    h_i -> h_{i+1} (downscale, knn), h_{i+1} -> h_i (upscale, knn), h1 -> data
+    (knn), each sorted by destination. Returns (graph, hidden_names) with the
+    names ordered fine to coarse, the layout the hierarchical model reads.
+    """
+    if num_levels < 1 or mesh_refinements - (num_levels - 1) < 0:
+        raise ValueError(f"{num_levels} levels need at least {num_levels - 1} mesh refinements, "
+                         f"got {mesh_refinements}")
+    if data_nodes is None:
+        data_nodes = octahedral_grid_nodes(grid_lat) if grid == "octahedral" else latlon_grid_nodes(grid_lat)
+    hidden_names = [f"{hidden_prefix}_{i + 1}" for i in range(num_levels)]
+    level_nodes: list[NodeSet] = []
+    level_faces: list[np.ndarray] = []
+    for i in range(num_levels):
+        ns, faces = icosahedral_nodes(mesh_refinements - i)
+        perm = rcm_order(_faces_to_bidirectional_edges(faces[-1]), ns.num_nodes)
+        ns, old_to_new = reorder_nodes(ns, perm)
+        level_nodes.append(ns)
+        level_faces.append(old_to_new[faces[-1]])
+
+    nodes = {data_name: data_nodes}
+    edges: dict[tuple[str, str, str], EdgeSet] = {}
+
+    def add_edge(src_name: str, dst_name: str, src_ns: NodeSet, dst_ns: NodeSet, idx: np.ndarray) -> None:
+        edges[(src_name, "to", dst_name)] = EdgeSet(edge_index=idx, attrs=edge_attributes(src_ns, dst_ns, idx))
+
+    # encoder: data -> the finest level, within a cutoff proportional to its resolution
+    fine = level_nodes[0]
+    mesh_edge = _faces_to_bidirectional_edges(level_faces[0])
+    mesh_xyz = _latlon_to_xyz(fine.coords)
+    typical = np.linalg.norm(mesh_xyz[mesh_edge[0]] - mesh_xyz[mesh_edge[1]], axis=-1).mean()
+    add_edge(data_name, hidden_names[0], data_nodes, fine,
+             cutoff_edges(data_nodes, fine, radius=encoder_cutoff_factor * typical))
+
+    for i, name in enumerate(hidden_names):
+        nodes[name] = level_nodes[i]
+        add_edge(name, name, level_nodes[i], level_nodes[i], _faces_to_bidirectional_edges(level_faces[i]))
+        if i + 1 < num_levels:
+            add_edge(name, hidden_names[i + 1], level_nodes[i], level_nodes[i + 1],
+                     knn_edges(level_nodes[i], level_nodes[i + 1], k=level_knn))
+            add_edge(hidden_names[i + 1], name, level_nodes[i + 1], level_nodes[i],
+                     knn_edges(level_nodes[i + 1], level_nodes[i], k=level_knn))
+
+    add_edge(hidden_names[0], data_name, fine, data_nodes, knn_edges(fine, data_nodes, k=decoder_knn))
+    return HeteroGraph(nodes=nodes, edges=edges).sorted(), hidden_names

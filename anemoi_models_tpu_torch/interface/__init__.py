@@ -4,7 +4,10 @@ Counterpart of ``anemoi_models_tpu/interface/__init__.py``, the
 anemoi-inference serving surface: the constructor (with the checkpoint's
 ``metadata``, ``supporting_arrays`` and a ``uuid4`` ``id``), ``to``,
 ``init_params``, ``load_params``, ``example_input``, ``forward``,
-``predict_step``, the multi-step forecast (``make_rollout_fn``,
+``fit_processors`` (a stateful processor's state, an imputer's NaN mask,
+from a sample batch), ``predict_step`` through the whole pipeline
+(normalizer, imputers, remappers, then the model and its boundings), the
+multi-step forecast (``make_rollout_fn``,
 ``predict_rollout``) and checkpoints (``save``, ``load``,
 ``from_checkpoint``, which also reads the JAX package's checkpoints). The
 model is an ``nn.Module`` that owns its parameters; train it with
@@ -98,6 +101,12 @@ class AnemoiModelInterface:
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x (batch, time, ensemble, grid, vars) -> (batch, ensemble, grid, vars_out)."""
         return self.model(x)
+
+    @torch.no_grad()
+    def fit_processors(self, batch: torch.Tensor) -> None:
+        """Fit the stateful processors (an imputer's first-batch NaN mask and
+        loss mask) on a sample batch, threading it through the pipeline."""
+        self.pre_processors.fit(batch)
 
     @torch.inference_mode()
     def predict_step(self, batch: torch.Tensor) -> torch.Tensor:

@@ -2,8 +2,9 @@
 
 Counterpart of ``anemoi_models_tpu/models/encoder_processor_decoder.py``: the
 state on the data grid is encoded onto the hidden mesh, processed, decoded
-back, with a residual connection for the prognostic variables. Encoder,
-processor and decoder are built from the config's ``_target_`` entries.
+back, with a residual connection for the prognostic variables and the
+config's output boundings applied in config order. Encoder, processor and
+decoder are built from the config's ``_target_`` entries.
 
 Input layout: (batch, time, ensemble, grid, vars), as in the JAX package;
 batch and ensemble merge into one leading axis inside. The model is built on
@@ -46,23 +47,8 @@ class AnemoiModelEncProcDec(nn.Module):
         cfg = DotDict(model_config)
         name_data, name_hidden = cfg.graph.data, cfg.graph.hidden
         self._graph_name_data, self._graph_name_hidden = name_data, name_hidden
-        if cfg.model.get("bounding"):
-            raise NotImplementedError("output boundings (layers/bounding.py) are not ported yet")
-
-        self.num_input_channels = len(data_indices.internal_model.input)
-        self.num_output_channels = len(data_indices.internal_model.output)
-        prog_in = np.asarray(data_indices.internal_model.input.prognostic)
-        prog_out = np.asarray(data_indices.internal_model.output.prognostic)
-        routed = len(data_indices.internal_model.output.full) - len(data_indices.internal_model.output.diagnostic)
-        if len(prog_out) != routed:
-            raise ValueError(
-                f"routing-table width check failed: {len(prog_out)} internal prognostic outputs vs {routed} "
-                "internal outputs that are not diagnostic"
-            )
-        if len(prog_in) != len(prog_out):
-            raise ValueError(f"prognostic input/output indices diverge: {prog_in} vs {prog_out}")
-        self.register_buffer("_internal_input_idx", torch.as_tensor(prog_in, device=device), persistent=False)
-        self.register_buffer("_internal_output_idx", torch.as_tensor(prog_out, device=device), persistent=False)
+        self._check_indices(data_indices, device)
+        self.boundings = _boundings(cfg, data_indices)
 
         self.multi_step = cfg.training.multistep_input
         self.num_channels = cfg.model.num_channels
@@ -107,6 +93,33 @@ class AnemoiModelEncProcDec(nn.Module):
             **_accepted(cfg.model.decoder, common),
         )
 
+    def _check_indices(self, data_indices: Any, device: torch.device) -> None:
+        """The channel counts and the prognostic routing, with the JAX
+        model's checks (raised as ValueError, which ``python -O`` keeps)."""
+        self.num_input_channels = len(data_indices.internal_model.input)
+        self.num_output_channels = len(data_indices.internal_model.output)
+        prog_in = np.asarray(data_indices.internal_model.input.prognostic)
+        prog_out = np.asarray(data_indices.internal_model.output.prognostic)
+        routed = len(data_indices.internal_model.output.full) - len(data_indices.internal_model.output.diagnostic)
+        if len(prog_out) != routed:
+            raise ValueError(
+                f"routing-table width check failed: {len(prog_out)} internal prognostic outputs vs {routed} "
+                "internal outputs that are not diagnostic"
+            )
+        if len(prog_in) != len(prog_out):
+            raise ValueError(f"prognostic input/output indices diverge: {prog_in} vs {prog_out}")
+        self.register_buffer("_internal_input_idx", torch.as_tensor(prog_in, device=device), persistent=False)
+        self.register_buffer("_internal_output_idx", torch.as_tensor(prog_out, device=device), persistent=False)
+
+    def _finish(self, x_out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """The residual connection for the prognostic variables, then the
+        boundings in config order."""
+        residual = x[:, -1].index_select(-1, self._internal_input_idx)
+        x_out = x_out.index_add(-1, self._internal_output_idx, residual)
+        for bounding in self.boundings:
+            x_out = bounding(x_out)
+        return x_out
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x (batch, time, ensemble, grid, vars) -> (batch, ensemble, grid, vars_out)."""
         batch_size, _, ensemble_size, grid, _ = x.shape
@@ -122,9 +135,14 @@ class AnemoiModelEncProcDec(nn.Module):
         x_out = self.decoder((x_latent_proc, x_data_latent))
 
         x_out = x_out.reshape(batch_size, ensemble_size, grid, self.num_output_channels).to(x.dtype)
-        # residual connection for the prognostic variables only
-        residual = x[:, -1].index_select(-1, self._internal_input_idx)
-        return x_out.index_add(-1, self._internal_output_idx, residual)
+        return self._finish(x_out, x)
+
+
+def _boundings(cfg: Any, data_indices: Any) -> list:
+    """The config's output boundings, in config order, over the internal
+    model output's variable table."""
+    name_to_index = data_indices.internal_model.output.name_to_index
+    return [instantiate(b, name_to_index=name_to_index) for b in cfg.model.get("bounding", [])]
 
 
 def _accepted(cfg: Any, extra: dict) -> dict:

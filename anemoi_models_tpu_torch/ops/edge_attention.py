@@ -20,16 +20,19 @@ straight off the destination-sorted edge list in two kernels
   instructions bound it.
 
 Both kernels share one lane layout (:func:`_lane_layout`): a warp works on a
-group of whole heads of at most 256 channels, so every width the forward
+group of whole heads of at most 256 channels, a head on a power of two of
+lanes (padded where the head width is not a power of two), so every head
+width up to 256 that is a multiple of 8 runs, and every width the forward
 takes also trains. The backward (``csrc/edge_attention_bwd.cu``) replaces
 ``_feats_bwd_kernel``: :func:`edge_attn_csr_bwd` walks the same CSR edge list
-for ``dq`` and the edge gradients (a warp per destination on a persistent
-grid, its head groups in sequence, its edges' k/v rows several at a time in
-flight) and the transposed list
-(:func:`csr_transpose`) for the per-source ``[dk|dv]``, reading the edge
-scalars at each edge's position there (the inverse permutation ``pos``),
-and sums ``dw_aug`` in per-warp partials, one row a CTA, then in a fixed
-order; fixed-order sums only. :class:`EdgeAttnCSR` and :class:`KVProj` are the autograd Functions the
+for ``dq`` and the edge gradients (a warp per destination, its head groups in
+sequence, its edges' k/v rows several at a time in flight) and the
+transposed list (:func:`csr_transpose`) for the per-source ``[dk|dv]``,
+reading the edge scalars at each edge's position there (the inverse
+permutation ``pos``), and sums ``dw_aug`` in per-warp partials, one row a
+CTA of a grid sized from the shape alone (:func:`_bwd_parts`), then in a
+fixed order; fixed-order sums only, so every card gives the same bits.
+:class:`EdgeAttnCSR` and :class:`KVProj` are the autograd Functions the
 conv runs through; the chain through ``w_kv`` is ``torch.matmul``, as the JAX
 package leaves it to XLA.
 
@@ -40,7 +43,6 @@ kernel for a CUDA tensor or raises, and counts its launches in
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import math
 from typing import NamedTuple
@@ -71,7 +73,11 @@ __all__ = [
 _NEG = -1e30
 _MAX_A2 = 16  # kMaxA2 in csrc/edge_attention.cu
 _GROUP_CHANNELS = 256  # the most channels a warp works on at once (a head group)
-_GROUP_HEADS = 32  # the most heads in a group: a lane never holds two heads
+_MAX_HEAD = 256  # the widest head: one head group
+_GROUP_LANES = 32  # the lanes of a group: a lane never holds two heads
+_REF_SMS = 132  # the H100 SXM's SMs: the backward's dw_aug partials are counted for it on every card
+_BWD_SMEM = 227 * 1024  # kMaxSmem in csrc/edge_attention_bwd.cu
+_BWD_RING = 3  # kRing in csrc/edge_attention_bwd.cu
 _DTYPES = (torch.float32, torch.bfloat16)
 
 # kernel launches per wrapper; a CPU call runs the plain version and adds nothing
@@ -299,36 +305,50 @@ def kv_proj(f: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out
 
 
+def _pow2_at_least(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
 def _lane_layout(c: int, num_heads: int) -> tuple[int, int, int]:
     """``(vb, lanes, group)``: how both edge-attention kernels lay a row of
     ``c`` channels and ``num_heads`` heads on a warp. A warp works on one
-    head group at a time: ``group = D * g`` channels of ``g`` whole heads, g
-    the largest divisor of the head count with ``D * g <= 256``, ``g <= 32``
-    (a lane never holds two heads) and ``D * g`` a multiple of 8 (a group's
-    slice of a row is whole 16-byte copies in bf16); lane l owns ``vb``
-    consecutive channels of the group (``vb`` the smallest power of two with
-    ``32 * vb >= group``), ``lanes = group / vb <= 32`` lanes are active and a
-    head spans ``D / vb`` of them. The forward's threads of ``max(1, D / 32)``
-    channels (whose sums the backward replays) then divide a lane's. Takes
-    what :func:`_check_heads` accepts."""
+    head group at a time: ``group = D * g`` channels of ``g`` whole heads,
+    ``vb`` the smallest power of two with ``32 * vb >= group``, and a head on
+    ``lb`` lanes, ``D / vb`` rounded up to a power of two (the shuffle trees
+    run over it; where D is not a power of two the lanes past ``D / vb`` pad
+    the head, owning no channel), ``lanes = g * lb <= 32`` in all; g is the
+    largest divisor of the head count with ``D * g <= 256``, ``D * g`` a
+    multiple of 8 (a group's slice of a row is whole 16-byte copies in bf16)
+    and the lanes fitting. For a power-of-two D no lane pads (``lanes * vb ==
+    group``) and the forward's threads of ``max(1, D / 32)`` channels (whose
+    sums the backward replays) divide a lane's; for the others a lane runs
+    one chain. Takes what :func:`_check_heads` accepts."""
     d = c // num_heads
-    g = max(x for x in range(1, min(num_heads, _GROUP_HEADS) + 1)
-            if num_heads % x == 0 and d * x <= _GROUP_CHANNELS and d * x % 8 == 0)
-    group = d * g
-    vb = 1
-    while 32 * vb < group:
-        vb *= 2
-    return vb, group // vb, group
+
+    def fit(g: int) -> tuple[int, int, int] | None:
+        group = d * g
+        if group > _GROUP_CHANNELS or group % 8:
+            return None
+        vb = 1
+        while 32 * vb < group:
+            vb *= 2
+        lanes = g * _pow2_at_least(d // vb)
+        return (vb, lanes, group) if lanes <= _GROUP_LANES and d % vb == 0 else None
+
+    return next(layout for g in range(min(num_heads, _GROUP_LANES), 0, -1)
+                if num_heads % g == 0 and (layout := fit(g)) is not None)
 
 
 def _check_heads(c: int, num_heads: int) -> None:
     _require(num_heads > 0 and c % num_heads == 0, f"C={c} not divisible by {num_heads} heads")
     d = c // num_heads
-    v = d // 32 if d > 32 else 1
     _require(
-        d in (1, 2, 4, 8, 16, 32, 64, 128) and (c // v) % 32 == 0 and c // v <= 1024,
-        f"edge_attn_csr takes head widths 1..128 (powers of two) with C/V a multiple "
-        f"of 32 threads; got C={c}, H={num_heads}",
+        d <= _MAX_HEAD and (d % 8 == 0 or (d in (1, 2, 4) and c % 32 == 0)),
+        f"edge_attn_csr takes head widths D = C/H up to {_MAX_HEAD} that are multiples of 8, "
+        f"or 1, 2, 4 with C a multiple of 32; got C={c}, H={num_heads} (D={c / num_heads:g})",
     )
 
 
@@ -383,20 +403,65 @@ def edge_attn_csr(
     return AttentionPartials(num.view(bnd, num_heads, c // num_heads), den, m)
 
 
-@functools.lru_cache(maxsize=256)
-def _bwd_grid(device: int, dtype: torch.dtype, nd: int, c: int, num_heads: int, a2: int, group: int, vb: int) -> int:
-    """The CTAs of the backward's dst pass (its occupancy follows its shared
-    memory: w_aug, the rings and the per-warp dw_aug partials), as the
-    library sizes them."""
-    from anemoi_models_tpu_torch.ops.kernels import load_kernels
+def _bwd_warps_smem(c: int, a2: int, group: int, dtype: torch.dtype) -> tuple[int, int]:
+    """The backward's dst-pass CTA as ``launch_passes`` sizes it: its warps
+    (4, halved while w_aug, the rings, the q / g_num slices and the per-warp
+    dw_aug partials exceed 227 KB) and its shared memory in bytes."""
+    item = 2 if dtype == torch.bfloat16 else 4
+    maxa2 = 8 if a2 <= 8 else _MAX_A2
 
-    lib = load_kernels()
-    fn = lib.edge_attn_csr_bwd_grid_bf16 if dtype == torch.bfloat16 else lib.edge_attn_csr_bwd_grid_f32
-    grid = ctypes.c_int(0)
-    with torch.cuda.device(device):
-        rc = fn(nd, c, num_heads, a2, group, vb, ctypes.addressof(grid))
-    _check_launch(rc, "edge_attn_csr_bwd (grid)")
-    return grid.value
+    def smem(warps: int) -> int:
+        return maxa2 * c * item + warps * (_BWD_RING * 2 * group * item + group * (item + 4) + a2 * c * 4)
+
+    warps = 4
+    while smem(warps) > _BWD_SMEM and warps > 1:
+        warps //= 2
+    _require(smem(warps) <= _BWD_SMEM,
+             f"edge_attn_csr_bwd: C={c} with {a2} attributes needs {smem(warps)} bytes of shared memory "
+             f"a CTA, more than {_BWD_SMEM}")
+    return warps, smem(warps)
+
+
+def _bwd_registers(c: int, num_heads: int, a2: int, dtype: torch.dtype) -> int:
+    """An upper bound of the registers a thread of the dst pass's
+    instantiation for this shape takes (ptxas for sm_90a on
+    csrc/edge_attention_bwd.cu: 56-242), as one of three budgets: 256 with
+    16 attribute slots a lane; 168 where every lane keeps all eight
+    attributes (unless it holds one channel) or in fp32 with eight channels
+    a lane and no compile-time head count; else 128. So the modelled
+    occupancy is never above the card's (no second wave of CTAs); a cuda
+    test holds it equal at the model paths' shapes."""
+    vb, lanes, group = _lane_layout(c, num_heads)
+    d = c // num_heads
+    lb = _pow2_at_least(d // vb)
+    hc = lanes == 32 and group // d == 4 and d // vb == lb  # launch_vb's compile-time head count
+    if a2 > 8:
+        return 256
+    if a2 > lb:
+        return 128 if vb == 1 else 168
+    return 168 if dtype == torch.float32 and vb == 8 and not hc else 128
+
+
+def _bwd_ctas_per_sm(c: int, num_heads: int, a2: int, dtype: torch.dtype) -> int:
+    """The dst pass's CTAs an SM of any Hopper card (228 KB of shared memory
+    and 64 K registers an SM, 1 KB of it reserved a CTA), from the shape."""
+    _, _, group = _lane_layout(c, num_heads)
+    warps, smem = _bwd_warps_smem(c, a2, group, dtype)
+    by_regs = 65536 // (_bwd_registers(c, num_heads, a2, dtype) * 32 * warps)
+    return max(1, min(by_regs, 233472 // (smem + 1024), 64 // warps))
+
+
+@functools.lru_cache(maxsize=256)
+def _bwd_parts(nd: int, c: int, num_heads: int, a2: int, dtype: torch.dtype) -> int:
+    """The rows of the backward's ``dw_aug`` partials, which is also its dst
+    pass's grid: one CTA a row, at most a warp a destination, and at most
+    the CTAs an H100 SXM (132 SMs) holds at once for this shape
+    (:func:`_bwd_ctas_per_sm`). A function of the shape alone, so which warp
+    sums which destinations' terms, and in what order, is the same on every
+    card; on a card with fewer SMs the CTAs it cannot hold wait for a slot."""
+    _, _, group = _lane_layout(c, num_heads)
+    warps, _ = _bwd_warps_smem(c, a2, group, dtype)
+    return min(-(-nd // warps), _REF_SMS * _bwd_ctas_per_sm(c, num_heads, a2, dtype))
 
 
 def edge_attn_csr_bwd(
@@ -446,9 +511,7 @@ def edge_attn_csr_bwd(
              "q, kv, w_aug and g_num must start on 16-byte boundaries (rows are read as 16-byte vectors)")
     dev = q.device
     vb, _, group = _lane_layout(c, num_heads)
-    # rows of the dw_aug partials: one a CTA of the dst pass's persistent grid (sized by occupancy)
-    parts = _bwd_grid(dev.index if dev.index is not None else torch.cuda.current_device(), dt, nd, c, num_heads,
-                      a2, group, vb)
+    parts = _bwd_parts(nd, c, num_heads, a2, dt)  # rows of the dw_aug partials, from the shape alone
     dq = torch.empty((bnd, c), dtype=torch.float32, device=dev)
     dkv = torch.empty((batch * ns, 2 * c), dtype=torch.float32, device=dev)
     da = torch.empty((num_edges, a2), dtype=torch.float32, device=dev)

@@ -29,12 +29,17 @@ the graph functions sort by destination, so it is the CSR order.
   layers, the TPU kernel's case) runs the per-node pre-pass (the Hopper GEMM
   of ``csrc/gemm_sm90.cuh`` in bf16, the CUDA cores in fp32), then the
   message and aggregation kernels; ``layered`` (``csrc/gnn_conv_layered.cu``:
-  every other C % 8 == 0 and any MLP depth) runs the same pre-pass, then per
+  every other width and any MLP depth) runs the same pre-pass, then per
   chunk of :data:`LAYERED_CHUNK` edges one GEMM per Dense with the factored
   first layer's gather, the activation and the rounding in its epilogues, a
-  LayerNorm row kernel, and the same aggregation. Each call counts one
-  launch of its route in :data:`LAUNCHES`. There is no plain route on the
-  card.
+  LayerNorm row kernel, and the same aggregation. The GEMM's tensor maps
+  need 16-byte rows, so a width that is not a multiple of 8 is padded with
+  zero columns (activations, edge features, weights, biases and the
+  LayerNorm's gamma and beta; a zero column stays zero through every Dense,
+  whatever the activation makes of it, since it meets zero weights), the
+  LayerNorm's statistics run over the true width and the outputs are sliced
+  back. Each call counts one launch of its route in :data:`LAUNCHES`. There
+  is no plain route on the card.
 - :class:`GNNConv` is the Function GraphConv runs through: its backward
   recomputes through the plain version and differentiates it, as
   ``ops/slot_gnn.py:conv_bwd`` recomputes through ``_slot_gnn_once``.
@@ -70,11 +75,10 @@ def _gnn_route(c: int, n_dense: int) -> str:
     """Which kernel route takes a GNN conv of width ``c`` with ``n_dense``
     Dense layers on the card: ``"fused"`` (``csrc/gnn_conv.cu``) for the
     widths it is built for with three Dense layers, ``"layered"``
-    (``csrc/gnn_conv_layered.cu``) for every other width and depth. Raises
-    for a width that is not a multiple of 8: the GEMM's tensor maps need
-    16-byte rows."""
-    if c <= 0 or c % 8:
-        raise ValueError(f"the GNN conv kernels take C % 8 == 0 (16-byte rows for the GEMM's tensor maps), got C={c}")
+    (``csrc/gnn_conv_layered.cu``) for every other width and depth, a width
+    that is not a multiple of 8 padded to one (:func:`_padded`)."""
+    if c <= 0:
+        raise ValueError(f"the GNN conv kernels take C > 0, got C={c}")
     if n_dense < 2:
         raise ValueError(f"the GNN conv kernels take at least two Dense layers, got {n_dense}")
     return "fused" if c in _FUSED_WIDTHS and n_dense == 3 else "layered"
@@ -137,6 +141,27 @@ def gnn_conv_plain(
     return aggregate(msg, rowptr), msg
 
 
+def _padded(x_dst: torch.Tensor, x_src: torch.Tensor, e: torch.Tensor, ops: Sequence[torch.Tensor],
+            cp: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, list[torch.Tensor]]:
+    """The conv's operands at width ``cp`` (a multiple of 8 above C), the new
+    columns zero: the rows of x_dst, x_src and e, each Dense's output rows and
+    input columns (the first Dense's three C-wide blocks each padded in
+    place), its bias, and the LayerNorm's gamma and beta."""
+    c = e.shape[-1]
+    rows = [torch.nn.functional.pad(t, (0, cp - c)).contiguous() for t in (x_dst, x_src, e)]
+    *dense, gamma, beta = ops
+    out = []
+    for i in range(0, len(dense), 2):
+        w, b = dense[i], dense[i + 1]
+        blocks = w.shape[1] // c
+        wp = torch.zeros((cp, blocks * cp), dtype=w.dtype, device=w.device)
+        for k in range(blocks):
+            wp[:c, k * cp:k * cp + c] = w[:, k * c:(k + 1) * c]
+        out += [wp, torch.nn.functional.pad(b, (0, cp - c))]
+    out += [torch.nn.functional.pad(gamma, (0, cp - c)), torch.nn.functional.pad(beta, (0, cp - c))]
+    return (*rows, out)
+
+
 def gnn_conv(
     x_dst: torch.Tensor,
     x_src: torch.Tensor,
@@ -173,6 +198,11 @@ def gnn_conv(
     _require(all(t.shape == (c,) for t in (*biases, gamma, beta)), "biases and LayerNorm affine must be (C,)")
     _require_contiguous(x_dst=x_dst, x_src=x_src, e=e, rowptr=rowptr, src=src, gamma=gamma, beta=beta,
                         **{f"dense_{i}": t for i, t in enumerate(dense)})
+    c_ln = c  # the LayerNorm's statistics run over the true width
+    if c % 8:
+        c = c + 8 - c % 8
+        x_dst, x_src, e, ops = _padded(x_dst, x_src, e, ops, c)
+        *dense, gamma, beta = ops
     _require(all(t.data_ptr() % 16 == 0 for t in (x_dst, x_src, e, *ops)), "rows must be 16-byte aligned")
     msg = torch.empty_like(e)
     agg = torch.empty((batch, nd, c), dtype=torch.float32, device=e.device)
@@ -200,11 +230,13 @@ def gnn_conv(
             rc = getattr(lib, f"gnn_conv_layered_{suffix}")(
                 x_dst.data_ptr(), x_src.data_ptr(), e.data_ptr(), rowptr.data_ptr(), src.data_ptr(), ptrs, n_dense,
                 gamma.data_ptr(), beta.data_ptr(), p_dst.data_ptr(), p_src.data_ptr(), h0.data_ptr(), h1.data_ptr(),
-                hf.data_ptr(), chunk, msg.data_ptr(), agg.data_ptr(), batch, nd, ns, num_edges, c, code, stream,
+                hf.data_ptr(), chunk, msg.data_ptr(), agg.data_ptr(), batch, nd, ns, num_edges, c, c_ln, code, stream,
             )
     name = "gnn_conv" if route == "fused" else "gnn_conv_layered"
     _check_launch(rc, name)
     LAUNCHES[name] += 1
+    if c != c_ln:
+        return agg[..., :c_ln].contiguous(), msg[..., :c_ln].contiguous()
     return agg, msg
 
 

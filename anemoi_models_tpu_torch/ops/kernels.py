@@ -45,12 +45,12 @@ _SIGNATURES = {
     "edge_attn_csr_bf16": [_P] * 9 + [_I] * 8 + [_P],
     "edge_attn_csr_bwd_f32": [_P] * 19 + [_I] * 10 + [_P],
     "edge_attn_csr_bwd_bf16": [_P] * 19 + [_I] * 10 + [_P],
-    "edge_attn_csr_bwd_grid_f32": [_I] * 6 + [_P],
-    "edge_attn_csr_bwd_grid_bf16": [_I] * 6 + [_P],
+    "edge_attn_csr_bwd_per_sm_f32": [_I] * 5 + [_P],
+    "edge_attn_csr_bwd_per_sm_bf16": [_I] * 5 + [_P],
     "gnn_conv_f32": [_P] * 17 + [_I] * 6 + [_P],
     "gnn_conv_bf16": [_P] * 17 + [_I] * 6 + [_P],
-    "gnn_conv_layered_f32": [_P] * 5 + [ctypes.POINTER(_P), _I] + [_P] * 7 + [_I] + [_P] * 2 + [_I] * 6 + [_P],
-    "gnn_conv_layered_bf16": [_P] * 5 + [ctypes.POINTER(_P), _I] + [_P] * 7 + [_I] + [_P] * 2 + [_I] * 6 + [_P],
+    "gnn_conv_layered_f32": [_P] * 5 + [ctypes.POINTER(_P), _I] + [_P] * 7 + [_I] + [_P] * 2 + [_I] * 7 + [_P],
+    "gnn_conv_layered_bf16": [_P] * 5 + [ctypes.POINTER(_P), _I] + [_P] * 7 + [_I] + [_P] * 2 + [_I] * 7 + [_P],
     "gnn_prepass_f32": [_P] * 6 + [_I] * 3 + [_P],
     "gnn_prepass_bf16": [_P] * 6 + [_I] * 3 + [_P],
     "flash_attn_f32": [_P] * 4 + [_I] * 4 + [_L] * 6 + [_I, _I, _F, _P],

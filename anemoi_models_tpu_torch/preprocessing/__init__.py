@@ -1,13 +1,13 @@
-"""Pre/post-processing pipeline.
+"""Pre/post-processing pipeline (normalize, impute, remap).
 
 Counterpart of ``anemoi_models_tpu/preprocessing/__init__.py``: processors are
 plain objects holding tensors; ``transform`` / ``inverse_transform`` are
 functions of the input, and ``in_place`` is accepted for API parity (the port
 never writes into the caller's tensor). ``to(device)`` moves a processor's
 tensors. ``fit``, ``state_dict`` and ``load_state_dict`` carry a stateful
-processor's data-dependent buffers through a checkpoint, as the JAX
-package's do; the port's processors (the normalizer) hold none, so their
-state is ``{}``.
+processor's data-dependent buffers (an imputer's first-batch NaN mask and
+loss mask) through a checkpoint, as the JAX package's do; a stateless
+processor's state is ``{}``.
 """
 
 from __future__ import annotations
@@ -125,11 +125,11 @@ class Processors:
         return {name: p.state_dict() for name, p in self.processors.items() if p.state_dict()}
 
     def load_state_dict(self, state: dict) -> None:
-        """Restore :meth:`state_dict`; state for a processor this pipeline
-        does not have (the JAX package's imputers are not ported) raises."""
+        """Restore :meth:`state_dict` (the port's, or the JAX package's);
+        state for a processor this pipeline does not have raises."""
         missing = sorted(set(state) - set(self.processors))
         if missing:
             raise ValueError(f"processor state for {missing}, which this pipeline does not have "
-                             f"(it has {sorted(self.processors)}); the port has no imputers yet")
+                             f"(it has {sorted(self.processors)})")
         for name, sub in state.items():
             self.processors[name].load_state_dict(sub)

@@ -5,7 +5,7 @@ train steps (one step, and through a rollout) and rollout driver. CRPS and
 the data loaders are not ported yet.
 """
 
-from anemoi_models_tpu_torch.training.loss import WeightedMSELoss, weighted_mse
+from anemoi_models_tpu_torch.training.loss import WeightedMSELoss, loss_mask, weighted_mse
 from anemoi_models_tpu_torch.training.optim import AdamW, ema_update, make_optimizer, warmup_cosine_decay_schedule
 from anemoi_models_tpu_torch.training.rollout import make_rollout_fn
 from anemoi_models_tpu_torch.training.step import make_rollout_train_step, make_train_step
@@ -14,6 +14,7 @@ __all__ = [
     "AdamW",
     "WeightedMSELoss",
     "ema_update",
+    "loss_mask",
     "make_optimizer",
     "make_rollout_fn",
     "make_rollout_train_step",

@@ -3,7 +3,9 @@
 Counterpart of ``weighted_mse`` and ``WeightedMSELoss`` in
 ``anemoi_models_tpu/training/loss.py``: an area-weighted MSE over grid points
 with optional per-variable weights and the imputer's loss mask, computed in
-fp32 whatever the prediction's dtype.
+fp32 whatever the prediction's dtype; and :func:`loss_mask`, the counterpart
+of ``anemoi_models_tpu/training/run.py:_loss_mask``, which finds that mask in
+a processor pipeline.
 """
 
 from __future__ import annotations
@@ -12,7 +14,18 @@ from typing import Optional
 
 import torch
 
-__all__ = ["weighted_mse", "WeightedMSELoss"]
+__all__ = ["loss_mask", "weighted_mse", "WeightedMSELoss"]
+
+
+def loss_mask(pipeline) -> Optional[torch.Tensor]:
+    """The (grid, vars_out) training mask of the first processor in
+    ``pipeline`` (a ``Processors``) that fit one (an imputer), or None: pass
+    it to :class:`WeightedMSELoss` to train without the imputed points."""
+    for processor in getattr(pipeline, "processors", {}).values():
+        mask = getattr(processor, "loss_mask_training", None)
+        if mask is not None:
+            return mask
+    return None
 
 
 def weighted_mse(

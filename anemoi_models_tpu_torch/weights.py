@@ -16,7 +16,11 @@ JAX checkpoint held bf16) into a state dict of the port's modules:
   ``lin_qr`` (``[q | r]``) and ``lin_kv`` (``[k | v]``);
 - under the commuted dataflow the encoder's ``emb_nodes_src`` sits at
   ``encoder/proc/emb_nodes_src``; the port keeps it at ``encoder.emb_nodes_src``
-  and accepts either place (for a mapper's own tree too: ``proc/emb_nodes_src``).
+  and accepts either place (for a mapper's own tree too: ``proc/emb_nodes_src``);
+- the hierarchical model's per-level modules, flax's
+  ``down_level_processor_<level>``, ``up_level_processor_<level>``,
+  ``downscale_<level>`` and ``upscale_<level>``, are entries of the port's
+  ``nn.ModuleDict``s: ``down_level_processor.<level>`` and so on.
 
 :func:`to_flax_params` is its inverse: it carries a state dict (a model
 trained in the port, or its gradients) back to the JAX package's tree.
@@ -43,6 +47,8 @@ _RENAME = {"kernel": "weight", "scale": "weight"}
 _INLINE_MLP = {"AutocastLayerNorm_0": "norm", "Dense_0": "fc1", "Dense_1": "fc2"}
 _LAYER_INDEX = re.compile(r"^(proc|blocks)_(\d+)$")
 _FLAX_NAME = {**{port: flax for flax, port in _INLINE_MLP.items()}, "mlp": "MLP_0"}
+# the hierarchical model's per-level modules: flax <dict>_<level>, the port's ModuleDict <dict>.<level>
+_LEVEL_DICTS = ("down_level_processor", "up_level_processor", "downscale", "upscale")
 
 
 def _rename(parent: str, token: str) -> str:
@@ -71,6 +77,9 @@ def _port_name(path: tuple) -> str:
         path = (*path[: i - 1], *path[i:])  # commuted layout: <mapper>/proc/emb_nodes_src
     if len(path) == 2 and path[0] == "node_attributes" and path[1].startswith("trainable_"):
         path = ("node_attributes", "trainable", path[1][len("trainable_"):])
+    level_dict = next((d for d in _LEVEL_DICTS if path[0].startswith(d + "_")), None)
+    if level_dict is not None:
+        return ".".join((level_dict, path[0][len(level_dict) + 1:], _port_name(("_level", *path[1:]))[len("_level."):]))
     tokens = []
     for parent, token in zip(("", *path), path):
         if token == "LayerNorm_0":  # flax LayerNorm wrapped by AutocastLayerNorm
@@ -105,6 +114,11 @@ def _flax_path(name: str, state: Mapping[str, torch.Tensor]) -> tuple:
     stem, leaf = name.split(".")[:-1], name.split(".")[-1]
     if stem == ["node_attributes", "trainable"]:
         return ("node_attributes", f"trainable_{leaf}")
+    if stem[0] in _LEVEL_DICTS:
+        inner = _flax_path(".".join(["_level", *stem[2:], leaf]), {
+            ".".join(["_level", *k.split(".")[2:]]): v for k, v in state.items()
+            if k.split(".")[:2] == stem[:2]})
+        return (f"{stem[0]}_{stem[1]}", *inner[1:])
     path: list[str] = []
     for token in stem:
         if token.isdigit() and path and path[-1] in ("proc", "blocks"):

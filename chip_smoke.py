@@ -84,7 +84,33 @@ Builds the port's CUDA kernels from ``anemoi_models_tpu_torch/csrc``, then:
     train step's launches, peak memory);
 11. for each flavor, two models built from one seed and two train steps of
     each on one batch: the losses, every parameter and every AdamW moment
-    compared bit for bit (the GraphTransformer's must be identical).
+    compared bit for bit (the GraphTransformer's must be identical);
+12. both edge-attention kernels at the head widths of the hierarchical model
+    (D = 128 and 256 on the O96 pyramid's r4 / r3 level processors and its
+    r5->r4, r4->r3 downscale and r4->r5, r3->r4 upscale edge sets) and at
+    head widths that are not powers of two (D = 96 and 48 on the flat
+    processor's set), fp32 and bf16, at the flagship's bounds, two calls of
+    each bit-identical, timed beside their bounds (the GNN conv's layered
+    route also at C = 36, 100 and 260, padded to a multiple of 8, in 6.);
+    and a reduced fp32 hierarchical model (a 16-latitude grid, 3 levels on an
+    r3 mesh, C = 64 with 1 head, so that D reaches 256 on the coarsest
+    level, and with 4 heads) against the CPU as in 3.;
+13. bench.py's hierarchical model (``BENCH_MODEL=hierarchical``, built
+    through ``configs.hierarchical`` and ``build_hierarchical_graph``): the
+    O96 grid and the r5 / r4 / r3 pyramid (10,242 / 2,562 / 642 nodes), C =
+    256 / 512 / 1024 with 4 heads, level processors of 2 layers, bf16,
+    batch 1, remat "full": three requests and three train steps at lr 1e-5
+    after a warm-up of each, finite, falling losses, the launches of
+    ``EXPECTED["hierarchical"]``, peak memory, and a profiled request and
+    step for the device's busy share;
+14. the flagship under the AIFS data path (``aifs_config``: a normalizer, an
+    InputImputer on the sst's seeded land points, a log1p Monomapper on
+    precipitation and the four boundings in config order): fit_processors,
+    three requests with NaN exactly at the imputer's land points and the
+    bounded variables within bounds, a 4-lead-time predict_rollout, two
+    train steps with the imputer's loss mask, a checkpoint round trip with
+    the imputer state served bit for bit, and the same config reduced (fp32)
+    on the card against the CPU through the whole pipeline.
 
 Prints the card's name and power limit, each kernel's registers and spills
 from the compiler's report (``ptxas``), per-phase numbers, each wrapper's
@@ -94,6 +120,7 @@ non-zero, with no result line, on any failure or when there is no card.
 
     python3 chip_smoke.py                      # what the checks need
     python3 chip_smoke.py --profile OUT_DIR    # also profile a train step and a request per path
+                                               # (the hierarchical path's always, into build/ by default)
     python3 chip_smoke.py --build-times DIR    # also time cold kernel builds
 """
 
@@ -111,16 +138,24 @@ import time
 import numpy as np
 import torch
 
+from anemoi_models_tpu_torch import configs
 from anemoi_models_tpu_torch.checkpoint import load_checkpoint
 from anemoi_models_tpu_torch.data_indices import IndexCollection
-from anemoi_models_tpu_torch.graphs import build_enc_proc_dec_graph
+from anemoi_models_tpu_torch.graphs import build_enc_proc_dec_graph, build_hierarchical_graph
 from anemoi_models_tpu_torch.interface import AnemoiModelInterface
 from anemoi_models_tpu_torch.ops import edge_attention as ea
 from anemoi_models_tpu_torch.ops import flash_attention as fa
 from anemoi_models_tpu_torch.ops import gnn_conv as gc
 from anemoi_models_tpu_torch.ops import kernels
 from anemoi_models_tpu_torch.ops.kernels import build_log, load_kernels
-from anemoi_models_tpu_torch.training import make_optimizer, make_rollout_train_step, make_train_step, weighted_mse
+from anemoi_models_tpu_torch.training import (
+    WeightedMSELoss,
+    loss_mask,
+    make_optimizer,
+    make_rollout_train_step,
+    make_train_step,
+    weighted_mse,
+)
 from anemoi_models_tpu_torch.utils import DotDict
 from kernel_turns import card, cuda_ms, host_us
 
@@ -149,7 +184,37 @@ EXPECTED = {
     "transformer": ({"flash_attention": 8, "kv_proj": 2, "edge_attn_csr": 2},
                     {"flash_attention": 16, "kv_proj": 2, "edge_attn_csr": 2, "edge_attn_csr_bwd": 2}),
     "gnn production": ({"gnn_conv_layered": 10}, {"gnn_conv_layered": 18}),
+    # the 3-level hierarchical model: 16 attention convs a request (encoder, 3 + 2 level processors of 2
+    # layers, 2 downscale and 2 upscale mappers, decoder); a train step recomputes the level processors'
+    # 10 layers (remat "full") and runs 16 backward
+    "hierarchical": ({"kv_proj": 16, "edge_attn_csr": 16},
+                     {"kv_proj": 26, "edge_attn_csr": 26, "edge_attn_csr_bwd": 16}),
 }
+# the AIFS data path: an sst over the sea only (imputed), cloud cover, precipitation and its convective part
+AIFS_NAME_TO_INDEX = {"lsm": 0, "z_500": 1, "t_850": 2, "sst": 3, "tcc": 4, "t2m": 5, "tp": 6, "cp": 7}
+AIFS_BOUNDING = [  # all four, in config order
+    {"_target_": "anemoi.models.layers.bounding.ReluBounding", "variables": ["tp"]},
+    {"_target_": "anemoi.models.layers.bounding.HardtanhBounding", "variables": ["tcc"], "min_val": 0.0,
+     "max_val": 1.0},
+    {"_target_": "anemoi.models.layers.bounding.FractionBounding", "variables": ["cp"], "min_val": 0.0,
+     "max_val": 1.0, "total_var": "tp"},
+    {"_target_": "anemoi.models.layers.bounding.LeakyReluBounding", "variables": ["z_500"]},
+]
+# (label, (source, destination) node sets, C, heads): the O96 hierarchical model's edge sets at the widths
+# its modules run them (hidden_dims 256 / 512 / 1024 with 4 heads: D = 128 on r4, 256 on r3)
+HIER_ATTN = (
+    ("r4 level processor", ("hidden_2", "hidden_2"), 512, 4),
+    ("r3 level processor", ("hidden_3", "hidden_3"), 1024, 4),
+    ("r5->r4 downscale", ("hidden_1", "hidden_2"), 512, 4),
+    ("r4->r3 downscale", ("hidden_2", "hidden_3"), 1024, 4),
+    ("r4->r5 upscale", ("hidden_2", "hidden_1"), 512, 4),
+    ("r3->r4 upscale", ("hidden_3", "hidden_2"), 1024, 4),
+)
+# and the flat processor's set at head widths that are not powers of two (the lanes pad each head)
+FLAT_ATTN = (("processor D=96", ("hidden", "hidden"), 384, 4), ("processor D=48", ("hidden", "hidden"), 192, 4))
+# the flat graph's three sets at the production width (C = 1024, 16 heads: four head groups a row)
+WIDE_ATTN = tuple((label, names, 1024, 16) for label, names in (
+    ("processor", ("hidden", "hidden")), ("encoder", ("data", "hidden")), ("decoder", ("hidden", "data"))))
 ROLLOUT_STEPS = 4  # lead times of the rollout phase
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 BWD_TOL = 1e-4
@@ -305,9 +370,8 @@ def model_config(num_channels: int, num_layers: int, num_chunks: int, dtype: str
     })
 
 
-def statistics(seed: int) -> dict:
+def statistics(seed: int, n: int = len(NAME_TO_INDEX)) -> dict:
     rng = np.random.RandomState(seed)
-    n = len(NAME_TO_INDEX)
     return {
         "mean": rng.rand(n) * 10,
         "stdev": rng.rand(n) + 0.5,
@@ -316,12 +380,14 @@ def statistics(seed: int) -> dict:
     }
 
 
-def interface(graph, cfg: DotDict, device, seed: int) -> AnemoiModelInterface:
+def interface(graph, cfg: DotDict, device, seed: int, name_to_index: dict | None = None,
+              stats: dict | None = None) -> AnemoiModelInterface:
     """Interface with seeded flax-style weights; trainable tensors (zero at
     init) get seeded noise so the edge- and node-attribute paths carry signal."""
+    name_to_index = name_to_index or NAME_TO_INDEX
     iface = AnemoiModelInterface(
-        config=cfg, graph_data=graph, statistics=statistics(seed),
-        data_indices=IndexCollection(cfg, NAME_TO_INDEX), device=device,
+        config=cfg, graph_data=graph, statistics=stats or statistics(seed, len(name_to_index)),
+        data_indices=IndexCollection(cfg, name_to_index), device=device,
     )
     gen = torch.Generator().manual_seed(seed)
     iface.init_params(gen)
@@ -341,10 +407,12 @@ def train_batch(iface: AnemoiModelInterface, num_grid: int, seed: int) -> tuple[
     return torch.from_numpy(x), torch.from_numpy(y)
 
 
-def edge_case(graph, label: str, dev, gen, c: int = 256, keep=None, h: int = 4) -> dict:
-    """One real edge set of the main path on the card, with seeded inputs."""
-    s_name, d_name = {"processor": ("hidden", "hidden"), "encoder": ("data", "hidden"),
-                      "decoder": ("hidden", "data")}[label]
+def edge_case(graph, label: str, dev, gen, c: int = 256, keep=None, h: int = 4, names=None) -> dict:
+    """One real edge set of the main path on the card, with seeded inputs:
+    the flat graph's processor, encoder or decoder set, or the set between
+    the node sets ``names`` (source, destination)."""
+    s_name, d_name = names or {"processor": ("hidden", "hidden"), "encoder": ("data", "hidden"),
+                               "decoder": ("hidden", "data")}[label]
     es = graph[(s_name, "to", d_name)]
     ns, nd = graph[s_name].num_nodes, graph[d_name].num_nodes
     edge_index = es.edge_index if keep is None else es.edge_index[:, keep]
@@ -508,48 +576,6 @@ def phase_backward_kernels(graph, dev) -> tuple[dict, list]:
     return {**summary, "max_abs_err": bf16_err}, rows
 
 
-def phase_wide_kernels(graph, dev, c: int = 1024, h: int = 16) -> list:
-    """edge_attn_csr and edge_attn_csr_bwd at the production width (C =
-    1024, 16 heads: four head groups of 256 channels) on the three O96 edge
-    sets, one layer, fp32 and bf16, against their plain versions at the
-    bounds of the flagship's (forward elementwise, backward normwise), two
-    calls of each bit-identical; the kernels timed."""
-    gen = torch.Generator().manual_seed(5)
-    rows = []
-    for label in ("processor", "encoder", "decoder"):
-        case = edge_case(graph, label, dev, gen, c, h=h)
-        rp, sr, csr_t = case["rowptr"], case["src"], case["csr_t"]
-        g_num, g_den = case["g_num"].to(dev), case["g_den"].to(dev)
-        shape = f"C={c} H={h} {label} E={case['num_edges']} Nd={case['nd']} Ns={case['ns']}"
-        for dt in (torch.float32, torch.bfloat16):
-            q, kv, a, wa = (case[k].to(dev, dt) for k in ("q", "kv", "a", "w_aug"))
-            fwd = (q, kv, rp, sr, a, wa, h)
-            got, again = ea.edge_attn_csr(*fwd), ea.edge_attn_csr(*fwd)
-            want = ea.edge_attn_csr_plain(*fwd)
-            torch.cuda.synchronize()
-            what = f"edge_attn_csr {shape} {dt}"
-            if not all(torch.equal(g, g2) for g, g2 in zip(got, again)):
-                raise AssertionError(f"{what}: two calls differ (not run-to-run deterministic)")
-            fwd_err = max(max_err(g, w_, TOL[dt], f"{what} {n}") for g, w_, n in zip(got, want, ("num", "den", "m")))
-            del want
-            args = (q, kv, rp, sr, a, wa, got.m, g_num, g_den, h)
-            bgot, bagain = ea.edge_attn_csr_bwd(*args, csr_t), ea.edge_attn_csr_bwd(*args, csr_t)
-            bwant = ea.edge_attn_csr_bwd_plain(*args)
-            torch.cuda.synchronize()
-            what = f"edge_attn_csr_bwd {shape} {dt}"
-            for name, g, g2 in zip(("dq", "dkv", "da", "dw_aug"), bgot, bagain):
-                if not torch.equal(g, g2):
-                    raise AssertionError(f"{what} {name}: two calls differ (not run-to-run deterministic)")
-            bwd_err = max(normwise_err(g, w_, f"{what} {n}") for g, w_, n in zip(bgot, bwant, ("dq", "dkv", "da", "dw_aug")))
-            del bwant
-            fb, bb = attn_bounds(case, c, h, dt)
-            rows.append({"shape": shape, "dtype": str(dt).split(".")[-1], "bit_identical": True,
-                         "fwd_max_abs_err": fwd_err, "bwd_normwise_err": bwd_err,
-                         "fwd_ms": cuda_ms(lambda: ea.edge_attn_csr(*fwd)), "fwd_bound_ms": fb["bound_ms"],
-                         "bwd_ms": cuda_ms(lambda: ea.edge_attn_csr_bwd(*args, csr_t)), "bwd_bound_ms": bb["bound_ms"]})
-    return rows
-
-
 def gnn_case(graph, label: str, dev, gen, c: int = 256, keep=None, extra: int = 0) -> dict:
     """One real edge set with seeded GNN conv inputs on the card (fp32), the
     edge MLP with ``extra`` hidden Dense layers more than three; the
@@ -663,7 +689,8 @@ def phase_gnn_kernels(graph, dev) -> tuple[dict, list]:
     return {**summary, "max_abs_err": bf16_err}, rows
 
 
-GNN_WIDTHS = ((384, 0), (512, 0), (1024, 0), (256, 1), (256, 2))  # (C, mlp_extra_layers): the layered route
+# (C, mlp_extra_layers): the layered route; C = 36, 100 and 260 padded to a multiple of 8
+GNN_WIDTHS = ((384, 0), (512, 0), (1024, 0), (256, 1), (256, 2), (36, 0), (100, 0), (260, 0))
 
 
 def phase_gnn_widths(graph, dev) -> tuple[dict, list]:
@@ -753,15 +780,21 @@ def phase_flash_kernels(dev, n0: int = 10242, w0: int = 512) -> tuple[dict, list
 
 
 def phase_reduced_model(graph, dev, flavor: str = "graphtransformer", channels: int = 64, heads: int = 4,
-                        kernel: str | None = None, mlp_extra_layers: int = 0) -> dict:
+                        kernel: str | None = None, mlp_extra_layers: int = 0, cfg: DotDict | None = None,
+                        name_to_index: dict | None = None, stats: dict | None = None,
+                        pipeline_batch: torch.Tensor | None = None) -> dict:
     """Reduced fp32 model: kernels on the card against plain on the CPU, in
     the forward, the gradients and a 3-step train trace; ``kernel`` must
-    launch (the flavor's own by default)."""
-    cfg = model_config(num_channels=channels, num_layers=2, num_chunks=1, dtype="float32", flavor=flavor,
-                       num_heads=heads, mlp_extra_layers=mlp_extra_layers)
+    launch (the flavor's own by default). ``cfg`` (fp32) replaces the
+    flavor's config, with its variables and statistics; with
+    ``pipeline_batch`` the processors are fitted on it on both devices and
+    ``predict_step`` through the whole pipeline is compared too (the same
+    NaN positions, the values at the forward's bound)."""
+    cfg = cfg or model_config(num_channels=channels, num_layers=2, num_chunks=1, dtype="float32", flavor=flavor,
+                              num_heads=heads, mlp_extra_layers=mlp_extra_layers)
     kernel = kernel or FLAVOR_KERNEL[flavor]
-    cpu = interface(graph, cfg, "cpu", seed=1)
-    gpu = interface(graph, cfg, "cpu", seed=1).to(dev)
+    cpu = interface(graph, cfg, "cpu", seed=1, name_to_index=name_to_index, stats=stats)
+    gpu = interface(graph, cfg, "cpu", seed=1, name_to_index=name_to_index, stats=stats).to(dev)
     n_grid = graph["data"].num_nodes
     x, y = train_batch(cpu, n_grid, seed=2)
     t0 = time.perf_counter()
@@ -790,18 +823,32 @@ def phase_reduced_model(graph, dev, flavor: str = "graphtransformer", channels: 
     trace_err = float(np.max(np.abs(np.subtract(traces[1], traces[0])) / np.abs(traces[0])))
     if not np.all(np.isfinite(traces[1])) or trace_err > 6e-4:
         raise AssertionError(f"reduced train trace: GPU {traces[1]} vs CPU {traces[0]} (rel err {trace_err:.3e})")
-    return {"grid": n_grid, "hidden": graph["hidden"].num_nodes, "max_abs_err": err, "bound": 1e-4 * scale,
-            "cpu_forward_s": cpu_s, "grad_normwise_err": grad_err, "loss_trace_cpu": traces[0],
-            "loss_trace_gpu": traces[1], "loss_trace_rel_err": trace_err}
+    hidden = {name: ns.num_nodes for name, ns in graph.node_items() if name != "data"}
+    out = {"grid": n_grid, "hidden": hidden, "max_abs_err": err, "bound": 1e-4 * scale,
+           "cpu_forward_s": cpu_s, "grad_normwise_err": grad_err, "loss_trace_cpu": traces[0],
+           "loss_trace_gpu": traces[1], "loss_trace_rel_err": trace_err}
+    if pipeline_batch is not None:
+        cpu.fit_processors(pipeline_batch)
+        gpu.fit_processors(pipeline_batch.to(dev))
+        want, got = cpu.predict_step(pipeline_batch), gpu.predict_step(pipeline_batch.to(dev)).cpu()
+        finite = ~torch.isnan(want)
+        scale = max(1.0, want[finite].abs().mean().item())
+        pred_err = (got[finite] - want[finite]).abs().max().item()
+        if not torch.equal(torch.isnan(got), torch.isnan(want)) or pred_err > 1e-4 * scale:
+            raise AssertionError(f"reduced pipeline: predict_step GPU vs CPU max err {pred_err:.3e} "
+                                 f"(bound {1e-4 * scale:.3e}) or NaN positions differ")
+        out.update({"predict_step_max_abs_err": pred_err, "predict_step_nan": int((~finite).sum())})
+    return out
 
 
 def phase_serving(graph, dev, flavor: str = "graphtransformer", profile_dir: str | None = None,
-                  channels: int = 256, heads: int = 4, expected: dict | None = None) -> dict:
+                  channels: int = 256, heads: int = 4, expected: dict | None = None,
+                  cfg: DotDict | None = None) -> dict:
     """Flagship bf16 serving through predict_step (or the same model at
-    another width); per-request launch counts (``expected``: the flavor's
-    EXPECTED by default)."""
-    cfg = model_config(num_channels=channels, num_layers=8, num_chunks=2, dtype="bfloat16", flavor=flavor,
-                       num_heads=heads)
+    another width, or ``cfg``'s model: ``flavor`` then labels it); per-request
+    launch counts (``expected``: the flavor's EXPECTED by default)."""
+    cfg = cfg or model_config(num_channels=channels, num_layers=8, num_chunks=2, dtype="bfloat16", flavor=flavor,
+                              num_heads=heads)
     iface = interface(graph, cfg, dev, seed=3)
     n_grid = graph["data"].num_nodes
     di = iface.data_indices
@@ -860,15 +907,16 @@ def timed_steps(step, x, y, n: int) -> tuple[list, list, list]:
 def phase_train(graph, dev, profile_dir: str | None, flavor: str = "graphtransformer",
                 remat_none: bool = True, channels: int = 256, heads: int = 4, lr: float = 1e-3,
                 expected: dict | None = None, steps: int = 4,
-                must_fall: bool = True) -> tuple[dict, AnemoiModelInterface]:
+                must_fall: bool = True, cfg: DotDict | None = None) -> tuple[dict, AnemoiModelInterface]:
     """Flagship bf16 train steps at full width (remat "full", then, with
-    ``remat_none``, "none"), or the same model at another width, at peak
-    learning rate ``lr``. Losses must be finite and the last below the
-    first (with ``must_fall``); ``steps`` includes the warm-up; launches per
-    step as ``expected`` (the flavor's EXPECTED by default). Returns the
-    numbers and the trained interface."""
-    cfg = model_config(num_channels=channels, num_layers=8, num_chunks=2, dtype="bfloat16", remat_policy="full",
-                       flavor=flavor, num_heads=heads)
+    ``remat_none``, "none"), or the same model at another width (or
+    ``cfg``'s model, ``flavor`` then labelling it), at peak learning rate
+    ``lr``. Losses must be finite and the last below the first (with
+    ``must_fall``); ``steps`` includes the warm-up; launches per step as
+    ``expected`` (the flavor's EXPECTED by default). Returns the numbers and
+    the trained interface."""
+    cfg = cfg or model_config(num_channels=channels, num_layers=8, num_chunks=2, dtype="bfloat16",
+                              remat_policy="full", flavor=flavor, num_heads=heads)
     iface = interface(graph, cfg, dev, seed=4)
     model = iface.model
     x, y = (t.to(dev) for t in train_batch(iface, graph["data"].num_nodes, seed=20))
@@ -1054,6 +1102,265 @@ def phase_determinism(graph, dev, flavor: str) -> dict:
             "leaves": len(runs[0]), "losses": runs[0]["losses"].tolist()}
 
 
+def phase_attn_widths(graph, dev, cases) -> list:
+    """edge_attn_csr and edge_attn_csr_bwd on ``graph``'s edge sets at the
+    widths of ``cases`` ((label, (source, destination), C, heads): WIDE_ATTN,
+    HIER_ATTN, FLAT_ATTN), fp32 and bf16, batch 1, against their plain
+    versions at the flagship's bounds (forward elementwise, backward
+    normwise), two calls of each bit-identical; each timed beside its bound
+    and its plain version, with the backward's count of dw_aug partials."""
+    gen = torch.Generator().manual_seed(8)
+    rows = []
+    for label, names, c, h in cases:
+        case = edge_case(graph, label, dev, gen, c, h=h, names=names)
+        rp, sr, csr_t = case["rowptr"], case["src"], case["csr_t"]
+        g_num, g_den = case["g_num"].to(dev), case["g_den"].to(dev)
+        shape = f"{label} C={c} H={h} D={c // h} E={case['num_edges']} Nd={case['nd']} Ns={case['ns']}"
+        for dt in (torch.float32, torch.bfloat16):
+            q, kv, a, wa = (case[k].to(dev, dt) for k in ("q", "kv", "a", "w_aug"))
+            fwd = (q, kv, rp, sr, a, wa, h)
+            got, again, want = ea.edge_attn_csr(*fwd), ea.edge_attn_csr(*fwd), ea.edge_attn_csr_plain(*fwd)
+            torch.cuda.synchronize()
+            what = f"edge_attn_csr {shape} {dt}"
+            if not all(torch.equal(g, g2) for g, g2 in zip(got, again)):
+                raise AssertionError(f"{what}: two calls differ (not run-to-run deterministic)")
+            fwd_err = max(max_err(g, w_, TOL[dt], f"{what} {n}") for g, w_, n in zip(got, want, ("num", "den", "m")))
+            args = (q, kv, rp, sr, a, wa, got.m, g_num, g_den, h)
+            bgot, bagain = ea.edge_attn_csr_bwd(*args, csr_t), ea.edge_attn_csr_bwd(*args, csr_t)
+            bwant = ea.edge_attn_csr_bwd_plain(*args)
+            torch.cuda.synchronize()
+            what = f"edge_attn_csr_bwd {shape} {dt}"
+            for name, g, g2 in zip(("dq", "dkv", "da", "dw_aug"), bgot, bagain):
+                if not torch.equal(g, g2):
+                    raise AssertionError(f"{what} {name}: two calls differ (not run-to-run deterministic)")
+            bwd_err = max(normwise_err(g, w_, f"{what} {n}") for g, w_, n in zip(bgot, bwant, ("dq", "dkv", "da", "dw_aug")))
+            fb, bb = attn_bounds(case, c, h, dt)
+            rows.append({"shape": shape, "dtype": str(dt).split(".")[-1], "bit_identical": True,
+                         "fwd_max_abs_err": fwd_err, "bwd_normwise_err": bwd_err,
+                         "fwd_ms": cuda_ms(lambda: ea.edge_attn_csr(*fwd)), "fwd_bound_ms": fb["bound_ms"],
+                         "fwd_plain_ms": cuda_ms(lambda: ea.edge_attn_csr_plain(*fwd), iters=3, warmup=1),
+                         "bwd_ms": cuda_ms(lambda: ea.edge_attn_csr_bwd(*args, csr_t)), "bwd_bound_ms": bb["bound_ms"],
+                         "bwd_plain_ms": cuda_ms(lambda: ea.edge_attn_csr_bwd_plain(*args), iters=3, warmup=1),
+                         "bwd_parts": ea._bwd_parts(case["nd"], c, h, case["a"].shape[1], dt)})
+            del want, bwant
+    return rows
+
+
+def hier_config(hidden_names: list, channels: int = 256, heads: int = 4, dtype: str = "bfloat16") -> DotDict:
+    """bench.py's hierarchical model (``BENCH_MODEL=hierarchical``) as
+    ``__graft_entry__._build_hierarchical`` builds it, through the port's
+    ``configs.hierarchical``: 4 heads, level processors of 2 layers in one
+    chunk, 8 trainable node and 4 trainable edge features, remat "full"."""
+    return configs.hierarchical(
+        forcing=["lsm"], diagnostic=["tp"], hidden_names=hidden_names, num_channels=channels, num_layers=8,
+        num_chunks=1, num_heads=heads, trainable_hidden=8, trainable_edges=4, level_process_num_layers=2,
+        remat_policy="full", compute_dtype=dtype,
+    )
+
+
+def busy_share(profile: dict, call_ms: list) -> list:
+    """The device's busy share of each timed call: the profiled call's
+    device busy ms over the call's ms by CUDA events, without the profiler."""
+    return [profile["device_busy_ms"] / ms for ms in call_ms]
+
+
+def phase_hierarchical(hgraph, names: list, dev, profile_dir: str) -> tuple[dict, dict]:
+    """bench.py's hierarchical model at full width on the O96 grid and the
+    r5 / r4 / r3 pyramid (C = 256 / 512 / 1024, 4 heads: D = 64 / 128 / 256),
+    bf16, batch 1: three predict_step requests and three train steps (AdamW
+    at peak learning rate 1e-5, as the C = 1024 phases train; remat "full")
+    after a warm-up of each, finite outputs and losses, falling losses,
+    EXPECTED["hierarchical"] launches per request and step, peak memory, and
+    a profiled request and step for the busy share."""
+    cfg = hier_config(names)
+    serving = phase_serving(hgraph, dev, "hierarchical", cfg=cfg, expected=EXPECTED["hierarchical"][0])
+    train, trained = phase_train(hgraph, dev, None, "hierarchical", remat_none=False, lr=1e-5,
+                                 expected=EXPECTED["hierarchical"][1], cfg=cfg)
+    di, stats = trained.data_indices, trained.statistics
+    in_idx = np.asarray(di.data.input.full)
+    raw = stats["mean"][in_idx] + stats["stdev"][in_idx] * np.random.RandomState(33).randn(
+        1, 2, hgraph["data"].num_nodes, len(in_idx))
+    batch = torch.from_numpy(raw.astype(np.float32)).to(dev)
+    serving["profile"] = phase_profile(lambda: trained.predict_step(batch), profile_dir, "request_hierarchical")
+    serving["busy_share"] = busy_share(serving["profile"], serving["request_ms"])
+    x, y = (t.to(dev) for t in train_batch(trained, hgraph["data"].num_nodes, seed=22))
+    step = make_train_step(trained.model, make_optimizer(trained.model.parameters(), 1e-5, warmup_steps=1,
+                                                         total_steps=100))
+    train["profile"] = phase_profile(lambda: step(x, y), profile_dir, "train_step_hierarchical")
+    train["busy_share"] = busy_share(train["profile"], train["step_ms"])
+    train["levels"] = {name: {"nodes": hgraph[name].num_nodes, "channels": trained.model.hidden_dims[name]}
+                       for name in names}
+    return serving, train
+
+
+def aifs_config(channels: int = 256, num_layers: int = 8, num_chunks: int = 2, dtype: str = "bfloat16") -> DotDict:
+    """The GraphTransformer flagship under the AIFS data path: a normalizer
+    (std for precipitation, none for cloud cover), an InputImputer filling
+    the sst's land points with its mean, a Remapper (Monomapper: log1p on tp
+    and cp, as the JAX package's tests/preprocessing configure it) and the
+    four boundings in config order."""
+    cfg = model_config(num_channels=channels, num_layers=num_layers, num_chunks=num_chunks, dtype=dtype)
+    cfg.data.diagnostic = ["t2m"]
+    cfg.data.processors = {
+        "normalizer": {"_target_": "anemoi.models.preprocessing.normalizer.InputNormalizer",
+                       "config": {"default": "mean-std", "std": ["tp", "cp"], "none": ["tcc"]}},
+        "imputer": {"_target_": "anemoi.models.preprocessing.imputer.InputImputer",
+                    "config": {"default": "none", "mean": ["sst"]}},
+        "remapper": {"_target_": "anemoi.models.preprocessing.remapper.Remapper",
+                     "config": {"log1p": ["tp", "cp"]}},
+    }
+    cfg.model.bounding = AIFS_BOUNDING
+    return cfg
+
+
+def aifs_statistics() -> dict:
+    """Seeded statistics, tp and cp with one stdev (so cp <= tp holds in
+    physical units once it holds in the model's)."""
+    stats = statistics(40, len(AIFS_NAME_TO_INDEX))
+    stats["stdev"][AIFS_NAME_TO_INDEX["cp"]] = stats["stdev"][AIFS_NAME_TO_INDEX["tp"]]
+    return stats
+
+
+def aifs_batch(n_grid: int, seed: int, land: np.ndarray, stats: dict, steps: int = 2) -> torch.Tensor:
+    """(1, steps, grid, input vars) physical values at the model's input
+    width: precipitation from a gamma law with its convective part below
+    it, cloud cover in [0, 1], the land-sea mask and the sst NaN on land."""
+    rng = np.random.RandomState(seed)
+    v = AIFS_NAME_TO_INDEX
+    x = stats["mean"] + stats["stdev"] * rng.randn(1, steps, n_grid, len(v))
+    x[..., v["tp"]] = rng.gamma(1.0, 1.0, (1, steps, n_grid))
+    x[..., v["cp"]] = x[..., v["tp"]] * rng.rand(1, steps, n_grid)
+    x[..., v["tcc"]] = rng.rand(1, steps, n_grid)
+    x[..., v["lsm"]] = land
+    x[:, :, land, v["sst"]] = np.nan
+    return torch.from_numpy(np.delete(x, v["t2m"], axis=-1).astype(np.float32))
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit for bit alike, NaN where the other is NaN."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a.masked_fill(nan, 0.0), b.masked_fill(nan, 0.0))
+
+
+def check_aifs_output(y: torch.Tensor, di, land: np.ndarray, what: str) -> None:
+    """NaN exactly at the imputed sst's land points and nowhere else; tp >= 0,
+    0 <= tcc <= 1, 0 <= cp <= tp."""
+    n2i = di.model.output.name_to_index
+    nan = torch.isnan(y).cpu()
+    sst = nan[..., n2i["sst"]]
+    if not bool((sst == torch.from_numpy(land)).all()) or int(nan.sum()) != int(sst.sum()):
+        raise AssertionError(f"{what}: NaN not exactly at the imputer's {int(land.sum())} land points "
+                             f"({int(sst.sum())} sst NaN, {int(nan.sum())} in all)")
+    tp, cp, tcc = (y[..., n2i[k]] for k in ("tp", "cp", "tcc"))
+    if not (bool((tp >= 0).all()) and bool((tcc >= 0).all()) and bool((tcc <= 1).all())
+            and bool((cp >= 0).all()) and bool((cp <= tp).all())):
+        raise AssertionError(f"{what}: a bounded variable left its bounds (tp {tp.min().item():.3g}, "
+                             f"tcc [{tcc.min().item():.3g}, {tcc.max().item():.3g}], cp - tp {(cp - tp).max().item():.3g})")
+
+
+def phase_aifs_data(graph, dev, small_graph, profile_dir: str) -> tuple[dict, dict]:
+    """The flagship (O96, r5, C = 256, 8 layers, 4 heads, bf16) under the AIFS
+    data path (aifs_config): fit_processors, then three predict_step
+    requests with NaN exactly at the imputer's land mask and the bounded
+    variables within bounds, the flagship's launches a request; a 4-lead-time
+    predict_rollout; two train steps with the imputer's loss mask (finite
+    losses, the flagship's launches a step); a checkpoint round trip that
+    carries the imputer state and serves bit for bit; and the same config
+    reduced (fp32, C = 64, 2 layers, a 16-latitude grid and an r3 mesh) on
+    the card against the CPU, through the model and the whole pipeline. A
+    request and a train step are profiled for the busy share."""
+    stats = aifs_statistics()
+    n_grid = graph["data"].num_nodes
+    land = np.random.RandomState(41).rand(n_grid) < 0.3
+    iface = interface(graph, aifs_config(), dev, seed=5, name_to_index=AIFS_NAME_TO_INDEX, stats=stats)
+    di = iface.data_indices
+    iface.fit_processors(aifs_batch(n_grid, 50, land, stats).to(dev))
+    requests = [aifs_batch(n_grid, seed, land, stats).to(dev) for seed in (51, 52, 53, 54)]
+    iface.predict_step(requests[0])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    ms, per_request = [], []
+    for batch in requests[1:]:
+        before = launches()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        y = iface.predict_step(batch)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        per_request.append({k: v - before[k] for k, v in launches().items()})
+        check_aifs_output(y, di, land, "aifs-data predict_step")
+    counts = launches()
+    expected = expect(counts, EXPECTED["graphtransformer"][0])
+    if any(c != expected for c in per_request):
+        raise AssertionError(f"aifs-data serving: expected {expected} launches per request, got {per_request}")
+    serving = {"request_ms": ms, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": counts,
+               "per_request": per_request[-1], "land_points": int(land.sum())}
+    serving["profile"] = phase_profile(lambda: iface.predict_step(requests[1]), profile_dir, "request_aifs_data")
+    serving["busy_share"] = busy_share(serving["profile"], ms)
+
+    # a 4-lead-time forecast, forcings pre-processed (the land-sea mask, normalized)
+    n_forcing = len(di.internal_model.input.forcing)
+    forcings = torch.from_numpy(np.random.RandomState(55).randn(ROLLOUT_STEPS, 1, 1, n_grid, n_forcing)
+                                .astype(np.float32)).to(dev)
+    reset_launches()
+    preds = iface.predict_rollout(requests[1], ROLLOUT_STEPS, forcings)
+    serving["rollout_launches"] = launches()
+    expected = expect(counts, {k: ROLLOUT_STEPS * v for k, v in EXPECTED["graphtransformer"][0].items()})
+    if serving["rollout_launches"] != expected:
+        raise AssertionError(f"aifs-data rollout: expected {expected} launches, got {serving['rollout_launches']}")
+    for t in range(ROLLOUT_STEPS):
+        check_aifs_output(preds[t], di, land, f"aifs-data rollout lead time {t}")
+    if not same_bits(preds[0], iface.predict_step(requests[1])):
+        raise AssertionError("aifs-data rollout: the first lead time differs from predict_step")
+
+    # two train steps with the imputer's loss mask, on the pre-processed batch
+    mask = loss_mask(iface.pre_processors)
+    if mask is None or not bool((mask == 0).any()):
+        raise AssertionError("aifs-data: the imputer gave no loss mask with masked points")
+    with torch.no_grad():
+        x = iface.pre_processors(requests[1])[:, :2, None]
+    y_t = torch.from_numpy(np.random.RandomState(56).randn(1, 1, n_grid, len(di.internal_model.output))
+                           .astype(np.float32)).to(dev)
+    model = iface.model
+    step = make_train_step(model, make_optimizer(model.parameters(), 1e-3, warmup_steps=1, total_steps=100),
+                           WeightedMSELoss(loss_mask=mask))
+    reset_launches()
+    losses, step_ms, per_step = timed_steps(step, x, y_t, 2)
+    expected = expect(launches(), EXPECTED["graphtransformer"][1])
+    if not np.all(np.isfinite(losses)) or any(c != expected for c in per_step):
+        raise AssertionError(f"aifs-data train: losses {losses}, launches {per_step} (expected {expected})")
+    train = {"losses": losses, "step_ms": step_ms, "launches": launches(), "per_step": per_step[-1],
+             "masked_points": int((mask == 0).sum())}
+    train["profile"] = phase_profile(lambda: step(x, y_t), profile_dir, "train_step_aifs_data")
+    train["busy_share"] = busy_share(train["profile"], step_ms[1:])
+
+    # the checkpoint carries the imputer state and serves bit for bit
+    model.eval()
+    want = iface.predict_step(requests[2])
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_aifs_checkpoint")
+    shutil.rmtree(path, ignore_errors=True)
+    try:
+        iface.save(path)
+        back = AnemoiModelInterface.from_checkpoint(path, device="cuda")
+        got = back.predict_step(requests[2])
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    if not torch.equal(back.pre_processors.processors["imputer"].nan_locations,
+                       iface.pre_processors.processors["imputer"].nan_locations) or not same_bits(got, want):
+        raise AssertionError("aifs-data checkpoint round trip: the imputer state or predict_step differs")
+    serving["checkpoint_bit_identical"] = True
+
+    # the same data path reduced, fp32, on the card against the CPU
+    n_small = small_graph["data"].num_nodes
+    small_land = np.random.RandomState(42).rand(n_small) < 0.3
+    reduced = phase_reduced_model(small_graph, dev, cfg=aifs_config(64, 2, 1, "float32"),
+                                  name_to_index=AIFS_NAME_TO_INDEX, stats=stats,
+                                  pipeline_batch=aifs_batch(n_small, 57, small_land, stats))
+    return {**serving, "reduced": reduced}, train
+
+
 def phase_profile(run, out_dir: str, label: str) -> dict:
     """One call of ``run`` under torch.profiler: device time by kernel, and
     the device's busy share (union of kernel intervals over the span)."""
@@ -1139,8 +1446,8 @@ def main() -> None:
     summary["flash_attention"], flash_rows = phase_flash_kernels(dev)
     for row in rows + bwd_rows + gnn_rows + width_rows + flash_rows:
         print("kernel-vs-plain", json.dumps(row))
-    for row in phase_wide_kernels(graph, dev):
-        print("wide-kernel-vs-plain", json.dumps(row))
+    for row in phase_attn_widths(graph, dev, WIDE_ATTN):
+        print("attn-width-vs-plain", json.dumps(row))
     reduced_graph = build_enc_proc_dec_graph(grid_lat=48, mesh_refinements=4, grid="octahedral")
     for flavor in FLAVOR_KERNEL:
         print(f"reduced-model {flavor}", json.dumps(phase_reduced_model(reduced_graph, dev, flavor)))
@@ -1192,6 +1499,27 @@ def main() -> None:
         print(f"card: {name_power} determinism {flavor}", json.dumps(det))
         if flavor == "graphtransformer" and not det["bit_identical"]:
             raise AssertionError(f"two GraphTransformer train steps differ: {det}")
+    # the hierarchical model: its O96 pyramid (r5 / r4 / r3), both edge-attention kernels at its head widths
+    # (D = 128, 256) and at head widths the lanes pad (D = 96, 48), a reduced fp32 model against the CPU
+    # (1 head at C = 64, so that D reaches 256 on the coarsest level, and 4 heads), then bench.py's model
+    t0 = time.perf_counter()
+    hgraph, hnames = build_hierarchical_graph(grid_lat=96, grid="octahedral", mesh_refinements=5, num_levels=3)
+    print(f"graph O96 hierarchical: {json.dumps({n: hgraph[n].num_nodes for n in hgraph.nodes})}, "
+          f"built in {time.perf_counter() - t0:.1f} s")
+    for row in phase_attn_widths(hgraph, dev, HIER_ATTN) + phase_attn_widths(graph, dev, FLAT_ATTN):
+        print("attn-width-vs-plain", json.dumps(row))
+    small_hgraph, small_hnames = build_hierarchical_graph(grid_lat=16, mesh_refinements=3, num_levels=3)
+    for heads in (1, 4):
+        print(f"reduced-model hierarchical C=64 H={heads}",
+              json.dumps(phase_reduced_model(small_hgraph, dev, cfg=hier_config(small_hnames, 64, heads, "float32"))))
+    profile_dir = args.profile or os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_profile")
+    serving["hierarchical"], train["hierarchical"] = phase_hierarchical(hgraph, hnames, dev, profile_dir)
+    print(f"card: {name_power} serving hierarchical", json.dumps(serving["hierarchical"]))
+    print(f"card: {name_power} train hierarchical", json.dumps(train["hierarchical"]))
+    # the AIFS data path: imputer, remapper and boundings around the flagship
+    serving["aifs-data"], train["aifs-data"] = phase_aifs_data(graph, dev, small_graph, profile_dir)
+    print(f"card: {name_power} serving aifs-data", json.dumps(serving["aifs-data"]))
+    print(f"card: {name_power} train aifs-data", json.dumps(train["aifs-data"]))
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "anemoi_models_tpu"))
     if leaked:
         raise AssertionError(f"the port imported {leaked}")

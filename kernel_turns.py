@@ -13,23 +13,28 @@ the O96 main path's shapes with seeded inputs:
   bf16 and fp32 with ``torch.addmm`` beside it, with a SHA-256 of its output;
 - ``gnn``: ``gnn_conv`` (C = 256, three Dense: the fused route) on the
   processor (self-graph), encoder and decoder edge sets in bf16 and fp32,
-  with a SHA-256 of agg and msg;
-- ``fwd``: ``edge_attn_csr`` (C = 256, 4 heads, A2 = 8, batch 1) on the
-  processor, encoder and decoder edge sets in bf16 and fp32, with a SHA-256
-  of its outputs (num, den, m after ``x + 0.0``, so that only the sign of an
-  exact zero may differ) per turn;
-- ``bwd``: ``edge_attn_csr_bwd`` (C = 256, 4 heads, A2 = 8, batch 1) on the
-  same edge sets, with a SHA-256 of dq, dkv, da and dw_aug;
+  and at C = 36 (the layered route, padded to 40) on the processor set, with
+  a SHA-256 of agg and msg;
+- ``fwd``: ``edge_attn_csr`` (A2 = 8, batch 1) at C = 256 with 4 heads on
+  the processor, encoder and decoder edge sets, and on the processor set at
+  C = 1024 with 16 heads (the production width), C = 512 and C = 1024 with 4
+  heads (D = 128, 256), in bf16 and fp32, with a SHA-256 of its outputs (num,
+  den, m after ``x + 0.0``, so that only the sign of an exact zero may
+  differ) per turn;
+- ``bwd``: ``edge_attn_csr_bwd`` at the same shapes, with a SHA-256 of each
+  of dq, dkv, da and dw_aug;
 - ``flash``: ``flash_attention`` at (B*H, N, D) = (4, 10,242, 64) with
   w = 512, no window, ragged N = 4,098 (w = 512) and causal (w = 512), q, k
   and v strided views of one fused projection, in bf16 and fp32.
 
 Device ms come from CUDA events around launches queued behind a
 ``torch.cuda._sleep`` that outlasts the host's enqueue, so they bracket
-device work only; host us is the wrapper's enqueue time per call. Prints one
-``turn`` JSON line per turn, the card's name and power limit, and a
-``same_bits`` line: per kernel and shape, whether the two checkouts' outputs
-hash alike.
+device work only; host us is the wrapper's enqueue time per call. A shape
+that a checkout's wrapper refuses (ValueError: a width it does not take) is
+recorded as refused, with the message. Prints one ``turn`` JSON line per
+turn, the card's name and power limit, and a ``same_bits`` line: per kernel,
+shape and output, whether the two checkouts' outputs hash alike, for the
+shapes both take.
 """
 
 from __future__ import annotations
@@ -119,6 +124,20 @@ def _digest(tensors) -> str:
     return h.hexdigest()
 
 
+def _timed(entry: dict, run, *timers) -> dict:
+    """``entry`` with ``sha256`` (of ``run()``'s outputs: one digest, or one
+    per named output) and each ``(key, fn, iters)`` timer; ``refused`` and
+    the message where the wrapper refuses the shape."""
+    try:
+        got = run()
+    except ValueError as exc:
+        return {**entry, "refused": str(exc)}
+    entry["sha256"] = {k: _digest([v]) for k, v in got.items()} if isinstance(got, dict) else _digest(got)
+    for key, fn, iters in timers:
+        entry[key] = fn(iters)
+    return entry
+
+
 def _worker(root: str, which: tuple) -> dict:
     root = os.path.abspath(root)
     sys.path.insert(0, root)
@@ -150,51 +169,61 @@ def _worker(root: str, which: tuple) -> dict:
                                    "ms": cuda_ms(lambda: ea.kv_proj(f, w, b)),
                                    "host_us": host_us(lambda: ea.kv_proj(f, w, b)),
                                    "addmm_ms": cuda_ms(lambda: torch.addmm(b_dt, f, w.t()))})
-    for label, (s_name, d_name) in EDGE_SETS if "gnn" in which else ():
+    gnn_shapes = [(label, names, 256) for label, names in EDGE_SETS] + [("processor", EDGE_SETS[0][1], 36)]
+    for label, (s_name, d_name), cg in gnn_shapes if "gnn" in which else ():
         ei = graph[(s_name, "to", d_name)].edge_index
         ns, nd = graph[s_name].num_nodes, graph[d_name].num_nodes
         rowptr, src = (torch.from_numpy(t).to(dev) for t in ea.csr_from_edge_index(ei, ns, nd))
-        x_dst = torch.randn(1, nd, c, generator=gen)
-        x_src = x_dst if label == "processor" else torch.randn(1, ns, c, generator=gen)
-        e = torch.randn(1, ei.shape[1], c, generator=gen)
-        dense = [(torch.randn(c, k, generator=gen) * k ** -0.5, torch.randn(c, generator=gen) * 0.1)
-                 for k in (3 * c, c, c)]
-        norm = (1 + 0.1 * torch.randn(c, generator=gen), 0.1 * torch.randn(c, generator=gen))
+        x_dst = torch.randn(1, nd, cg, generator=gen)
+        x_src = x_dst if label == "processor" else torch.randn(1, ns, cg, generator=gen)
+        e = torch.randn(1, ei.shape[1], cg, generator=gen)
+        dense = [(torch.randn(cg, k, generator=gen) * k ** -0.5, torch.randn(cg, generator=gen) * 0.1)
+                 for k in (3 * cg, cg, cg)]
+        norm = (1 + 0.1 * torch.randn(cg, generator=gen), 0.1 * torch.randn(cg, generator=gen))
         for dt in (torch.bfloat16, torch.float32):
             xd, e_d = x_dst.to(dev, dt), e.to(dev, dt)
             xs = xd if label == "processor" else x_src.to(dev, dt)
             ops = [t.to(dev) for t in gc.mlp_operands(dense, norm, dt)]
             args = (xd, xs, e_d, rowptr, src, ops, "SiLU")
-            out["gnn_conv"].append({"shape": f"{label} E={ei.shape[1]}", "dtype": str(dt).split(".")[-1],
-                                    "sha256": _digest(gc.gnn_conv(*args)),
-                                    "ms": cuda_ms(lambda: gc.gnn_conv(*args)),
-                                    "host_us": host_us(lambda: gc.gnn_conv(*args), iters=20)})
-    for label, (s_name, d_name) in EDGE_SETS if ("fwd" in which or "bwd" in which) else ():
+            out["gnn_conv"].append(_timed(
+                {"shape": f"{label} E={ei.shape[1]}" + ("" if cg == 256 else f" C={cg}"),
+                 "dtype": str(dt).split(".")[-1]},
+                lambda: gc.gnn_conv(*args),
+                ("ms", lambda n: cuda_ms(lambda: gc.gnn_conv(*args), iters=n), 20),
+                ("host_us", lambda n: host_us(lambda: gc.gnn_conv(*args), iters=n), 20)))
+    # (C, heads): the flagship on every edge set; the production width and D = 128, 256 on the processor's
+    attn_shapes = [(label, names, 256, 4) for label, names in EDGE_SETS] + [
+        ("processor", EDGE_SETS[0][1], cc, hh) for cc, hh in ((1024, 16), (512, 4), (1024, 4))]
+    for label, (s_name, d_name), ca, h in attn_shapes if ("fwd" in which or "bwd" in which) else ():
         ei = graph[(s_name, "to", d_name)].edge_index
         ns, nd = graph[s_name].num_nodes, graph[d_name].num_nodes
         rowptr_np, src_np = ea.csr_from_edge_index(ei, ns, nd)
         rowptr, src = torch.from_numpy(rowptr_np).to(dev), torch.from_numpy(src_np).to(dev)
         csr_t = ea.CSRTranspose(*(torch.from_numpy(t).to(dev) for t in ea.csr_transpose(rowptr_np, src_np, ns)))
-        h, a2 = 4, 8
-        q32, kv32 = torch.randn(nd, c, generator=gen), torch.randn(ns, 2 * c, generator=gen)
-        a32, wa32 = torch.randn(ei.shape[1], a2, generator=gen), torch.randn(a2, c, generator=gen) * 0.3
-        g_num, g_den = torch.randn(nd, c, generator=gen).to(dev), torch.randn(nd, h, generator=gen).to(dev)
+        a2 = 8
+        q32, kv32 = torch.randn(nd, ca, generator=gen), torch.randn(ns, 2 * ca, generator=gen)
+        a32, wa32 = torch.randn(ei.shape[1], a2, generator=gen), torch.randn(a2, ca, generator=gen) * 0.3
+        g_num, g_den = torch.randn(nd, ca, generator=gen).to(dev), torch.randn(nd, h, generator=gen).to(dev)
         for dt in (torch.bfloat16, torch.float32):
             q, kv, a, wa = (t.to(dev, dt) for t in (q32, kv32, a32, wa32))
             fwd = (q, kv, rowptr, src, a, wa, h)
-            parts = ea.edge_attn_csr(*fwd)
-            shape, dtype = f"{label} E={ei.shape[1]}", str(dt).split(".")[-1]
+            shape = f"{label} E={ei.shape[1]}" + ("" if (ca, h) == (256, 4) else f" C={ca} H={h}")
+            entry = {"shape": shape, "dtype": str(dt).split(".")[-1]}
             if "fwd" in which:
-                out["edge_attn_csr"].append({
-                    "shape": shape, "dtype": dtype, "sha256": _digest(parts),
-                    "ms": cuda_ms(lambda: ea.edge_attn_csr(*fwd)),
-                    "host_us": host_us(lambda: ea.edge_attn_csr(*fwd))})
+                out["edge_attn_csr"].append(_timed(
+                    dict(entry), lambda: ea.edge_attn_csr(*fwd),
+                    ("ms", lambda n: cuda_ms(lambda: ea.edge_attn_csr(*fwd), iters=n), 20),
+                    ("host_us", lambda n: host_us(lambda: ea.edge_attn_csr(*fwd), iters=n), 50)))
             if "bwd" in which:
-                args = (q, kv, rowptr, src, a, wa, parts.m, g_num, g_den, h, csr_t)
-                out["edge_attn_csr_bwd"].append({
-                    "shape": shape, "dtype": dtype, "sha256": _digest(ea.edge_attn_csr_bwd(*args)),
-                    "ms": cuda_ms(lambda: ea.edge_attn_csr_bwd(*args)),
-                    "host_us": host_us(lambda: ea.edge_attn_csr_bwd(*args), iters=20)})
+                def bwd():
+                    m = ea.edge_attn_csr(*fwd).m
+                    args = (q, kv, rowptr, src, a, wa, m, g_num, g_den, h, csr_t)
+                    bwd.args = args
+                    return dict(zip(("dq", "dkv", "da", "dw_aug"), ea.edge_attn_csr_bwd(*args)))
+                out["edge_attn_csr_bwd"].append(_timed(
+                    dict(entry), bwd,
+                    ("ms", lambda n: cuda_ms(lambda: ea.edge_attn_csr_bwd(*bwd.args), iters=n), 20),
+                    ("host_us", lambda n: host_us(lambda: ea.edge_attn_csr_bwd(*bwd.args), iters=n), 20)))
     n0, w0, h, d = 10242, 512, 4, 64
     for n, window, causal in ((n0, w0, False), (n0, None, False), (2 * n0 // 5 + 2, w0, False), (n0, w0, True)) \
             if "flash" in which else ():
@@ -242,11 +271,20 @@ def main() -> None:
             print(run.stderr, end="", file=sys.stderr)
             raise SystemExit(f"kernel_turns: the turn of {root} failed ({run.returncode})")
         turns.append(next(json.loads(line[5:]) for line in run.stdout.splitlines() if line.startswith("turn ")))
-    # the parent's and this checkout's outputs, per kernel and shape: bit for bit alike or not
+    # the parent's and this checkout's outputs, per kernel, shape and output: bit for bit alike or not
     same = {}
     for kernel in ("kv_proj", "gnn_conv", "edge_attn_csr", "edge_attn_csr_bwd"):
-        for old, new in zip(turns[0][kernel], turns[1][kernel]):
-            same[f"{kernel} {old['shape']} {old['dtype']}"] = old["sha256"] == new["sha256"]
+        new_by_key = {(e["shape"], e["dtype"]): e for e in turns[1][kernel]}
+        for old in turns[0][kernel]:
+            new = new_by_key.get((old["shape"], old["dtype"]))
+            if new is None or "sha256" not in old or "sha256" not in new:
+                continue
+            key = f"{kernel} {old['shape']} {old['dtype']}"
+            if isinstance(old["sha256"], dict):
+                for name in old["sha256"]:
+                    same[f"{key} {name}"] = old["sha256"][name] == new["sha256"].get(name)
+            else:
+                same[key] = old["sha256"] == new["sha256"]
     print("same_bits", json.dumps(same), flush=True)
 
 

@@ -117,8 +117,11 @@ def test_gnn_prepass_matches_node_products(dev, graph, dtype, channels):
 
 
 # every lane layout of ops/edge_attention.py:_lane_layout: one head group of 32 lanes (the flagship's
-# C = 256), 24 active lanes (6 heads), several groups (C >= 384), one channel a lane (C = 32)
-WIDTHS = [(64, 4), (256, 4), (512, 4), (128, 16), (32, 4), (192, 6), (384, 6), (768, 6), (1024, 8), (1024, 16)]
+# C = 256), 24 active lanes (6 heads), several groups (C >= 384), one channel a lane (C = 32), a head
+# of 128 or 256 channels (the hierarchical model's coarser levels: C = 512, 1024 with 4 heads), and
+# head widths that are not powers of two, so that lanes pad each head (D = 96, 48, 40, 24, 192)
+WIDTHS = [(64, 4), (256, 4), (512, 4), (128, 16), (32, 4), (192, 6), (384, 6), (768, 6), (1024, 8), (1024, 16),
+          (1024, 4), (256, 1), (384, 4), (96, 1), (192, 4), (48, 1), (240, 6), (384, 16), (768, 4)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -220,7 +223,34 @@ def test_edge_attn_csr_bwd_matches_plain_and_repeats_bit_for_bit(dev, graph, dty
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("channels,heads", [(256, 4), (192, 6), (1024, 16)])
+@pytest.mark.parametrize("channels,heads", WIDTHS)
+@pytest.mark.parametrize("a2", [5, 8, 12])
+def test_bwd_occupancy_model_matches_the_runtime(dev, dtype, channels, heads, a2):
+    """The backward's dw_aug partials are counted from the shape alone, with
+    a model of its dst pass's CTAs an SM (shared memory, and a bound of the
+    registers ptxas gives each instantiation): the model is never above the
+    runtime's occupancy of the built kernel (on the H100 the grid fits the
+    card at once: no second wave of CTAs), and equal to it at the shapes the
+    models run (the flagship's C = 256, the production C = 1024 with 16
+    heads, the hierarchical levels' C = 512 and 1024 with 4 heads, and head
+    widths 96 and 48), where the grid then fills the card."""
+    import ctypes
+
+    from anemoi_models_tpu_torch.ops.kernels import load_kernels
+
+    lib = load_kernels()
+    vb, _, group = ea._lane_layout(channels, heads)
+    fn = lib.edge_attn_csr_bwd_per_sm_bf16 if dtype == torch.bfloat16 else lib.edge_attn_csr_bwd_per_sm_f32
+    per_sm = ctypes.c_int(0)
+    assert fn(channels, heads, a2, group, vb, ctypes.addressof(per_sm)) == 0
+    model = ea._bwd_ctas_per_sm(channels, heads, a2, dtype)
+    assert model <= per_sm.value
+    if a2 == 8 and (channels, heads) in ((256, 4), (1024, 16), (512, 4), (1024, 4), (384, 4), (192, 4)):
+        assert model == per_sm.value
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels,heads", [(256, 4), (192, 6), (1024, 16), (1024, 4), (384, 4)])
 @pytest.mark.parametrize("a2", [5, 12, 16])
 def test_edge_attention_takes_every_attribute_count(dev, graph, dtype, channels, heads, a2):
     """Both kernels at attribute counts other than the flagship's 8: padded
@@ -255,11 +285,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev, graph):
     es = graph[("hidden", "to", "hidden")]
     n = graph["hidden"].num_nodes
     rowptr, src, num_edges = _csr(es, n, n, dev)
-    q = torch.randn(n, 192, device=dev)  # 4 heads of 48: not a power of two
-    kv = torch.randn(n, 384, device=dev)
+    q = torch.randn(n, 1280, device=dev)  # 4 heads of 320: wider than 256
+    kv = torch.randn(n, 2560, device=dev)
     a = torch.randn(num_edges, 8, device=dev)
     with pytest.raises(ValueError, match="head widths"):
-        ea.edge_attn_csr(q, kv, rowptr, src, a, torch.randn(8, 192, device=dev), 4)
+        ea.edge_attn_csr(q, kv, rowptr, src, a, torch.randn(8, 1280, device=dev), 4)
+    q, kv = torch.randn(n, 36, device=dev), torch.randn(n, 72, device=dev)  # 3 heads of 12: not a multiple of 8
+    with pytest.raises(ValueError, match="head widths"):
+        ea.edge_attn_csr(q, kv, rowptr, src, a, torch.randn(8, 36, device=dev), 3)
     q, kv = torch.randn(n, 64, device=dev), torch.randn(n, 128, device=dev)
     with pytest.raises(ValueError, match="share one dtype"):
         ea.edge_attn_csr(q, kv.bfloat16(), rowptr, src, a, torch.randn(8, 64, device=dev), 4)
@@ -371,7 +404,7 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(dev, graph):
         gc.gnn_conv(x.bfloat16(), x.bfloat16(), e.bfloat16(), rowptr, src, ops, "SiLU")
     with pytest.raises(ValueError, match="contiguous"):
         gc.gnn_conv(x, x, torch.randn(1, c, num_edges, device=dev).transpose(1, 2), rowptr, src, ops, "SiLU")
-    # a deeper edge MLP takes the layered route; a width off the 16-byte rule raises
+    # a deeper edge MLP takes the layered route, and so does a width off the 16-byte rule (padded)
     deep = [t.to(dev) for t in gc.mlp_operands(dense[:1] + dense[1:2] * 2 + dense[2:], (torch.ones(c), torch.zeros(c)),
                                                torch.float32)]
     before = gc.LAUNCHES["gnn_conv_layered"]
@@ -381,8 +414,9 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(dev, graph):
     x, e = torch.randn(1, n, c, device=dev), torch.randn(1, num_edges, c, device=dev)
     odd = [t.to(dev) for t in gc.mlp_operands([(torch.randn(c, k), torch.randn(c)) for k in (3 * c, c, c)],
                                               (torch.ones(c), torch.zeros(c)), torch.float32)]
-    with pytest.raises(ValueError, match="C % 8 == 0"):
-        gc.gnn_conv(x, x, e, rowptr, src, odd, "SiLU")
+    before = gc.LAUNCHES["gnn_conv_layered"]
+    agg, msg = gc.gnn_conv(x, x, e, rowptr, src, odd, "SiLU")
+    assert gc.LAUNCHES["gnn_conv_layered"] == before + 1 and agg.shape == (1, n, c) and msg.shape == e.shape
     with pytest.raises(NotImplementedError, match="activation"):
         gc.gnn_conv(x, x, e, rowptr, src, ops, "mish")
     q = torch.randn(1, 2, 100, 64, device=dev)
@@ -423,7 +457,8 @@ def test_graph_conv_with_extra_mlp_layers_raises_on_the_card(dev, graph):
         assert _normwise(got, want) <= BWD_TOL
 
 
-LAYERED = [(384, 0), (512, 0), (1024, 0), (256, 1), (256, 2), (48, 0), (40, 1), (32, 1), (136, 0)]
+LAYERED = [(384, 0), (512, 0), (1024, 0), (256, 1), (256, 2), (48, 0), (40, 1), (32, 1), (136, 0),
+           (36, 0), (100, 0), (260, 0), (12, 1), (3, 0)]  # the last five padded to a multiple of 8
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -431,8 +466,8 @@ LAYERED = [(384, 0), (512, 0), (1024, 0), (256, 1), (256, 2), (48, 0), (40, 1), 
 @pytest.mark.parametrize("edges", ["hidden-hidden", "data-hidden", "hidden-data", "dead"])
 def test_gnn_conv_layered_matches_plain_and_repeats_bit_for_bit(dev, graph, dtype, channels, extra, edges,
                                                                 monkeypatch):
-    """The layered route (every width C % 8 == 0 and MLP depth the fused
-    kernels do not take) against the plain version, batch 2, in chunks of
+    """The layered route (every width and MLP depth the fused kernels do not
+    take; a width off C % 8 == 0 padded) against the plain version, batch 2, in chunks of
     1,000 edge rows (so a chunk crosses the batch boundary and the last is
     ragged); two calls bit-identical. msg at the fused route's bounds; agg
     exactly the fp32 sum of the kernel's own msg (1e-5) and, against plain,

@@ -4,8 +4,9 @@ width the fused kernel does not take and with deeper MLPs, against the JAX
 package on the CPU.
 
 On the card, C in {32, 64, 128, 256} with three Dense layers runs the fused
-kernels of ``csrc/gnn_conv.cu``; every other C % 8 == 0 and every other
-depth the layered route of ``csrc/gnn_conv_layered.cu``; both compute
+kernels of ``csrc/gnn_conv.cu``; every other width (padded with zero
+columns to a multiple of 8 where it is not one) and every other depth the
+layered route of ``csrc/gnn_conv_layered.cu``; both compute
 ``gnn_conv_plain``'s function, which runs here. Sizes: ``grid_lat=6,
 mesh_refinements=2``, 2 processor layers. Tolerances follow the reference's
 tests: outputs 2e-5 (``tests/layers/test_commuted.py``), fp32 gradients 5e-4.
@@ -34,16 +35,20 @@ GRAD = dict(atol=5e-4, rtol=5e-4)
 @pytest.mark.parametrize("n_dense", [3, 4, 5])
 def test_gnn_route(n_dense):
     """Fused exactly for C in {32, 64, 128, 256} with three Dense layers,
-    layered for every other C % 8 == 0 up to 1024."""
-    for c in range(8, 1025, 8):
+    layered for every other C up to 1024."""
+    for c in range(1, 1025):
         want = "fused" if c in (32, 64, 128, 256) and n_dense == 3 else "layered"
         assert _gnn_route(c, n_dense) == want, (c, n_dense)
 
 
 @pytest.mark.parametrize("c", [1, 4, 12, 100, 1020, 1023])
 def test_gnn_route_refuses_widths_off_the_16_byte_rule(c):
-    with pytest.raises(ValueError, match="C % 8 == 0"):
-        _gnn_route(c, 3)
+    """A width off the GEMM's 16-byte rule (C % 8 != 0) is no longer refused:
+    it takes the layered route, padded to the next multiple of 8
+    (``ops/gnn_conv.py:_padded``); only a width below 1 is refused."""
+    assert _gnn_route(c, 3) == "layered"
+    with pytest.raises(ValueError, match="C > 0"):
+        _gnn_route(0, 3)
 
 
 def _flat(tree):
@@ -51,11 +56,11 @@ def _flat(tree):
             for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
-@pytest.mark.parametrize("channels, extra", [(48, 1), (512, 1)])
+@pytest.mark.parametrize("channels, extra", [(48, 1), (512, 1), (12, 0)])
 def test_gnn_model_matches_jax(channels, extra):
     """The GNN flavor (GNN mappers and processor, every edge MLP with
     ``mlp_extra_layers`` more hidden Dense) at a width the fused kernel does
-    not take: forward (2e-5) and every parameter's gradient of the MSE loss
+    not take (C = 12 also off the 16-byte rule): forward (2e-5) and every parameter's gradient of the MSE loss
     (5e-4) against the JAX model, whose deeper MLPs run its jnp twin."""
     graph = build_enc_proc_dec_graph(grid_lat=6, mesh_refinements=2)
     cfg = make_config("gnn", num_channels=channels)

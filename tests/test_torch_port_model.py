@@ -146,10 +146,24 @@ def test_config_targets_resolve_to_port_classes(setup):
             sub_graph=graph[("hidden", "to", "hidden")], src_grid_size=graph["hidden"].num_nodes,
             dst_grid_size=graph["hidden"].num_nodes, graph_impl="segment",
         )
+    # boundings, the hierarchical model and the AIFS processors resolve to the port's classes, and a
+    # config with boundings builds (it raised before they were ported)
+    from anemoi_models_tpu_torch.layers.bounding import ReluBounding
+    from anemoi_models_tpu_torch.models import AnemoiModelEncProcDecHierarchical
+    from anemoi_models_tpu_torch.preprocessing.imputer import InputImputer
+    from anemoi_models_tpu_torch.preprocessing.remapper import Remapper
+
+    for target, cls in [
+        ("anemoi.models.layers.bounding.ReluBounding", ReluBounding),
+        ("anemoi.models.models.hierarchical.AnemoiModelEncProcDecHierarchical", AnemoiModelEncProcDecHierarchical),
+        ("anemoi.models.preprocessing.imputer.InputImputer", InputImputer),
+        ("anemoi.models.preprocessing.remapper.Remapper", Remapper),
+    ]:
+        assert resolve_target(target) is cls, target
     cfg = DotDict(make_config("graphtransformer").to_dict())
     cfg.model.bounding = [{"_target_": "anemoi.models.layers.bounding.ReluBounding", "variables": ["tp"]}]
-    with pytest.raises(NotImplementedError, match="bounding"):
-        AnemoiModelEncProcDec(model_config=cfg, data_indices=setup[1], graph_data=graph, device="cpu")
+    model = AnemoiModelEncProcDec(model_config=cfg, data_indices=setup[1], graph_data=graph, device="cpu")
+    assert [type(b) for b in model.boundings] == [ReluBounding]
 
 
 def test_unported_options_raise():

@@ -48,22 +48,51 @@ def _accepted_widths(max_channels=1024):
 
 def test_lane_layout_takes_every_width_the_forward_takes():
     """The backward takes what the forward takes: for every accepted (C, H)
-    up to C = 1024 the layout puts a group of whole heads of at most 256
-    channels on at most 32 lanes, in 16-byte slices, with the first kernel's
-    VF = max(1, D / 32) channels a thread dividing a lane's VB."""
+    up to C = 1024 (head widths up to 256: powers of two and multiples of 8)
+    the layout puts a group of whole heads of at most 256 channels on at most
+    32 lanes, in 16-byte slices, a head on a power of two of lanes (D / VB
+    rounded up; the lanes past D / VB pad it), with the first kernel's VF =
+    max(1, D / 32) channels a thread dividing a lane's VB where D is a power
+    of two (those layouts pad nothing and are the ones PRs before took)."""
     widths = _accepted_widths()
     assert {(32, 4), (192, 6), (384, 6), (768, 6), (1024, 8), (1024, 16), (256, 4)} <= set(widths)
+    assert {(192, 4), (384, 4), (1024, 4), (48, 1), (240, 6), (384, 16)} <= set(widths)  # D = 48, 96, 256, 40, 24
     for c, h in widths:
         vb, lanes, group = ea._lane_layout(c, h)
         d = c // h
-        assert vb in (1, 2, 4, 8) and lanes * vb == group and lanes <= 32, (c, h)
+        lb = ea._pow2_at_least(d // vb)  # lanes of a head
+        assert d <= 256 and (d % 8 == 0 or d in (1, 2, 4)), (c, h)
+        assert vb in (1, 2, 4, 8) and lanes == group // d * lb and lanes <= 32, (c, h)
         assert group % d == 0 and group <= 256 and c % group == 0, (c, h)
-        assert d % vb == 0 and vb % max(1, d // 32) == 0, (c, h)
-        assert group * 2 % 16 == 0, (c, h)
-        assert lanes > 16 or vb == 1, (c, h)  # vb is the smallest power of two with 32 vb >= group
+        assert d % vb == 0 and group * 2 % 16 == 0, (c, h)
+        assert 32 * vb >= group and (vb == 1 or 16 * vb < group), (c, h)  # the smallest such power of two
+        if d & (d - 1) == 0:
+            assert lanes * vb == group and vb % max(1, d // 32) == 0, (c, h)
     assert ea._lane_layout(1024, 16) == (8, 32, 256)
     assert ea._lane_layout(192, 6) == (8, 24, 192)
     assert ea._lane_layout(32, 4) == (1, 32, 32)
+    assert ea._lane_layout(1024, 4) == (8, 32, 256)  # D = 256: one head on the warp
+    assert ea._lane_layout(384, 4) == (8, 32, 192)  # D = 96: two heads, each 12 lanes padded to 16
+    assert ea._lane_layout(192, 4) == (8, 32, 192)  # D = 48: four heads, each 6 lanes padded to 8
+    for c, h in ((1280, 4), (36, 3), (20, 1)):  # D = 320; 12 and 20, not multiples of 8
+        with pytest.raises(ValueError, match="head widths"):
+            ea._check_heads(c, h)
+
+
+def test_bwd_partials_follow_the_shape_alone():
+    """The backward's dw_aug partials (its dst pass's grid): at most a warp a
+    destination and at most the CTAs an H100 SXM holds for the shape; a
+    function of (destinations, C, heads, attributes, dtype) only, so every
+    card sums in the same order. Pinned at the main path's shapes."""
+    bf16, fp32 = torch.bfloat16, torch.float32
+    assert ea._bwd_parts(10242, 256, 4, 8, bf16) == 528  # the flagship's processor: 132 x 4
+    assert ea._bwd_parts(10242, 256, 4, 8, fp32) == 396  # 72 KB of shared memory: 3 an SM
+    assert ea._bwd_parts(10242, 1024, 16, 8, bf16) == 132  # the per-warp partials: one CTA an SM
+    assert ea._bwd_parts(2562, 512, 4, 8, bf16) == 264  # the hierarchical model's r4 level
+    assert ea._bwd_parts(642, 1024, 4, 8, bf16) == 132  # its r3 level, D = 256
+    assert ea._bwd_parts(13, 256, 4, 8, bf16) == 4  # a warp a destination
+    assert ea._bwd_parts(10242, 256, 4, 12, bf16) == 264  # 16 attribute slots: 227 registers
+    assert ea._bwd_parts(10242, 256, 8, 8, bf16) == 396  # every lane all eight attributes
 
 
 @pytest.fixture(scope="module")
@@ -72,12 +101,14 @@ def hidden_edges():
     return graph[("hidden", "to", "hidden")].edge_index, graph["hidden"].num_nodes
 
 
-@pytest.mark.parametrize("channels,heads", [(192, 6), (1024, 16)])
+@pytest.mark.parametrize("channels,heads", [(192, 6), (1024, 16), (192, 4), (384, 4), (1024, 4)])
 def test_plain_versions_match_pallas_feats_kernel_interpret_at_width(hidden_edges, channels, heads):
     """edge_attn_csr_plain (finalized output) and edge_attn_csr_bwd_plain
     (through KVProj + EdgeAttnCSR: q, feats, w_kv, b_kv, the raw attributes
     and w_aug) against the Pallas feats kernel and its backward kernel, in
-    interpret mode, at 6 heads of 32 and 16 heads of 64."""
+    interpret mode, at 6 heads of 32, 16 heads of 64, and 4 heads of 48, 96
+    and 256 (the head widths the lanes pad, and the hierarchical model's
+    coarsest)."""
     edge_index, n = hidden_edges
     c, h, d = channels, heads, channels // heads
     rng = np.random.RandomState(20 + h)
