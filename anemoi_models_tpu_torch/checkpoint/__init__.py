@@ -15,7 +15,9 @@ a directory:
 :func:`load_checkpoint` reads either package's directory, choosing the
 reader by what it holds: ``arrays.pt`` (the port's) or ``arrays/_METADATA``
 (the JAX package's, through :func:`load_jax_checkpoint`, which needs
-``tensorstore`` and nothing of JAX).
+``tensorstore`` and nothing of JAX). :func:`load_jax_opt_state` maps a JAX
+run's optax state (AdamW moments and count) onto the port's ``AdamW``, so a
+JAX run resumes in the port.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-__all__ = ["FORMAT_VERSION", "load_checkpoint", "load_jax_checkpoint", "save_checkpoint"]
+__all__ = ["FORMAT_VERSION", "load_checkpoint", "load_jax_checkpoint", "load_jax_opt_state", "save_checkpoint"]
 
 # The JAX package's format history: 1, the first layout; 2, the forward
 # mapper's emb_nodes_src moved into the block ('proc') scope. The port writes
@@ -175,3 +177,37 @@ def load_jax_checkpoint(path: str) -> dict:
                 else:
                     node = node.setdefault(key, [] if is_index[i + 1] else {})
     return _sidecars(path, out)
+
+
+def _adam_state(tree: Any) -> Optional[dict]:
+    """The first node of an optax state tree (nested dicts and lists) that
+    holds Adam's ``mu``, ``nu`` and ``count``."""
+    if isinstance(tree, dict):
+        if {"mu", "nu", "count"} <= tree.keys():
+            return tree
+        children = tree.values()
+    elif isinstance(tree, (list, tuple)):
+        children = tree
+    else:
+        return None
+    return next((found for child in children if (found := _adam_state(child)) is not None), None)
+
+
+def load_jax_opt_state(optimizer: torch.optim.Optimizer, model: torch.nn.Module, opt_state: Any) -> None:
+    """Load the optax state of the JAX package's ``make_optimizer`` chain
+    (``clip_by_global_norm`` then ``adamw``; as :func:`load_jax_checkpoint`
+    returns it) into the port's ``AdamW`` over ``model``'s parameters: each
+    parameter's ``mu`` and ``nu`` from the flax moment trees (mapped to the
+    port's names and layouts as the parameters are) and the update count."""
+    from anemoi_models_tpu_torch.weights import load_flax_params
+
+    adam = _adam_state(opt_state)
+    if adam is None:
+        raise ValueError("the optimizer state holds no Adam moments (mu, nu, count)")
+    mu, nu = load_flax_params(adam["mu"]), load_flax_params(adam["nu"])
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            state = optimizer.state[p]
+            state["mu"] = torch.as_tensor(mu[name]).to(p.device, p.dtype).clone()
+            state["nu"] = torch.as_tensor(nu[name]).to(p.device, p.dtype).clone()
+    optimizer.count = int(np.asarray(adam["count"]))

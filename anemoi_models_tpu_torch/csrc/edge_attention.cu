@@ -47,7 +47,8 @@ struct kv_proj_tag {};  // names the kv_proj instantiations of gemm_sm90.cuh
 // The backward's destination pass without the gradient work. A persistent
 // grid, sized by occupancy; a CTA serves one head group (the lane layout of
 // edge_logit.cuh: G channels of whole heads, VB a lane, at most 32 lanes, a
-// head of D channels on D / VB lanes rounded up to a power of two) and
+// head of D channels on D / VB lanes rounded up to a power of two; a head
+// wider than 256 a group of its own, VB = 16 or 32, one chain a lane) and
 // its warps take destinations cta, cta + ctas, ... one at a time. Per warp:
 // the source ids and attributes of 32 edges at a time in registers, one edge a
 // lane, shuffled out per edge; a ring of kRing k/v row slices in shared memory
@@ -254,6 +255,7 @@ struct FwdArgs {
   const void *q, *kv, *rowptr, *src, *a, *w_aug;
   void *num, *den, *m;
   int batch, num_dst, num_src, C, H, A2, G, VB;
+  int Dt;  // the head width before padding: the logit's scale is 1 / sqrt(Dt)
 };
 
 template <typename T, int VB, int MAXA2, int HC, bool FLAT>
@@ -274,7 +276,7 @@ int launch_fwd(const FwdArgs& x, const Layout& L, cudaStream_t s) {
   cudaGetDevice(&device);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   const int ctas = std::max(1, std::min((x.num_dst + kWarps - 1) / kWarps, std::max(per_sm, 1) * sms / L.groups));
-  const float scale = 1.0f / std::sqrt(static_cast<float>(L.D));
+  const float scale = 1.0f / std::sqrt(static_cast<float>(x.Dt));
   kernel<<<ctas * L.groups, kThreads, smem, s>>>(
       static_cast<const T*>(x.q), static_cast<const T*>(x.kv), static_cast<const int*>(x.rowptr),
       static_cast<const int*>(x.src), static_cast<const T*>(x.a), static_cast<const T*>(x.w_aug),
@@ -284,14 +286,18 @@ int launch_fwd(const FwdArgs& x, const Layout& L, cudaStream_t s) {
 }
 
 // attributes padded to 8 (16 past 8); the heads of a group compile-time for 4 unpadded heads on 32
-// lanes, the whole row one such group (C = 32 VB) compile-time too
+// lanes, the whole row one such group (C = 32 VB) compile-time too; a head wider than 256 (VB = 16,
+// 32) is a group of its own, with no compile-time variant
 template <typename T, int VB>
 int launch_vb(const FwdArgs& x, cudaStream_t s) {
   Layout L;
-  if (!edge_logit::make_layout<VB>(x.C, x.H, x.G, sizeof(T), &L)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!edge_logit::make_layout<VB>(x.C, x.H, x.G, sizeof(T), &L) || x.Dt <= 0 || x.Dt > L.D)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (x.A2 > 8) return launch_fwd<T, VB, kMaxA2, 0, false>(x, L, s);
-  if (L.lanes == 32 && L.HG == 4 && L.DV == L.LB) {
-    return L.groups == 1 ? launch_fwd<T, VB, 8, 4, true>(x, L, s) : launch_fwd<T, VB, 8, 4, false>(x, L, s);
+  if constexpr (VB <= 8) {
+    if (L.lanes == 32 && L.HG == 4 && L.DV == L.LB) {
+      return L.groups == 1 ? launch_fwd<T, VB, 8, 4, true>(x, L, s) : launch_fwd<T, VB, 8, 4, false>(x, L, s);
+    }
   }
   return launch_fwd<T, VB, 8, 0, false>(x, L, s);
 }
@@ -306,6 +312,8 @@ int launch_edge_attn_csr(const FwdArgs& x, void* stream) {
     case 2: return launch_vb<T, 2>(x, s);
     case 4: return launch_vb<T, 4>(x, s);
     case 8: return launch_vb<T, 8>(x, s);
+    case 16: return launch_vb<T, 16>(x, s);
+    case 32: return launch_vb<T, 32>(x, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -334,19 +342,20 @@ int kv_proj_bf16(const void* f, const void* w, const void* b, void* out, int M, 
                  : sm90::launch_proj_bf16<kv_proj_tag, __nv_bfloat16>(batch, 1, s);
 }
 
-// G and VB: the lane layout of ops/edge_attention.py:_lane_layout
+// G and VB: the lane layout of ops/edge_attention.py:_lane_layout; Dt: the head width C / H had
+// before the wrapper padded it (C / H itself where it did not)
 int edge_attn_csr_f32(const void* q, const void* kv, const void* rowptr, const void* src,
                       const void* a, const void* w_aug, void* num, void* den, void* m, int batch,
-                      int num_dst, int num_src, int C, int H, int A2, int G, int VB, void* stream) {
+                      int num_dst, int num_src, int C, int H, int A2, int G, int VB, int Dt, void* stream) {
   return launch_edge_attn_csr<float>(
-      FwdArgs{q, kv, rowptr, src, a, w_aug, num, den, m, batch, num_dst, num_src, C, H, A2, G, VB}, stream);
+      FwdArgs{q, kv, rowptr, src, a, w_aug, num, den, m, batch, num_dst, num_src, C, H, A2, G, VB, Dt}, stream);
 }
 
 int edge_attn_csr_bf16(const void* q, const void* kv, const void* rowptr, const void* src,
                        const void* a, const void* w_aug, void* num, void* den, void* m, int batch,
-                       int num_dst, int num_src, int C, int H, int A2, int G, int VB, void* stream) {
+                       int num_dst, int num_src, int C, int H, int A2, int G, int VB, int Dt, void* stream) {
   return launch_edge_attn_csr<__nv_bfloat16>(
-      FwdArgs{q, kv, rowptr, src, a, w_aug, num, den, m, batch, num_dst, num_src, C, H, A2, G, VB}, stream);
+      FwdArgs{q, kv, rowptr, src, a, w_aug, num, den, m, batch, num_dst, num_src, C, H, A2, G, VB, Dt}, stream);
 }
 
 }  // extern "C"

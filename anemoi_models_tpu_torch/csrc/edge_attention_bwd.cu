@@ -12,7 +12,8 @@
 //   dst pass   a grid of CTAs striding over the destinations, in which a warp
 //              owns a destination and walks its head groups in sequence, one
 //              edge at a time: the forward's lane layout (edge_logit.cuh; a
-//              group of G <= 256 channels of whole heads, VB consecutive
+//              group of G <= 256 channels of whole heads, or one head of up
+//              to 1024 on 32 lanes of VB = 16 or 32, VB consecutive
 //              channels a lane, at most 32 lanes, so any width the forward
 //              takes), each group reading only its slice of the k/v rows. The
 //              warp keeps kRing - 1 edges' k/v row slices in flight in its own
@@ -562,6 +563,7 @@ struct BwdArgs {
   const void *q, *kv, *rowptr, *src, *a, *w_aug, *m, *g_num, *g_den, *colptr, *perm, *dst_of, *pos;
   void *dq, *dkv, *da, *dw, *dlw, *dw_part;
   int batch, num_dst, num_src, num_edges, C, H, A2, G, VB, parts;
+  int Dt;  // the head width before padding: the logit's scale is 1 / sqrt(Dt)
 };
 
 template <typename K>
@@ -580,7 +582,7 @@ int set_smem(K kernel, size_t bytes) {
 // against which a test holds the wrapper's model of it).
 template <typename T, int VB, int MAXA2, bool SLOT, int HC, bool FLAT>
 int launch_passes(const BwdArgs& x, const Layout& L, cudaStream_t s, int* per_sm = nullptr) {
-  const float scale = 1.0f / std::sqrt(static_cast<float>(L.D));
+  const float scale = 1.0f / std::sqrt(static_cast<float>(x.Dt));
   auto dst_kernel = bwd_dst_kernel<T, VB, MAXA2, SLOT, HC, FLAT>;
   int warps = kWarps;
   size_t dst_smem = dst_smem_bytes(x.C, L.G, x.A2, MAXA2, sizeof(T), warps);
@@ -621,16 +623,20 @@ int launch_passes(const BwdArgs& x, const Layout& L, cudaStream_t s, int* per_sm
 
 // One attribute slot a lane when A2 <= LB lanes a head; the heads of a group compile-time for 4
 // on 32 lanes (the flagship's C = 256, and C = 1024 with 16 heads), the whole row one such group
-// (C = 32 VB) compile-time too.
+// (C = 32 VB) compile-time too. A head wider than 256 (VB = 16, 32) is a group of its own on 32
+// lanes, so A2 <= 8 always takes the slot path, with no compile-time variant.
 template <typename T, int VB>
 int launch_vb(const BwdArgs& x, cudaStream_t s, int* per_sm) {
   Layout L;
-  if (!edge_logit::make_layout<VB>(x.C, x.H, x.G, sizeof(T), &L)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!edge_logit::make_layout<VB>(x.C, x.H, x.G, sizeof(T), &L) || x.Dt <= 0 || x.Dt > L.D)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (x.A2 > 8) return launch_passes<T, VB, kMaxA2, false, 0, false>(x, L, s, per_sm);
-  if (x.A2 > L.LB) return launch_passes<T, VB, 8, false, 0, false>(x, L, s, per_sm);
-  if (L.lanes == 32 && L.HG == 4 && L.DV == L.LB) {
-    return L.groups == 1 ? launch_passes<T, VB, 8, true, 4, true>(x, L, s, per_sm)
-                         : launch_passes<T, VB, 8, true, 4, false>(x, L, s, per_sm);
+  if constexpr (VB <= 8) {
+    if (x.A2 > L.LB) return launch_passes<T, VB, 8, false, 0, false>(x, L, s, per_sm);
+    if (L.lanes == 32 && L.HG == 4 && L.DV == L.LB) {
+      return L.groups == 1 ? launch_passes<T, VB, 8, true, 4, true>(x, L, s, per_sm)
+                           : launch_passes<T, VB, 8, true, 4, false>(x, L, s, per_sm);
+    }
   }
   return launch_passes<T, VB, 8, true, 0, false>(x, L, s, per_sm);
 }
@@ -645,6 +651,8 @@ int launch_bwd(const BwdArgs& x, void* stream, int* per_sm = nullptr) {
     case 2: return launch_vb<T, 2>(x, s, per_sm);
     case 4: return launch_vb<T, 4>(x, s, per_sm);
     case 8: return launch_vb<T, 8>(x, s, per_sm);
+    case 16: return launch_vb<T, 16>(x, s, per_sm);
+    case 32: return launch_vb<T, 32>(x, s, per_sm);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -653,10 +661,10 @@ BwdArgs make_args(const void* q, const void* kv, const void* rowptr, const void*
                   const void* w_aug, const void* m, const void* g_num, const void* g_den, const void* colptr,
                   const void* perm, const void* dst_of, const void* pos, void* dq, void* dkv, void* da,
                   void* dw, void* dlw, void* dw_part, int batch, int num_dst, int num_src,
-                  int num_edges, int C, int H, int A2, int G, int VB, int parts) {
+                  int num_edges, int C, int H, int A2, int G, int VB, int parts, int Dt) {
   return BwdArgs{q,  kv, rowptr, src,  a,    w_aug,   m,     g_num,   g_den,   colptr,    perm, dst_of, pos,
                  dq, dkv, da,    dw,   dlw,  dw_part, batch, num_dst, num_src, num_edges, C, H,
-                 A2, G, VB, parts};
+                 A2, G, VB, parts, Dt};
 }
 
 }  // namespace
@@ -664,16 +672,17 @@ BwdArgs make_args(const void* q, const void* kv, const void* rowptr, const void*
 extern "C" {
 
 // G and VB: the lane layout of ops/edge_attention.py:_lane_layout; parts: the rows of dw_part and
-// the dst pass's grid (ops/edge_attention.py:_bwd_parts)
+// the dst pass's grid (ops/edge_attention.py:_bwd_parts); Dt: the head width C / H had before the
+// wrapper padded it
 int edge_attn_csr_bwd_f32(const void* q, const void* kv, const void* rowptr, const void* src,
                           const void* a, const void* w_aug, const void* m, const void* g_num,
                           const void* g_den, const void* colptr, const void* perm,
                           const void* dst_of, const void* pos, void* dq, void* dkv, void* da, void* dw,
                           void* dlw, void* dw_part, int batch, int num_dst, int num_src,
-                          int num_edges, int C, int H, int A2, int G, int VB, int parts, void* stream) {
+                          int num_edges, int C, int H, int A2, int G, int VB, int parts, int Dt, void* stream) {
   return launch_bwd<float>(make_args(q, kv, rowptr, src, a, w_aug, m, g_num, g_den, colptr, perm, dst_of, pos, dq,
                                      dkv, da, dw, dlw, dw_part, batch, num_dst, num_src, num_edges, C, H, A2, G,
-                                     VB, parts),
+                                     VB, parts, Dt),
                            stream);
 }
 
@@ -682,23 +691,23 @@ int edge_attn_csr_bwd_bf16(const void* q, const void* kv, const void* rowptr, co
                            const void* g_den, const void* colptr, const void* perm,
                            const void* dst_of, const void* pos, void* dq, void* dkv, void* da, void* dw,
                            void* dlw, void* dw_part, int batch, int num_dst, int num_src,
-                           int num_edges, int C, int H, int A2, int G, int VB, int parts, void* stream) {
+                           int num_edges, int C, int H, int A2, int G, int VB, int parts, int Dt, void* stream) {
   return launch_bwd<__nv_bfloat16>(make_args(q, kv, rowptr, src, a, w_aug, m, g_num, g_den, colptr, perm, dst_of,
                                              pos, dq, dkv, da, dw, dlw, dw_part, batch, num_dst, num_src,
-                                             num_edges, C, H, A2, G, VB, parts),
+                                             num_edges, C, H, A2, G, VB, parts, Dt),
                                    stream);
 }
 
 // The dst pass's CTAs an SM for this shape (the runtime's occupancy); launches nothing.
 int edge_attn_csr_bwd_per_sm_f32(int C, int H, int A2, int G, int VB, int* per_sm) {
   BwdArgs x{};
-  x.batch = 1, x.num_dst = 1, x.C = C, x.H = H, x.A2 = A2, x.G = G, x.VB = VB, x.parts = 1;
+  x.batch = 1, x.num_dst = 1, x.C = C, x.H = H, x.A2 = A2, x.G = G, x.VB = VB, x.parts = 1, x.Dt = H > 0 ? C / H : 0;
   return launch_bwd<float>(x, nullptr, per_sm);
 }
 
 int edge_attn_csr_bwd_per_sm_bf16(int C, int H, int A2, int G, int VB, int* per_sm) {
   BwdArgs x{};
-  x.batch = 1, x.num_dst = 1, x.C = C, x.H = H, x.A2 = A2, x.G = G, x.VB = VB, x.parts = 1;
+  x.batch = 1, x.num_dst = 1, x.C = C, x.H = H, x.A2 = A2, x.G = G, x.VB = VB, x.parts = 1, x.Dt = H > 0 ? C / H : 0;
   return launch_bwd<__nv_bfloat16>(x, nullptr, per_sm);
 }
 

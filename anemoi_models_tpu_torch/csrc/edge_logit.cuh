@@ -207,6 +207,9 @@ __device__ __forceinline__ float exact_dot(const float* qv, const Row<T, VB>& kr
 template <typename T, int VB>
 __device__ __forceinline__ float exact_dot_vf(int vf, const float* qv, const Row<T, VB>& kr, const float* ev,
                                               int LB) {
+  if constexpr (VB >= 16) {  // a head wider than 256: one chain a lane
+    if (vf == VB) return exact_dot<T, VB, VB>(qv, kr, ev, LB);
+  }
   if constexpr (VB >= 8) {
     if (vf == 8) return exact_dot<T, VB, 8>(qv, kr, ev, LB);
   }
@@ -232,17 +235,20 @@ struct Layout {
               // (the first kernel's threads), else VB
 };
 
-// The layout of (C, H) with group width G, checked: D at most 256, a power of
-// two or a multiple of 8, that VB divides; a group of whole heads, each on LB
-// lanes (a power of two: the shuffle trees run over it; its lanes past DV own
-// no channel and add zeros), HG LB <= 32 lanes in all, so VF divides VB; and a
-// group's rows 16-byte multiples. Returns false where the kernels cannot run it.
+// The layout of (C, H) with group width G, checked: D at most 1024, a power
+// of two or a multiple of 8, that VB divides; a group of whole heads, each on
+// LB lanes (a power of two: the shuffle trees run over it; its lanes past DV
+// own no channel and add zeros), HG LB <= 32 lanes in all, so VF divides VB
+// (a head wider than 256 is a group of its own on 32 lanes of VB = 16 or 32
+// channels, one chain a lane); and a group's rows 16-byte multiples. Returns
+// false where the kernels cannot run it. A head width that no layout takes is
+// padded with zero channels by the wrapper (ops/edge_attention.py:_kernel_head).
 template <int VB>
 inline bool make_layout(int C, int H, int G, int item, Layout* out) {
   if (H <= 0 || G <= 0 || C % H != 0 || C % G != 0) return false;
   const int D = C / H;
   const bool pow2 = (D & (D - 1)) == 0;
-  if (D > 256 || !(pow2 || D % 8 == 0) || D % VB != 0 || G % D != 0 || (G * item) % 16 != 0) return false;
+  if (D > 1024 || !(pow2 || D % 8 == 0) || D % VB != 0 || G % D != 0 || (G * item) % 16 != 0) return false;
   const int DV = D / VB;
   int LB = 1;
   while (LB < DV) LB *= 2;

@@ -11,7 +11,8 @@
 // output rows in fp32 registers. Masked logits count as -1e30 with zero
 // weight; the output is acc / max(l, 1e-30), as the TPU kernel divides.
 //
-// flash_attn_bf16_kernel (bf16, every head width 16, 32, 64, 128), in the
+// flash_attn_bf16_kernel (bf16, head widths 16, 32, 64, 128, 256 and 512;
+// the wrapper pads any other head width up to 512 with zero channels), in the
 // style of FlashAttention-3, specialised by warp:
 //   - one CTA per (128 queries, batch*head): warps 0-7 are two consumer
 //     warpgroups of 64 query rows each, warp 8 the producer;
@@ -33,13 +34,39 @@
 //     read MN-major from its row-major tile (imm-trans-b); O stays in
 //     registers and is rescaled there;
 //   - the output goes through a padded shared-memory tile and out in 16-byte
-//     stores.
-// Key blocks are 128 wide (64 for D = 128, where S, O and P would not fit a
-// thread's registers), 3 stages (2 for D = 128).
+//     stores (D <= 128; at D = 256 the tile would not fit beside the ring,
+//     and the registers are stored directly).
+// Key blocks are 128 wide (64 for D = 128 and 32 for D >= 256, where S, O and
+// P would not fit a thread's registers), 3 stages (2 for D = 128 and 512). At
+// D = 256 O = P . V runs as two m64n128 products over the halves of V's
+// columns. At D = 512 a CTA takes 64 queries and its two warpgroups split D:
+// each reduces Q . K^T over its half of the channels, the two partial S tiles
+// are summed through shared memory (a + b == b + a: both get the same S and
+// the same softmax), and each computes P . V for its half of V's columns.
 //
-// flash_attn_f32_kernel (fp32): exact fp32 on the CUDA cores, one CTA per 64
+// flash_attn_f32_kernel (fp32, head widths 16, 32, 64, 128; the wrapper pads
+// the others up to 128): exact fp32 on the CUDA cores, one CTA per 64
 // queries and (batch*head), two lanes a query row, K and V staged through
 // shared memory one block at a time.
+//
+// flash_attn_rows_kernel (either dtype, head widths above the two kernels'
+// above: 129-1024 in fp32, 513-1024 in bf16), a first plain design: a warp
+// per R consecutive query rows, a lane per D / 32 channels (strided by 32,
+// so a row loads coalesced), every key of the rows' band read once per warp
+// (from L2), the dot summed across the warp by shuffles, the same online
+// softmax in fp32. The shuffle chain of each (row, key) bounds it: staging
+// the band in shared memory for a CTA's rows gained nothing on an H100.
+//
+// Attention-weight dropout (every kernel): the JAX package drops normalized
+// probabilities, out_i = sum_j keep_ij p_ij v_j / ((1 - p) l_i), with l_i the
+// sum of every p_ij, the dropped pairs' included. So the online softmax keeps
+// l undropped, P . V takes keep_ij p_ij, and the epilogue scales by
+// 1 / (1 - p). keep_ij is a pure function of the call's 64-bit key and of
+// (b h, i, j): word j % 4 of Philox4x32-10 at counter (j / 4, i, b H + h, 0),
+// kept where it is below round((1 - p) 2^32) (ops/flash_attention.py:
+// dropout_keep draws the same bits in torch). Dropout is a template
+// parameter of each kernel: without it none of its code is compiled in, and
+// the kernels keep their earlier code and bits.
 //
 // Bound on the H100: operations. At O96 (B*H = 4, N = 10,242, D = 64,
 // w = 512) about 1,025 keys per query live in the band: 4 * B*H * N * 1,025 *
@@ -61,15 +88,49 @@ using bf16 = __nv_bfloat16;
 constexpr float kNeg = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
+// attention-weight dropout: on (0 or 1), the keep threshold round((1 - p) 2^32), the Philox key and
+// 1 / (1 - p)
+struct Dropout {
+  int on;
+  uint32_t keep_below, k0, k1;
+  float rscale;
+};
+
+// Philox4x32-10 (Salmon et al., SC 2011): ten rounds of two 32 x 32 -> 64-bit products, the key
+// bumped by the Weyl constants between rounds
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0, uint32_t k1) {
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
+    k0 += 0x9E3779B9u;
+    k1 += 0xBB67AE85u;
+  }
+  return c;
+}
+
+__device__ __forceinline__ uint32_t word(const uint4& u, int i) {
+  return i == 0 ? u.x : i == 1 ? u.y : i == 2 ? u.z : u.w;
+}
+
+// whether pair (i, j) of head bh survives
+__device__ __forceinline__ bool keep(const Dropout& dp, int bh, int i, int j) {
+  const uint4 u = philox4x32_10(make_uint4(static_cast<uint32_t>(j) >> 2, i, bh, 0), dp.k0, dp.k1);
+  return word(u, j & 3) < dp.keep_below;
+}
+
 // ---------------------------------------------------------------------------
 // bf16: wgmma + TMA
 // ---------------------------------------------------------------------------
 
 template <int D>
 struct Flash {
-  static constexpr int kBM = 128;                   // queries per CTA
-  static constexpr int kBN = D <= 64 ? 128 : 64;    // keys per block
-  static constexpr int kStages = D <= 64 ? 3 : 2;
+  static constexpr bool kSplit = D > 256;           // both warpgroups on one 64-row tile, D split between them
+  static constexpr int kDW = kSplit ? D / 2 : D;    // channels a warpgroup reduces Q . K^T over and outputs
+  static constexpr int kBM = kSplit ? 64 : 128;     // queries per CTA
+  static constexpr int kBN = D <= 64 ? 128 : D <= 128 ? 64 : 32;  // keys per block
+  static constexpr int kStages = D == 128 || kSplit ? 2 : 3;
   static constexpr int kSw = D >= 64 ? 128 : 2 * D;  // swizzle bytes = bytes of a box row
   static constexpr int kBoxCols = kSw / 2;           // bf16 columns per TMA box
   static constexpr int kBoxes = D / kBoxCols;        // boxes across D (2 for D = 128)
@@ -81,8 +142,10 @@ struct Flash {
   static constexpr int kKVBytes = kBoxes * kKVBox;   // one K (or V) tile
   static constexpr int kStage = 2 * kKVBytes;
   static constexpr int kLdO = D + 8;                 // padded output rows (bf16)
+  static constexpr bool kOTile = D <= 128;           // the output through shared memory
   static constexpr int kOOff = kQBytes + kStages * kStage;
-  static constexpr int kBarOff = kOOff + kBM * kLdO * 2;
+  static constexpr int kXOff = kOOff + (kOTile ? kBM * kLdO * 2 : 0);  // kSplit: the partial S exchange
+  static constexpr int kBarOff = kXOff + (kSplit ? 2 * kConsumers * (kBN / 2) * 4 : 0);
   static constexpr size_t kSmem = 1024 + kBarOff + 8 * (2 * kStages + 1);
 };
 
@@ -90,10 +153,10 @@ struct FlashMaps {
   CUtensorMap q, k, v;  // (D, N, H, B) bf16, boxes of kBoxCols x rows
 };
 
-template <int D>
+template <int D, bool DROP>
 __global__ void __launch_bounds__(Flash<D>::kThreads, 1)
 flash_attn_bf16_kernel(const __grid_constant__ FlashMaps maps, bf16* __restrict__ o, int H, int N, int64_t ob,
-                       int64_t oh, int64_t on, int window, int causal, float scale) {
+                       int64_t oh, int64_t on, int window, int causal, float scale, Dropout dp) {
   using F = Flash<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = sm90::align_1024(smem_raw);
@@ -150,18 +213,20 @@ flash_attn_bf16_kernel(const __grid_constant__ FlashMaps maps, bf16* __restrict_
   const int wg = tid / 128;
   const int t = tid % 128;
   const int lane = t % 32;
-  const int r0 = q0 + 64 * wg;                              // the warpgroup's first row
+  const int r0 = q0 + (F::kSplit ? 0 : 64 * wg);           // the warpgroup's first row
   const int rowa = r0 + 16 * (t / 32) + lane / 4;           // this thread's rows: rowa, rowa + 8
   const float sl2 = scale * kLog2e;
 
-  constexpr int kS = F::kBN / 2;  // S accumulator registers
-  constexpr int kO = D / 2;       // O accumulator registers
+  constexpr int kS = F::kBN / 2;     // S accumulator registers
+  constexpr int kO = F::kDW / 2;     // O accumulator registers
+  const int c0 = F::kSplit ? wg * F::kDW : 0;  // the warpgroup's first channel of Q . K^T and of O
   float sacc[kS], oacc[kO];
 #pragma unroll
   for (int i = 0; i < kO; ++i) oacc[i] = 0.f;
   float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
 
-  const uint8_t* q_tile = smem + 64 * wg * F::kSw;  // this warpgroup's rows of box 0
+  const uint8_t* q_tile = smem + (F::kSplit ? 0 : 64 * wg * F::kSw);  // this warpgroup's rows of box 0
+  int exchanges = 0;  // kSplit: partial S tiles exchanged so far
   sm90::mbar_wait(qbar, 0);
 
   for (int i = 0; i < nblocks; ++i) {
@@ -187,15 +252,27 @@ flash_attn_bf16_kernel(const __grid_constant__ FlashMaps maps, bf16* __restrict_
       sm90::fence_regs<kS>(sacc);
       sm90::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const int box = kk * 16 / F::kBoxCols;
-        const int off = (kk * 16 % F::kBoxCols) * 2;
+      for (int kk = 0; kk < F::kDW / 16; ++kk) {
+        const int box = (c0 + kk * 16) / F::kBoxCols;
+        const int off = ((c0 + kk * 16) % F::kBoxCols) * 2;
         sm90::Wgmma<F::kBN>::mma(sacc, sm90::make_desc<F::kSw>(q_tile + box * F::kQBox + off),
                                  sm90::make_desc<F::kSw>(k_tile + box * F::kKVBox + off), kk > 0);
       }
       sm90::wgmma_commit();
       sm90::wgmma_wait_all();
       sm90::fence_regs<kS>(sacc);
+      if constexpr (F::kSplit) {
+        // S = the two warpgroups' partial sums over their halves of D, through shared memory: thread t of
+        // each holds the same (row, key) in register r; a + b == b + a, so both get the same bits.
+        // Two buffers by the parity of the exchanges (both warpgroups skip the same blocks): a warpgroup
+        // writes the next exchange's while the other still reads this one's.
+        float* xs = reinterpret_cast<float*>(smem + F::kXOff) + (exchanges++ & 1) * F::kConsumers * kS;
+#pragma unroll
+        for (int r = 0; r < kS; ++r) xs[(wg * kS + r) * 128 + t] = sacc[r];
+        sm90::named_barrier(3, F::kConsumers);
+#pragma unroll
+        for (int r = 0; r < kS; ++r) sacc[r] += xs[((1 - wg) * kS + r) * 128 + t];
+      }
 
       // register r: row rowa + 8 ((r / 2) % 2), key k0 + 8 (r / 4) + 2 (lane % 4) + r % 2
       if (masked) {
@@ -223,6 +300,27 @@ flash_attn_bf16_kernel(const __grid_constant__ FlashMaps maps, bf16* __restrict_
       }
       uint32_t pf[F::kBN / 16][4];  // P in bf16, as the A fragments of P . V
       float ls[2] = {0.f, 0.f};
+      // dropout: registers r, r + 1 (row h = 0) and r + 2, r + 3 (h = 1) hold keys kj, kj + 1 of one Philox
+      // counter, kj / 4, which lanes 2m and 2m + 1 share (their kj differ by 2): the even lane draws row h = 0's
+      // four words, the odd lane row h = 1's, and they swap, so a lane draws one Philox for four registers
+      uint64_t kept = 0;  // bit r: register r's pair survives
+      if constexpr (DROP) {
+#pragma unroll
+        for (int r = 0; r < kS; r += 4) {
+          const int kj = k0 + 8 * (r / 4) + 2 * (lane % 4);
+          const int odd = lane & 1;
+          const uint4 mine =
+              philox4x32_10(make_uint4(static_cast<uint32_t>(kj) >> 2, rowa + 8 * odd, bh, 0), dp.k0, dp.k1);
+          const uint4 theirs = make_uint4(__shfl_xor_sync(0xffffffffu, mine.x, 1), __shfl_xor_sync(0xffffffffu, mine.y, 1),
+                                          __shfl_xor_sync(0xffffffffu, mine.z, 1), __shfl_xor_sync(0xffffffffu, mine.w, 1));
+          const uint4 u0 = odd ? theirs : mine, u1 = odd ? mine : theirs;
+          const int w = kj & 3;
+          kept |= static_cast<uint64_t>(word(u0, w) < dp.keep_below) << r;
+          kept |= static_cast<uint64_t>(word(u0, w + 1) < dp.keep_below) << (r + 1);
+          kept |= static_cast<uint64_t>(word(u1, w) < dp.keep_below) << (r + 2);
+          kept |= static_cast<uint64_t>(word(u1, w + 1) < dp.keep_below) << (r + 3);
+        }
+      }
 #pragma unroll
       for (int r = 0; r < kS; r += 2) {
         const int h = (r / 2) % 2;
@@ -232,7 +330,11 @@ flash_attn_bf16_kernel(const __grid_constant__ FlashMaps maps, bf16* __restrict_
           p0 = sacc[r] > 0.5f * kNeg ? p0 : 0.f;
           p1 = sacc[r + 1] > 0.5f * kNeg ? p1 : 0.f;
         }
-        ls[h] += p0 + p1;
+        ls[h] += p0 + p1;  // the normalizer sums every pair, dropped or not
+        if constexpr (DROP) {
+          p0 = (kept >> r) & 1 ? p0 : 0.f;
+          p1 = (kept >> (r + 1)) & 1 ? p1 : 0.f;
+        }
         const __nv_bfloat162 pair = __floats2bfloat162_rn(p0, p1);
         pf[r / 8][(r % 8) / 2] = *reinterpret_cast<const uint32_t*>(&pair);
       }
@@ -244,9 +346,24 @@ flash_attn_bf16_kernel(const __grid_constant__ FlashMaps maps, bf16* __restrict_
       // O += P . V, V MN-major
       sm90::fence_regs<kO>(oacc);
       sm90::wgmma_fence();
+      if constexpr (D <= 128) {
 #pragma unroll
-      for (int kk = 0; kk < F::kBN / 16; ++kk)
-        sm90::WgmmaRS<D>::mma(oacc, pf[kk], sm90::make_desc_mn_bits(v_tile + kk * 16 * F::kSw, F::kSw, F::kKVBox), 1);
+        for (int kk = 0; kk < F::kBN / 16; ++kk)
+          sm90::WgmmaRS<D>::mma(oacc, pf[kk], sm90::make_desc_mn_bits(v_tile + kk * 16 * F::kSw, F::kSw, F::kKVBox),
+                                1);
+      } else {  // halves of the warpgroup's V columns, two boxes each: registers 64 hf + r hold columns
+                // c0 + 128 hf + ...
+#pragma unroll
+        for (int hf = 0; hf < F::kDW / 128; ++hf) {
+#pragma unroll
+          for (int kk = 0; kk < F::kBN / 16; ++kk)
+            sm90::WgmmaRS<128>::mma(oacc + 64 * hf, pf[kk],
+                                    sm90::make_desc_mn_bits(v_tile + (c0 / F::kBoxCols + hf * 2) * F::kKVBox +
+                                                                kk * 16 * F::kSw,
+                                                            F::kSw, F::kKVBox),
+                                    1);
+        }
+      }
       sm90::wgmma_commit();
       sm90::wgmma_wait_all();
       sm90::fence_regs<kO>(oacc);
@@ -261,9 +378,22 @@ flash_attn_bf16_kernel(const __grid_constant__ FlashMaps maps, bf16* __restrict_
     float lt = l[h] + __shfl_xor_sync(0xffffffffu, l[h], 1);
     lt += __shfl_xor_sync(0xffffffffu, lt, 2);
     inv[h] = 1.f / fmaxf(lt, 1e-30f);
+    if constexpr (DROP) inv[h] *= dp.rscale;
+  }
+  bf16* out = o + (int64_t)bidx * ob + (int64_t)hidx * oh;
+  const int orow = 16 * (t / 32) + lane / 4;
+  if constexpr (!F::kOTile) {  // straight from the registers: two bf16 a store
+#pragma unroll
+    for (int r = 0; r < kO; r += 2) {
+      const int h = (r / 2) % 2;
+      const int row = r0 + orow + 8 * h;
+      if (row < N)
+        *reinterpret_cast<__nv_bfloat162*>(out + (int64_t)row * on + c0 + 8 * (r / 4) + 2 * (lane % 4)) =
+            __floats2bfloat162_rn(oacc[r] * inv[h], oacc[r + 1] * inv[h]);
+    }
+    return;
   }
   bf16* otile = reinterpret_cast<bf16*>(smem + F::kOOff) + 64 * wg * F::kLdO;
-  const int orow = 16 * (t / 32) + lane / 4;
 #pragma unroll
   for (int r = 0; r < kO; r += 2) {
     const int h = (r / 2) % 2;
@@ -272,7 +402,6 @@ flash_attn_bf16_kernel(const __grid_constant__ FlashMaps maps, bf16* __restrict_
         __floats2bfloat162_rn(oacc[r] * inv[h], oacc[r + 1] * inv[h]);
   }
   sm90::named_barrier(1 + wg, 128);
-  bf16* out = o + (int64_t)bidx * ob + (int64_t)hidx * oh;
   constexpr int kChunks = D / 8;  // 16-byte chunks a row
   for (int idx = t; idx < 64 * kChunks; idx += 128) {
     const int r = idx / kChunks;
@@ -283,10 +412,24 @@ flash_attn_bf16_kernel(const __grid_constant__ FlashMaps maps, bf16* __restrict_
   }
 }
 
+// a kernel without dropout compiles none of its code
+template <int D, bool DROP>
+int launch_bf16_kernel(dim3 grid, const FlashMaps& maps, void* o, int H, int N, int64_t ob, int64_t oh, int64_t on,
+                       int window, int causal, float scale, const Dropout& dp, cudaStream_t stream) {
+  using F = Flash<D>;
+  auto kernel = flash_attn_bf16_kernel<D, DROP>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(F::kSmem));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  kernel<<<grid, F::kThreads, F::kSmem, stream>>>(maps, static_cast<bf16*>(o), H, N, ob, oh, on, window, causal,
+                                                  scale, dp);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D>
 int launch_flash_bf16(const void* q, const void* k, const void* v, void* o, int B, int H, int N, int64_t sb,
                       int64_t sh, int64_t sn, int64_t ob, int64_t oh, int64_t on, int window, int causal,
-                      float scale, cudaStream_t stream) {
+                      float scale, const Dropout& dp, cudaStream_t stream) {
   using F = Flash<D>;
   FlashMaps maps;
   const int64_t dims[4] = {D, N, H, B};
@@ -295,14 +438,9 @@ int launch_flash_bf16(const void* q, const void* k, const void* v, void* o, int 
   if (rc == 0) rc = sm90::make_map_bf16_4d(&maps.k, k, dims, strides, F::kBN, F::kBoxCols);
   if (rc == 0) rc = sm90::make_map_bf16_4d(&maps.v, v, dims, strides, F::kBN, F::kBoxCols);
   if (rc != 0) return rc;
-  auto kernel = flash_attn_bf16_kernel<D>;
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(F::kSmem));
-  if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((N + F::kBM - 1) / F::kBM, B * H);
-  kernel<<<grid, F::kThreads, F::kSmem, stream>>>(maps, static_cast<bf16*>(o), H, N, ob, oh, on, window, causal,
-                                                  scale);
-  return static_cast<int>(cudaGetLastError());
+  return dp.on ? launch_bf16_kernel<D, true>(grid, maps, o, H, N, ob, oh, on, window, causal, scale, dp, stream)
+               : launch_bf16_kernel<D, false>(grid, maps, o, H, N, ob, oh, on, window, causal, scale, dp, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -336,11 +474,11 @@ __device__ __forceinline__ void load_tile_f32(float* dst, const float* src, int6
   }
 }
 
-template <int D>
+template <int D, bool DROP>
 __global__ void __launch_bounds__(kF32Threads)
 flash_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                       float* __restrict__ o, int H, int N, int64_t sb, int64_t sh, int64_t sn, int64_t ob,
-                      int64_t oh, int64_t on, int window, int causal, float scale) {
+                      int64_t oh, int64_t on, int window, int causal, float scale, Dropout dp) {
   using L = F32Layout<D>;
   extern __shared__ __align__(128) unsigned char smem_f32[];
   float* Qs = reinterpret_cast<float*>(smem_f32);
@@ -409,8 +547,9 @@ flash_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, 
 #pragma unroll
     for (int c = 0; c < kF32BN / 2; ++c) {
       const float p = s[c] > 0.5f * kNeg ? expf(s[c] - m_new) : 0.f;
-      lsum += p;
-      Pw[r * L::kLdP + half * (kF32BN / 2) + c] = p;
+      lsum += p;  // the normalizer sums every pair, dropped or not
+      Pw[r * L::kLdP + half * (kF32BN / 2) + c] =
+          DROP && !keep(dp, bh, qpos, k0 + half * (kF32BN / 2) + c) ? 0.f : p;
     }
     lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
     l = fmaf(l, corr, lsum);
@@ -430,7 +569,7 @@ flash_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, 
   }
 
   if (qpos < N) {
-    const float inv = 1.f / fmaxf(l, 1e-30f);
+    const float inv = DROP ? 1.f / fmaxf(l, 1e-30f) * dp.rscale : 1.f / fmaxf(l, 1e-30f);
     float* orow = o + out_off + (int64_t)qpos * on + half * (D / 2);
 #pragma unroll
     for (int c = 0; c < D / 2; ++c) orow[c] = acc[c] * inv;
@@ -440,46 +579,168 @@ flash_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, 
 template <int D>
 int launch_flash_f32(const void* q, const void* k, const void* v, void* o, int B, int H, int N, int64_t sb,
                      int64_t sh, int64_t sn, int64_t ob, int64_t oh, int64_t on, int window, int causal, float scale,
-                     cudaStream_t stream) {
+                     const Dropout& dp, cudaStream_t stream) {
   using L = F32Layout<D>;
-  auto kernel = flash_attn_f32_kernel<D>;
+  auto kernel = dp.on ? flash_attn_f32_kernel<D, true> : flash_attn_f32_kernel<D, false>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(L::kBytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((N + kF32BM - 1) / kF32BM, B * H);
   kernel<<<grid, kF32Threads, L::kBytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), H, N, sb, sh, sn, ob, oh, on, window, causal, scale);
+      static_cast<float*>(o), H, N, sb, sh, sn, ob, oh, on, window, causal, scale, dp);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// wide heads: a warp per R query rows on the CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int kRowWarps = 4;
+
+__device__ __forceinline__ float load_f(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_f(const bf16* p) { return __bfloat162float(__ldg(p)); }
+__device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_f(bf16* p, float x) { *p = __float2bfloat16_rn(x); }
+
+// lane l owns channels l, l + 32, ..., l + 32 (NV - 1) below D; R rows a warp share every key row
+template <typename T, int NV, int R, bool DROP>
+__global__ void __launch_bounds__(32 * kRowWarps)
+flash_attn_rows_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ o,
+                       int H, int N, int D, int64_t sb, int64_t sh, int64_t sn, int64_t ob, int64_t oh, int64_t on,
+                       int window, int causal, float scale, Dropout dp) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int bh = blockIdx.y;
+  const int i0 = (blockIdx.x * kRowWarps + warp) * R;
+  if (i0 >= N) return;
+  const int64_t in_off = (int64_t)(bh / H) * sb + (int64_t)(bh % H) * sh;
+  const int64_t out_off = (int64_t)(bh / H) * ob + (int64_t)(bh % H) * oh;
+  float qv[R][NV], acc[R][NV], m[R], l[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    m[r] = kNeg;
+    l[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      const int ch = lane + 32 * c;
+      qv[r][c] = i0 + r < N && ch < D ? load_f(q + in_off + (int64_t)(i0 + r) * sn + ch) : 0.f;
+      acc[r][c] = 0.f;
+    }
+  }
+  const int last = min(i0 + R - 1, N - 1);
+  int lo = 0, hi = N - 1;
+  if (window >= 0) {
+    lo = max(0, i0 - window);
+    hi = min(N - 1, last + window);
+  }
+  if (causal) hi = min(hi, last);
+  for (int j = lo; j <= hi; ++j) {
+    float kr[NV], vr[NV];
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      const int ch = lane + 32 * c;
+      kr[c] = ch < D ? load_f(k + in_off + (int64_t)j * sn + ch) : 0.f;
+      vr[c] = ch < D ? load_f(v + in_off + (int64_t)j * sn + ch) : 0.f;
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float s = 0.f;
+#pragma unroll
+      for (int c = 0; c < NV; ++c) s = fmaf(qv[r][c], kr[c], s);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+      const int i = i0 + r;  // every branch below is uniform over the warp
+      bool live = i < N;
+      if (window >= 0) live = live && abs(i - j) <= window;
+      if (causal) live = live && j <= i;
+      if (!live) continue;
+      const float logit = s * scale;
+      const float m_new = fmaxf(m[r], logit);
+      const float corr = expf(m[r] - m_new);
+      const float p = expf(logit - m_new);
+      l[r] = fmaf(l[r], corr, p);  // the normalizer sums every pair, dropped or not
+      const float pk = DROP && !keep(dp, bh, i, j) ? 0.f : p;
+#pragma unroll
+      for (int c = 0; c < NV; ++c) acc[r][c] = fmaf(acc[r][c], corr, pk * vr[c]);
+      m[r] = m_new;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (i0 + r >= N) break;
+    const float inv = DROP ? 1.f / fmaxf(l[r], 1e-30f) * dp.rscale : 1.f / fmaxf(l[r], 1e-30f);
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      const int ch = lane + 32 * c;
+      if (ch < D) store_f(o + out_off + (int64_t)(i0 + r) * on + ch, acc[r][c] * inv);
+    }
+  }
+}
+
+template <typename T, int NV>
+int launch_rows(const void* q, const void* k, const void* v, void* o, int B, int H, int N, int D, int64_t sb,
+                int64_t sh, int64_t sn, int64_t ob, int64_t oh, int64_t on, int window, int causal, float scale,
+                const Dropout& dp, cudaStream_t stream) {
+  constexpr int R = 64 / NV;  // rows a warp: 64 accumulators a lane
+  const dim3 grid((N + kRowWarps * R - 1) / (kRowWarps * R), B * H);
+  auto kernel = dp.on ? flash_attn_rows_kernel<T, NV, R, true> : flash_attn_rows_kernel<T, NV, R, false>;
+  kernel<<<grid, 32 * kRowWarps, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(o), H, N, D, sb,
+      sh, sn, ob, oh, on, window, causal, scale, dp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_rows_any(const void* q, const void* k, const void* v, void* o, int B, int H, int N, int D, int64_t sb,
+                    int64_t sh, int64_t sn, int64_t ob, int64_t oh, int64_t on, int window, int causal,
+                    float scale, const Dropout& dp, cudaStream_t s) {
+  if (D <= 256) return launch_rows<T, 8>(q, k, v, o, B, H, N, D, sb, sh, sn, ob, oh, on, window, causal, scale, dp, s);
+  if (D <= 512) return launch_rows<T, 16>(q, k, v, o, B, H, N, D, sb, sh, sn, ob, oh, on, window, causal, scale, dp, s);
+  if (D <= 1024) return launch_rows<T, 32>(q, k, v, o, B, H, N, D, sb, sh, sn, ob, oh, on, window, causal, scale, dp, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 extern "C" {
 
+// dropout: 0 or 1; keep_below = round((1 - p) 2^32); k0, k1: the Philox key; rscale = 1 / (1 - p)
 int flash_attn_f32(const void* q, const void* k, const void* v, void* o, int B, int H, int N, int D,
                    int64_t sb, int64_t sh, int64_t sn, int64_t ob, int64_t oh, int64_t on,
-                   int window, int causal, float scale, void* stream) {
+                   int window, int causal, float scale, int dropout, uint32_t keep_below, uint32_t k0, uint32_t k1,
+                   float rscale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {  // the wrapper admits these head widths only
-    case 16: return launch_flash_f32<16>(q, k, v, o, B, H, N, sb, sh, sn, ob, oh, on, window, causal, scale, s);
-    case 32: return launch_flash_f32<32>(q, k, v, o, B, H, N, sb, sh, sn, ob, oh, on, window, causal, scale, s);
-    case 64: return launch_flash_f32<64>(q, k, v, o, B, H, N, sb, sh, sn, ob, oh, on, window, causal, scale, s);
-    case 128: return launch_flash_f32<128>(q, k, v, o, B, H, N, sb, sh, sn, ob, oh, on, window, causal, scale, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  const Dropout dp{dropout, keep_below, k0, k1, rscale};
+  switch (D) {  // the wrapper pads every head width up to 128 to one of these
+    case 16: return launch_flash_f32<16>(q, k, v, o, B, H, N, sb, sh, sn, ob, oh, on, window, causal, scale, dp, s);
+    case 32: return launch_flash_f32<32>(q, k, v, o, B, H, N, sb, sh, sn, ob, oh, on, window, causal, scale, dp, s);
+    case 64: return launch_flash_f32<64>(q, k, v, o, B, H, N, sb, sh, sn, ob, oh, on, window, causal, scale, dp, s);
+    case 128: return launch_flash_f32<128>(q, k, v, o, B, H, N, sb, sh, sn, ob, oh, on, window, causal, scale, dp, s);
+    default:
+      if (D > 128)
+        return launch_rows_any<float>(q, k, v, o, B, H, N, D, sb, sh, sn, ob, oh, on, window, causal, scale, dp, s);
+      return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 int flash_attn_bf16(const void* q, const void* k, const void* v, void* o, int B, int H, int N, int D,
                     int64_t sb, int64_t sh, int64_t sn, int64_t ob, int64_t oh, int64_t on,
-                    int window, int causal, float scale, void* stream) {
+                    int window, int causal, float scale, int dropout, uint32_t keep_below, uint32_t k0, uint32_t k1,
+                    float rscale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch_flash_bf16<16>(q, k, v, o, B, H, N, sb, sh, sn, ob, oh, on, window, causal, scale, s);
-    case 32: return launch_flash_bf16<32>(q, k, v, o, B, H, N, sb, sh, sn, ob, oh, on, window, causal, scale, s);
-    case 64: return launch_flash_bf16<64>(q, k, v, o, B, H, N, sb, sh, sn, ob, oh, on, window, causal, scale, s);
-    case 128: return launch_flash_bf16<128>(q, k, v, o, B, H, N, sb, sh, sn, ob, oh, on, window, causal, scale, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  const Dropout dp{dropout, keep_below, k0, k1, rscale};
+  switch (D) {  // the wrapper pads every head width up to 512 to one of these
+    case 16: return launch_flash_bf16<16>(q, k, v, o, B, H, N, sb, sh, sn, ob, oh, on, window, causal, scale, dp, s);
+    case 32: return launch_flash_bf16<32>(q, k, v, o, B, H, N, sb, sh, sn, ob, oh, on, window, causal, scale, dp, s);
+    case 64: return launch_flash_bf16<64>(q, k, v, o, B, H, N, sb, sh, sn, ob, oh, on, window, causal, scale, dp, s);
+    case 128: return launch_flash_bf16<128>(q, k, v, o, B, H, N, sb, sh, sn, ob, oh, on, window, causal, scale, dp, s);
+    case 256: return launch_flash_bf16<256>(q, k, v, o, B, H, N, sb, sh, sn, ob, oh, on, window, causal, scale, dp, s);
+    case 512: return launch_flash_bf16<512>(q, k, v, o, B, H, N, sb, sh, sn, ob, oh, on, window, causal, scale, dp, s);
+    default:
+      if (D > 512)
+        return launch_rows_any<bf16>(q, k, v, o, B, H, N, D, sb, sh, sn, ob, oh, on, window, causal, scale, dp, s);
+      return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 

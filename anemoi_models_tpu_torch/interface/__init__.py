@@ -143,9 +143,10 @@ class AnemoiModelInterface:
 
     # -- checkpoints -----------------------------------------------------
     def save(self, path: str, optimizer: Optional[torch.optim.Optimizer] = None, step: Optional[int] = None,
-             include_graph: bool = True) -> str:
+             include_graph: bool = True, ema: Optional[Mapping[str, torch.Tensor]] = None) -> str:
         """Write the parameters, the processor state, the optimizer's state
-        (if given) and the metadata to a checkpoint directory; returns its
+        (if given; with ``ema``, an EMA of the parameters by name, under its
+        ``"ema"`` key) and the metadata to a checkpoint directory; returns its
         path. With ``include_graph`` the graph, the statistics and the
         variable table all ride along, so :meth:`from_checkpoint` rebuilds
         the serving interface from the directory alone; without it, keep the
@@ -160,7 +161,7 @@ class AnemoiModelInterface:
             path,
             params=self.model.state_dict(),
             processor_state=self.pre_processors.state_dict(),
-            opt_state=optimizer.state_dict() if optimizer is not None else None,
+            opt_state=_opt_state(optimizer, ema),
             step=step,
             metadata=metadata,
             config=dict(self.config),
@@ -234,3 +235,14 @@ class AnemoiModelInterface:
         )
         iface._restore(restored)
         return iface
+
+
+def _opt_state(optimizer: Optional[torch.optim.Optimizer], ema: Optional[Mapping[str, torch.Tensor]]) -> Optional[dict]:
+    """The checkpoint's optimizer state: the optimizer's ``state_dict()`` and,
+    with an EMA, its tensors (on the CPU) under ``"ema"``."""
+    if optimizer is None and ema is None:
+        return None
+    state = dict(optimizer.state_dict()) if optimizer is not None else {}
+    if ema is not None:
+        state["ema"] = {k: v.detach().cpu() for k, v in ema.items()}
+    return state

@@ -18,16 +18,18 @@ from torch import nn
 
 from anemoi_models_tpu_torch.layers.utils import Dense
 from anemoi_models_tpu_torch.ops.attention import dot_product_attention
+from anemoi_models_tpu_torch.ops.flash_attention import fold_key
 
 __all__ = ["MultiHeadSelfAttention"]
 
 
 class MultiHeadSelfAttention(nn.Module):
-    """MHSA over (batch, seq, channels) tensors."""
+    """MHSA over (batch, seq, channels) tensors. ``layer_index`` is folded
+    into the dropout key, so each layer of a processor draws its own mask."""
 
     def __init__(self, num_heads: int, embed_dim: int, *, bias: bool = False, is_causal: bool = False,
                  window_size: Optional[int] = None, dropout_p: float = 0.0, attention_impl: str = "auto",
-                 dtype: torch.dtype = torch.float32, device=None) -> None:
+                 layer_index: int = 0, dtype: torch.dtype = torch.float32, device=None) -> None:
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"Head split impossible: embed_dim {embed_dim} is not a multiple of ({num_heads})")
@@ -39,16 +41,21 @@ class MultiHeadSelfAttention(nn.Module):
         self.window_size = window_size
         self.dropout_p = dropout_p
         self.attention_impl = attention_impl
+        self.layer_index = layer_index
         self.lin_qkv = Dense(embed_dim, 3 * embed_dim, bias=bias, dtype=dtype, device=device)
         self.projection = Dense(embed_dim, embed_dim, dtype=dtype, device=device)
 
-    def forward(self, x: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, deterministic: bool = True, dropout_key: Optional[int] = None) -> torch.Tensor:
         batch, seq, _ = x.shape
         head_dim = self.embed_dim // self.num_heads
         qkv = self.lin_qkv(x).view(batch, seq, 3, self.num_heads, head_dim)
         query, key, value = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # (B, H, N, D) views
+        rate = 0.0 if deterministic else self.dropout_p
+        if rate > 0.0 and dropout_key is None:
+            raise ValueError("attention dropout (deterministic=False) needs a dropout_key")
         out = dot_product_attention(
             query, key, value, window_size=self.window_size, is_causal=self.is_causal,
-            impl=self.attention_impl, dropout_rate=0.0 if deterministic else self.dropout_p,
+            impl=self.attention_impl, dropout_rate=rate,
+            dropout_key=fold_key(dropout_key, self.layer_index) if rate > 0.0 else None,
         )
         return self.projection(out.transpose(1, 2).reshape(batch, seq, self.embed_dim))

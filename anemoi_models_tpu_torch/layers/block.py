@@ -46,20 +46,20 @@ class TransformerProcessorBlock(nn.Module):
 
     def __init__(self, num_channels: int, hidden_dim: int, num_heads: int, *, activation: str = "GELU",
                  window_size: Optional[int] = None, dropout_p: float = 0.0, attention_impl: str = "auto",
-                 dtype: torch.dtype = torch.float32, device=None) -> None:
+                 layer_index: int = 0, dtype: torch.dtype = torch.float32, device=None) -> None:
         super().__init__()
         self.layer_norm1 = AutocastLayerNorm(num_channels, device=device)
         self.attention = MultiHeadSelfAttention(
             num_heads, num_channels, window_size=window_size, bias=False, is_causal=False,
-            dropout_p=dropout_p, attention_impl=attention_impl, dtype=dtype, device=device,
+            dropout_p=dropout_p, attention_impl=attention_impl, layer_index=layer_index, dtype=dtype, device=device,
         )
         self.layer_norm2 = AutocastLayerNorm(num_channels, device=device)
         self.fc1 = Dense(num_channels, hidden_dim, dtype=dtype, device=device)
         self.fc2 = Dense(hidden_dim, num_channels, dtype=dtype, device=device)
         self.act = get_activation(activation)
 
-    def forward(self, x: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
-        x = x + self.attention(self.layer_norm1(x), deterministic)
+    def forward(self, x: torch.Tensor, deterministic: bool = True, dropout_key: Optional[int] = None) -> torch.Tensor:
+        x = x + self.attention(self.layer_norm1(x), deterministic, dropout_key)
         return x + self.fc2(self.act(self.fc1(self.layer_norm2(x))))
 
 

@@ -49,26 +49,29 @@ class _Chunk(nn.Module):
 
 
 class TransformerProcessorChunk(_Chunk):
-    """``num_layers`` sliding-window transformer blocks."""
+    """``num_layers`` sliding-window transformer blocks; block ``l`` is the
+    processor's layer ``first_layer + l``, the index its dropout key folds in.
+    A chunk recomputed in the backward gets the same key as its forward, so it
+    redraws the same masks."""
 
     def __init__(self, num_channels: int, num_layers: int, window_size: Optional[int], *, num_heads: int = 16,
                  mlp_hidden_ratio: int = 4, activation: str = "GELU", dropout_p: float = 0.0,
                  attention_impl: str = "auto", deterministic: bool = True, remat_policy: str = "full",
-                 dtype: torch.dtype = torch.float32, device=None) -> None:
+                 first_layer: int = 0, dtype: torch.dtype = torch.float32, device=None) -> None:
         super().__init__(remat_policy)
         self.deterministic = deterministic
         self.blocks = nn.ModuleList(
             TransformerProcessorBlock(
                 num_channels, mlp_hidden_ratio * num_channels, num_heads, activation=activation,
                 window_size=window_size, dropout_p=dropout_p, attention_impl=attention_impl,
-                dtype=dtype, device=device,
+                layer_index=first_layer + i, dtype=dtype, device=device,
             )
-            for _ in range(num_layers)
+            for i in range(num_layers)
         )
 
-    def _run(self, x: torch.Tensor) -> torch.Tensor:
+    def _run(self, x: torch.Tensor, dropout_key: Optional[int] = None) -> torch.Tensor:
         for block in self.blocks:
-            x = block(x, self.deterministic)
+            x = block(x, self.deterministic, dropout_key)
         return x
 
 

@@ -86,8 +86,9 @@ def _chunk_size(num_layers: int, num_chunks: int) -> int:
 
 class TransformerProcessor(nn.Module):
     """Sliding-window transformer over the hidden mesh positions:
-    ``num_layers`` blocks in ``num_chunks`` chunks. Attention-weight dropout
-    (``dropout_p`` with ``deterministic=False``) is not ported and raises."""
+    ``num_layers`` blocks in ``num_chunks`` chunks. With ``deterministic=False``
+    the attention drops weights at ``dropout_p`` under the ``dropout_key``
+    the forward is given (each layer folds in its index)."""
 
     def __init__(
         self,
@@ -107,20 +108,21 @@ class TransformerProcessor(nn.Module):
         device=None,
     ) -> None:
         super().__init__()
+        chunk_size = _chunk_size(num_layers, num_chunks)
         self.proc = nn.ModuleList(
             TransformerProcessorChunk(
-                num_channels, _chunk_size(num_layers, num_chunks), window_size, num_heads=num_heads,
+                num_channels, chunk_size, window_size, num_heads=num_heads,
                 mlp_hidden_ratio=mlp_hidden_ratio, activation=activation, dropout_p=dropout_p,
                 attention_impl=attention_impl, deterministic=deterministic, remat_policy=remat_policy,
-                dtype=dtype, device=device,
+                first_layer=c * chunk_size, dtype=dtype, device=device,
             )
-            for _ in range(num_chunks)
+            for c in range(num_chunks)
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dropout_key: Optional[int] = None) -> torch.Tensor:
         """x (B, N, C) -> (B, N, C)."""
         for chunk in self.proc:
-            x = chunk(x)
+            x = chunk(x, dropout_key)
         return x
 
 
@@ -163,8 +165,8 @@ class GNNProcessor(nn.Module):
             for c in range(num_chunks)
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (B, N, C) -> (B, N, C)."""
+    def forward(self, x: torch.Tensor, dropout_key: Optional[int] = None) -> torch.Tensor:
+        """x (B, N, C) -> (B, N, C); no layer drops, so ``dropout_key`` is unused."""
         edge_attr = self.trainable(self.edge_attr.to(self.dtype))
         for chunk in self.proc:
             x, edge_attr = chunk(x, edge_attr, self.rowptr, self.src)
@@ -210,8 +212,8 @@ class GraphTransformerProcessor(nn.Module):
             for _ in range(num_chunks)
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (B, N, C) -> (B, N, C)."""
+    def forward(self, x: torch.Tensor, dropout_key: Optional[int] = None) -> torch.Tensor:
+        """x (B, N, C) -> (B, N, C); no layer drops, so ``dropout_key`` is unused."""
         edge_attr = self.trainable(self.edge_attr.to(self.dtype))
         csr_t = edge_csr_t(self)
         for chunk in self.proc:

@@ -14,7 +14,7 @@ the card (``device="cuda"``) unless the caller names another device.
 from __future__ import annotations
 
 import inspect
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -41,8 +41,8 @@ class AnemoiModelEncProcDec(nn.Module):
                  dtype: torch.dtype = torch.float32, device="cuda", deterministic: bool = True) -> None:
         super().__init__()
         device = resolve_device(device)
-        # attention dropout (deterministic=False) is not ported: the training
-        # step refuses such a model, and the Transformer processor raises
+        # deterministic=False: the Transformer processor drops attention
+        # weights under the dropout_key the forward is given
         self.deterministic = deterministic
         cfg = DotDict(model_config)
         name_data, name_hidden = cfg.graph.data, cfg.graph.hidden
@@ -120,8 +120,10 @@ class AnemoiModelEncProcDec(nn.Module):
             x_out = bounding(x_out)
         return x_out
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (batch, time, ensemble, grid, vars) -> (batch, ensemble, grid, vars_out)."""
+    def forward(self, x: torch.Tensor, dropout_key: Optional[int] = None) -> torch.Tensor:
+        """x (batch, time, ensemble, grid, vars) -> (batch, ensemble, grid, vars_out).
+        ``dropout_key``: the attention-dropout key of a ``deterministic=False``
+        model (``training.step``)."""
         batch_size, _, ensemble_size, grid, _ = x.shape
         bse = batch_size * ensemble_size
         x_flat = x.permute(0, 2, 3, 1, 4).reshape(bse, grid, -1)
@@ -131,7 +133,7 @@ class AnemoiModelEncProcDec(nn.Module):
         x_hidden_latent = self.node_attributes(self._graph_name_hidden, bse)
 
         x_data_latent, x_latent = self.encoder((x_data_latent, x_hidden_latent))
-        x_latent_proc = self.processor(x_latent) + x_latent  # hidden skip connection
+        x_latent_proc = self.processor(x_latent, dropout_key) + x_latent  # hidden skip connection
         x_out = self.decoder((x_latent_proc, x_data_latent))
 
         x_out = x_out.reshape(batch_size, ensemble_size, grid, self.num_output_channels).to(x.dtype)

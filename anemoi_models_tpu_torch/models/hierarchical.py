@@ -15,12 +15,13 @@ JAX package names them ``down_level_processor_<name>``,
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import torch
 from torch import nn
 
 from anemoi_models_tpu_torch.layers.graph import NamedNodesAttributes
+from anemoi_models_tpu_torch.ops.flash_attention import fold_key
 from anemoi_models_tpu_torch.models.encoder_processor_decoder import (
     AnemoiModelEncProcDec,
     _accepted,
@@ -123,8 +124,14 @@ class AnemoiModelEncProcDecHierarchical(AnemoiModelEncProcDec):
             **_accepted(cfg.model.decoder, common),
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (batch, time, ensemble, grid, vars) -> (batch, ensemble, grid, vars_out)."""
+    def forward(self, x: torch.Tensor, dropout_key: Optional[int] = None) -> torch.Tensor:
+        """x (batch, time, ensemble, grid, vars) -> (batch, ensemble, grid, vars_out).
+        ``dropout_key``: the attention-dropout key of a ``deterministic=False``
+        model; the down and up processors of level l fold in 2 l and 2 l + 1."""
+
+        def key(i: int) -> Optional[int]:
+            return None if dropout_key is None else fold_key(dropout_key, i)
+
         batch_size, _, ensemble_size, grid, _ = x.shape
         bse = batch_size * ensemble_size
         names = self._graph_hidden_names
@@ -138,20 +145,20 @@ class AnemoiModelEncProcDecHierarchical(AnemoiModelEncProcDec):
 
         # down the pyramid, keeping each level's latent for its skip connection
         x_encoded_latents, x_skip = {}, {}
-        for src, dst in zip(names[:-1], names[1:]):
+        for level, (src, dst) in enumerate(zip(names[:-1], names[1:])):
             if self.level_process:
-                curr_latent = self.down_level_processor[src](curr_latent)
+                curr_latent = self.down_level_processor[src](curr_latent, key(2 * level))
             x_skip[src] = curr_latent
             x_encoded_latents[src], curr_latent = self.downscale[src]((curr_latent, x_trainable_hiddens[dst]))
 
         if self.level_process:
-            curr_latent = self.down_level_processor[names[-1]](curr_latent)
+            curr_latent = self.down_level_processor[names[-1]](curr_latent, key(2 * (len(names) - 1)))
 
         # up the pyramid, with the skip connections
         for src, dst in zip(names[:0:-1], names[-2::-1]):
             curr_latent = self.upscale[src]((curr_latent, x_encoded_latents[dst])) + x_skip[dst]
             if self.level_process:
-                curr_latent = self.up_level_processor[dst](curr_latent)
+                curr_latent = self.up_level_processor[dst](curr_latent, key(2 * names.index(dst) + 1))
 
         x_out = self.decoder((curr_latent, x_data_latent))
         x_out = x_out.reshape(batch_size, ensemble_size, grid, self.num_output_channels).to(x.dtype)

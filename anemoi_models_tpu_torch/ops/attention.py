@@ -5,7 +5,10 @@ The JAX package picks among a plain einsum version, a chunked version and the
 Pallas kernel with ``impl``; all three compute one function. The port has one
 path for every ``impl``: :class:`~anemoi_models_tpu_torch.ops.flash_attention.FlashAttention`,
 which runs the hand-written kernel on a CUDA tensor and the plain blockwise
-version on a CPU tensor. Attention-weight dropout is not ported.
+version on a CPU tensor. Attention-weight dropout runs inside the kernel,
+keyed by ``dropout_key`` (``ops/flash_attention.py``); the JAX package draws
+it with ``jax.random`` on its chunked path, so the two packages drop
+different pairs at the same rate.
 """
 
 from __future__ import annotations
@@ -30,11 +33,13 @@ def dot_product_attention(
     is_causal: bool = False,
     impl: str = "auto",
     dropout_rate: float = 0.0,
+    dropout_key: Optional[int] = None,
 ) -> torch.Tensor:
     """Attention over (batch, heads, seq, head_dim) tensors; ``window_size``
-    is the half-width of the window (query i attends keys within +-w)."""
+    is the half-width of the window (query i attends keys within +-w);
+    ``dropout_rate`` > 0 drops attention weights under ``dropout_key``."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
-    if dropout_rate > 0.0:
-        raise NotImplementedError("attention-weight dropout is not ported; use dropout_rate=0")
-    return FlashAttention.apply(query, key, value, window_size, is_causal)
+    if dropout_rate > 0.0 and dropout_key is None:
+        raise ValueError("attention dropout_rate > 0 requires a dropout_key")
+    return FlashAttention.apply(query, key, value, window_size, is_causal, dropout_rate, dropout_key)

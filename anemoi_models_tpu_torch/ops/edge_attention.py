@@ -20,10 +20,14 @@ straight off the destination-sorted edge list in two kernels
   instructions bound it.
 
 Both kernels share one lane layout (:func:`_lane_layout`): a warp works on a
-group of whole heads of at most 256 channels, a head on a power of two of
-lanes (padded where the head width is not a power of two), so every head
-width up to 256 that is a multiple of 8 runs, and every width the forward
-takes also trains. The backward (``csrc/edge_attention_bwd.cu``) replaces
+group of whole heads of at most 256 channels, or on one head of up to 1024
+(16 or 32 channels a lane), a head on a power of two of lanes (padded where
+the head width is not a power of two), and every width the forward takes
+also trains. A head width that no layout takes (one off a multiple of 8,
+or above 256 off a multiple of 16 or 32) is padded with zero channels by
+the wrappers (:func:`_kernel_head`): zero q, k and w_aug columns add nothing
+to the logit, zero v columns are sliced off num, and the scale stays
+1/sqrt(D) of the true width. The backward (``csrc/edge_attention_bwd.cu``) replaces
 ``_feats_bwd_kernel``: :func:`edge_attn_csr_bwd` walks the same CSR edge list
 for ``dq`` and the edge gradients (a warp per destination, its head groups in
 sequence, its edges' k/v rows several at a time in flight) and the
@@ -72,8 +76,8 @@ __all__ = [
 
 _NEG = -1e30
 _MAX_A2 = 16  # kMaxA2 in csrc/edge_attention.cu
-_GROUP_CHANNELS = 256  # the most channels a warp works on at once (a head group)
-_MAX_HEAD = 256  # the widest head: one head group
+_GROUP_CHANNELS = 256  # the most channels of a group of several heads
+_MAX_HEAD = 1024  # the widest head: a group of its own, 32 channels a lane
 _GROUP_LANES = 32  # the lanes of a group: a lane never holds two heads
 _REF_SMS = 132  # the H100 SXM's SMs: the backward's dw_aug partials are counted for it on every card
 _BWD_SMEM = 227 * 1024  # kMaxSmem in csrc/edge_attention_bwd.cu
@@ -320,17 +324,18 @@ def _lane_layout(c: int, num_heads: int) -> tuple[int, int, int]:
     ``lb`` lanes, ``D / vb`` rounded up to a power of two (the shuffle trees
     run over it; where D is not a power of two the lanes past ``D / vb`` pad
     the head, owning no channel), ``lanes = g * lb <= 32`` in all; g is the
-    largest divisor of the head count with ``D * g <= 256``, ``D * g`` a
-    multiple of 8 (a group's slice of a row is whole 16-byte copies in bf16)
-    and the lanes fitting. For a power-of-two D no lane pads (``lanes * vb ==
-    group``) and the forward's threads of ``max(1, D / 32)`` channels (whose
-    sums the backward replays) divide a lane's; for the others a lane runs
-    one chain. Takes what :func:`_check_heads` accepts."""
+    largest divisor of the head count with ``D * g <= 256`` (or g = 1 for a
+    head wider than 256: ``vb`` = 16 or 32), ``D * g`` a multiple of 8 (a
+    group's slice of a row is whole 16-byte copies in bf16) and the lanes
+    fitting. For a power-of-two D no lane pads (``lanes * vb == group``) and
+    the forward's threads of ``max(1, D / 32)`` channels (whose sums the
+    backward replays) divide a lane's; for the others a lane runs one chain.
+    Takes the head widths :func:`_kernel_head` returns."""
     d = c // num_heads
 
     def fit(g: int) -> tuple[int, int, int] | None:
         group = d * g
-        if group > _GROUP_CHANNELS or group % 8:
+        if group > max(_GROUP_CHANNELS, d) or group % 8:
             return None
         vb = 1
         while 32 * vb < group:
@@ -344,12 +349,38 @@ def _lane_layout(c: int, num_heads: int) -> tuple[int, int, int]:
 
 def _check_heads(c: int, num_heads: int) -> None:
     _require(num_heads > 0 and c % num_heads == 0, f"C={c} not divisible by {num_heads} heads")
+    _require(c // num_heads <= _MAX_HEAD,
+             f"edge_attn_csr takes head widths D = C/H up to {_MAX_HEAD}; got C={c}, H={num_heads}")
+
+
+def _kernel_head(c: int, num_heads: int) -> int:
+    """The head width the kernels run a head of ``D = c / num_heads``
+    channels at: D itself where a lane layout takes it (up to 256: a multiple
+    of 8, or 1, 2, 4 with C a multiple of 32; above 256: a multiple of the 16
+    or 32 channels a lane holds), else D padded with zero channels to the next
+    such width. Takes what :func:`_check_heads` accepts."""
     d = c // num_heads
-    _require(
-        d <= _MAX_HEAD and (d % 8 == 0 or (d in (1, 2, 4) and c % 32 == 0)),
-        f"edge_attn_csr takes head widths D = C/H up to {_MAX_HEAD} that are multiples of 8, "
-        f"or 1, 2, 4 with C a multiple of 32; got C={c}, H={num_heads} (D={c / num_heads:g})",
-    )
+    if d > _GROUP_CHANNELS:
+        vb = 16 if d <= 512 else 32
+        return -(-d // vb) * vb
+    if d % 8 == 0 or (d in (1, 2, 4) and c % 32 == 0):
+        return d
+    return -(-d // 8) * 8
+
+
+def _pad_heads(x: torch.Tensor, num_heads: int, d: int, dp: int) -> torch.Tensor:
+    """(..., k H d) -> (..., k H dp): each head's d channels followed by
+    dp - d zeros, for each of the k row blocks (k = 2 for ``[k|v]``)."""
+    lead = x.shape[:-1]
+    k = x.shape[-1] // (num_heads * d)
+    return torch.nn.functional.pad(x.reshape(*lead, k, num_heads, d), (0, dp - d)).reshape(*lead, k * num_heads * dp)
+
+
+def _unpad_heads(x: torch.Tensor, num_heads: int, d: int, dp: int) -> torch.Tensor:
+    """The inverse of :func:`_pad_heads`: the first d channels of each head."""
+    lead = x.shape[:-1]
+    k = x.shape[-1] // (num_heads * dp)
+    return x.reshape(*lead, k, num_heads, dp)[..., :d].reshape(*lead, k * num_heads * d)
 
 
 def edge_attn_csr(
@@ -383,6 +414,11 @@ def edge_attn_csr(
     _require_contiguous(q=q, kv=kv, rowptr=rowptr, src=src, a=a, w_aug=w_aug)
     _require(all(t.data_ptr() % 16 == 0 for t in (q, kv, w_aug)),
              "q, kv and w_aug must start on 16-byte boundaries (rows are read as 16-byte vectors)")
+    d = c // num_heads
+    dp = _kernel_head(c, num_heads)
+    if dp != d:  # zero channels: the logit and the softmax are unchanged, num's extra columns dropped
+        q, kv, w_aug = (_pad_heads(t, num_heads, d, dp) for t in (q, kv, w_aug))
+        c = num_heads * dp
     vb, _, group = _lane_layout(c, num_heads)
     num = torch.empty((bnd, c), dtype=torch.float32, device=q.device)
     den = torch.empty((bnd, num_heads), dtype=torch.float32, device=q.device)
@@ -396,11 +432,13 @@ def edge_attn_csr(
         rc = fn(
             q.data_ptr(), kv.data_ptr(), rowptr.data_ptr(), src.data_ptr(),
             a.data_ptr(), w_aug.data_ptr(), num.data_ptr(), den.data_ptr(), m.data_ptr(),
-            batch, nd, kv.shape[0] // batch, c, num_heads, a2, group, vb, stream,
+            batch, nd, kv.shape[0] // batch, c, num_heads, a2, group, vb, d, stream,
         )
     _check_launch(rc, "edge_attn_csr")
     LAUNCHES["edge_attn_csr"] += 1
-    return AttentionPartials(num.view(bnd, num_heads, c // num_heads), den, m)
+    if dp != d:
+        num = _unpad_heads(num, num_heads, d, dp)
+    return AttentionPartials(num.view(bnd, num_heads, d), den, m)
 
 
 def _bwd_warps_smem(c: int, a2: int, group: int, dtype: torch.dtype) -> tuple[int, int]:
@@ -435,7 +473,7 @@ def _bwd_registers(c: int, num_heads: int, a2: int, dtype: torch.dtype) -> int:
     d = c // num_heads
     lb = _pow2_at_least(d // vb)
     hc = lanes == 32 and group // d == 4 and d // vb == lb  # launch_vb's compile-time head count
-    if a2 > 8:
+    if a2 > 8 or vb >= 16:  # 16 attribute slots a lane, or 16-32 channels a lane
         return 256
     if a2 > lb:
         return 128 if vb == 1 else 168
@@ -510,6 +548,11 @@ def edge_attn_csr_bwd(
     _require(all(t.data_ptr() % 16 == 0 for t in (q, kv, w_aug, g_num)),
              "q, kv, w_aug and g_num must start on 16-byte boundaries (rows are read as 16-byte vectors)")
     dev = q.device
+    d = c // num_heads
+    dp = _kernel_head(c, num_heads)
+    if dp != d:  # as the forward pads: the zero channels' gradients are dropped
+        q, kv, w_aug, g_num = (_pad_heads(t, num_heads, d, dp) for t in (q, kv, w_aug, g_num))
+        c = num_heads * dp
     vb, _, group = _lane_layout(c, num_heads)
     parts = _bwd_parts(nd, c, num_heads, a2, dt)  # rows of the dw_aug partials, from the shape alone
     dq = torch.empty((bnd, c), dtype=torch.float32, device=dev)
@@ -530,10 +573,12 @@ def edge_attn_csr_bwd(
             colptr.data_ptr(), perm.data_ptr(), dst.data_ptr(), pos.data_ptr(),
             dq.data_ptr(), dkv.data_ptr(), da.data_ptr(), dw.data_ptr(),
             dlw.data_ptr(), dw_part.data_ptr(),
-            batch, nd, ns, num_edges, c, num_heads, a2, group, vb, parts, stream,
+            batch, nd, ns, num_edges, c, num_heads, a2, group, vb, parts, d, stream,
         )
     _check_launch(rc, "edge_attn_csr_bwd")
     LAUNCHES["edge_attn_csr_bwd"] += 1
+    if dp != d:
+        dq, dkv, dw = (_unpad_heads(t, num_heads, d, dp) for t in (dq, dkv, dw))
     return dq, dkv, da, dw
 
 

@@ -17,6 +17,24 @@ kernel, so the port has none either.
 
 Shapes: q, k, v are (batch, heads, seq, head_dim); ``window_size`` is the
 half-width w, query i attends keys j with ``|i - j| <= w``.
+
+Every head width runs on the card: bf16 heads up to 512 on the ``wgmma``
+kernel (a width other than 16, 32, 64, 128, 256 or 512 padded with zero
+channels to the next of them, the scale kept at 1/sqrt of the true width;
+at 512 its two warpgroups split D), fp32 heads up to 128 on the CUDA-core
+tile kernel (padded the same way), and wider heads of either dtype on the
+CUDA-core row kernel (up to 1024).
+
+Attention-weight dropout (``dropout_rate`` with a ``dropout_key``) drops
+normalized probabilities as the JAX package does: ``out_i = sum_j keep_ij
+p_ij v_j / ((1 - rate) l_i)``, the normalizer summing every pair. ``keep_ij``
+is :func:`dropout_keep`: word ``j % 4`` of Philox4x32-10 at counter ``(j // 4,
+i, b H + h, 0)`` under the 64-bit key, below ``round((1 - rate) 2^32)``. The
+kernels and the plain version draw the same bits, so the backward, which
+recomputes through :func:`blockwise_attention` with the same key,
+differentiates the mask the forward used. :func:`fold_key` derives a key
+from a seed and counters (step, layer, lead time); nothing advances between
+a forward and its recompute.
 """
 
 from __future__ import annotations
@@ -28,14 +46,78 @@ import torch
 
 from anemoi_models_tpu_torch.ops.edge_attention import _check_launch, _on_cpu, _require
 
-__all__ = ["FlashAttention", "LAUNCHES", "blockwise_attention", "flash_attention", "live_pairs"]
+__all__ = [
+    "FlashAttention",
+    "LAUNCHES",
+    "blockwise_attention",
+    "dropout_keep",
+    "flash_attention",
+    "fold_key",
+    "keep_threshold",
+    "live_pairs",
+]
 
 _NEG = -1e30
-_HEAD_DIMS = (16, 32, 64, 128)  # head widths csrc/flash_attention.cu is built for
+_TILE_DIMS = {torch.bfloat16: (16, 32, 64, 128, 256, 512), torch.float32: (16, 32, 64, 128)}  # the tile kernels' widths
+_MAX_HEAD = 1024  # the row kernel's widest head: 32 channels a lane
 _DTYPES = (torch.float32, torch.bfloat16)
+_MASK32 = 0xFFFFFFFF
+_MASK64 = 0xFFFFFFFFFFFFFFFF
 
 # kernel launches; a CPU call runs the plain version and adds nothing
 LAUNCHES: dict[str, int] = {"flash_attention": 0}
+
+
+def fold_key(key: int, *data: int) -> int:
+    """A 64-bit key folded with each of ``data`` in turn (splitmix64's
+    finalizer over ``key ^ (d * golden ratio)``): a pure function, so the
+    same seed, step, layer and lead time give the same key anywhere."""
+    for d in data:
+        z = (key ^ ((int(d) * 0x9E3779B97F4A7C15) & _MASK64)) & _MASK64
+        z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+        z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+        key = z ^ (z >> 31)
+    return key
+
+
+def keep_threshold(rate: float) -> int:
+    """``round((1 - rate) 2^32)``, at most 2^32 - 1: a pair survives where its
+    uint32 is below it."""
+    if not 0.0 < rate < 1.0:
+        raise ValueError(f"dropout rate must be in (0, 1), got {rate}")
+    return min(round((1.0 - rate) * 2.0**32), _MASK32)
+
+
+def _mulhilo(a: int, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The high and low words of ``a * x`` for a uint32 constant and uint32
+    values held in int64, in 16-bit limbs so that no product leaves int64."""
+    ah, al = a >> 16, a & 0xFFFF
+    xh, xl = x >> 16, x & 0xFFFF
+    mid = ah * xl + al * xh
+    lo_full = al * xl + ((mid & 0xFFFF) << 16)
+    return (ah * xh + (mid >> 16) + (lo_full >> 32)) & _MASK32, lo_full & _MASK32
+
+
+def _philox(c0, c1, c2, c3, key: int) -> tuple[torch.Tensor, ...]:
+    """Philox4x32-10 on int64 tensors holding uint32 counters, as
+    ``csrc/flash_attention.cu:philox4x32_10`` computes it."""
+    k0, k1 = key & _MASK32, key >> 32
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(0xD2511F53, c0)
+        hi1, lo1 = _mulhilo(0xCD9E8D57, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = (k0 + 0x9E3779B9) & _MASK32, (k1 + 0xBB67AE85) & _MASK32
+    return c0, c1, c2, c3
+
+
+def dropout_keep(key: int, keep_below: int, bh: torch.Tensor, i: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
+    """Whether pair (i, j) of head ``bh`` (= b H + h) survives: word ``j % 4``
+    of Philox4x32-10 at counter ``(j // 4, i, bh, 0)`` below ``keep_below``.
+    The index tensors broadcast against each other."""
+    bh, i, j = torch.broadcast_tensors(bh.long(), i.long(), j.long())
+    words = _philox(j >> 2, i, bh, torch.zeros_like(j), key)
+    word = torch.stack(words).gather(0, (j & 3)[None])[0]
+    return word < keep_below
 
 
 def blockwise_attention(
@@ -46,14 +128,23 @@ def blockwise_attention(
     window_size: Optional[int] = None,
     is_causal: bool = False,
     block_size: int = 512,
+    dropout_rate: float = 0.0,
+    dropout_key: Optional[int] = None,
 ) -> torch.Tensor:
     """Windowed attention over q-blocks, fp32 logits and softmax; the
     weights are rounded to v's dtype before the product with v, and the
-    output is in q's dtype."""
+    output is in q's dtype. With ``dropout_rate`` > 0 the normalized weights
+    of the pairs :func:`dropout_keep` drops under ``dropout_key`` are zeroed
+    and the rest divided by ``1 - dropout_rate``."""
     b, h, n, d = q.shape
     blk = min(block_size, n)
     scale = 1.0 / math.sqrt(d)
     kwidth = n if window_size is None else min(blk + 2 * window_size, n)
+    if dropout_rate > 0.0:
+        if dropout_key is None:
+            raise ValueError("attention dropout_rate > 0 needs a dropout_key")
+        keep_below = keep_threshold(dropout_rate)
+        bh = torch.arange(b * h, device=q.device).view(b, h, 1, 1)
     blocks = []
     for q0 in range(0, n, blk):
         q1 = min(q0 + blk, n)
@@ -69,6 +160,9 @@ def blockwise_attention(
         if is_causal:
             mask &= qpos >= kpos
         w = torch.softmax(s.masked_fill(~mask, _NEG), dim=-1)
+        if dropout_rate > 0.0:
+            keep = dropout_keep(dropout_key, keep_below, bh, qpos, kpos)
+            w = torch.where(keep, w / (1.0 - dropout_rate), 0.0)
         blocks.append(torch.einsum("bhqk,bhkd->bhqd", w.to(v.dtype).float(), vs.float()))
     return torch.cat(blocks, dim=2).to(q.dtype)
 
@@ -90,31 +184,52 @@ def _strides_ok(t: torch.Tensor) -> bool:
     return t.stride(-1) == 1 and all(s % vec == 0 for s in t.stride()[:-1]) and t.data_ptr() % 16 == 0
 
 
+def _tile_width(d: int, dtype: torch.dtype) -> int:
+    """The head width a tile kernel runs a head of ``d`` channels at (the
+    next width it is built for), or ``d`` itself where the row kernel takes
+    it (above the tile kernels' widest)."""
+    widths = _TILE_DIMS[dtype]
+    return next((w for w in widths if w >= d), d)
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
     window_size: Optional[int] = None,
     is_causal: bool = False,
+    dropout_rate: float = 0.0,
+    dropout_key: Optional[int] = None,
 ) -> torch.Tensor:
     """Attention output (B, H, N, D) in q's dtype. On the card q, k and v
     share one dtype (fp32 or bf16), shape and strides; rows may be strided
     (a view of a fused projection), channels are contiguous. The output is
-    a (B, H, N, D) view of a (B, N, H, D) buffer."""
+    a (B, H, N, D) view of a (B, N, H, D) buffer. ``dropout_rate`` > 0 drops
+    attention weights under ``dropout_key`` (see the module's docstring)."""
+    if dropout_rate > 0.0 and dropout_key is None:
+        raise ValueError("attention dropout_rate > 0 needs a dropout_key")
     if _on_cpu(q, k, v):
-        return blockwise_attention(q, k, v, window_size=window_size, is_causal=is_causal)
+        return blockwise_attention(q, k, v, window_size=window_size, is_causal=is_causal,
+                                   dropout_rate=dropout_rate, dropout_key=dropout_key)
     _require(q.dtype in _DTYPES and k.dtype == q.dtype and v.dtype == q.dtype,
              f"q, k, v must share fp32 or bf16, got {q.dtype}, {k.dtype}, {v.dtype}")
     _require(q.dim() == 4 and k.shape == q.shape and v.shape == q.shape,
              f"q, k, v must share one (B, H, N, D) shape, got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, h, n, d = q.shape
-    _require(d in _HEAD_DIMS, f"flash_attention takes head widths {_HEAD_DIMS}, got {d}")
+    _require(0 < d <= _MAX_HEAD, f"flash_attention takes head widths up to {_MAX_HEAD}, got {d}")
     _require(k.stride() == q.stride() and v.stride() == q.stride(), "q, k, v must share strides")
-    _require(all(_strides_ok(t) for t in (q, k, v)),
-             "q, k, v need contiguous channels and 16-byte aligned rows")
     _require(window_size is None or window_size >= 0, f"window_size must be >= 0, got {window_size}")
     _require(0 < b * h < 65536 and n > 0, f"batch * heads {b * h} or sequence {n} out of range")
-    out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
+    _require(0.0 <= dropout_rate < 1.0, f"dropout_rate must be in [0, 1), got {dropout_rate}")
+    dk = _tile_width(d, q.dtype)
+    if dk != d:  # zero channels: the logits are unchanged, the output's extra columns dropped
+        q, k, v = (torch.nn.functional.pad(t, (0, dk - d)) for t in (q, k, v))
+    if dk <= _TILE_DIMS[q.dtype][-1]:  # the tile kernels read rows as 16-byte vectors
+        _require(all(_strides_ok(t) for t in (q, k, v)), "q, k, v need contiguous channels and 16-byte aligned rows")
+    else:
+        _require(all(t.stride(-1) == 1 for t in (q, k, v)), "q, k, v need contiguous channels")
+    out = torch.empty((b, n, h, dk), dtype=q.dtype, device=q.device)
+    drop = dropout_rate > 0.0
     from anemoi_models_tpu_torch.ops.kernels import load_kernels
 
     lib = load_kernels()
@@ -122,29 +237,36 @@ def flash_attention(
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, n, d,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, n, dk,
             q.stride(0), q.stride(1), q.stride(2), out.stride(0), out.stride(2), out.stride(1),
-            -1 if window_size is None else window_size, int(is_causal), 1.0 / math.sqrt(d), stream,
+            -1 if window_size is None else window_size, int(is_causal), 1.0 / math.sqrt(d),
+            int(drop), keep_threshold(dropout_rate) if drop else 0,
+            (dropout_key & _MASK32) if drop else 0, (dropout_key >> 32) if drop else 0,
+            1.0 / (1.0 - dropout_rate), stream,
         )
     _check_launch(rc, "flash_attention")
     LAUNCHES["flash_attention"] += 1
-    return out.permute(0, 2, 1, 3)
+    return out.permute(0, 2, 1, 3)[..., :d]
 
 
 class FlashAttention(torch.autograd.Function):
     """:func:`flash_attention` forward; the backward recomputes through
-    :func:`blockwise_attention` (default block) and differentiates it."""
+    :func:`blockwise_attention` (default block), with the forward's dropout
+    key and so its mask, and differentiates it."""
 
     @staticmethod
-    def forward(ctx, q, k, v, window_size: Optional[int], is_causal: bool):
+    def forward(ctx, q, k, v, window_size: Optional[int], is_causal: bool, dropout_rate: float = 0.0,
+                dropout_key: Optional[int] = None):
         ctx.save_for_backward(q, k, v)
         ctx.window_size, ctx.is_causal = window_size, is_causal
-        return flash_attention(q, k, v, window_size, is_causal)
+        ctx.dropout_rate, ctx.dropout_key = dropout_rate, dropout_key
+        return flash_attention(q, k, v, window_size, is_causal, dropout_rate, dropout_key)
 
     @staticmethod
     def backward(ctx, g):
         leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
         with torch.enable_grad():
-            out = blockwise_attention(*leaves, window_size=ctx.window_size, is_causal=ctx.is_causal)
+            out = blockwise_attention(*leaves, window_size=ctx.window_size, is_causal=ctx.is_causal,
+                                      dropout_rate=ctx.dropout_rate, dropout_key=ctx.dropout_key)
         dq, dk, dv = torch.autograd.grad(out, leaves, g)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None, None

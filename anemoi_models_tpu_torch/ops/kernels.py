@@ -38,13 +38,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
 _F = ctypes.c_float
+_U = ctypes.c_uint32
 _SIGNATURES = {
     "kv_proj_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
     "kv_proj_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "edge_attn_csr_f32": [_P] * 9 + [_I] * 8 + [_P],
-    "edge_attn_csr_bf16": [_P] * 9 + [_I] * 8 + [_P],
-    "edge_attn_csr_bwd_f32": [_P] * 19 + [_I] * 10 + [_P],
-    "edge_attn_csr_bwd_bf16": [_P] * 19 + [_I] * 10 + [_P],
+    "edge_attn_csr_f32": [_P] * 9 + [_I] * 9 + [_P],
+    "edge_attn_csr_bf16": [_P] * 9 + [_I] * 9 + [_P],
+    "edge_attn_csr_bwd_f32": [_P] * 19 + [_I] * 11 + [_P],
+    "edge_attn_csr_bwd_bf16": [_P] * 19 + [_I] * 11 + [_P],
     "edge_attn_csr_bwd_per_sm_f32": [_I] * 5 + [_P],
     "edge_attn_csr_bwd_per_sm_bf16": [_I] * 5 + [_P],
     "gnn_conv_f32": [_P] * 17 + [_I] * 6 + [_P],
@@ -53,8 +54,8 @@ _SIGNATURES = {
     "gnn_conv_layered_bf16": [_P] * 5 + [ctypes.POINTER(_P), _I] + [_P] * 7 + [_I] + [_P] * 2 + [_I] * 7 + [_P],
     "gnn_prepass_f32": [_P] * 6 + [_I] * 3 + [_P],
     "gnn_prepass_bf16": [_P] * 6 + [_I] * 3 + [_P],
-    "flash_attn_f32": [_P] * 4 + [_I] * 4 + [_L] * 6 + [_I, _I, _F, _P],
-    "flash_attn_bf16": [_P] * 4 + [_I] * 4 + [_L] * 6 + [_I, _I, _F, _P],
+    "flash_attn_f32": [_P] * 4 + [_I] * 4 + [_L] * 6 + [_I, _I, _F, _I, _U, _U, _U, _F, _P],
+    "flash_attn_bf16": [_P] * 4 + [_I] * 4 + [_L] * 6 + [_I, _I, _F, _I, _U, _U, _U, _F, _P],
 }
 
 

@@ -15,11 +15,13 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from anemoi_models_tpu_torch.ops.flash_attention import fold_key
+
 __all__ = ["make_rollout_fn"]
 
 
 def make_rollout_fn(model: Any, data_indices: Any, n_steps: int) -> Callable:
-    """Build ``rollout(x0, forcings=None) -> (x_final, predictions)``.
+    """Build ``rollout(x0, forcings=None, dropout_key=None) -> (x_final, predictions)``.
 
     - ``x0``: (batch, multi_step, ensemble, grid, n_in) initial window at the
       internal-model input width;
@@ -28,16 +30,23 @@ def make_rollout_fn(model: Any, data_indices: Any, n_steps: int) -> Callable:
     - returns the last window and the predictions (n_steps, batch, ensemble,
       grid, n_out).
 
+    - ``dropout_key``: required iff the model was built with
+      ``deterministic=False`` (training-time attention dropout); lead time t
+      runs under ``fold_key(dropout_key, t)``.
+
     Gradients flow through the whole rollout when the caller records them.
     """
-    if not getattr(model, "deterministic", True):
-        raise NotImplementedError("attention dropout (deterministic=False) is not ported; roll out a deterministic model")
+    needs_key = not getattr(model, "deterministic", True)
     prog_in = np.asarray(data_indices.internal_model.input.prognostic)
     prog_out = np.asarray(data_indices.internal_model.output.prognostic)
     forcing_in = np.asarray(data_indices.internal_model.input.forcing)
     n_in = len(data_indices.internal_model.input)
 
-    def rollout(x0: torch.Tensor, forcings: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, torch.Tensor]:
+    def rollout(x0: torch.Tensor, forcings: Optional[torch.Tensor] = None,
+                dropout_key: Optional[int] = None) -> tuple[torch.Tensor, torch.Tensor]:
+        if needs_key and dropout_key is None:
+            raise ValueError("this model was built with deterministic=False (attention dropout); "
+                             "rollout() needs a dropout_key")
         if forcings is None and forcing_in.size:
             raise ValueError(
                 f"This model takes {forcing_in.size} forcing variables per step but rollout() "
@@ -50,7 +59,7 @@ def make_rollout_fn(model: Any, data_indices: Any, n_steps: int) -> Callable:
                              for i in (prog_in, prog_out, forcing_in))
         x, preds = x0, []
         for t in range(n_steps):
-            y = model(x)
+            y = model(x) if dropout_key is None else model(x, dropout_key=fold_key(dropout_key, t))
             preds.append(y)
             # the next window's newest time step, built from zeros: the
             # prognostic outputs and this step's forcings

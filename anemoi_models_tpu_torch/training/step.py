@@ -8,42 +8,74 @@ moments and update count, so the step is a closure over both instead of a
 pure function of a ``TrainState``. On the card the edge attention runs its
 hand-written kernels forward and backward; the processor's chunks are
 recomputed in the backward as the model's ``remat_policy`` says.
+
+A model built with ``deterministic=False`` (:func:`dropout_twin`) trains with
+attention-weight dropout: the step's key is :func:`dropout_key_at` of the
+seed and the optimizer's update count, as the JAX package folds the step
+into its key (``_dropout_rng_for``), so a resumed run draws the masks the
+uninterrupted one would.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Optional
 
+import copy
+import itertools
+
 import numpy as np
 import torch
 from torch import nn
 
+from anemoi_models_tpu_torch.ops.flash_attention import fold_key
 from anemoi_models_tpu_torch.training.loss import weighted_mse
 from anemoi_models_tpu_torch.training.rollout import make_rollout_fn
 
-__all__ = ["make_rollout_train_step", "make_train_step"]
+__all__ = ["dropout_key_at", "dropout_twin", "make_rollout_train_step", "make_train_step"]
+
+
+def dropout_key_at(dropout_seed: int, step: int) -> int:
+    """The attention-dropout key of update ``step`` (the optimizer's count
+    before the update) of a run seeded with ``dropout_seed``."""
+    return fold_key(dropout_seed, step)
+
+
+def dropout_twin(model: nn.Module) -> nn.Module:
+    """The ``deterministic=False`` twin of ``model``: a copy whose
+    parameters and buffers are ``model``'s own tensors (an update of either
+    is an update of both, as ``model.clone(deterministic=False)`` shares the
+    flax tree), with attention dropout on wherever a layer has a
+    ``dropout_p``."""
+    shared = {id(t): t for t in itertools.chain(model.parameters(), model.buffers())}
+    twin = copy.deepcopy(model, memo=shared)
+    for module in twin.modules():
+        if hasattr(module, "deterministic"):
+            module.deterministic = False
+    return twin
 
 
 def make_train_step(
     model: nn.Module,
     optimizer: torch.optim.Optimizer,
     loss_fn: Optional[Callable] = None,
+    dropout_seed: int = 0,
 ) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
     """Return ``train_step(x, y) -> loss``: forward, loss, backward, clip and
     update (both in ``optimizer.step``), step counter (``optimizer.count``).
 
     x: (batch, time, ensemble, grid, vars_in), y: (batch, ensemble, grid,
     vars_out) at the internal model widths. The loss is returned detached,
-    on the model's device.
+    on the model's device. A ``deterministic=False`` model runs under
+    ``dropout_key_at(dropout_seed, optimizer.count)``.
     """
-    if not getattr(model, "deterministic", True):
-        raise NotImplementedError("attention dropout (deterministic=False) is not ported; train a deterministic model")
     loss_fn = loss_fn or weighted_mse
+    drops = not getattr(model, "deterministic", True)
 
     def train_step(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(model(x), y)
+        pred = model(x, dropout_key=dropout_key_at(dropout_seed, optimizer.count)) if drops else model(x)
+        loss = loss_fn(pred, y)
         loss.backward()
         optimizer.step()
         return loss.detach()
@@ -57,6 +89,7 @@ def make_rollout_train_step(
     optimizer: torch.optim.Optimizer,
     n_steps: int,
     loss_fn: Optional[Callable] = None,
+    dropout_seed: int = 0,
 ) -> Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]:
     """Train through an ``n_steps`` autoregressive rollout (the rollout
     fine-tuning stage). Returns ``train_step(x0, truth_inputs, targets) ->
@@ -68,11 +101,12 @@ def make_rollout_train_step(
     - ``targets``: (n_steps, batch, ensemble, grid, n_out); the loss averages
       over lead times, so every rollout step trains equally.
 
-    The loss is returned detached, on the model's device.
+    The loss is returned detached, on the model's device. A
+    ``deterministic=False`` model rolls out under ``dropout_key_at(dropout_seed,
+    optimizer.count)``, lead time t folding in t.
     """
-    if not getattr(model, "deterministic", True):
-        raise NotImplementedError("attention dropout (deterministic=False) is not ported; train a deterministic model")
     loss_fn = loss_fn or weighted_mse
+    drops = not getattr(model, "deterministic", True)
     rollout = make_rollout_fn(model, data_indices, n_steps)
     forcing_in = np.asarray(data_indices.internal_model.input.forcing)
 
@@ -81,7 +115,8 @@ def make_rollout_train_step(
         optimizer.zero_grad(set_to_none=True)
         forcings = (truth_inputs[..., torch.as_tensor(forcing_in, device=truth_inputs.device)]
                     if forcing_in.size else None)
-        _, preds = rollout(x0, forcings)
+        key = dropout_key_at(dropout_seed, optimizer.count) if drops else None
+        _, preds = rollout(x0, forcings, key)
         loss = loss_fn(preds, targets)
         loss.backward()
         optimizer.step()

@@ -110,7 +110,32 @@ Builds the port's CUDA kernels from ``anemoi_models_tpu_torch/csrc``, then:
     bounded variables within bounds, a 4-lead-time predict_rollout, two
     train steps with the imputer's loss mask, a checkpoint round trip with
     the imputer state served bit for bit, and the same config reduced (fp32)
-    on the card against the CPU through the whole pipeline.
+    on the card against the CPU through the whole pipeline;
+15. the training driver (``phase_train_run``): a synthetic O96 record (8
+    variables, 2 of them forcings, 32 steps) written as a zarr store by the
+    port's writer and read back bit for bit, then ``train_run`` on the
+    flagship from it: 2 ensemble members, the fair CRPS, the rollout
+    curriculum [(0, 1), (4, 2)], 8 steps, EMA, evals of a 2-lead-time
+    rollout on the held-out tail, checkpoints every 4 steps in the
+    graph-once layout, the exact launches of the run; then the same run
+    boxed at 4 steps and resumed, bit for bit the uninterrupted run's losses,
+    evals, parameters, AdamW moments and EMA; ms a step by CUDA events, the
+    busy share from a profiled window, the loop's wait on the loader, peak
+    memory;
+16. attention-weight dropout (``phase_dropout``): flash_attention with p =
+    0.1 against the blockwise version under one key at the O96 processor's
+    shape, repeats bit-identical, another key another output, p = 0 the
+    dropout-free bits, the kernel's keep rate within 5 sigma of 0.9; and
+    ``train_run`` of the O96 Transformer flavor with dropout_p = 0.1;
+17. the head widths (``phase_head_widths``): both edge-attention kernels at
+    D = 320, 512, 1024 (flat processor set, and the hierarchical r3 level
+    set at D = 1024) and D = 10 (padded), flash_attention at D = 24, 48, 96,
+    256, 512, each against its plain version; reduced fp32 models at C =
+    1024 with 2 (GraphTransformer) and 4 (Transformer) heads against the
+    CPU, and three bf16 requests and train steps of each;
+18. the command line in-process (``phase_cli``): ``train``, ``predict`` and
+    ``evaluate`` of the port's CLI on a 16-latitude grid, exit codes 0,
+    finite outputs.
 
 Prints the card's name and power limit, each kernel's registers and spills
 from the compiler's report (``ptxas``), per-phase numbers, each wrapper's
@@ -1141,7 +1166,8 @@ def phase_attn_widths(graph, dev, cases) -> list:
                          "fwd_plain_ms": cuda_ms(lambda: ea.edge_attn_csr_plain(*fwd), iters=3, warmup=1),
                          "bwd_ms": cuda_ms(lambda: ea.edge_attn_csr_bwd(*args, csr_t)), "bwd_bound_ms": bb["bound_ms"],
                          "bwd_plain_ms": cuda_ms(lambda: ea.edge_attn_csr_bwd_plain(*args), iters=3, warmup=1),
-                         "bwd_parts": ea._bwd_parts(case["nd"], c, h, case["a"].shape[1], dt)})
+                         "bwd_parts": ea._bwd_parts(case["nd"], h * ea._kernel_head(c, h), h,
+                                                    case["a"].shape[1], dt)})
             del want, bwant
     return rows
 
@@ -1361,6 +1387,309 @@ def phase_aifs_data(graph, dev, small_graph, profile_dir: str) -> tuple[dict, di
     return {**serving, "reduced": reduced}, train
 
 
+TRAIN_RUN_VARS = 8  # the synthetic O96 record of phase_train_run: 8 variables, 2 of them forcings
+TRAIN_RUN_STEPS = 32
+TRAIN_RUN_FORCING = ("var_0", "var_1")
+# the GraphTransformer flagship as bench.py builds it, through the port's configs.enc_proc_dec
+FLAGSHIP_KWARGS = dict(num_channels=256, num_layers=8, num_chunks=2, num_heads=4, trainable_hidden=8,
+                       trainable_edges=4, remat_policy="full", compute_dtype="bfloat16")
+# (label, (source, destination), C, heads): heads wider than 256 (16 or 32 channels a lane) and a head
+# width the wrapper pads with zero channels (D = 10 -> 16), on the flat processor's set
+HEAD_WIDTH_ATTN = (("processor D=320", ("hidden", "hidden"), 640, 2),
+                   ("processor D=512", ("hidden", "hidden"), 1024, 2),
+                   ("processor D=1024", ("hidden", "hidden"), 1024, 1),
+                   ("processor D=10", ("hidden", "hidden"), 40, 4))
+# and the hierarchical model's r3 level set at one head of 1024
+HIER_WIDE_ATTN = (("r3 level processor D=1024", ("hidden_3", "hidden_3"), 1024, 1),)
+FLASH_WIDTHS = (24, 48, 96, 256, 512)  # flash_attention's head widths off the parent's four
+
+
+def o96_record(graph):
+    """The synthetic O96 record of phase_train_run and phase_dropout
+    (TRAIN_RUN_VARS variables over TRAIN_RUN_STEPS steps on the O96 grid's
+    coordinates, about 41 MB in fp32), written as an anemoi-layout zarr
+    store by the port's writer and read back bit for bit: the zarr source."""
+    from anemoi_models_tpu_torch.training import SyntheticSource, open_dataset, save_zarr_dataset
+
+    coords = np.asarray(graph["data"].coords, np.float64)
+    synthetic = SyntheticSource(coords, TRAIN_RUN_VARS, num_steps=TRAIN_RUN_STEPS, seed=5)
+    record = np.stack([synthetic.window(t, 1)[0] for t in range(TRAIN_RUN_STEPS)])
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_o96.zarr")
+    shutil.rmtree(path, ignore_errors=True)
+    save_zarr_dataset(path, record, synthetic.variables, synthetic.coords, synthetic.statistics)
+    source = open_dataset(path)
+    if not np.array_equal(source.window(0, TRAIN_RUN_STEPS), record):
+        raise AssertionError("the zarr store the port wrote does not read back bit for bit")
+    return source
+
+
+class FirstSteps:
+    """The first ``n`` steps of a data source: with ``n`` the training
+    window, every batch of a run is the same one."""
+
+    def __init__(self, source, n: int) -> None:
+        self.source, self.n = source, n
+        self.variables, self.coords, self.statistics = source.variables, source.coords, source.statistics
+        self.name_to_index = source.name_to_index
+
+    def __len__(self) -> int:
+        return self.n
+
+    def window(self, start: int, length: int) -> np.ndarray:
+        if start < 0 or start + length > self.n:
+            raise IndexError(f"window [{start}, {start + length}) outside {self.n} steps")
+        return self.source.window(start, length)
+
+
+def trace_busy_ms(trace_path: str) -> float:
+    """The device's busy ms in a torch.profiler chrome trace: the union of
+    its kernel, copy and set intervals."""
+    with open(trace_path) as fh:
+        events = json.load(fh)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e)
+    busy, end = 0.0, None
+    for s, t in spans:
+        if end is None or s > end:
+            busy, end = busy + t - s, t
+        elif t > end:
+            busy, end = busy + t - end, t
+    return busy / 1e3
+
+
+def _state(run: dict) -> dict:
+    """Parameters, AdamW moments and count, and EMA of a train_run result."""
+    model, opt = run["model"], run["optimizer"]
+    out = {f"param {n}": p.detach() for n, p in model.named_parameters()}
+    for n, p in model.named_parameters():
+        out[f"mu {n}"], out[f"nu {n}"] = opt.state[p]["mu"], opt.state[p]["nu"]
+    out.update({f"ema {n}": t for n, t in (run["ema"] or {}).items()})
+    return out
+
+
+def phase_train_run(source, dev) -> dict:
+    """The training driver at full width: ``train_run`` on the O96
+    GraphTransformer flagship (bench.py's config, batch 1) from the zarr
+    store of :func:`o96_record`, with 2 ensemble members and the fair CRPS
+    through the rollout curriculum [(0, 1), (4, 2)], 8 steps, EMA 0.999, an
+    eval of a 2-lead-time rollout on the held-out tail at steps 4 and 8 and a
+    checkpoint every 4 steps; then the same run boxed at 4 steps and resumed
+    to 8, which must give the uninterrupted run's losses, evals, parameters,
+    AdamW moments and EMA bit for bit. Launches: 3 steps of one lead time and
+    5 of two, each a train step's (EXPECTED), and two 2-lead-time evals of a
+    request's each, in total exactly."""
+    from anemoi_models_tpu_torch.training import train_run
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_train_run")
+    shutil.rmtree(root, ignore_errors=True)
+    common = dict(forcing=TRAIN_RUN_FORCING, mesh_refinements=5, model_kwargs=FLAGSHIP_KWARGS, steps=8,
+                  batch_size=1, ensemble=2, loss="crps", rollout_schedule=[(0, 1), (4, 2)], ema_decay=0.999,
+                  eval_every=4, eval_rollout=2, save_every=4, seed=0, log_every=1, log=lambda s: None,
+                  device=dev, handle_signals=False)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    full = train_run(source, checkpoint_dir=os.path.join(root, "a"), profile_dir=os.path.join(root, "profile"),
+                     profile_steps=(5, 7), **common)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    one, two = EXPECTED["graphtransformer"][1], {k: 2 * v for k, v in EXPECTED["graphtransformer"][1].items()}
+    evals = {k: 2 * 2 * v for k, v in EXPECTED["graphtransformer"][0].items()}  # 2 evals of 2 lead times
+    # the curriculum's length at step s is the longest whose start is at most s: steps 1-3 one, 4-8 two
+    expected = expect(counts, {k: 3 * one.get(k, 0) + 5 * two.get(k, 0) + evals.get(k, 0) for k in counts})
+    if counts != expected:
+        raise AssertionError(f"train_run: expected {expected} launches in all, got {counts}")
+    losses = full["losses"]
+    if len(losses) != 8 or not np.all(np.isfinite(losses)) or len(full["eval"]) != 2:
+        raise AssertionError(f"train_run: losses {losses} or evals {full['eval']} incomplete or not finite")
+    if not all(np.all(np.isfinite(e["rmse"])) for e in full["eval"]):
+        raise AssertionError(f"train_run: non-finite eval scores {full['eval']}")
+    if not os.path.exists(os.path.join(root, "a", "graph.npz")) or load_checkpoint(
+            os.path.join(root, "a", "latest"))["step"] != 8:
+        raise AssertionError("train_run: the graph-once checkpoint layout is missing")
+    busy = trace_busy_ms(os.path.join(root, "profile", "train_run_trace.json")) / 2  # steps 6 and 7
+    step_ms = full["step_ms"]
+    resumed_part = train_run(source, checkpoint_dir=os.path.join(root, "b"), max_steps_this_run=4, **common)
+    rest = train_run(source, checkpoint_dir=os.path.join(root, "b"), resume=True, **common)
+    want, got = _state(full), _state(rest)
+    differ = [k for k in want if not torch.equal(want[k], got[k])]
+    if resumed_part["losses"] + rest["losses"] != losses or differ or \
+            [e["rmse"] for e in resumed_part["eval"] + rest["eval"]] != [e["rmse"] for e in full["eval"]]:
+        raise AssertionError(f"train_run resume: not bit for bit ({len(differ)} tensors differ, e.g. {differ[:3]}; "
+                             f"losses {resumed_part['losses'] + rest['losses']} vs {losses})")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"losses": losses, "eval": [{k: e[k] for k in ("step", "rmse_mean", "skill_mean")} for e in full["eval"]],
+            "step_ms": step_ms, "steps_per_s_by_events": [1e3 / ms for ms in step_ms],
+            "run_wall_s": wall_s, "loader_wait_ms": full["loader_wait_s"] * 1e3,
+            "busy_share_rollout2": busy / float(np.median(step_ms[3:])), "device_busy_ms_per_step": busy,
+            "peak_mem_gib": peak, "launches": counts,
+            "per_step": {"rollout 1": expect(counts, one), "rollout 2": expect(counts, two)},
+            "resume_bit_identical": True, "tensors_compared": len(want)}
+
+
+def phase_dropout(source, dev) -> tuple[dict, dict]:
+    """Attention-weight dropout. Kernel: flash_attention with p = 0.1
+    against the plain blockwise version under the same key at the O96
+    processor's shape (4 heads, N = 10,242, D = 64, w = 512), fp32 1e-5 and
+    bf16 2e-2; repeats bit-identical, the next step's key another output, p
+    = 0 the dropout-free kernel's bits; the kernel's keep rate (q = k = 0,
+    v = 1: each output is the kept share of its band over 1 - p) within 5
+    sigma of 0.9. Model: 3 steps of ``train_run`` on the O96 Transformer
+    flavor (4 heads, w = 512) with dropout_p = 0.1, on one window of the
+    record (so the losses compare like with like), at peak learning rate
+    1e-5: the first update has lr 0, and Adam's next moves every weight by
+    about the learning rate, which from the flax initialisation raised this
+    model's loss at 1e-3 and 3e-4 on an H100, as the production width's
+    seeded loss rises at the flagship's rate; finite, falling."""
+    from anemoi_models_tpu_torch.training import train_run
+
+    gen = torch.Generator().manual_seed(9)
+    n, h, d, w, p = 10242, 4, 64, 512, 0.1
+    qkv32 = torch.randn(1, n, 3, h, d, generator=gen)
+    key = fa.fold_key(17, 3, 1)
+    rows = []
+    for dt in (torch.float32, torch.bfloat16):
+        qkv = qkv32.to(dev, dt)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        got, again = fa.flash_attention(q, k, v, w, False, p, key), fa.flash_attention(q, k, v, w, False, p, key)
+        want = fa.blockwise_attention(q, k, v, window_size=w, dropout_rate=p, dropout_key=key)
+        other = fa.flash_attention(q, k, v, w, False, p, fa.fold_key(17, 4, 1))
+        torch.cuda.synchronize()
+        err = max_err(got, want, TOL[dt], f"flash_attention dropout {dt}")
+        if not torch.equal(got, again) or torch.equal(got, other):
+            raise AssertionError(f"flash_attention dropout {dt}: repeats differ or another key gives the same output")
+        if not torch.equal(fa.flash_attention(q, k, v, w, False, 0.0, key), fa.flash_attention(q, k, v, w)):
+            raise AssertionError(f"flash_attention {dt}: p = 0 does not keep the dropout-free bits")
+        flops = 4.0 * h * fa.live_pairs(n, w, False) * d
+        rows.append({"kernel": "flash_attention", "shape": f"B*H={h} N={n} D={d} w={w} dropout={p}",
+                     "dtype": str(dt).split(".")[-1], "max_abs_err": err, "bit_identical": True,
+                     "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, w, False, p, key)),
+                     "no_dropout_ms": cuda_ms(lambda: fa.flash_attention(q, k, v, w)),
+                     "plain_ms": cuda_ms(lambda: fa.blockwise_attention(q, k, v, window_size=w, dropout_rate=p,
+                                                                        dropout_key=key), iters=3, warmup=1),
+                     **bound(4 * h * n * d * qkv.element_size(), flops,
+                             "bf16 tensor" if dt == torch.bfloat16 else "fp32"), "library_ms": None})
+    zeros, ones = torch.zeros(1, h, n, d, device=dev), torch.ones(1, h, n, d, device=dev)
+    share = fa.flash_attention(zeros, zeros, ones, w, False, p, key)[..., 0] * (1 - p)  # kept share of each band
+    band = torch.tensor([min(n - 1, i + w) - max(0, i - w) + 1 for i in range(n)], device=dev, dtype=torch.float64)
+    kept = float((share.double() * band).sum())
+    pairs = float(band.sum()) * h
+    sigma = (pairs * 0.9 * 0.1) ** 0.5
+    if abs(kept - 0.9 * pairs) > 5 * sigma:
+        raise AssertionError(f"flash_attention dropout keep rate {kept / pairs:.6f} off 0.9 by more than 5 sigma")
+    model_kwargs = dict(FLAGSHIP_KWARGS, num_heads=4, window_size=512, dropout_p=0.1)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    run = train_run(FirstSteps(source, 3), forcing=TRAIN_RUN_FORCING, flavor="transformer", mesh_refinements=5,
+                    model_kwargs=model_kwargs, steps=3, batch_size=1, peak_lr=1e-5, warmup_steps=1, seed=0,
+                    log_every=1, log=lambda s: None, device=dev, handle_signals=False)
+    counts = launches()
+    losses = run["losses"]
+    if len(losses) != 3 or not np.all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"dropout train_run: losses {losses} are not finite or do not fall")
+    expected = expect(counts, {kk: 3 * vv for kk, vv in EXPECTED["transformer"][1].items()})
+    if counts != expected:
+        raise AssertionError(f"dropout train_run: expected {expected} launches, got {counts}")
+    train = {"losses": losses, "step_ms": run["step_ms"], "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+             "launches": counts, "per_step": expect(counts, EXPECTED["transformer"][1])}
+    return {"rows": rows, "keep_rate": kept / pairs, "keep_sigma": sigma / pairs}, train
+
+
+def phase_head_widths(graph, hgraph, small_graph, dev) -> tuple[list, list, dict, dict]:
+    """The two faults this PR repairs. Both edge-attention kernels at heads
+    wider than 256 (D = 320, 512, 1024 on the flat processor's set; D = 1024
+    on the hierarchical r3 level set) and at a head width the wrapper pads
+    (D = 10), against the plain versions at the flagship's bounds, two calls
+    bit-identical (:func:`phase_attn_widths`); flash_attention at D = 24, 48,
+    96, 256, 512 (O96 processor shape, w = 512) against the blockwise
+    version, fp32 and bf16, two calls bit-identical; and a reduced
+    GraphTransformer at C = 1024 with 2 heads and a reduced Transformer at C
+    = 1024 with 4 heads (D = 512, 256), fp32 against the CPU
+    (:func:`phase_reduced_model`), then in bf16 three requests and three
+    train steps each on the 16-latitude graph."""
+    attn = phase_attn_widths(graph, dev, HEAD_WIDTH_ATTN) + phase_attn_widths(hgraph, dev, HIER_WIDE_ATTN)
+    gen = torch.Generator().manual_seed(12)
+    n, h, w = 10242, 4, 512
+    flash = []
+    for d in FLASH_WIDTHS:
+        qkv32 = torch.randn(1, n, 3, h, d, generator=gen)
+        for dt in (torch.float32, torch.bfloat16):
+            qkv = qkv32.to(dev, dt)
+            q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+            got, again = fa.flash_attention(q, k, v, w), fa.flash_attention(q, k, v, w)
+            want = fa.blockwise_attention(q, k, v, window_size=w)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"flash_attention D={d} {dt}: two calls differ")
+            err = max_err(got, want, TOL[dt], f"flash_attention D={d} {dt}")
+            route = ("row kernel" if d > fa._TILE_DIMS[dt][-1] else
+                     "tile kernel" + ("" if fa._tile_width(d, dt) == d else f", padded to {fa._tile_width(d, dt)}"))
+            flash.append({"kernel": "flash_attention", "shape": f"B*H={h} N={n} D={d} w={w}", "route": route,
+                          "dtype": str(dt).split(".")[-1], "max_abs_err": err, "bit_identical": True,
+                          "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, w)),
+                          "plain_ms": cuda_ms(lambda: fa.blockwise_attention(q, k, v, window_size=w), iters=3, warmup=1),
+                          **bound(4 * h * n * d * qkv.element_size(), 4.0 * h * fa.live_pairs(n, w, False) * d,
+                                  "bf16 tensor" if dt == torch.bfloat16 else "fp32")})
+            del want
+    reduced = {
+        "graphtransformer C=1024 H=2": phase_reduced_model(small_graph, dev, "graphtransformer", channels=1024, heads=2),
+        "transformer C=1024 H=4": phase_reduced_model(small_graph, dev, "transformer", channels=1024, heads=4),
+    }
+    serving, train = {}, {}
+    for flavor, heads in (("graphtransformer", 2), ("transformer", 4)):
+        cfg = model_config(num_channels=1024, num_layers=8, num_chunks=2, dtype="bfloat16", flavor=flavor,
+                           num_heads=heads)
+        serving[flavor] = phase_serving(small_graph, dev, flavor, cfg=cfg)
+        train[flavor], _ = phase_train(small_graph, dev, None, flavor, remat_none=False, lr=1e-5, cfg=cfg,
+                                       must_fall=False)
+    return attn + flash, reduced, serving, train
+
+
+def phase_cli(dev) -> dict:
+    """The port's command line in-process, at a reduced width on a
+    16-latitude grid: ``train --synthetic ... --checkpoint-dir`` (C = 64, 2
+    heads, 4 steps, 2 members with CRPS), then ``predict`` and ``evaluate``
+    of that checkpoint against a zarr store of the same synthetic record
+    that the port's writer made; every exit code 0, the forecast and the
+    scores finite, the kernels launched."""
+    from anemoi_models_tpu_torch.commands import main as cli
+    from anemoi_models_tpu_torch.graphs.build import latlon_grid_nodes
+    from anemoi_models_tpu_torch.training import SyntheticSource, save_zarr_dataset
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    ck, store, fc = (os.path.join(root, n) for n in ("ck", "record.zarr", "forecast.npz"))
+    reset_launches()
+    rc = {"train": cli(["train", "--synthetic", "--grid-lat", "16", "--num-vars", "5", "--num-steps", "40",
+                        "--steps", "4", "--channels", "64", "--layers", "2", "--heads", "2", "--mesh-refinements",
+                        "3", "--forcing", "var_0", "--ensemble", "2", "--checkpoint-dir", ck, "--device", str(dev),
+                        "--seed", "1"])}
+    synthetic = SyntheticSource(latlon_grid_nodes(16).coords, 5, num_steps=40, seed=1)
+    save_zarr_dataset(store, np.stack([synthetic.window(t, 1)[0] for t in range(40)]), synthetic.variables,
+                      synthetic.coords, synthetic.statistics)
+    rc["predict"] = cli(["predict", os.path.join(ck, "latest"), store, "--steps", "3", "--output", fc,
+                         "--ensemble", "2", "--device", str(dev)])
+    forecast = np.load(fc)["forecast"]
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc["evaluate"] = cli(["evaluate", os.path.join(ck, "latest"), store, "--rollout", "3", "--device", str(dev),
+                              "--json"])
+    scores = json.loads(out.getvalue().strip().splitlines()[-1])
+    counts = launches()
+    shutil.rmtree(root, ignore_errors=True)
+    if any(rc.values()) or not np.isfinite(forecast).all() or not np.all(np.isfinite(scores["rmse"])):
+        raise AssertionError(f"cli: exit codes {rc}, or non-finite forecast or scores")
+    if counts["edge_attn_csr"] == 0 or counts["edge_attn_csr_bwd"] == 0:
+        raise AssertionError(f"cli: the kernels were not launched ({counts})")
+    return {"exit_codes": rc, "forecast_shape": list(forecast.shape),
+            "eval_rmse_mean": float(np.mean(scores["rmse"])), "launches": counts}
+
+
 def phase_profile(run, out_dir: str, label: str) -> dict:
     """One call of ``run`` under torch.profiler: device time by kernel, and
     the device's busy share (union of kernel intervals over the span)."""
@@ -1520,6 +1849,33 @@ def main() -> None:
     serving["aifs-data"], train["aifs-data"] = phase_aifs_data(graph, dev, small_graph, profile_dir)
     print(f"card: {name_power} serving aifs-data", json.dumps(serving["aifs-data"]))
     print(f"card: {name_power} train aifs-data", json.dumps(train["aifs-data"]))
+    # the training driver on the flagship: CRPS over 2 members through the curriculum, evals, checkpoints
+    # and a resume bit for bit, from a zarr store of a synthetic O96 record
+    t0 = time.perf_counter()
+    source = o96_record(graph)
+    print(f"O96 record: {TRAIN_RUN_STEPS} steps x {TRAIN_RUN_VARS} variables, zarr written and read back in "
+          f"{time.perf_counter() - t0:.1f} s")
+    train["train_run"] = phase_train_run(source, dev)
+    print(f"card: {name_power} train_run", json.dumps(train["train_run"]))
+    # attention dropout: the kernel against plain under one key, its keep rate, the Transformer trained with it
+    dropout, train["dropout"] = phase_dropout(source, dev)
+    for row in dropout.pop("rows"):
+        print("kernel-vs-plain", json.dumps(row))
+    print(f"card: {name_power} dropout", json.dumps({**dropout, "train": train["dropout"]}))
+    # the head widths the kernels took no more in the parent: edge attention above 256 and padded, flash at
+    # every width, and reduced models at C = 1024 with 2 and 4 heads
+    width_rows, reduced, wide_serving, wide_train = phase_head_widths(graph, hgraph, small_graph, dev)
+    for row in width_rows:
+        print("head-width-vs-plain", json.dumps(row))
+    for label, row in reduced.items():
+        print(f"reduced-model {label}", json.dumps(row))
+    for flavor in wide_serving:
+        serving[f"head widths {flavor}"], train[f"head widths {flavor}"] = wide_serving[flavor], wide_train[flavor]
+        print(f"card: {name_power} head widths {flavor}",
+              json.dumps({"serving": wide_serving[flavor], "train": wide_train[flavor]}))
+    # the command line in-process: train, predict, evaluate
+    train["cli"] = phase_cli(dev)
+    print(f"card: {name_power} cli", json.dumps(train["cli"]))
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "anemoi_models_tpu"))
     if leaked:
         raise AssertionError(f"the port imported {leaked}")

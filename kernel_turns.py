@@ -18,14 +18,18 @@ the O96 main path's shapes with seeded inputs:
 - ``fwd``: ``edge_attn_csr`` (A2 = 8, batch 1) at C = 256 with 4 heads on
   the processor, encoder and decoder edge sets, and on the processor set at
   C = 1024 with 16 heads (the production width), C = 512 and C = 1024 with 4
-  heads (D = 128, 256), in bf16 and fp32, with a SHA-256 of its outputs (num,
+  heads (D = 128, 256), C = 640 with 2 heads, C = 1024 with 2 and 1 heads
+  (D = 320, 512, 1024: a head wider than 256) and C = 40 with 4 heads (D =
+  10, padded to 16), in bf16 and fp32, with a SHA-256 of its outputs (num,
   den, m after ``x + 0.0``, so that only the sign of an exact zero may
   differ) per turn;
 - ``bwd``: ``edge_attn_csr_bwd`` at the same shapes, with a SHA-256 of each
   of dq, dkv, da and dw_aug;
 - ``flash``: ``flash_attention`` at (B*H, N, D) = (4, 10,242, 64) with
-  w = 512, no window, ragged N = 4,098 (w = 512) and causal (w = 512), q, k
-  and v strided views of one fused projection, in bf16 and fp32.
+  w = 512, no window, ragged N = 4,098 (w = 512) and causal (w = 512), at
+  D = 24, 48, 96, 256 and 512 with w = 512, and with attention dropout
+  (p = 0.1) at D = 64, w = 512, q, k and v strided views of one fused
+  projection, in bf16 and fp32, with a SHA-256 of its output.
 
 Device ms come from CUDA events around launches queued behind a
 ``torch.cuda._sleep`` that outlasts the host's enqueue, so they bracket
@@ -40,6 +44,7 @@ shapes both take.
 from __future__ import annotations
 
 import hashlib
+import inspect
 import json
 import os
 import subprocess
@@ -193,7 +198,8 @@ def _worker(root: str, which: tuple) -> dict:
                 ("host_us", lambda n: host_us(lambda: gc.gnn_conv(*args), iters=n), 20)))
     # (C, heads): the flagship on every edge set; the production width and D = 128, 256 on the processor's
     attn_shapes = [(label, names, 256, 4) for label, names in EDGE_SETS] + [
-        ("processor", EDGE_SETS[0][1], cc, hh) for cc, hh in ((1024, 16), (512, 4), (1024, 4))]
+        ("processor", EDGE_SETS[0][1], cc, hh)
+        for cc, hh in ((1024, 16), (512, 4), (1024, 4), (640, 2), (1024, 2), (1024, 1), (40, 4))]
     for label, (s_name, d_name), ca, h in attn_shapes if ("fwd" in which or "bwd" in which) else ():
         ei = graph[(s_name, "to", d_name)].edge_index
         ns, nd = graph[s_name].num_nodes, graph[d_name].num_nodes
@@ -224,18 +230,32 @@ def _worker(root: str, which: tuple) -> dict:
                     dict(entry), bwd,
                     ("ms", lambda n: cuda_ms(lambda: ea.edge_attn_csr_bwd(*bwd.args), iters=n), 20),
                     ("host_us", lambda n: host_us(lambda: ea.edge_attn_csr_bwd(*bwd.args), iters=n), 20)))
-    n0, w0, h, d = 10242, 512, 4, 64
-    for n, window, causal in ((n0, w0, False), (n0, None, False), (2 * n0 // 5 + 2, w0, False), (n0, w0, True)) \
-            if "flash" in which else ():
+    n0, w0, h = 10242, 512, 4
+    # (N, w, causal, D, dropout rate): the O96 shapes, the head widths the kernels pad or run on wide
+    # lanes, and attention dropout (a checkout whose wrapper has no dropout refuses it)
+    flash_shapes = [(n0, w0, False, 64, 0.0), (n0, None, False, 64, 0.0), (2 * n0 // 5 + 2, w0, False, 64, 0.0),
+                    (n0, w0, True, 64, 0.0)] + [(n0, w0, False, dd, 0.0) for dd in (24, 48, 96, 256, 512)] + [
+                    (n0, w0, False, 64, 0.1)]
+    drops = "dropout_key" in inspect.signature(fa.flash_attention).parameters
+    for n, window, causal, d, rate in flash_shapes if "flash" in which else ():
         qkv32 = torch.randn(1, n, 3, h, d, generator=gen)
         for dt in (torch.bfloat16, torch.float32):
             qkv = qkv32.to(dev, dt)
             q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-            out["flash_attention"].append({
-                "shape": f"B*H={h} N={n} D={d} w={window}{' causal' if causal else ''}",
-                "dtype": str(dt).split(".")[-1],
-                "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, window, causal)),
-                "host_us": host_us(lambda: fa.flash_attention(q, k, v, window, causal))})
+            entry = {"shape": f"B*H={h} N={n} D={d} w={window}{' causal' if causal else ''}"
+                              + (f" dropout={rate}" if rate else ""), "dtype": str(dt).split(".")[-1]}
+            if rate and not drops:
+                out["flash_attention"].append({**entry, "refused": "no attention dropout in this checkout"})
+                continue
+            extra = (rate, fa.fold_key(0, 1, 2)) if rate else ()
+
+            def call(q=q, k=k, v=v, window=window, causal=causal, extra=extra):
+                return fa.flash_attention(q, k, v, window, causal, *extra)
+
+            out["flash_attention"].append(_timed(
+                entry, lambda: [call()],
+                ("ms", lambda it: cuda_ms(call, iters=it), 20),
+                ("host_us", lambda it: host_us(call, iters=it), 50)))
     return out
 
 
@@ -273,7 +293,7 @@ def main() -> None:
         turns.append(next(json.loads(line[5:]) for line in run.stdout.splitlines() if line.startswith("turn ")))
     # the parent's and this checkout's outputs, per kernel, shape and output: bit for bit alike or not
     same = {}
-    for kernel in ("kv_proj", "gnn_conv", "edge_attn_csr", "edge_attn_csr_bwd"):
+    for kernel in ("kv_proj", "gnn_conv", "edge_attn_csr", "edge_attn_csr_bwd", "flash_attention"):
         new_by_key = {(e["shape"], e["dtype"]): e for e in turns[1][kernel]}
         for old in turns[0][kernel]:
             new = new_by_key.get((old["shape"], old["dtype"]))

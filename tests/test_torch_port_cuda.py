@@ -118,10 +118,13 @@ def test_gnn_prepass_matches_node_products(dev, graph, dtype, channels):
 
 # every lane layout of ops/edge_attention.py:_lane_layout: one head group of 32 lanes (the flagship's
 # C = 256), 24 active lanes (6 heads), several groups (C >= 384), one channel a lane (C = 32), a head
-# of 128 or 256 channels (the hierarchical model's coarser levels: C = 512, 1024 with 4 heads), and
-# head widths that are not powers of two, so that lanes pad each head (D = 96, 48, 40, 24, 192)
+# of 128 or 256 channels (the hierarchical model's coarser levels: C = 512, 1024 with 4 heads), head
+# widths that are not powers of two, so that lanes pad each head (D = 96, 48, 40, 24, 192), heads
+# wider than 256 on 16 or 32 channels a lane (D = 320, 512, 1024, and 384 padded lanes), and head
+# widths the wrapper pads with zero channels (D = 10 -> 16, 12 -> 16, 20 -> 24, 520 -> 544)
 WIDTHS = [(64, 4), (256, 4), (512, 4), (128, 16), (32, 4), (192, 6), (384, 6), (768, 6), (1024, 8), (1024, 16),
-          (1024, 4), (256, 1), (384, 4), (96, 1), (192, 4), (48, 1), (240, 6), (384, 16), (768, 4)]
+          (1024, 4), (256, 1), (384, 4), (96, 1), (192, 4), (48, 1), (240, 6), (384, 16), (768, 4),
+          (640, 2), (1024, 2), (1024, 1), (768, 2), (40, 4), (36, 3), (20, 1), (1040, 2)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -239,6 +242,7 @@ def test_bwd_occupancy_model_matches_the_runtime(dev, dtype, channels, heads, a2
     from anemoi_models_tpu_torch.ops.kernels import load_kernels
 
     lib = load_kernels()
+    channels = heads * ea._kernel_head(channels, heads)  # the width the kernels run (padded heads)
     vb, _, group = ea._lane_layout(channels, heads)
     fn = lib.edge_attn_csr_bwd_per_sm_bf16 if dtype == torch.bfloat16 else lib.edge_attn_csr_bwd_per_sm_f32
     per_sm = ctypes.c_int(0)
@@ -285,14 +289,17 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev, graph):
     es = graph[("hidden", "to", "hidden")]
     n = graph["hidden"].num_nodes
     rowptr, src, num_edges = _csr(es, n, n, dev)
-    q = torch.randn(n, 1280, device=dev)  # 4 heads of 320: wider than 256
-    kv = torch.randn(n, 2560, device=dev)
+    q = torch.randn(n, 2048, device=dev)  # 1 head of 2048: wider than 1024
+    kv = torch.randn(n, 4096, device=dev)
     a = torch.randn(num_edges, 8, device=dev)
     with pytest.raises(ValueError, match="head widths"):
-        ea.edge_attn_csr(q, kv, rowptr, src, a, torch.randn(8, 1280, device=dev), 4)
-    q, kv = torch.randn(n, 36, device=dev), torch.randn(n, 72, device=dev)  # 3 heads of 12: not a multiple of 8
-    with pytest.raises(ValueError, match="head widths"):
-        ea.edge_attn_csr(q, kv, rowptr, src, a, torch.randn(8, 36, device=dev), 3)
+        ea.edge_attn_csr(q, kv, rowptr, src, a, torch.randn(8, 2048, device=dev), 1)
+    # 3 heads of 12 (not a multiple of 8) and 4 of 320 (wider than 256): padded or on wide lanes, they run
+    for c, h in ((36, 3), (1280, 4)):
+        q, kv = torch.randn(n, c, device=dev), torch.randn(n, 2 * c, device=dev)
+        before = ea.LAUNCHES["edge_attn_csr"]
+        p = ea.edge_attn_csr(q, kv, rowptr, src, a, torch.randn(8, c, device=dev), h)
+        assert ea.LAUNCHES["edge_attn_csr"] == before + 1 and p.num.shape == (n, h, c // h)
     q, kv = torch.randn(n, 64, device=dev), torch.randn(n, 128, device=dev)
     with pytest.raises(ValueError, match="share one dtype"):
         ea.edge_attn_csr(q, kv.bfloat16(), rowptr, src, a, torch.randn(8, 64, device=dev), 4)
@@ -361,7 +368,7 @@ def test_gnn_conv_matches_plain_and_repeats_bit_for_bit(dev, graph, dtype, chann
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 128, 24, 48, 96, 256, 160, 512, 1024])
 @pytest.mark.parametrize("n,window,causal", [(700, 64, False), (700, None, False), (333, 40, False),
                                              (700, 64, True), (450, None, True), (700, 40, False),
                                              (700, 100, False), (100, None, False), (100, 30, True),
@@ -388,6 +395,28 @@ def test_flash_attention_matches_plain(dev, dtype, head_dim, n, window, causal):
     assert torch.equal(fa.flash_attention(q, k, v, window, causal), got), "two calls differ"
     contiguous = [t.contiguous() for t in (q, k, v)]
     torch.testing.assert_close(fa.flash_attention(*contiguous, window, causal), got, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("head_dim,n,window,causal", [(64, 700, 64, False), (64, 333, None, True), (24, 257, 40, False),
+                                                      (256, 700, 100, False), (512, 300, 30, True)])
+def test_flash_attention_dropout_matches_plain(dev, dtype, head_dim, n, window, causal):
+    """Attention-weight dropout in the kernels (the wgmma, tile and row
+    kernels) against the plain blockwise version with the same key: the
+    same mask, so the outputs agree within the dropout-free tolerances; two
+    calls bit-identical, another key another output, rate 0 with a key the
+    dropout-free kernel's bits."""
+    gen = torch.Generator().manual_seed(8)
+    qkv = torch.randn(2, n, 3, 3, head_dim, generator=gen).to(dev, dtype)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    key = fa.fold_key(123, 7, 2)
+    got = fa.flash_attention(q, k, v, window, causal, 0.1, key)
+    want = fa.blockwise_attention(q, k, v, window_size=window, is_causal=causal, dropout_rate=0.1, dropout_key=key)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    assert torch.equal(fa.flash_attention(q, k, v, window, causal, 0.1, key), got)
+    assert not torch.equal(fa.flash_attention(q, k, v, window, causal, 0.1, fa.fold_key(123, 8, 2)), got)
+    assert torch.equal(fa.flash_attention(q, k, v, window, causal, 0.0, key), fa.flash_attention(q, k, v, window, causal))
 
 
 def test_new_wrappers_reject_what_the_kernels_do_not_take(dev, graph):
@@ -426,7 +455,10 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(dev, graph):
         strided = torch.randn(1, 2, 100, 128, device=dev)[..., ::2]
         fa.flash_attention(strided, strided, strided, 8)
     with pytest.raises(ValueError, match="head widths"):
-        fa.flash_attention(q[..., :48], q[..., :48], q[..., :48], 8)
+        wide = torch.randn(1, 1, 10, 1040, device=dev)
+        fa.flash_attention(wide, wide, wide, 8)
+    with pytest.raises(ValueError, match="dropout_key"):
+        fa.flash_attention(q, q, q, 8, False, 0.1)
 
 
 def test_graph_conv_with_extra_mlp_layers_raises_on_the_card(dev, graph):

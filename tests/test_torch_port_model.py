@@ -167,19 +167,20 @@ def test_config_targets_resolve_to_port_classes(setup):
 
 
 def test_unported_options_raise():
-    """Attention-weight dropout raises before any device dispatch (on the
-    CPU as on the card), and so does a Transformer processor built
-    non-deterministic with dropout_p > 0. (A GraphConv with
+    """The halo attention (the parallel port) raises before any device
+    dispatch; attention-weight dropout, now ported, raises the same way when
+    it is asked for without a dropout key, in the op and in a Transformer
+    processor built non-deterministic with dropout_p > 0. (A GraphConv with
     mlp_extra_layers > 0 raises on a CUDA tensor only: the CPU runs the plain
     version at any depth; tests/test_torch_port_cuda.py holds that case.)"""
     q = torch.randn(1, 2, 8, 16)
-    with pytest.raises(NotImplementedError, match="dropout"):
+    with pytest.raises(ValueError, match="dropout_key"):
         dot_product_attention(q, q, q, window_size=2, dropout_rate=0.1)
     with pytest.raises(ValueError, match="impl"):
         dot_product_attention(q, q, q, impl="halo")
     proc = TransformerProcessor(2, window_size=2, num_channels=16, num_chunks=1, num_heads=2, dropout_p=0.1,
                                 deterministic=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="dropout"):
+    with pytest.raises(ValueError, match="dropout_key"):
         proc(torch.randn(1, 8, 16))
     with pytest.raises(NotImplementedError, match="halo"):
         MultiHeadSelfAttention(2, 16, window_size=2, attention_impl="halo")

@@ -405,12 +405,25 @@ def test_flax_tree_round_trip_is_exact(model_setup):
 
 
 def test_train_step_refuses_dropout(graph, model_setup):
-    di, _, _, params = model_setup
+    """A deterministic=False model refuses to roll out without a dropout
+    key; its train step draws one from the step count, and a GraphTransformer
+    model, which has no dropout layer, trains exactly as the deterministic
+    one (attention dropout itself: tests/test_torch_port_crps_dropout.py)."""
+    from anemoi_models_tpu_torch.training import make_rollout_fn
+
+    di, x, y, params = model_setup
     cfg = _configs()
-    model = AnemoiModelEncProcDec(model_config=cfg.to_dict(), data_indices=di, graph_data=graph,
-                                  device="cpu", deterministic=False)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        make_train_step(model, make_optimizer(model.parameters()))
+    losses = []
+    for deterministic in (False, True):
+        model = _port_model(cfg, di, graph, params)
+        model.deterministic = deterministic
+        if not deterministic:
+            with pytest.raises(ValueError, match="dropout_key"):
+                make_rollout_fn(model, di, 1)(torch.from_numpy(np.asarray(x)))
+        step = make_train_step(model, make_optimizer(model.parameters()))
+        losses.append([float(step(torch.from_numpy(np.asarray(x)), torch.from_numpy(np.asarray(y))))
+                       for _ in range(2)])
+    assert losses[0] == losses[1]
 
 
 def test_ema_update_matches_jax():

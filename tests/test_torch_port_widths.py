@@ -47,36 +47,45 @@ def _accepted_widths(max_channels=1024):
 
 
 def test_lane_layout_takes_every_width_the_forward_takes():
-    """The backward takes what the forward takes: for every accepted (C, H)
-    up to C = 1024 (head widths up to 256: powers of two and multiples of 8)
-    the layout puts a group of whole heads of at most 256 channels on at most
-    32 lanes, in 16-byte slices, a head on a power of two of lanes (D / VB
-    rounded up; the lanes past D / VB pad it), with the first kernel's VF =
-    max(1, D / 32) channels a thread dividing a lane's VB where D is a power
-    of two (those layouts pad nothing and are the ones PRs before took)."""
+    """The backward takes what the forward takes: every (C, H) up to C =
+    1024 (head widths up to 1024), each head padded with zero channels to the
+    width the kernels run it at (``_kernel_head``: D itself where it is a
+    multiple of 8 up to 256, or 1, 2, 4 with C a multiple of 32, or above 256
+    a multiple of its 16 or 32 channels a lane; else the next such width).
+    The layout of the padded row puts a group of whole heads of at most 256
+    channels, or one wider head, on at most 32 lanes, in 16-byte slices, a
+    head on a power of two of lanes (D / VB rounded up; the lanes past D / VB
+    pad it), with the first kernel's VF = max(1, D / 32) channels a thread
+    dividing a lane's VB where D is a power of two (those layouts pad
+    nothing and are the ones PRs before took)."""
     widths = _accepted_widths()
-    assert {(32, 4), (192, 6), (384, 6), (768, 6), (1024, 8), (1024, 16), (256, 4)} <= set(widths)
-    assert {(192, 4), (384, 4), (1024, 4), (48, 1), (240, 6), (384, 16)} <= set(widths)  # D = 48, 96, 256, 40, 24
+    assert len(widths) == sum(1 for c in range(1, 1025) for h in range(1, c + 1) if c % h == 0)
     for c, h in widths:
-        vb, lanes, group = ea._lane_layout(c, h)
         d = c // h
-        lb = ea._pow2_at_least(d // vb)  # lanes of a head
-        assert d <= 256 and (d % 8 == 0 or d in (1, 2, 4)), (c, h)
-        assert vb in (1, 2, 4, 8) and lanes == group // d * lb and lanes <= 32, (c, h)
-        assert group % d == 0 and group <= 256 and c % group == 0, (c, h)
-        assert d % vb == 0 and group * 2 % 16 == 0, (c, h)
+        dp = ea._kernel_head(c, h)
+        assert d <= dp < d + (8 if d <= 256 else 16 if d <= 512 else 32), (c, h)
+        native = d % 8 == 0 if d <= 256 else d % (16 if d <= 512 else 32) == 0
+        assert (dp == d) == (native or (d in (1, 2, 4) and c % 32 == 0)), (c, h)
+        vb, lanes, group = ea._lane_layout(h * dp, h)
+        lb = ea._pow2_at_least(dp // vb)  # lanes of a head
+        assert vb in (1, 2, 4, 8, 16, 32) and lanes == group // dp * lb and lanes <= 32, (c, h)
+        assert group % dp == 0 and group <= max(256, dp) and h * dp % group == 0, (c, h)
+        assert dp % vb == 0 and group * 2 % 16 == 0, (c, h)
         assert 32 * vb >= group and (vb == 1 or 16 * vb < group), (c, h)  # the smallest such power of two
-        if d & (d - 1) == 0:
-            assert lanes * vb == group and vb % max(1, d // 32) == 0, (c, h)
+        if dp & (dp - 1) == 0:
+            assert lanes * vb == group and vb % max(1, dp // 32) == 0, (c, h)
     assert ea._lane_layout(1024, 16) == (8, 32, 256)
     assert ea._lane_layout(192, 6) == (8, 24, 192)
     assert ea._lane_layout(32, 4) == (1, 32, 32)
     assert ea._lane_layout(1024, 4) == (8, 32, 256)  # D = 256: one head on the warp
     assert ea._lane_layout(384, 4) == (8, 32, 192)  # D = 96: two heads, each 12 lanes padded to 16
     assert ea._lane_layout(192, 4) == (8, 32, 192)  # D = 48: four heads, each 6 lanes padded to 8
-    for c, h in ((1280, 4), (36, 3), (20, 1)):  # D = 320; 12 and 20, not multiples of 8
-        with pytest.raises(ValueError, match="head widths"):
-            ea._check_heads(c, h)
+    assert ea._lane_layout(1280, 4) == (16, 32, 320)  # D = 320: 20 lanes of 16, padded to 32
+    assert ea._lane_layout(1024, 2) == (16, 32, 512) and ea._lane_layout(1024, 1) == (32, 32, 1024)
+    for c, h, dp in ((36, 3, 16), (20, 1, 24), (40, 4, 16), (1032, 2, 544), (1000, 1, 1024)):
+        assert ea._kernel_head(c, h) == dp, (c, h)  # D = 12, 20, 10, 516, 1000 off the rule: padded
+    with pytest.raises(ValueError, match="head widths"):
+        ea._check_heads(2048, 1)
 
 
 def test_bwd_partials_follow_the_shape_alone():
