@@ -32,7 +32,9 @@ the graph functions sort by destination, so it is the CSR order.
   every other width and any MLP depth) runs the same pre-pass, then per
   chunk of :data:`LAYERED_CHUNK` edges one GEMM per Dense with the factored
   first layer's gather, the activation and the rounding in its epilogues, a
-  LayerNorm row kernel, and the same aggregation. The GEMM's tensor maps
+  LayerNorm row kernel, and the same aggregation; in bf16 its pre-pass and
+  Dense GEMMs run on the warp-specialised persistent pipeline of
+  ``csrc/gemm_sm90_ws.cuh``. The GEMM's tensor maps
   need 16-byte rows, so a width that is not a multiple of 8 is padded with
   zero columns (activations, edge features, weights, biases and the
   LayerNorm's gamma and beta; a zero column stays zero through every Dense,

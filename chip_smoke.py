@@ -55,7 +55,10 @@ Builds the port's CUDA kernels from ``anemoi_models_tpu_torch/csrc``, then:
    depth the fused kernels do not take) at C = 384, 512, 1024 and at C =
    256 with one and two extra hidden Dense layers, on the three edge sets,
    fp32 and bf16, at the same bounds, two calls bit-identical, with each
-   call's peak memory;
+   call's peak memory and, at C = 1024 in bf16, its device time split by
+   launch (pre-pass, row table, Dense 0, hidden Dense, last Dense,
+   LayerNorm pass, sum); and at C = 1024 with two samples, with the processor's set cut by
+   the chunk inside a destination's row, and with dead destinations;
 7. for each of the GNN and Transformer flavors (the other two processor
    families of ``__graft_entry__._build``): the reduced fp32 check of 3.,
    three O96 bf16 ``predict_step`` requests (per request 10 gnn_conv
@@ -182,7 +185,7 @@ from anemoi_models_tpu_torch.training import (
     weighted_mse,
 )
 from anemoi_models_tpu_torch.utils import DotDict
-from kernel_turns import card, cuda_ms, host_us
+from kernel_turns import card, cuda_ms, host_us, layered_split
 
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "kv_proj": ("anemoi_models_tpu_torch/csrc/gemm_sm90.cuh",
@@ -252,8 +255,14 @@ PEAK_FLOPS = {"bf16 tensor": 989e12, "fp32": 67e12}
 # device kernels of a profiled step, grouped by what they do (first match)
 PROFILE_KINDS = [
     ("edge_attn_csr_bwd (3 phases)", ("bwd_dst_kernel", "bwd_src_kernel", "dw_reduce_kernel")),
-    ("gnn_conv layered (Dense GEMMs, LayerNorm)", ("gnn_dense", "gnn_ln_kernel")),
-    ("gnn_conv (pre-pass, message, sum)", ("gnn_prepass_tag", "gnn_msg_", "gnn_agg_kernel")),
+    ("gnn_conv layered row table", ("gnn_rows_kernel",)),
+    ("gnn_conv layered Dense 0", ("gnn_dense0_tag",)),
+    ("gnn_conv layered hidden Dense", ("gnn_dense_tag",)),
+    ("gnn_conv layered last Dense", ("gnn_dense_last_tag",)),
+    ("gnn_conv layered LayerNorm pass", ("gnn_ln_kernel",)),
+    ("gnn_conv pre-pass", ("gnn_prepass_tag",)),
+    ("gnn_conv fused message", ("gnn_msg_",)),
+    ("gnn_conv sum", ("gnn_agg_kernel",)),
     ("flash_attention", ("flash_attn_bf16_kernel", "flash_attn_f32_kernel")),
     ("kv_proj", ("kv_proj_tag",)),
     ("edge_attn_csr", ("edge_attn_csr_kernel",)),
@@ -302,6 +311,10 @@ def ptxas_summary(log: str) -> list[dict]:
             mangled = found.group(1)
             short = re.search(r"\d+((?:bwd|dw|flash|edge|gnn|proj)_\w*?kernel\w*?)E+(?=v|P)", mangled)
             name = short.group(1) if short else mangled[:80]
+            bn = re.search(r"ws_gemm_kernelILi(\d+)E", mangled)
+            tag = re.search(r"\d+(gnn_\w+?_tag)", mangled)
+            if bn and tag:  # the warp-specialised GEMM, named by its N tile and its epilogue's tag
+                name = f"ws_gemm_kernel<{bn.group(1)}, {tag.group(1)}>"
             continue
         spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if spill and name:
@@ -601,41 +614,42 @@ def phase_backward_kernels(graph, dev) -> tuple[dict, list]:
     return {**summary, "max_abs_err": bf16_err}, rows
 
 
-def gnn_case(graph, label: str, dev, gen, c: int = 256, keep=None, extra: int = 0) -> dict:
-    """One real edge set with seeded GNN conv inputs on the card (fp32), the
-    edge MLP with ``extra`` hidden Dense layers more than three; the
-    processor's is a self-graph (x_src is x_dst)."""
+def gnn_case(graph, label: str, dev, gen, c: int = 256, keep=None, extra: int = 0, batch: int = 1) -> dict:
+    """One real edge set with seeded GNN conv inputs on the card (fp32) for
+    ``batch`` samples, the edge MLP with ``extra`` hidden Dense layers more
+    than three; the processor's is a self-graph (x_src is x_dst)."""
     s_name, d_name = {"processor": ("hidden", "hidden"), "encoder": ("data", "hidden"),
                       "decoder": ("hidden", "data")}[label]
     ei = graph[(s_name, "to", d_name)].edge_index
     ei = ei if keep is None else ei[:, keep]
     ns, nd = graph[s_name].num_nodes, graph[d_name].num_nodes
     rowptr, src = (torch.from_numpy(t).to(dev) for t in ea.csr_from_edge_index(ei, ns, nd))
-    x_dst = torch.randn(1, nd, c, generator=gen)
-    x_src = x_dst if label == "processor" else torch.randn(1, ns, c, generator=gen)
+    x_dst = torch.randn(batch, nd, c, generator=gen)
+    x_src = x_dst if label == "processor" else torch.randn(batch, ns, c, generator=gen)
     dense = [(torch.randn(c, k, generator=gen) * k ** -0.5, torch.randn(c, generator=gen) * 0.1)
              for k in (3 * c,) + (c,) * (2 + extra)]
     norm = (1 + 0.1 * torch.randn(c, generator=gen), 0.1 * torch.randn(c, generator=gen))
-    return {"ns": ns, "nd": nd, "num_edges": ei.shape[1], "self_graph": label == "processor",
+    return {"ns": ns, "nd": nd, "num_edges": ei.shape[1], "self_graph": label == "processor", "batch": batch,
             "rowptr": rowptr, "src": src, "x_dst": x_dst.to(dev), "x_src": x_src.to(dev),
-            "e": torch.randn(1, ei.shape[1], c, generator=gen).to(dev),
+            "e": torch.randn(batch, ei.shape[1], c, generator=gen).to(dev),
             "ops": gc.mlp_operands([(w.to(dev), b.to(dev)) for w, b in dense], tuple(t.to(dev) for t in norm),
                                    torch.float32)}
 
 
 def gnn_bound(case: dict, c: int, dtype: torch.dtype) -> dict:
-    """The least time of one GNN conv call (batch 1): x_dst, x_src (once on a
+    """The least time of one GNN conv call: x_dst, x_src (once on a
     self-graph), e and the MLP read once, msg and the fp32 agg written once;
     the fewest operations factor x_i . W0[0:C] and x_j . W0[C:2C] once per
     node (2 C^2 each) and leave 2 C^2 per edge for each Dense (e . W0[2C:3C],
-    then each C x C layer)."""
+    then each C x C layer); nodes and edges of every sample of the batch."""
+    b = case.get("batch", 1)
     nd, ns, e = case["nd"], case["ns"], case["num_edges"]
     n_dense = (len(case["ops"]) - 2) // 2
     itemsize = torch.finfo(dtype).bits // 8
     rows = nd + (0 if case["self_graph"] else ns)
-    nbytes = (rows * c + 2 * e * c + (n_dense + 2) * c * c + (n_dense + 2) * c) * itemsize + nd * c * 4 \
-        + (nd + 1 + e) * 4
-    flops = 2 * c * c * (nd + ns) + 2 * c * c * n_dense * e
+    nbytes = (b * rows * c + 2 * b * e * c + (n_dense + 2) * c * c + (n_dense + 2) * c) * itemsize \
+        + b * nd * c * 4 + (nd + 1 + e) * 4
+    flops = b * (2 * c * c * (nd + ns) + 2 * c * c * n_dense * e)
     return bound(nbytes, flops, "bf16 tensor" if dtype == torch.bfloat16 else "fp32")
 
 
@@ -716,14 +730,41 @@ def phase_gnn_kernels(graph, dev) -> tuple[dict, list]:
 
 # (C, mlp_extra_layers): the layered route; C = 36, 100 and 260 padded to a multiple of 8
 GNN_WIDTHS = ((384, 0), (512, 0), (1024, 0), (256, 1), (256, 2), (36, 0), (100, 0), (260, 0))
+# the layered route's edge cases at the production width (C = 1024, three Dense): (name, edge set, batch,
+# kept edges): two samples (a chunk crosses the batch boundary), the processor's set cut by the chunk
+# inside a destination's row, and destinations left with no edge
+GNN_LAYERED_CASES = (("batch 2", "processor", 2, None), ("chunk mid-destination", "processor", 1, None),
+                     ("dead destinations", "processor", 1, "dead"))
+
+
+def layered_check(case: dict, c: int, extra: int, dt: torch.dtype, shape: str) -> tuple[tuple, dict]:
+    """gnn_check on the layered route, with its launches counted and its
+    peak device memory over the inputs."""
+    if gc._gnn_route(c, 3 + extra) != "layered":
+        raise AssertionError(f"gnn_conv {shape}: not on the layered route")
+    before = gc.LAUNCHES["gnn_conv_layered"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    args, got, check = gnn_check(case, dt, f"gnn_conv {shape} {dt}")
+    if gc.LAUNCHES["gnn_conv_layered"] != before + 2:
+        raise AssertionError(f"gnn_conv {shape}: the layered kernels were not launched")
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    return args, got, {"kernel": "gnn_conv_layered", "shape": shape, **check, "peak_gib_over_inputs": peak,
+                       "ms": cuda_ms(lambda: gc.gnn_conv(*args), iters=10),
+                       "plain_ms": cuda_ms(lambda: gc.gnn_conv_plain(*args), iters=3, warmup=1),
+                       **gnn_bound(case, c, dt), "library_ms": None,
+                       "host_us": host_us(lambda: gc.gnn_conv(*args), iters=10)}
 
 
 def phase_gnn_widths(graph, dev) -> tuple[dict, list]:
     """gnn_conv's layered route against plain at the three O96 edge sets for
     every (C, mlp_extra_layers) of GNN_WIDTHS, fp32 and bf16, at the bounds
     of the fused route, two calls bit-identical; each case timed with its
-    bound and its peak device memory. The summary is bf16 at C = 1024 on the
-    processor's edges (the production width's)."""
+    bound and its peak device memory, and at C = 1024 in bf16 its device ms
+    split by launch (kernel_turns.layered_split). Then GNN_LAYERED_CASES at
+    C = 1024, both dtypes, at the same bounds. The summary is bf16 at C =
+    1024 on the processor's edges (the production width's)."""
     gen = torch.Generator().manual_seed(6)
     rows, summary, bf16_err = [], {}, 0.0
     for c, extra in GNN_WIDTHS:
@@ -731,28 +772,39 @@ def phase_gnn_widths(graph, dev) -> tuple[dict, list]:
             case = gnn_case(graph, label, dev, gen, c, extra=extra)
             shape = f"C={c} extra={extra} {label} E={case['num_edges']} Nd={case['nd']} Ns={case['ns']}"
             for dt in (torch.float32, torch.bfloat16):
-                if gc._gnn_route(c, 3 + extra) != "layered":
-                    raise AssertionError(f"gnn_conv {shape}: not on the layered route")
-                before = gc.LAUNCHES["gnn_conv_layered"]
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                base = torch.cuda.memory_allocated()
-                args, _, check = gnn_check(case, dt, f"gnn_conv {shape} {dt}")
-                if gc.LAUNCHES["gnn_conv_layered"] != before + 2:
-                    raise AssertionError(f"gnn_conv {shape}: the layered kernels were not launched")
-                peak = (torch.cuda.max_memory_allocated() - base) / 2**30
-                row = {"kernel": "gnn_conv_layered", "shape": shape, **check, "peak_gib_over_inputs": peak,
-                       "ms": cuda_ms(lambda: gc.gnn_conv(*args), iters=10),
-                       "plain_ms": cuda_ms(lambda: gc.gnn_conv_plain(*args), iters=3, warmup=1),
-                       **gnn_bound(case, c, dt), "library_ms": None,
-                       "host_us": host_us(lambda: gc.gnn_conv(*args), iters=10)}
+                args, _, row = layered_check(case, c, extra, dt, shape)
                 if dt == torch.bfloat16:
-                    bf16_err = max(bf16_err, check["max_abs_err"])
+                    bf16_err = max(bf16_err, row["max_abs_err"])
+                    if (c, extra) == (1024, 0):
+                        row["split"] = layered_split(lambda: gc.gnn_conv(*args))
                     if (c, extra, label) == (1024, 0, "processor"):
                         summary = {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                                      "host_us")}
+                                                      "host_us", "split")}
                 rows.append(row)
             del case, args
+    c = 1024
+    for name, label, batch, keep in GNN_LAYERED_CASES:
+        ei = graph[("hidden", "to", "hidden")].edge_index
+        kept = ei[1] % 7 != 3 if keep == "dead" else None
+        case = gnn_case(graph, label, dev, gen, c, keep=kept, batch=batch)
+        rowptr = case["rowptr"].cpu()
+        if name == "chunk mid-destination":
+            cut = gc.LAYERED_CHUNK
+            inside = bool(((rowptr[:-1] < cut) & (rowptr[1:] > cut)).any())
+            if not (case["num_edges"] > cut and inside):
+                raise AssertionError(f"gnn_conv {name}: the chunk boundary at row {cut} is not inside a destination")
+        shape = f"C={c} {name} {label} B={batch} E={case['num_edges']} Nd={case['nd']}"
+        for dt in (torch.float32, torch.bfloat16):
+            args, got, row = layered_check(case, c, 0, dt, shape)
+            if keep == "dead":
+                dead = torch.from_numpy(np.arange(case["nd"]) % 7 == 3).to(dev)
+                if not bool((got[0][:, dead] == 0).all()):
+                    raise AssertionError(f"gnn_conv {shape} {dt}: dead destinations aggregate non-zero")
+                row["dead_destinations"] = int(dead.sum())
+            if dt == torch.bfloat16:
+                bf16_err = max(bf16_err, row["max_abs_err"])
+            rows.append(row)
+        del case, args, got
     return {**summary, "max_abs_err": bf16_err}, rows
 
 
@@ -1775,6 +1827,9 @@ def main() -> None:
     summary["flash_attention"], flash_rows = phase_flash_kernels(dev)
     for row in rows + bwd_rows + gnn_rows + width_rows + flash_rows:
         print("kernel-vs-plain", json.dumps(row))
+    for row in width_rows:  # the layered route at C = 1024, bf16: device ms per call by launch
+        if "split" in row:
+            print(f"card: {name_power} gnn-layered-split", json.dumps({k: row[k] for k in ("shape", "ms", "split")}))
     for row in phase_attn_widths(graph, dev, WIDE_ATTN):
         print("attn-width-vs-plain", json.dumps(row))
     reduced_graph = build_enc_proc_dec_graph(grid_lat=48, mesh_refinements=4, grid="octahedral")

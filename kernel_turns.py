@@ -4,6 +4,7 @@ card, and the timing helpers chip_smoke.py shares.
     python3 kernel_turns.py PARENT_ROOT .                 # parent, this, this, parent; every kernel
     python3 kernel_turns.py PARENT_ROOT . --kernels fwd,bwd
     python3 kernel_turns.py --worker ROOT [--kernels ...]  # one turn: JSON of ROOT's kernels
+    python3 kernel_turns.py PARENT_ROOT . --requests       # the GNN request and train step at C = 1024
 
 Each turn is its own process that imports ``anemoi_models_tpu_torch`` from
 its root (so each builds its own kernels into ``ROOT/build``) and times, at
@@ -13,8 +14,12 @@ the O96 main path's shapes with seeded inputs:
   bf16 and fp32 with ``torch.addmm`` beside it, with a SHA-256 of its output;
 - ``gnn``: ``gnn_conv`` (C = 256, three Dense: the fused route) on the
   processor (self-graph), encoder and decoder edge sets in bf16 and fp32,
-  and at C = 36 (the layered route, padded to 40) on the processor set, with
-  a SHA-256 of agg and msg;
+  at C = 36 (the layered route, padded to 40) on the processor set, and the
+  layered route at C = 384, 512 and 1024 (the production width) on the three
+  sets, with a SHA-256 of agg and msg; each bf16 layered shape at C = 1024
+  also with its device ms per call split by launch (``layered_split``:
+  pre-pass, row table, Dense 0, hidden Dense, last Dense, LayerNorm pass,
+  sum) from ``torch.profiler``;
 - ``fwd``: ``edge_attn_csr`` (A2 = 8, batch 1) at C = 256 with 4 heads on
   the processor, encoder and decoder edge sets, and on the processor set at
   C = 1024 with 16 heads (the production width), C = 512 and C = 1024 with 4
@@ -30,6 +35,13 @@ the O96 main path's shapes with seeded inputs:
   D = 24, 48, 96, 256 and 512 with w = 512, and with attention dropout
   (p = 0.1) at D = 64, w = 512, q, k and v strided views of one fused
   projection, in bf16 and fp32, with a SHA-256 of its output.
+
+With ``--requests`` each turn serves and trains the GNN at the production
+width (O96, C = 1024, bf16: the layered route) through ROOT's own
+``chip_smoke.phase_serving`` (three timed ``predict_step`` requests and a
+profiled one) and ``chip_smoke.phase_train`` (two timed steps after a
+warm-up at lr 1e-5, and a profiled one), and reports for each the ms, the
+device's busy ms and the device time by kind.
 
 Device ms come from CUDA events around launches queued behind a
 ``torch.cuda._sleep`` that outlasts the host's enqueue, so they bracket
@@ -118,6 +130,33 @@ def card() -> str:
 
 
 KERNELS = ("kv", "gnn", "fwd", "bwd", "flash")
+# the layered GNN route's launches, by a mark in the kernel's name (first match)
+LAYERED_KINDS = (("pre-pass", "gnn_prepass_tag"), ("row table", "gnn_rows_kernel"), ("Dense 0", "gnn_dense0_tag"),
+                 ("hidden Dense", "gnn_dense_tag"), ("last Dense", "gnn_dense_last_tag"), ("LayerNorm", "gnn_ln_kernel"),
+                 ("sum", "gnn_agg_kernel"))
+
+
+def layered_split(fn, iters: int = 5) -> dict:
+    """Device ms and launches per call of ``fn`` (a layered ``gnn_conv``
+    call), by LAYERED_KINDS, from ``torch.profiler`` over ``iters`` calls
+    after a warm-up; kernels of no kind count as "other"."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    split = {kind: {"ms": 0.0, "launches": 0.0} for kind, _ in LAYERED_KINDS + (("other", ""),)}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA or getattr(e, "is_user_annotation", False):
+            continue
+        kind = next((k for k, mark in LAYERED_KINDS if mark in e.name), "other")
+        split[kind]["ms"] += e.time_range.elapsed_us() / 1e3 / iters
+        split[kind]["launches"] += 1 / iters
+    return split
 EDGE_SETS = (("processor", ("hidden", "hidden")), ("encoder", ("data", "hidden")), ("decoder", ("hidden", "data")))
 
 
@@ -174,7 +213,10 @@ def _worker(root: str, which: tuple) -> dict:
                                    "ms": cuda_ms(lambda: ea.kv_proj(f, w, b)),
                                    "host_us": host_us(lambda: ea.kv_proj(f, w, b)),
                                    "addmm_ms": cuda_ms(lambda: torch.addmm(b_dt, f, w.t()))})
-    gnn_shapes = [(label, names, 256) for label, names in EDGE_SETS] + [("processor", EDGE_SETS[0][1], 36)]
+    # (C): the fused route at 256 on every set; the layered route at 36 (padded) on the processor's, and at
+    # 384, 512 and the production width 1024 on every set
+    gnn_shapes = [(label, names, 256) for label, names in EDGE_SETS] + [("processor", EDGE_SETS[0][1], 36)] + [
+        (label, names, cg) for cg in (384, 512, 1024) for label, names in EDGE_SETS]
     for label, (s_name, d_name), cg in gnn_shapes if "gnn" in which else ():
         ei = graph[(s_name, "to", d_name)].edge_index
         ns, nd = graph[s_name].num_nodes, graph[d_name].num_nodes
@@ -190,12 +232,15 @@ def _worker(root: str, which: tuple) -> dict:
             xs = xd if label == "processor" else x_src.to(dev, dt)
             ops = [t.to(dev) for t in gc.mlp_operands(dense, norm, dt)]
             args = (xd, xs, e_d, rowptr, src, ops, "SiLU")
+            timers = [("ms", lambda n: cuda_ms(lambda: gc.gnn_conv(*args), iters=n), 20),
+                      ("host_us", lambda n: host_us(lambda: gc.gnn_conv(*args), iters=n), 20)]
+            if cg == 1024 and dt == torch.bfloat16:
+                timers.append(("split", lambda n: layered_split(lambda: gc.gnn_conv(*args), iters=n), 5))
             out["gnn_conv"].append(_timed(
                 {"shape": f"{label} E={ei.shape[1]}" + ("" if cg == 256 else f" C={cg}"),
                  "dtype": str(dt).split(".")[-1]},
-                lambda: gc.gnn_conv(*args),
-                ("ms", lambda n: cuda_ms(lambda: gc.gnn_conv(*args), iters=n), 20),
-                ("host_us", lambda n: host_us(lambda: gc.gnn_conv(*args), iters=n), 20)))
+                lambda: gc.gnn_conv(*args), *timers))
+            del args, ops, xd, xs, e_d
     # (C, heads): the flagship on every edge set; the production width and D = 128, 256 on the processor's
     attn_shapes = [(label, names, 256, 4) for label, names in EDGE_SETS] + [
         ("processor", EDGE_SETS[0][1], cc, hh)
@@ -259,6 +304,33 @@ def _worker(root: str, which: tuple) -> dict:
     return out
 
 
+def _request_worker(root: str) -> dict:
+    """The GNN C = 1024 request and train step of ROOT's checkout, through
+    its chip_smoke, each profiled once."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import torch
+
+    import chip_smoke as cs
+    from anemoi_models_tpu_torch.graphs import build_enc_proc_dec_graph
+    from anemoi_models_tpu_torch.ops.kernels import load_kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    load_kernels()
+    graph = build_enc_proc_dec_graph(grid_lat=96, mesh_refinements=5, grid="octahedral")
+    dev, profile_dir = torch.device("cuda", 0), os.path.join(root, "build", "request_profile")
+    out = cs.phase_serving(graph, dev, "gnn", profile_dir, channels=1024, expected=cs.EXPECTED["gnn production"][0])
+    train, _ = cs.phase_train(graph, dev, profile_dir, "gnn", remat_none=False, channels=1024, lr=1e-5,
+                              expected=cs.EXPECTED["gnn production"][1], steps=3, must_fall=False)
+    return {"package": root, "request_ms": out["request_ms"], "device_busy_ms": out["profile"]["device_busy_ms"],
+            "wall_ms_under_profiler": out["profile"]["wall_ms_under_profiler"], "peak_mem_gib": out["peak_mem_gib"],
+            "request_by_kind": out["profile"]["by_kind"], "train_step_ms": train["step_ms"],
+            "train_device_busy_ms": train["profile"]["device_busy_ms"],
+            "train_wall_ms_under_profiler": train["profile"]["wall_ms_under_profiler"],
+            "train_device_kernels": train["profile"]["device_kernels"], "train_by_kind": train["profile"]["by_kind"],
+            "train_peak_mem_gib": train["peak_mem_gib"]}
+
+
 def _which(args: list) -> tuple:
     if "--kernels" not in args:
         return KERNELS
@@ -271,26 +343,31 @@ def _which(args: list) -> tuple:
 def main() -> None:
     args = sys.argv[1:]
     which = _which(args)
+    requests = "--requests" in args
     if args[:1] == ["--worker"]:
-        print("turn", json.dumps(_worker(args[1], which)), flush=True)
+        print("turn", json.dumps(_request_worker(args[1]) if requests else _worker(args[1], which)), flush=True)
         return
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("kernel_turns: no CUDA card")
-    roots = [a for i, a in enumerate(args) if a != "--kernels" and (i == 0 or args[i - 1] != "--kernels")]
+    roots = [a for i, a in enumerate(args)
+             if a not in ("--kernels", "--requests") and (i == 0 or args[i - 1] != "--kernels")]
     if len(roots) != 2:
-        raise SystemExit("usage: kernel_turns.py PARENT_ROOT ROOT [--kernels kv,gnn,fwd,bwd,flash]")
+        raise SystemExit("usage: kernel_turns.py PARENT_ROOT ROOT [--kernels kv,gnn,fwd,bwd,flash | --requests]")
     print("card:", card(), flush=True)
     turns = []
     for root in (roots[0], roots[1], roots[1], roots[0]):
-        run = subprocess.run([sys.executable, __file__, "--worker", root, "--kernels", ",".join(which)],
-                             timeout=900, capture_output=True, text=True)
+        mode = ["--requests"] if requests else ["--kernels", ",".join(which)]
+        run = subprocess.run([sys.executable, __file__, "--worker", root, *mode], timeout=900, capture_output=True,
+                             text=True)
         print(run.stdout, end="", flush=True)
         if run.returncode != 0:
             print(run.stderr, end="", file=sys.stderr)
             raise SystemExit(f"kernel_turns: the turn of {root} failed ({run.returncode})")
         turns.append(next(json.loads(line[5:]) for line in run.stdout.splitlines() if line.startswith("turn ")))
+    if requests:
+        return
     # the parent's and this checkout's outputs, per kernel, shape and output: bit for bit alike or not
     same = {}
     for kernel in ("kv_proj", "gnn_conv", "edge_attn_csr", "edge_attn_csr_bwd", "flash_attention"):

@@ -489,8 +489,10 @@ def test_graph_conv_with_extra_mlp_layers_raises_on_the_card(dev, graph):
         assert _normwise(got, want) <= BWD_TOL
 
 
-LAYERED = [(384, 0), (512, 0), (1024, 0), (256, 1), (256, 2), (48, 0), (40, 1), (32, 1), (136, 0),
-           (36, 0), (100, 0), (260, 0), (12, 1), (3, 0)]  # the last five padded to a multiple of 8
+# 2056: above the 2,048 columns that the bf16 LayerNorm pass holds in registers; the last five padded to a
+# multiple of 8
+LAYERED = [(384, 0), (512, 0), (1024, 0), (2056, 0), (256, 1), (256, 2), (48, 0), (40, 1), (32, 1), (136, 0),
+           (36, 0), (100, 0), (260, 0), (12, 1), (3, 0)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -543,6 +545,50 @@ def test_gnn_conv_layered_matches_plain_and_repeats_bit_for_bit(dev, graph, dtyp
     assert _normwise(got[0], want[0]) <= TOL[dtype], f"agg: normwise error {_normwise(got[0], want[0]):.3e}"
     if edges == "dead":
         assert bool((got[0][:, torch.from_numpy(np.arange(nd) % 4 == 1).to(dev)] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch,chunk", [(2, None), (1, 1000), (2, 777)])
+def test_gnn_conv_layered_at_production_width(dev, graph, dtype, batch, chunk, monkeypatch):
+    """The layered route at C = 1024 (three Dense) on the processor set:
+    two samples in one chunk, E larger than a chunk (1,000 rows: a chunk
+    ends inside a destination's row and off the 128-row tile), and two
+    samples in chunks of 777 (a chunk crosses the batch boundary). Two calls
+    bit-identical, one launch each; agg the fp32 sum of the kernel's own msg;
+    msg and agg against plain at the fused route's bounds (agg normwise, as
+    in test_gnn_conv_layered_matches_plain_and_repeats_bit_for_bit)."""
+    es = graph[("hidden", "to", "hidden")]
+    n = graph["hidden"].num_nodes
+    rowptr, src, num_edges = _csr(es, n, n, dev)
+    if chunk is not None:
+        monkeypatch.setattr(gc, "LAYERED_CHUNK", chunk)
+        assert batch * num_edges > chunk and chunk % 128
+        assert bool(((rowptr[:-1] < chunk) & (rowptr[1:] > chunk)).any()), "the first chunk ends between destinations"
+    gen = torch.Generator().manual_seed(11)
+    c = 1024
+    x = torch.randn(batch, n, c, generator=gen).to(dev, dtype)
+    e = torch.randn(batch, num_edges, c, generator=gen).to(dev, dtype)
+    dense = [(torch.randn(c, k, generator=gen) * k ** -0.5, torch.randn(c, generator=gen) * 0.1)
+             for k in (3 * c, c, c)]
+    norm = (1 + 0.1 * torch.randn(c, generator=gen), 0.1 * torch.randn(c, generator=gen))
+    ops = [t.to(dev) for t in gc.mlp_operands(dense, norm, dtype)]
+    assert gc._gnn_route(c, 3) == "layered"
+    before = gc.LAUNCHES["gnn_conv_layered"]
+    got = gc.gnn_conv(x, x, e, rowptr, src, ops, "SiLU")
+    again = gc.gnn_conv(x, x, e, rowptr, src, ops, "SiLU")
+    assert gc.LAUNCHES["gnn_conv_layered"] == before + 2
+    want = gc.gnn_conv_plain(x, x, e, rowptr, src, ops, "SiLU")
+    torch.cuda.synchronize()
+    for name, g, g2, w in zip(("agg", "msg"), got, again, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g, g2), f"{name} differs between two calls"
+    torch.testing.assert_close(got[0], gc.aggregate(got[1], rowptr), atol=TOL[torch.float32],
+                               rtol=TOL[torch.float32], msg="agg of msg")
+    if dtype == torch.float32:
+        torch.testing.assert_close(got[1], want[1], atol=TOL[dtype], rtol=TOL[dtype])
+    else:
+        assert _normwise(got[1], want[1]) <= TOL[dtype], f"msg: normwise error {_normwise(got[1], want[1]):.3e}"
+    assert _normwise(got[0], want[0]) <= TOL[dtype], f"agg: normwise error {_normwise(got[0], want[0]):.3e}"
 
 
 def _interfaces(graph, remat_policy="full"):
