@@ -85,7 +85,9 @@ using edge_logit::Layout;
 using edge_logit::Row;
 using edge_logit::to_f;
 
-constexpr int kMaxA2 = 16;
+// the most edge attributes (with the ones column): the attribute loops run 8, 16 or 32 long, the
+// smallest that holds A2, so an A2 the narrower paths take keeps their code and bits
+constexpr int kMaxA2 = 32;
 constexpr int kWarps = 4;  // warps a CTA
 constexpr int kThreads = 32 * kWarps;
 // ring stages a warp: kRing - 1 edges in flight (a fourth stage gains 1-3 % in bf16, loses as much in fp32)
@@ -285,7 +287,7 @@ int launch_fwd(const FwdArgs& x, const Layout& L, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// attributes padded to 8 (16 past 8); the heads of a group compile-time for 4 unpadded heads on 32
+// attributes padded to 8 (16 past 8, 32 past 16); the heads of a group compile-time for 4 unpadded heads on 32
 // lanes, the whole row one such group (C = 32 VB) compile-time too; a head wider than 256 (VB = 16,
 // 32) is a group of its own, with no compile-time variant
 template <typename T, int VB>
@@ -293,7 +295,8 @@ int launch_vb(const FwdArgs& x, cudaStream_t s) {
   Layout L;
   if (!edge_logit::make_layout<VB>(x.C, x.H, x.G, sizeof(T), &L) || x.Dt <= 0 || x.Dt > L.D)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (x.A2 > 8) return launch_fwd<T, VB, kMaxA2, 0, false>(x, L, s);
+  if (x.A2 > 16) return launch_fwd<T, VB, kMaxA2, 0, false>(x, L, s);
+  if (x.A2 > 8) return launch_fwd<T, VB, 16, 0, false>(x, L, s);
   if constexpr (VB <= 8) {
     if (L.lanes == 32 && L.HG == 4 && L.DV == L.LB) {
       return L.groups == 1 ? launch_fwd<T, VB, 8, 4, true>(x, L, s) : launch_fwd<T, VB, 8, 4, false>(x, L, s);

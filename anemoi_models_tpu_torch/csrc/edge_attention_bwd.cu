@@ -90,7 +90,7 @@ using edge_logit::Row;
 using edge_logit::store_row;
 using edge_logit::to_f;
 
-constexpr int kMaxA2 = 16;  // kMaxA2 in csrc/edge_attention.cu
+constexpr int kMaxA2 = 32;  // kMaxA2 in csrc/edge_attention.cu: attribute loops 8, 16 or 32 long
 constexpr int kWarps = 4;   // warps per CTA of every pass (the dst pass takes fewer where its partials need it)
 constexpr int kThreads = 32 * kWarps;
 constexpr int kReduceCols = 32;
@@ -630,7 +630,8 @@ int launch_vb(const BwdArgs& x, cudaStream_t s, int* per_sm) {
   Layout L;
   if (!edge_logit::make_layout<VB>(x.C, x.H, x.G, sizeof(T), &L) || x.Dt <= 0 || x.Dt > L.D)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (x.A2 > 8) return launch_passes<T, VB, kMaxA2, false, 0, false>(x, L, s, per_sm);
+  if (x.A2 > 16) return launch_passes<T, VB, kMaxA2, false, 0, false>(x, L, s, per_sm);
+  if (x.A2 > 8) return launch_passes<T, VB, 16, false, 0, false>(x, L, s, per_sm);
   if constexpr (VB <= 8) {
     if (x.A2 > L.LB) return launch_passes<T, VB, 8, false, 0, false>(x, L, s, per_sm);
     if (L.lanes == 32 && L.HG == 4 && L.DV == L.LB) {

@@ -48,6 +48,14 @@ __device__ __forceinline__ float act_fn(float x) {
     return tanhf(x);
   } else if constexpr (A == 5) {
     return kFast ? __fdividef(1.f, 1.f + expf(-x)) : 1.f / (1.f + expf(-x));  // sigmoid
+  } else if constexpr (A == 6) {
+    return x >= 0.f ? x : 0.01f * x;  // LeakyReLU, slope 0.01 (jax.nn and torch's default)
+  } else if constexpr (A == 7) {
+    return x > 0.f ? x : expm1f(x);  // ELU, alpha 1
+  } else if constexpr (A == 8) {
+    return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));  // softplus, as log(1 + e^x) that no x overflows
+  } else if constexpr (A == 9) {
+    return x * tanhf(fmaxf(x, 0.f) + log1pf(expf(-fabsf(x))));  // mish: x tanh(softplus(x))
   } else {
     return x;
   }
@@ -79,6 +87,18 @@ __device__ __forceinline__ void apply_act(float* v, int act) {
       break;
     case 5:
       act_all<5, N, kFast>(v);
+      break;
+    case 6:
+      act_all<6, N, kFast>(v);
+      break;
+    case 7:
+      act_all<7, N, kFast>(v);
+      break;
+    case 8:
+      act_all<8, N, kFast>(v);
+      break;
+    case 9:
+      act_all<9, N, kFast>(v);
       break;
     default:
       break;

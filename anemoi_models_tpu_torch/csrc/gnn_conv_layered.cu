@@ -133,6 +133,10 @@ __device__ __forceinline__ void p_rows(const DenseEpi& epi, int64_t r, int* d_ro
     case 3: call(3); break;         \
     case 4: call(4); break;         \
     case 5: call(5); break;         \
+    case 6: call(6); break;         \
+    case 7: call(7); break;         \
+    case 8: call(8); break;         \
+    case 9: call(9); break;         \
     default: call(0); break;        \
   }
 

@@ -5,8 +5,17 @@ a fused ``lin_qkv`` (no bias), split into q, k, v in the (B, H, N, D) layout,
 attention, and ``projection`` (with bias). The q, k and v handed to the
 attention are strided views of ``lin_qkv``'s output, which the kernel reads
 in place; its output is laid out (B, N, H, D), so the merge of the heads is
-free. The ``halo`` path (sequence-parallel windowed attention) needs a mesh
-and waits for the parallel port.
+free.
+
+Under a mesh whose ``model`` axis splits the sequence (the hidden mesh's
+rows), ``attention_impl="halo"`` and, for a non-causal windowed attention,
+``"auto"`` take :func:`~anemoi_models_tpu_torch.ops.ring_attention.halo_window_attention`
+(a +-window halo of k and v from the neighbouring ranks), as the JAX layer
+selects it. Any other attention under such a mesh (a causal mask, no
+window, or another ``attention_impl``) raises: the JAX package reshards it
+over heads and runs its flash kernel, which the port does not do yet
+(ROADMAP Queue 1 #11). ``seq_len`` is the whole sequence's length, which a
+rank holding its rows alone cannot see.
 """
 
 from __future__ import annotations
@@ -19,6 +28,8 @@ from torch import nn
 from anemoi_models_tpu_torch.layers.utils import Dense
 from anemoi_models_tpu_torch.ops.attention import dot_product_attention
 from anemoi_models_tpu_torch.ops.flash_attention import fold_key
+from anemoi_models_tpu_torch.ops.ring_attention import halo_window_attention
+from anemoi_models_tpu_torch.parallel.api import model_sharded
 
 __all__ = ["MultiHeadSelfAttention"]
 
@@ -29,12 +40,15 @@ class MultiHeadSelfAttention(nn.Module):
 
     def __init__(self, num_heads: int, embed_dim: int, *, bias: bool = False, is_causal: bool = False,
                  window_size: Optional[int] = None, dropout_p: float = 0.0, attention_impl: str = "auto",
-                 layer_index: int = 0, dtype: torch.dtype = torch.float32, device=None) -> None:
+                 layer_index: int = 0, seq_len: int = 0, dtype: torch.dtype = torch.float32, device=None) -> None:
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"Head split impossible: embed_dim {embed_dim} is not a multiple of ({num_heads})")
-        if attention_impl == "halo":
-            raise NotImplementedError("halo attention needs a mesh; the parallel port has not landed")
+        if attention_impl == "halo" and is_causal:
+            raise NotImplementedError("halo attention has no causal mask; use attention_impl='chunked'")
+        if attention_impl == "halo" and window_size is None:
+            raise ValueError("halo attention requires a window_size")
+        self.seq_len = seq_len
         self.num_heads = num_heads
         self.embed_dim = embed_dim
         self.is_causal = is_causal
@@ -53,9 +67,25 @@ class MultiHeadSelfAttention(nn.Module):
         rate = 0.0 if deterministic else self.dropout_p
         if rate > 0.0 and dropout_key is None:
             raise ValueError("attention dropout (deterministic=False) needs a dropout_key")
-        out = dot_product_attention(
-            query, key, value, window_size=self.window_size, is_causal=self.is_causal,
-            impl=self.attention_impl, dropout_rate=rate,
-            dropout_key=fold_key(dropout_key, self.layer_index) if rate > 0.0 else None,
-        )
+        key_l = fold_key(dropout_key, self.layer_index) if rate > 0.0 else None
+        mesh = model_sharded()
+        if mesh is None and self.attention_impl == "halo":
+            raise ValueError("halo attention requires an active mesh with a model axis > 1")
+        if mesh is None:
+            out = dot_product_attention(
+                query, key, value, window_size=self.window_size, is_causal=self.is_causal,
+                impl=self.attention_impl, dropout_rate=rate, dropout_key=key_l,
+            )
+        else:
+            if self.seq_len <= 0:
+                raise ValueError("attention over a sequence split by the mesh needs the whole length (seq_len)")
+            halo = self.attention_impl == "halo" or (
+                self.attention_impl == "auto" and self.window_size is not None and not self.is_causal)
+            if not halo:
+                raise NotImplementedError(
+                    "under a model-sharded mesh only the halo window attention runs (a window, no causal mask, "
+                    f"attention_impl 'auto' or 'halo'; got {self.attention_impl!r}, window {self.window_size}, "
+                    f"causal {self.is_causal}): ROADMAP Queue 1 #11")
+            out = halo_window_attention(query, key, value, window_size=self.window_size, seq_len=self.seq_len,
+                                        mesh=mesh, dropout_rate=rate, dropout_key=key_l)
         return self.projection(out.transpose(1, 2).reshape(batch, seq, self.embed_dim))

@@ -31,6 +31,8 @@ from anemoi_models_tpu_torch.layers.conv import GraphConv, graph_transformer_con
 from anemoi_models_tpu_torch.layers.mlp import MLP
 from anemoi_models_tpu_torch.layers.utils import AutocastLayerNorm, Dense, get_activation
 from anemoi_models_tpu_torch.ops.edge_attention import CSRTranspose
+from anemoi_models_tpu_torch.parallel.halo_conv import halo_graph_conv, halo_graph_transformer_conv
+from anemoi_models_tpu_torch.parallel.mapper_conv import sharded_mapper_edge_attention, sharded_mapper_gnn_conv
 
 __all__ = [
     "TransformerProcessorBlock",
@@ -46,12 +48,13 @@ class TransformerProcessorBlock(nn.Module):
 
     def __init__(self, num_channels: int, hidden_dim: int, num_heads: int, *, activation: str = "GELU",
                  window_size: Optional[int] = None, dropout_p: float = 0.0, attention_impl: str = "auto",
-                 layer_index: int = 0, dtype: torch.dtype = torch.float32, device=None) -> None:
+                 layer_index: int = 0, seq_len: int = 0, dtype: torch.dtype = torch.float32, device=None) -> None:
         super().__init__()
         self.layer_norm1 = AutocastLayerNorm(num_channels, device=device)
         self.attention = MultiHeadSelfAttention(
             num_heads, num_channels, window_size=window_size, bias=False, is_causal=False,
-            dropout_p=dropout_p, attention_impl=attention_impl, layer_index=layer_index, dtype=dtype, device=device,
+            dropout_p=dropout_p, attention_impl=attention_impl, layer_index=layer_index, seq_len=seq_len,
+            dtype=dtype, device=device,
         )
         self.layer_norm2 = AutocastLayerNorm(num_channels, device=device)
         self.fc1 = Dense(num_channels, hidden_dim, dtype=dtype, device=device)
@@ -76,29 +79,41 @@ class _GraphConvBase(nn.Module):
 
 
 class GraphConvProcessorBlock(_GraphConvBase):
-    """Homogeneous-graph message-passing block."""
+    """Homogeneous-graph message-passing block. ``halo``: (mesh, the rank's
+    HaloShard) under a model-sharded mesh (``x`` the rank's rows, the CSR
+    and edges the rank's), and the conv runs under halo exchange."""
 
     def forward(self, x: torch.Tensor, edge_attr: torch.Tensor, rowptr: torch.Tensor,
-                src: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                src: torch.Tensor, halo=None) -> tuple[torch.Tensor, torch.Tensor]:
         """x (B, N, C), edge_attr (B, E, C) -> (new x, new edge_attr)."""
-        out, edges_new = self.conv(x, edge_attr, rowptr, src)
+        if halo is None:
+            out, edges_new = self.conv(x, edge_attr, rowptr, src)
+        else:
+            out, edges_new = halo_graph_conv(*halo, self.conv.params(), x, edge_attr, self.conv.activation)
         return self.node_mlp(torch.cat([x, out], dim=-1)) + x, edges_new
 
 
 class GraphConvMapperBlock(_GraphConvBase):
     """Bipartite-graph message-passing block. ``update_src_nodes`` (the
-    forward mapper) runs the same ``node_mlp`` on ``cat[x_src, x_src]``."""
+    forward mapper) runs the same ``node_mlp`` on ``cat[x_src, x_src]``.
+    ``shard``: (mesh, the rank's MapperShard) under a model-sharded mesh:
+    ``x_src`` and ``x_dst`` are the rank's rows, the edges the rank's, and
+    the conv gathers the sources its edges read."""
 
     def __init__(self, in_channels: int, out_channels: int, *, update_src_nodes: bool = True, **kwargs) -> None:
         super().__init__(in_channels, out_channels, **kwargs)
         self.update_src_nodes = update_src_nodes
 
     def forward(self, x: tuple[torch.Tensor, torch.Tensor], edge_attr: torch.Tensor, rowptr: torch.Tensor,
-                src: torch.Tensor) -> tuple[tuple[torch.Tensor, torch.Tensor], torch.Tensor]:
+                src: torch.Tensor, shard=None) -> tuple[tuple[torch.Tensor, torch.Tensor], torch.Tensor]:
         """(x_src (B, Ns, C), x_dst (B, Nd, C)), edge_attr (B, E, C) ->
         ((new x_src, new x_dst), new edge_attr)."""
         x_src, x_dst = x
-        out, edges_new = self.conv((x_src, x_dst), edge_attr, rowptr, src)
+        if shard is None:
+            out, edges_new = self.conv((x_src, x_dst), edge_attr, rowptr, src)
+        else:
+            out, edges_new = sharded_mapper_gnn_conv(*shard, self.conv.params(), x_src, x_dst, edge_attr,
+                                                     self.conv.activation)
         nodes_new_dst = self.node_mlp(torch.cat([x_dst, out], dim=-1)) + x_dst
         if self.update_src_nodes:
             x_src = self.node_mlp(torch.cat([x_src, x_src], dim=-1)) + x_src
@@ -134,20 +149,23 @@ class _GraphTransformerBase(nn.Module):
         self.projection = Dense(out_channels, out_channels, dtype=dtype, device=device)
         self.node_dst_mlp = DstMLP(out_channels, hidden_dim, activation, dtype=dtype, device=device)
 
-    def _attend(self, query, x_r, feats, x_skip, edge_attr, rowptr, src, csr_t):
-        """conv -> projection(out + x_r) + x_skip -> dst MLP residual."""
+    def _conv_args(self, query: torch.Tensor) -> tuple:
+        """The query as (B, N, H, D) and the projections the convs take."""
         b, n, _ = query.shape
-        out = graph_transformer_conv(
-            query.reshape(b, n, self.num_heads, self.head_dim), feats,
-            self.lin_kv.weight, self.lin_kv.bias, edge_attr,
-            self.lin_edge.weight, self.lin_edge.bias, rowptr, src, csr_t,
-        )
+        return (query.reshape(b, n, self.num_heads, self.head_dim), self.lin_kv.weight, self.lin_kv.bias,
+                self.lin_edge.weight, self.lin_edge.bias)
+
+    def _finish(self, out, x_r, x_skip):
+        """projection(out + x_r) + x_skip -> dst MLP residual."""
+        b, n = out.shape[:2]
         out = self.projection(out.reshape(b, n, self.out_channels) + x_r) + x_skip
         return self.node_dst_mlp(out) + out
 
 
 class GraphTransformerProcessorBlock(_GraphTransformerBase):
-    """Per-edge attention block on a homogeneous graph."""
+    """Per-edge attention block on a homogeneous graph. ``halo``: (mesh, the
+    rank's HaloShard) under a model-sharded mesh (``x`` the rank's rows, the
+    CSR and edges the rank's), and the attention runs under halo exchange."""
 
     def __init__(self, in_channels: int, hidden_dim: int, out_channels: int, edge_dim: int, *,
                  num_heads: int = 16, activation: str = "GELU",
@@ -157,16 +175,26 @@ class GraphTransformerProcessorBlock(_GraphTransformerBase):
         self.lin_qr = Dense(in_channels, 2 * out_channels, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor, edge_attr: torch.Tensor, rowptr: torch.Tensor,
-                src: torch.Tensor, csr_t: CSRTranspose) -> torch.Tensor:
+                src: torch.Tensor, csr_t: CSRTranspose, halo=None) -> torch.Tensor:
         """x (B, N, C) -> (B, N, C)."""
         xn = self.layer_norm1(x)
         query, x_r = self.lin_qr(xn).chunk(2, dim=-1)
-        return self._attend(query, x_r, xn, x, edge_attr, rowptr, src, csr_t)
+        q, w_kv, b_kv, w_edge, b_edge = self._conv_args(query)
+        if halo is None:
+            out = graph_transformer_conv(q, xn, w_kv, b_kv, edge_attr, w_edge, b_edge, rowptr, src, csr_t)
+        else:
+            out = halo_graph_transformer_conv(*halo, q, xn, w_kv, b_kv, edge_attr, w_edge, b_edge)
+        return self._finish(out, x_r, x)
 
 
 class GraphTransformerMapperBlock(_GraphTransformerBase):
     """Per-edge attention block on a bipartite graph (source nodes are not
-    updated, as in the GraphTransformer mappers)."""
+    updated, as in the GraphTransformer mappers). ``src_transform`` (the
+    forward mapper's source embedding) runs on the source rows before the
+    source LayerNorm. ``shard``: (mesh, the rank's MapperShard) under a
+    model-sharded mesh: ``x_src`` and ``x_dst`` are the rank's rows, the
+    edges the rank's, and the attention gathers the narrow source rows its
+    edges read before ``src_transform``."""
 
     def __init__(self, in_channels: int, hidden_dim: int, out_channels: int, edge_dim: int, *,
                  num_heads: int = 16, activation: str = "GELU",
@@ -177,10 +205,19 @@ class GraphTransformerMapperBlock(_GraphTransformerBase):
         self.lin_qs = Dense(in_channels, 2 * out_channels, dtype=dtype, device=device)  # [q | r]
 
     def forward(self, x: tuple[torch.Tensor, torch.Tensor], edge_attr: torch.Tensor,
-                rowptr: torch.Tensor, src: torch.Tensor,
-                csr_t: CSRTranspose) -> tuple[torch.Tensor, torch.Tensor]:
-        """(x_src (B, Ns, C), x_dst (B, Nd, C)) -> (x_src, new x_dst)."""
+                rowptr: torch.Tensor, src: torch.Tensor, csr_t: CSRTranspose, shard=None,
+                src_transform=None) -> tuple[torch.Tensor, torch.Tensor]:
+        """(x_src (B, Ns, F), x_dst (B, Nd, C)) -> (x_src, new x_dst)."""
         x_src, x_dst = x
         query, x_r = self.lin_qs(self.layer_norm2(x_dst)).chunk(2, dim=-1)
-        out = self._attend(query, x_r, self.layer_norm1(x_src), x_dst, edge_attr, rowptr, src, csr_t)
-        return x_src, out
+
+        def feats(rows: torch.Tensor) -> torch.Tensor:
+            return self.layer_norm1(rows if src_transform is None else src_transform(rows))
+
+        q, w_kv, b_kv, w_edge, b_edge = self._conv_args(query)
+        if shard is None:
+            out = graph_transformer_conv(q, feats(x_src), w_kv, b_kv, edge_attr, w_edge, b_edge, rowptr, src, csr_t)
+        else:
+            out = sharded_mapper_edge_attention(*shard, q, x_src, w_kv, b_kv, edge_attr, w_edge, b_edge,
+                                                src_transform=feats)
+        return x_src, self._finish(out, x_r, x_dst)

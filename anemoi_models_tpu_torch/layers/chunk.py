@@ -57,14 +57,14 @@ class TransformerProcessorChunk(_Chunk):
     def __init__(self, num_channels: int, num_layers: int, window_size: Optional[int], *, num_heads: int = 16,
                  mlp_hidden_ratio: int = 4, activation: str = "GELU", dropout_p: float = 0.0,
                  attention_impl: str = "auto", deterministic: bool = True, remat_policy: str = "full",
-                 first_layer: int = 0, dtype: torch.dtype = torch.float32, device=None) -> None:
+                 first_layer: int = 0, seq_len: int = 0, dtype: torch.dtype = torch.float32, device=None) -> None:
         super().__init__(remat_policy)
         self.deterministic = deterministic
         self.blocks = nn.ModuleList(
             TransformerProcessorBlock(
                 num_channels, mlp_hidden_ratio * num_channels, num_heads, activation=activation,
                 window_size=window_size, dropout_p=dropout_p, attention_impl=attention_impl,
-                layer_index=first_layer + i, dtype=dtype, device=device,
+                layer_index=first_layer + i, seq_len=seq_len, dtype=dtype, device=device,
             )
             for i in range(num_layers)
         )
@@ -96,13 +96,14 @@ class GNNProcessorChunk(_Chunk):
         )
 
     def _run(self, x: torch.Tensor, edge_attr: torch.Tensor, rowptr: torch.Tensor,
-             src: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+             src: torch.Tensor, halo=None) -> tuple[torch.Tensor, torch.Tensor]:
         """x (B, N, C); edge_attr (E, edge_dim) raw for the embedding chunk,
-        else (B, E, C) -> (x, edge_attr (B, E, C))."""
+        else (B, E, C) -> (x, edge_attr (B, E, C)). ``halo``: (mesh, the
+        rank's HaloShard) under a model-sharded mesh, else None."""
         if self.emb_edges is not None:
             edge_attr = self.emb_edges(edge_attr).unsqueeze(0).expand(x.shape[0], -1, -1)
         for block in self.blocks:
-            x, edge_attr = block(x, edge_attr, rowptr, src)
+            x, edge_attr = block(x, edge_attr, rowptr, src, halo)
         return x, edge_attr
 
 
@@ -122,7 +123,7 @@ class GraphTransformerProcessorChunk(_Chunk):
         )
 
     def _run(self, x: torch.Tensor, edge_attr: torch.Tensor, rowptr: torch.Tensor,
-             src: torch.Tensor, csr_t: CSRTranspose) -> torch.Tensor:
+             src: torch.Tensor, csr_t: CSRTranspose, halo=None) -> torch.Tensor:
         for block in self.blocks:
-            x = block(x, edge_attr, rowptr, src, csr_t)
+            x = block(x, edge_attr, rowptr, src, csr_t, halo)
         return x

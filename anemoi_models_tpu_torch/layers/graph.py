@@ -9,6 +9,8 @@ elements, so :class:`TrainableTensor` returns (rows, feat) without a batch.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 from torch import nn
@@ -60,9 +62,12 @@ class NamedNodesAttributes(nn.Module):
             if num_trainable_params > 0 else {}
         )
 
-    def forward(self, name: str, batch_size: int) -> torch.Tensor:
-        """(batch, num_nodes, attr_ndims[name]) fp32 node features."""
+    def forward(self, name: str, batch_size: int, rows: Optional[tuple[int, int]] = None) -> torch.Tensor:
+        """(batch, num_nodes, attr_ndims[name]) fp32 node features; with
+        ``rows`` = ``(lo, hi)``, those rows only (a rank's, under a mesh)."""
         x = getattr(self, f"latlons_{name}")
         if name in self.trainable:
             x = torch.cat([x, self.trainable[name]], dim=-1)
+        if rows is not None:
+            x = x[rows[0]:rows[1]]
         return x.unsqueeze(0).expand(batch_size, *x.shape)

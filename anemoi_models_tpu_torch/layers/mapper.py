@@ -14,6 +14,14 @@ Counterparts of the mappers in ``anemoi_models_tpu/layers/mapper.py``:
   ``node_data_extractor`` MLP (no LayerNorm, no final activation). The JAX
   package rematerialises the mapper block; that changes memory, not
   values, and is not done here.
+
+Under a mesh whose ``model`` axis is larger than 1, each rank holds its rows
+of both node sets and the mappers take the destination-sharded path
+(``parallel/mapper_conv.py``) on the rank's part of the edge set
+(:func:`~anemoi_models_tpu_torch.layers.processor.mapper_shard_of`), as the
+JAX mappers route to it (``mapper.py:115-130``): one all-gather of the
+narrow source rows (the forward mapper embeds its sources after it), then
+the rank's destinations.
 """
 
 from __future__ import annotations
@@ -25,7 +33,8 @@ from torch import nn
 
 from anemoi_models_tpu_torch.layers.block import GraphConvMapperBlock, GraphTransformerMapperBlock
 from anemoi_models_tpu_torch.layers.mlp import MLP
-from anemoi_models_tpu_torch.layers.processor import edge_csr_t, register_edge_buffers
+from anemoi_models_tpu_torch.layers.processor import edge_csr_t, mapper_shard_of, register_edge_buffers
+from anemoi_models_tpu_torch.parallel.api import model_sharded
 from anemoi_models_tpu_torch.layers.utils import AutocastLayerNorm, Dense
 
 __all__ = [
@@ -70,10 +79,16 @@ class _GraphTransformerBaseMapper(nn.Module):
             num_heads=num_heads, activation=activation, dtype=dtype, device=device,
         )
 
-    def _run(self, x_src: torch.Tensor, x_dst: torch.Tensor) -> torch.Tensor:
+    def _run(self, x_src: torch.Tensor, x_dst: torch.Tensor, src_transform=None) -> torch.Tensor:
         edge_attr = self.trainable(self.edge_attr.to(self.dtype))
+        rowptr, src, csr_t, shard = self.rowptr, self.src, edge_csr_t(self), None
+        mesh = model_sharded()
+        if mesh is not None:
+            part = mapper_shard_of(self, mesh)
+            edge_attr = edge_attr[part.edge_lo:part.edge_hi]
+            rowptr, src, csr_t, shard = part.rowptr, part.src, part.csr_t, (mesh, part)
         _, x_dst = self.proc(
-            (x_src, self.emb_nodes_dst(x_dst)), edge_attr, self.rowptr, self.src, edge_csr_t(self)
+            (x_src, self.emb_nodes_dst(x_dst)), edge_attr, rowptr, src, csr_t, shard, src_transform
         )
         return x_dst
 
@@ -88,7 +103,7 @@ class GraphTransformerForwardMapper(_GraphTransformerBaseMapper):
 
     def forward(self, x: tuple[torch.Tensor, torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
         x_src_in, x_dst_in = x
-        return x_src_in, self._run(self.emb_nodes_src(x_src_in), x_dst_in)
+        return x_src_in, self._run(x_src_in, x_dst_in, self.emb_nodes_src)
 
 
 class GraphTransformerBackwardMapper(_GraphTransformerBaseMapper):
@@ -146,9 +161,15 @@ class _GNNBaseMapper(nn.Module):
         )
 
     def _run(self, x_src: torch.Tensor, x_dst: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        edge_attr = self.emb_edges(self.trainable(self.edge_attr.to(self.dtype)))
-        edge_attr = edge_attr.unsqueeze(0).expand(x_src.shape[0], -1, -1)
-        return self.proc((x_src, x_dst), edge_attr, self.rowptr, self.src)[0]
+        edge_attr = self.trainable(self.edge_attr.to(self.dtype))
+        rowptr, src, shard = self.rowptr, self.src, None
+        mesh = model_sharded()
+        if mesh is not None:  # the rank's edges, embedded after the slice (a per-row MLP)
+            part = mapper_shard_of(self, mesh)
+            edge_attr = edge_attr[part.edge_lo:part.edge_hi]
+            rowptr, src, shard = part.rowptr, part.src, (mesh, part)
+        edge_attr = self.emb_edges(edge_attr).unsqueeze(0).expand(x_src.shape[0], -1, -1)
+        return self.proc((x_src, x_dst), edge_attr, rowptr, src, shard)[0]
 
 
 class GNNForwardMapper(_GNNBaseMapper):

@@ -1,12 +1,20 @@
 """Processors on the hidden mesh: chunked stacks of blocks.
 
 Counterparts of ``TransformerProcessor``, ``GNNProcessor``,
-``GraphTransformerProcessor`` and ``register_edges`` in
-``anemoi_models_tpu/layers/processor.py``. A graph processor's edge set is
+``GraphTransformerProcessor``, ``HaloGNNProcessor`` and ``register_edges``
+in ``anemoi_models_tpu/layers/processor.py``. A graph processor's edge set is
 registered once at construction as a CSR list (``rowptr``, ``src``), its
 transpose for the attention backward (``perm_t``, ``colptr_t``, ``dst_t``, ``pos_t``)
 and its static attributes. The Transformer processor attends over mesh
 positions and takes no graph.
+
+Under a mesh whose ``model`` axis is larger than 1
+(:func:`~anemoi_models_tpu_torch.parallel.api.model_sharded`), each rank
+holds its rows of the hidden mesh and the graph processors take the halo
+paths (``parallel/halo_conv.py``) on the rank's part of the edge set
+(:func:`halo_shard_of`), as the JAX processors route to them
+(``processor.py:110-140``); the Transformer's attention takes its halo
+window path (``layers/attention.py``).
 """
 
 from __future__ import annotations
@@ -17,21 +25,36 @@ import numpy as np
 import torch
 from torch import nn
 
+from torch.utils.checkpoint import checkpoint
+
+from anemoi_models_tpu_torch.graphs.partition import (
+    HaloShard,
+    MapperShard,
+    halo_shard,
+    mapper_shard,
+    partition_1hop,
+)
 from anemoi_models_tpu_torch.layers.chunk import (
     GNNProcessorChunk,
     GraphTransformerProcessorChunk,
     TransformerProcessorChunk,
 )
 from anemoi_models_tpu_torch.layers.graph import TrainableTensor
+from anemoi_models_tpu_torch.layers.mlp import MLP
 from anemoi_models_tpu_torch.ops.edge_attention import CSRTranspose, csr_from_edge_index, csr_transpose
+from anemoi_models_tpu_torch.parallel.api import Mesh, model_sharded
+from anemoi_models_tpu_torch.parallel.halo_conv import halo_graph_conv
 
 __all__ = [
     "TransformerProcessor",
     "GNNProcessor",
     "GraphTransformerProcessor",
+    "HaloGNNProcessor",
     "register_edges",
     "register_edge_buffers",
     "edge_csr_t",
+    "halo_shard_of",
+    "mapper_shard_of",
 ]
 
 # Layouts of the JAX package's convs; the port has one CSR path for each.
@@ -70,12 +93,39 @@ def register_edge_buffers(
     for name, value in buffers.items():
         module.register_buffer(name, torch.as_tensor(value, device=device), persistent=False)
     module.trainable = TrainableTensor(edge_attr.shape[0], trainable_size, device=device)
+    # the host copy each rank plans its part from, and the parts made from it (by mesh shape and rank)
+    module._edge_set = (edge_index, num_src, num_dst)
+    module._shards = {}
     return edge_dim
 
 
 def edge_csr_t(module: nn.Module) -> CSRTranspose:
     """The transposed CSR that :func:`register_edge_buffers` gave ``module``."""
     return CSRTranspose(module.perm_t, module.colptr_t, module.dst_t, module.pos_t)
+
+
+def halo_shard_of(module: nn.Module, mesh: Mesh) -> HaloShard:
+    """This rank's :class:`HaloShard` of ``module``'s self-graph under
+    ``mesh``, planned once (``partition_1hop``) and kept on the module."""
+    edge_index, num_src, num_dst = module._edge_set
+    key = ("halo", mesh.shape["model"], mesh.coords["model"], module.rowptr.device)
+    if key not in module._shards:
+        if num_src != num_dst:
+            raise ValueError(f"halo exchange needs a self-graph, got {num_src} sources and {num_dst} destinations")
+        part = partition_1hop(edge_index, num_dst, mesh.shape["model"])
+        module._shards[key] = halo_shard(part, mesh.coords["model"], module.rowptr.device)
+    return module._shards[key]
+
+
+def mapper_shard_of(module: nn.Module, mesh: Mesh) -> MapperShard:
+    """This rank's destination-sharded :class:`MapperShard` of ``module``'s
+    bipartite edge set under ``mesh``, kept on the module."""
+    edge_index, num_src, num_dst = module._edge_set
+    key = ("mapper", mesh.shape["model"], mesh.coords["model"], module.rowptr.device)
+    if key not in module._shards:
+        module._shards[key] = mapper_shard(edge_index, num_src, num_dst, mesh.shape["model"], mesh.coords["model"],
+                                           module.rowptr.device)
+    return module._shards[key]
 
 
 def _chunk_size(num_layers: int, num_chunks: int) -> int:
@@ -88,7 +138,9 @@ class TransformerProcessor(nn.Module):
     """Sliding-window transformer over the hidden mesh positions:
     ``num_layers`` blocks in ``num_chunks`` chunks. With ``deterministic=False``
     the attention drops weights at ``dropout_p`` under the ``dropout_key``
-    the forward is given (each layer folds in its index)."""
+    the forward is given (each layer folds in its index). ``dst_grid_size``
+    is the mesh's node count, the sequence length a rank holding its rows of
+    the sequence attends over."""
 
     def __init__(
         self,
@@ -104,6 +156,7 @@ class TransformerProcessor(nn.Module):
         attention_impl: str = "auto",
         remat_policy: str = "full",
         deterministic: bool = True,
+        dst_grid_size: int = 0,
         dtype: torch.dtype = torch.float32,
         device=None,
     ) -> None:
@@ -114,7 +167,7 @@ class TransformerProcessor(nn.Module):
                 num_channels, chunk_size, window_size, num_heads=num_heads,
                 mlp_hidden_ratio=mlp_hidden_ratio, activation=activation, dropout_p=dropout_p,
                 attention_impl=attention_impl, deterministic=deterministic, remat_policy=remat_policy,
-                first_layer=c * chunk_size, dtype=dtype, device=device,
+                first_layer=c * chunk_size, seq_len=dst_grid_size, dtype=dtype, device=device,
             )
             for c in range(num_chunks)
         )
@@ -166,10 +219,17 @@ class GNNProcessor(nn.Module):
         )
 
     def forward(self, x: torch.Tensor, dropout_key: Optional[int] = None) -> torch.Tensor:
-        """x (B, N, C) -> (B, N, C); no layer drops, so ``dropout_key`` is unused."""
+        """x (B, N, C) -> (B, N, C) (a rank's rows under a model-sharded
+        mesh); no layer drops, so ``dropout_key`` is unused."""
         edge_attr = self.trainable(self.edge_attr.to(self.dtype))
+        rowptr, src, halo = self.rowptr, self.src, None
+        mesh = model_sharded()
+        if mesh is not None:
+            shard = halo_shard_of(self, mesh)
+            edge_attr = edge_attr[shard.edge_lo:shard.edge_hi]
+            rowptr, src, halo = shard.rowptr, shard.src, (mesh, shard)
         for chunk in self.proc:
-            x, edge_attr = chunk(x, edge_attr, self.rowptr, self.src)
+            x, edge_attr = chunk(x, edge_attr, rowptr, src, halo)
         return x
 
 
@@ -213,9 +273,105 @@ class GraphTransformerProcessor(nn.Module):
         )
 
     def forward(self, x: torch.Tensor, dropout_key: Optional[int] = None) -> torch.Tensor:
-        """x (B, N, C) -> (B, N, C); no layer drops, so ``dropout_key`` is unused."""
+        """x (B, N, C) -> (B, N, C) (a rank's rows under a model-sharded
+        mesh); no layer drops, so ``dropout_key`` is unused."""
         edge_attr = self.trainable(self.edge_attr.to(self.dtype))
-        csr_t = edge_csr_t(self)
+        rowptr, src, csr_t, halo = self.rowptr, self.src, edge_csr_t(self), None
+        mesh = model_sharded()
+        if mesh is not None:
+            shard = halo_shard_of(self, mesh)
+            edge_attr = edge_attr[shard.edge_lo:shard.edge_hi]
+            rowptr, src, csr_t, halo = shard.rowptr, shard.src, shard.csr_t, (mesh, shard)
         for chunk in self.proc:
-            x = chunk(x, edge_attr, self.rowptr, self.src, csr_t)
+            x = chunk(x, edge_attr, rowptr, src, csr_t, halo)
+        return x
+
+
+class HaloGNNProcessor(nn.Module):
+    """Domain-decomposed GNN processor: a 1-hop halo exchange a layer.
+
+    Counterpart of the JAX ``HaloGNNProcessor``, a config-selectable
+    alternative to :class:`GNNProcessor` for sharded runs, which takes the
+    plain path with no mesh active. The edge attributes are embedded once
+    (``emb_edges``); each layer's conv runs the edge MLP Dense(3C -> C) ->
+    act -> Dense -> act -> Dense -> LayerNorm, whose parameters are the
+    processor's own ``conv_{i}_w1`` .. ``conv_{i}_ln_b`` in the flax layout
+    ((in, out) kernels), through :class:`~anemoi_models_tpu_torch.ops.gnn_conv.GNNConv`;
+    the updated edges thread into the next layer on the rank that owns them;
+    then ``node_mlp_{i}`` on ``cat[x, aggregated]`` with a residual. Each
+    layer is recomputed in the backward, as the JAX layer checkpoints it."""
+
+    def __init__(
+        self,
+        num_layers: int,
+        *,
+        trainable_size: int = 8,
+        num_channels: int = 128,
+        num_chunks: int = 2,
+        mlp_extra_layers: int = 0,
+        activation: str = "SiLU",
+        sub_graph=None,
+        sub_graph_edge_attributes: Optional[list[str]] = ("edge_length", "edge_dirs"),
+        src_grid_size: int = 0,
+        dst_grid_size: int = 0,
+        num_shards: Optional[int] = None,
+        dtype: torch.dtype = torch.float32,
+        device=None,
+    ) -> None:
+        super().__init__()
+        del num_chunks  # accepted for config parity; the recompute is per layer
+        self.num_layers = num_layers
+        self.num_shards = num_shards
+        self.activation = activation
+        self.dtype = dtype
+        c = num_channels
+        edge_dim = register_edge_buffers(
+            self, sub_graph, sub_graph_edge_attributes, trainable_size,
+            src_grid_size, dst_grid_size, "dense", device,
+        )
+        mlp_kw = dict(n_extra_layers=mlp_extra_layers, activation=activation, dtype=dtype, device=device)
+        self.emb_edges = MLP(edge_dim, c, c, **mlp_kw)
+        for i in range(num_layers):
+            for name, shape, fill in (("w1", (3 * c, c), None), ("b1", (c,), 0.0), ("w2", (c, c), None),
+                                      ("b2", (c,), 0.0), ("w3", (c, c), None), ("b3", (c,), 0.0),
+                                      ("ln_s", (c,), 1.0), ("ln_b", (c,), 0.0)):
+                value = torch.empty(shape, device=device) if fill is None else torch.full(shape, fill, device=device)
+                if fill is None:
+                    nn.init.kaiming_normal_(value, nonlinearity="linear", mode="fan_out")
+                self.register_parameter(f"conv_{i}_{name}", nn.Parameter(value))
+            self.add_module(f"node_mlp_{i}", MLP(2 * c, c, c, **mlp_kw))
+
+    def _conv_params(self, i: int) -> list[torch.Tensor]:
+        """Layer i's edge MLP as GNNConv takes it: (out, in) weights."""
+        p = {name: getattr(self, f"conv_{i}_{name}") for name in ("w1", "b1", "w2", "b2", "w3", "b3", "ln_s", "ln_b")}
+        return [p["w1"].t(), p["b1"], p["w2"].t(), p["b2"], p["w3"].t(), p["b3"], p["ln_s"], p["ln_b"]]
+
+    def forward(self, x: torch.Tensor, dropout_key: Optional[int] = None) -> torch.Tensor:
+        """x (B, N, C) -> (B, N, C) (a rank's rows under a model-sharded mesh)."""
+        from anemoi_models_tpu_torch.ops.gnn_conv import GNNConv
+
+        edges = self.emb_edges(self.trainable(self.edge_attr.to(self.dtype)))
+        mesh = model_sharded()
+        if mesh is not None:
+            if self.num_shards not in (None, mesh.shape["model"]):
+                raise ValueError(f"HaloGNNProcessor num_shards ({self.num_shards}) must equal the mesh's "
+                                 f"model-axis size ({mesh.shape['model']})")
+            shard = halo_shard_of(self, mesh)
+            edges = edges[shard.edge_lo:shard.edge_hi]
+        edges = edges.unsqueeze(0).expand(x.shape[0], -1, -1)
+
+        def layer(x_, edges_, *params):
+            if mesh is not None:
+                return halo_graph_conv(mesh, shard, params, x_, edges_, self.activation)
+            agg, msg = GNNConv.apply(x_.to(edges_.dtype).contiguous(), x_.to(edges_.dtype).contiguous(),
+                                     edges_.contiguous(), self.rowptr, self.src, self.activation, *params)
+            return agg.to(edges_.dtype), msg
+
+        for i in range(self.num_layers):
+            params = self._conv_params(i)
+            if torch.is_grad_enabled():
+                agg, edges = checkpoint(layer, x, edges, *params, use_reentrant=False)
+            else:
+                agg, edges = layer(x, edges, *params)
+            x = getattr(self, f"node_mlp_{i}")(torch.cat([x, agg], dim=-1)) + x
         return x

@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from anemoi_models_tpu_torch.layers.graph import NamedNodesAttributes
+from anemoi_models_tpu_torch.parallel.api import model_sharded
 from anemoi_models_tpu_torch.utils.config import DotDict, instantiate, resolve_target
 
 __all__ = ["AnemoiModelEncProcDec", "resolve_device"]
@@ -123,14 +124,24 @@ class AnemoiModelEncProcDec(nn.Module):
     def forward(self, x: torch.Tensor, dropout_key: Optional[int] = None) -> torch.Tensor:
         """x (batch, time, ensemble, grid, vars) -> (batch, ensemble, grid, vars_out).
         ``dropout_key``: the attention-dropout key of a ``deterministic=False``
-        model (``training.step``)."""
+        model (``training.step``). Under a mesh whose ``model`` axis is larger
+        than 1 (``parallel.use_mesh``), ``grid`` is this rank's rows of the
+        data grid (``mesh.rows``) and so is the output."""
         batch_size, _, ensemble_size, grid, _ = x.shape
         bse = batch_size * ensemble_size
+        rows = {self._graph_name_data: None, self._graph_name_hidden: None}
+        mesh = model_sharded()
+        if mesh is not None:  # this rank's rows of each node set
+            rows = {name: mesh.rows(self.node_attributes.num_nodes[name]) for name in rows}
+            lo, hi = rows[self._graph_name_data]
+            if grid != hi - lo:
+                raise ValueError(f"rank {mesh.rank} holds grid rows [{lo}, {hi}); the input has {grid}")
         x_flat = x.permute(0, 2, 3, 1, 4).reshape(bse, grid, -1)
         x_data_latent = torch.cat(
-            [x_flat, self.node_attributes(self._graph_name_data, bse).to(x_flat.dtype)], dim=-1
+            [x_flat, self.node_attributes(self._graph_name_data, bse, rows[self._graph_name_data]).to(x_flat.dtype)],
+            dim=-1,
         )
-        x_hidden_latent = self.node_attributes(self._graph_name_hidden, bse)
+        x_hidden_latent = self.node_attributes(self._graph_name_hidden, bse, rows[self._graph_name_hidden])
 
         x_data_latent, x_latent = self.encoder((x_data_latent, x_hidden_latent))
         x_latent_proc = self.processor(x_latent, dropout_key) + x_latent  # hidden skip connection

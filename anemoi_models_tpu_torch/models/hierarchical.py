@@ -22,6 +22,7 @@ from torch import nn
 
 from anemoi_models_tpu_torch.layers.graph import NamedNodesAttributes
 from anemoi_models_tpu_torch.ops.flash_attention import fold_key
+from anemoi_models_tpu_torch.parallel.api import model_sharded
 from anemoi_models_tpu_torch.models.encoder_processor_decoder import (
     AnemoiModelEncProcDec,
     _accepted,
@@ -132,6 +133,9 @@ class AnemoiModelEncProcDecHierarchical(AnemoiModelEncProcDec):
         def key(i: int) -> Optional[int]:
             return None if dropout_key is None else fold_key(dropout_key, i)
 
+        if model_sharded() is not None:
+            raise NotImplementedError("the hierarchical model under a model-sharded mesh is not ported "
+                                      "(ROADMAP Queue 1 #9)")
         batch_size, _, ensemble_size, grid, _ = x.shape
         bse = batch_size * ensemble_size
         names = self._graph_hidden_names

@@ -75,12 +75,12 @@ __all__ = [
 ]
 
 _NEG = -1e30
-_MAX_A2 = 16  # kMaxA2 in csrc/edge_attention.cu
+_MAX_A2 = 32  # kMaxA2 in csrc/edge_attention.cu: the edge attributes with the ones column
 _GROUP_CHANNELS = 256  # the most channels of a group of several heads
 _MAX_HEAD = 1024  # the widest head: a group of its own, 32 channels a lane
 _GROUP_LANES = 32  # the lanes of a group: a lane never holds two heads
 _REF_SMS = 132  # the H100 SXM's SMs: the backward's dw_aug partials are counted for it on every card
-_BWD_SMEM = 227 * 1024  # kMaxSmem in csrc/edge_attention_bwd.cu
+_BWD_SMEM = 227 * 1024  # kMaxSmem in csrc/edge_attention_bwd.cu: a CTA's shared memory on Hopper
 _BWD_RING = 3  # kRing in csrc/edge_attention_bwd.cu
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -275,8 +275,9 @@ def kv_proj(f: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
             out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """``[k|v] = f . w^T + b``: f (M, K) and w (N, K) in the compute dtype
     (fp32 or bf16), b (N,) fp32; returns (M, N) in ``out_dtype``: the compute
-    dtype (the default) or, for bf16 operands, fp32. On the card the rows
-    must be 16-byte aligned (K and N multiples of 8 in bf16)."""
+    dtype (the default) or, for bf16 operands, fp32. The bf16 GEMM reads
+    16-byte rows, so a K or N that is not a multiple of 8 is padded with zero
+    columns here (zero terms add nothing; the extra outputs are dropped)."""
     if _on_cpu(f, w, b):
         return kv_proj_plain(f, w, b, out_dtype)
     out_dtype = out_dtype or f.dtype
@@ -288,9 +289,13 @@ def kv_proj(f: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     _require_contiguous(f=f, w=w, b=b)
     m, k = f.shape
     n = w.shape[0]
+    if f.dtype == torch.bfloat16 and (k % 8 or n % 8):
+        kp, np_ = -(-k // 8) * 8, -(-n // 8) * 8
+        f = torch.nn.functional.pad(f, (0, kp - k))
+        w = torch.nn.functional.pad(w, (0, kp - k, 0, np_ - n))
+        return kv_proj(f, w, torch.nn.functional.pad(b, (0, np_ - n)), out_dtype)[:, :n].contiguous()
     if f.dtype == torch.bfloat16:
-        _require(k % 8 == 0 and n % 8 == 0 and f.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0,
-                 f"kv_proj in bf16 needs 16-byte aligned rows (K, N multiples of 8), got K={k}, N={n}")
+        _require(f.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0, "kv_proj in bf16 needs 16-byte aligned rows")
     out = torch.empty((m, n), dtype=out_dtype, device=f.device)
     if m == 0:
         return out
@@ -420,6 +425,10 @@ def edge_attn_csr(
         q, kv, w_aug = (_pad_heads(t, num_heads, d, dp) for t in (q, kv, w_aug))
         c = num_heads * dp
     vb, _, group = _lane_layout(c, num_heads)
+    item = 2 if dt == torch.bfloat16 else 4
+    smem = (_attr_rows(a2) + 2 * 4 * (4 if item == 2 else 3)) * group * item  # launch_fwd's w_aug slice and rings
+    _require(smem <= _BWD_SMEM, f"edge_attn_csr: a head group of {group} channels with {a2} attributes needs "
+                                f"{smem} bytes of shared memory a CTA, more than {_BWD_SMEM}")
     num = torch.empty((bnd, c), dtype=torch.float32, device=q.device)
     den = torch.empty((bnd, num_heads), dtype=torch.float32, device=q.device)
     m = torch.empty((bnd, num_heads), dtype=torch.float32, device=q.device)
@@ -441,12 +450,18 @@ def edge_attn_csr(
     return AttentionPartials(num.view(bnd, num_heads, d), den, m)
 
 
+def _attr_rows(a2: int) -> int:
+    """The attribute rows both kernels' loops run for ``a2`` attributes: 8,
+    16 or 32, the smallest that holds them."""
+    return 8 if a2 <= 8 else 16 if a2 <= 16 else _MAX_A2
+
+
 def _bwd_warps_smem(c: int, a2: int, group: int, dtype: torch.dtype) -> tuple[int, int]:
     """The backward's dst-pass CTA as ``launch_passes`` sizes it: its warps
     (4, halved while w_aug, the rings, the q / g_num slices and the per-warp
     dw_aug partials exceed 227 KB) and its shared memory in bytes."""
     item = 2 if dtype == torch.bfloat16 else 4
-    maxa2 = 8 if a2 <= 8 else _MAX_A2
+    maxa2 = _attr_rows(a2)
 
     def smem(warps: int) -> int:
         return maxa2 * c * item + warps * (_BWD_RING * 2 * group * item + group * (item + 4) + a2 * c * 4)
@@ -464,7 +479,7 @@ def _bwd_registers(c: int, num_heads: int, a2: int, dtype: torch.dtype) -> int:
     """An upper bound of the registers a thread of the dst pass's
     instantiation for this shape takes (ptxas for sm_90a on
     csrc/edge_attention_bwd.cu: 56-242), as one of three budgets: 256 with
-    16 attribute slots a lane; 168 where every lane keeps all eight
+    16 or 32 attribute slots a lane; 168 where every lane keeps all eight
     attributes (unless it holds one channel) or in fp32 with eight channels
     a lane and no compile-time head count; else 128. So the modelled
     occupancy is never above the card's (no second wave of CTAs); a cuda
@@ -473,7 +488,7 @@ def _bwd_registers(c: int, num_heads: int, a2: int, dtype: torch.dtype) -> int:
     d = c // num_heads
     lb = _pow2_at_least(d // vb)
     hc = lanes == 32 and group // d == 4 and d // vb == lb  # launch_vb's compile-time head count
-    if a2 > 8 or vb >= 16:  # 16 attribute slots a lane, or 16-32 channels a lane
+    if a2 > 8 or vb >= 16:  # 16 or 32 attribute slots a lane, or 16-32 channels a lane
         return 256
     if a2 > lb:
         return 128 if vb == 1 else 168

@@ -62,7 +62,9 @@ __all__ = ["GNNConv", "LAUNCHES", "LAYERED_CHUNK", "aggregate", "gnn_conv", "gnn
 
 _FUSED_WIDTHS = (32, 64, 128, 256)  # channel widths csrc/gnn_conv.cu's fused kernels are built for
 _DTYPES = (torch.float32, torch.bfloat16)
-_ACT_CODES = {"identity": 0, "silu": 1, "swish": 1, "gelu": 2, "relu": 3, "tanh": 4, "sigmoid": 5}
+# act_fn's codes in csrc/gnn_common.cuh: every activation of the reference's registry (layers/utils.py)
+_ACT_CODES = {"identity": 0, "silu": 1, "swish": 1, "gelu": 2, "relu": 3, "tanh": 4, "sigmoid": 5, "leakyrelu": 6,
+              "elu": 7, "softplus": 8, "mish": 9}
 # edge rows per chunk of the layered route: its scratch is two (chunk, C)
 # activations in the compute dtype and one in fp32 (512 MiB at C = 1024 in bf16)
 LAYERED_CHUNK = 65536

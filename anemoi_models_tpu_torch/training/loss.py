@@ -6,6 +6,13 @@ with optional per-variable weights and the imputer's loss mask, computed in
 fp32 whatever the prediction's dtype; and :func:`loss_mask`, the counterpart
 of ``anemoi_models_tpu/training/run.py:_loss_mask``, which finds that mask in
 a processor pipeline.
+
+Under a mesh whose ``model`` axis is larger than 1, the prediction and the
+target are a rank's rows of the grid: whole-grid node weights and masks are
+cut to the rank's rows, and the normaliser (the weights' or the elements'
+count) is summed over the ``model`` axis, so the ranks' losses are partials
+whose sum is the loss of the whole grid (``training.step`` sums them for
+its report).
 """
 
 from __future__ import annotations
@@ -13,6 +20,9 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from anemoi_models_tpu_torch.parallel.api import model_sharded
+from anemoi_models_tpu_torch.parallel.primitives import reduce_tensor
 
 __all__ = ["WeightedCRPSLoss", "WeightedMSELoss", "crps_ensemble", "loss_mask", "weighted_mse"]
 
@@ -28,6 +38,26 @@ def loss_mask(pipeline) -> Optional[torch.Tensor]:
     return None
 
 
+def _rank_rows(t: Optional[torch.Tensor], grid: int) -> Optional[torch.Tensor]:
+    """``t`` (grid, ...) as the prediction's rows: itself, or under a
+    model-sharded mesh this rank's rows of a whole-grid ``t``."""
+    mesh = model_sharded()
+    if t is None or mesh is None or t.shape[0] == grid:
+        return t
+    lo, hi = mesh.rows(t.shape[0])
+    if hi - lo != grid:
+        raise ValueError(f"a grid of {t.shape[0]} rows gives this rank {hi - lo}, the prediction has {grid}")
+    return t[lo:hi]
+
+
+def _normalised(num: torch.Tensor, den: torch.Tensor, eps: float) -> torch.Tensor:
+    """``num / (den + eps)``, the denominator summed over a model-sharded
+    mesh's ranks first (it is weights and counts, with no gradient)."""
+    if model_sharded() is not None:
+        den = reduce_tensor(den.detach(), "model")
+    return num / (den + eps)
+
+
 def weighted_mse(
     pred: torch.Tensor,
     target: torch.Tensor,
@@ -41,14 +71,15 @@ def weighted_mse(
     variable_weights: (vars,); loss_mask: (grid, vars) from the imputer.
     """
     err = (pred.float() - target.float()) ** 2
+    grid = err.shape[-2]
     if loss_mask is not None:
-        err = err * loss_mask
+        err = err * _rank_rows(loss_mask, grid)
     if variable_weights is not None:
         err = err * variable_weights
     if node_weights is not None:
-        w = node_weights[..., None]
-        return (err * w).sum() / (w.expand(err.shape).sum() + 1e-12)
-    return err.mean()
+        w = _rank_rows(node_weights, grid)[..., None]
+        return _normalised((err * w).sum(), w.expand(err.shape).sum(), 1e-12)
+    return err.mean() if model_sharded() is None else _normalised(err.sum(), err.new_tensor(err.numel()), 0.0)
 
 
 class WeightedMSELoss:
@@ -94,14 +125,15 @@ def crps_ensemble(
         crps = skill - (s * coef).sum(dim=-3) / (m * (m - 1))
     else:
         crps = skill
+    grid = crps.shape[-2]
     if loss_mask is not None:  # imputed points carry no skill signal
-        crps = crps * loss_mask
+        crps = crps * _rank_rows(loss_mask, grid)
     if variable_weights is not None:
         crps = crps * variable_weights
     if node_weights is not None:
-        w = node_weights[..., None]
-        return (crps * w).sum() / (w.expand(crps.shape).sum() + 1e-12)
-    return crps.mean()
+        w = _rank_rows(node_weights, grid)[..., None]
+        return _normalised((crps * w).sum(), w.expand(crps.shape).sum(), 1e-12)
+    return crps.mean() if model_sharded() is None else _normalised(crps.sum(), crps.new_tensor(crps.numel()), 0.0)
 
 
 class WeightedCRPSLoss:

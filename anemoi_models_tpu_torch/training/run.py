@@ -142,7 +142,9 @@ def train_run(
     from anemoi_models_tpu_torch.interface import AnemoiModelInterface
 
     if mesh is not None or param_sharding:
-        raise ValueError("mesh and param_sharding need the parallel port (ROADMAP Queue 1 #9)")
+        raise ValueError("train_run's mesh and param_sharding (zero1 / fsdp on the port's AdamW) are the next "
+                         "slice of the parallel port (ROADMAP Queue 1 #9); the sharded train step is "
+                         "make_train_step under parallel.use_mesh")
     if int(steps_per_call) > 1:
         raise ValueError("steps_per_call > 1 is not ported; its counterpart is CUDA graphs (ROADMAP Queue 1 #4)")
     model_kwargs = dict(model_kwargs or {})

@@ -9,6 +9,14 @@ pure function of a ``TrainState``. On the card the edge attention runs its
 hand-written kernels forward and backward; the processor's chunks are
 recomputed in the backward as the model's ``remat_policy`` says.
 
+Under a (data, model) mesh (``parallel.use_mesh``) the step is the sharded
+one: each rank's batch is its slice of the data axis and its grid its rows
+of the model axis, its loss a partial (``training.loss``), and before the
+update every replicated parameter's gradient is summed over ``model`` and
+averaged over ``data`` (:func:`~anemoi_models_tpu_torch.parallel.primitives.all_reduce_gradients`),
+the one reduction GSPMD makes for the JAX package that the port makes by
+hand. The loss returned is the whole grid's, averaged over ``data``.
+
 A model built with ``deterministic=False`` (:func:`dropout_twin`) trains with
 attention-weight dropout: the step's key is :func:`dropout_key_at` of the
 seed and the optimizer's update count, as the JAX package folds the step
@@ -28,10 +36,12 @@ import torch
 from torch import nn
 
 from anemoi_models_tpu_torch.ops.flash_attention import fold_key
+from anemoi_models_tpu_torch.parallel.api import get_mesh
+from anemoi_models_tpu_torch.parallel.primitives import all_reduce_gradients, reduce_tensor
 from anemoi_models_tpu_torch.training.loss import weighted_mse
 from anemoi_models_tpu_torch.training.rollout import make_rollout_fn
 
-__all__ = ["dropout_key_at", "dropout_twin", "make_rollout_train_step", "make_train_step"]
+__all__ = ["dropout_key_at", "dropout_twin", "make_rollout_train_step", "make_train_step", "mesh_loss"]
 
 
 def dropout_key_at(dropout_seed: int, step: int) -> int:
@@ -52,6 +62,15 @@ def dropout_twin(model: nn.Module) -> nn.Module:
         if hasattr(module, "deterministic"):
             module.deterministic = False
     return twin
+
+
+def mesh_loss(loss: torch.Tensor) -> torch.Tensor:
+    """The loss of the whole batch from a rank's partial, detached: summed
+    over the ``model`` axis, averaged over ``data``; ``loss`` itself with no
+    mesh."""
+    loss = reduce_tensor(reduce_tensor(loss.detach(), "model"), "data")
+    mesh = get_mesh()
+    return loss if mesh is None else loss / mesh.shape["data"]
 
 
 def make_train_step(
@@ -77,8 +96,9 @@ def make_train_step(
         pred = model(x, dropout_key=dropout_key_at(dropout_seed, optimizer.count)) if drops else model(x)
         loss = loss_fn(pred, y)
         loss.backward()
+        all_reduce_gradients(model.parameters())
         optimizer.step()
-        return loss.detach()
+        return mesh_loss(loss)
 
     return train_step
 
@@ -119,7 +139,8 @@ def make_rollout_train_step(
         _, preds = rollout(x0, forcings, key)
         loss = loss_fn(preds, targets)
         loss.backward()
+        all_reduce_gradients(model.parameters())
         optimizer.step()
-        return loss.detach()
+        return mesh_loss(loss)
 
     return train_step

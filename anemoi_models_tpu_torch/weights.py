@@ -17,6 +17,9 @@ JAX checkpoint held bf16) into a state dict of the port's modules:
 - under the commuted dataflow the encoder's ``emb_nodes_src`` sits at
   ``encoder/proc/emb_nodes_src``; the port keeps it at ``encoder.emb_nodes_src``
   and accepts either place (for a mapper's own tree too: ``proc/emb_nodes_src``);
+- a ``HaloGNNProcessor``'s edge MLPs are its own parameters,
+  ``conv_{i}_w1`` .. ``conv_{i}_ln_b``, kept in the flax layout ((in, out)
+  kernels) under the flax names, so they load and save as they are;
 - the hierarchical model's per-level modules, flax's
   ``down_level_processor_<level>``, ``up_level_processor_<level>``,
   ``downscale_<level>`` and ``upscale_<level>``, are entries of the port's
@@ -26,7 +29,8 @@ JAX checkpoint held bf16) into a state dict of the port's modules:
 trained in the port, or its gradients) back to the JAX package's tree.
 
 :func:`init_params` draws the flax initialisers (lecun-normal kernels, zero
-biases, unit LayerNorm scales, zero trainable tensors) from a
+biases, unit LayerNorm scales, zero trainable tensors; a ``HaloGNNProcessor``'s
+own kernels and scales as flax draws them) from a
 ``torch.Generator`` on the host, so the same seed gives the same weights on
 every device.
 """
@@ -49,6 +53,8 @@ _LAYER_INDEX = re.compile(r"^(proc|blocks)_(\d+)$")
 _FLAX_NAME = {**{port: flax for flax, port in _INLINE_MLP.items()}, "mlp": "MLP_0"}
 # the hierarchical model's per-level modules: flax <dict>_<level>, the port's ModuleDict <dict>.<level>
 _LEVEL_DICTS = ("down_level_processor", "up_level_processor", "downscale", "upscale")
+# a HaloGNNProcessor's own edge-MLP parameters: conv_<layer>_<w1|b1|w2|b2|w3|b3|ln_s|ln_b>
+_HALO_GNN_PARAM = re.compile(r"^conv_\d+_(w[123]|b[123]|ln_s|ln_b)$")
 
 
 def _rename(parent: str, token: str) -> str:
@@ -100,7 +106,7 @@ def load_flax_params(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
                   else torch.from_numpy(np.array(value, dtype=np.float32)))
         if path[-1] == "kernel":
             tensor = tensor.t()
-        if path[-2] == "lin_qkvs":
+        if len(path) > 1 and path[-2] == "lin_qkvs":
             q, k, v, r = tensor.chunk(4, dim=0)  # weight rows / bias entries
             stem = _port_name((*path[:-2], "lin_qr", path[-1]))
             state[stem] = torch.cat([q, r]).contiguous()
@@ -114,7 +120,7 @@ def _flax_path(name: str, state: Mapping[str, torch.Tensor]) -> tuple:
     stem, leaf = name.split(".")[:-1], name.split(".")[-1]
     if stem == ["node_attributes", "trainable"]:
         return ("node_attributes", f"trainable_{leaf}")
-    if stem[0] in _LEVEL_DICTS:
+    if stem and stem[0] in _LEVEL_DICTS:
         inner = _flax_path(".".join(["_level", *stem[2:], leaf]), {
             ".".join(["_level", *k.split(".")[2:]]): v for k, v in state.items()
             if k.split(".")[:2] == stem[:2]})
@@ -125,7 +131,7 @@ def _flax_path(name: str, state: Mapping[str, torch.Tensor]) -> tuple:
             path[-1] = f"{path[-1]}_{token}"
         else:
             path.append(_FLAX_NAME.get(token, token))
-    if path[-1] == "emb_nodes_src":
+    if path and path[-1] == "emb_nodes_src":
         path.insert(-1, "proc")  # commuted layout: <mapper>/proc/emb_nodes_src
     weight = state.get(".".join([*stem, "weight"]))
     if weight is not None and weight.dim() == 1:  # a LayerNorm (flax LayerNorm_0 inside)
@@ -169,11 +175,13 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
     for name, param in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         module = model.get_submodule(name.rsplit(".", 1)[0]) if "." in name else model
-        if isinstance(module, nn.Linear) and leaf == "weight":
-            std = math.sqrt(1.0 / param.shape[1]) / trunc
+        halo_gnn = _HALO_GNN_PARAM.match(leaf)
+        if (isinstance(module, nn.Linear) and leaf == "weight") or (halo_gnn and halo_gnn[1][0] == "w"):
+            fan_in = param.shape[0] if halo_gnn else param.shape[1]  # HaloGNNProcessor's kernels are (in, out)
+            std = math.sqrt(1.0 / fan_in) / trunc
             value = torch.empty(param.shape)
             nn.init.trunc_normal_(value, std=std, a=-2 * std, b=2 * std, generator=generator)
-        elif isinstance(module, nn.LayerNorm) and leaf == "weight":
+        elif (isinstance(module, nn.LayerNorm) and leaf == "weight") or (halo_gnn and halo_gnn[1] == "ln_s"):
             value = torch.ones(param.shape)
         else:  # biases and trainable tensors
             value = torch.zeros(param.shape)

@@ -18,7 +18,9 @@ Builds the port's CUDA kernels from ``anemoi_models_tpu_torch/csrc``, then:
    read the same inputs and sum in fp32, in another order), and two calls
    bit-identical; then both edge-attention kernels at the production width
    (C = 1024, 16 heads: four head groups a row) on the same three edge sets,
-   at the same bounds, two calls of each bit-identical;
+   at the same bounds, two calls of each bit-identical, and at C = 256 on
+   the processor set with A2 = 8, 17, 24 and 32 edge attributes, each
+   timed beside its bound;
 3. runs a reduced model (O48 grid, refinement-4 mesh, C=64, 2 layers; and,
    for the GraphTransformer, the production width C=1024 with 16 heads on a
    16-latitude grid and a refinement-3 mesh) in fp32 through the kernels on
@@ -138,7 +140,20 @@ Builds the port's CUDA kernels from ``anemoi_models_tpu_torch/csrc``, then:
     CPU, and three bf16 requests and train steps of each;
 18. the command line in-process (``phase_cli``): ``train``, ``predict`` and
     ``evaluate`` of the port's CLI on a 16-latitude grid, exit codes 0,
-    finite outputs.
+    finite outputs;
+19. model parallelism (``phase_parallel``): each flavor's O96 flagship
+    (bf16, C = 256, 8 layers in 2 chunks, batch 1) sharded over two gloo
+    ranks that share this card (nccl refuses two ranks on one device;
+    data = 1, model = 2), spawned after the parent has built the kernels:
+    the sharded forward, one train step's loss, reduced gradients and
+    updated parameters (AdamW at a constant lr 1e-4) against the unsharded
+    run on the same card (bf16 normwise 2e-2), the step again from the same
+    state bit for bit, the GraphTransformer's 2-lead-time rollout train
+    step's loss, and each rank's launches: the halo processors and the
+    destination-sharded mappers run ``kv_proj``, ``edge_attn_csr`` and
+    ``edge_attn_csr_bwd`` (GT) and ``gnn_conv`` (GNN); call ms of two
+    ranks sharing one card beside the unsharded run's, not a speed across
+    cards. A failing rank fails the run.
 
 Prints the card's name and power limit, each kernel's registers and spills
 from the compiler's report (``ptxas``), per-phase numbers, each wrapper's
@@ -155,16 +170,20 @@ non-zero, with no result line, on any failure or when there is no card.
 from __future__ import annotations
 
 import argparse
+import datetime
 import json
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
 from anemoi_models_tpu_torch import configs
 from anemoi_models_tpu_torch.checkpoint import load_checkpoint
@@ -176,7 +195,9 @@ from anemoi_models_tpu_torch.ops import flash_attention as fa
 from anemoi_models_tpu_torch.ops import gnn_conv as gc
 from anemoi_models_tpu_torch.ops import kernels
 from anemoi_models_tpu_torch.ops.kernels import build_log, load_kernels
+from anemoi_models_tpu_torch.parallel import make_mesh, use_mesh
 from anemoi_models_tpu_torch.training import (
+    AdamW,
     WeightedMSELoss,
     loss_mask,
     make_optimizer,
@@ -243,6 +264,9 @@ FLAT_ATTN = (("processor D=96", ("hidden", "hidden"), 384, 4), ("processor D=48"
 # the flat graph's three sets at the production width (C = 1024, 16 heads: four head groups a row)
 WIDE_ATTN = tuple((label, names, 1024, 16) for label, names in (
     ("processor", ("hidden", "hidden")), ("encoder", ("data", "hidden")), ("decoder", ("hidden", "data"))))
+# more than 15 edge attributes (A2 with the ones column; the static edge_length and edge_dirs are 3): the
+# flagship's processor set at A2 = 8, 17, 24 and 32
+A2_ATTN = tuple(("processor", ("hidden", "hidden"), 256, 4, a2 - 4) for a2 in (8, 17, 24, 32))
 ROLLOUT_STEPS = 4  # lead times of the rollout phase
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 BWD_TOL = 1e-4
@@ -445,10 +469,12 @@ def train_batch(iface: AnemoiModelInterface, num_grid: int, seed: int) -> tuple[
     return torch.from_numpy(x), torch.from_numpy(y)
 
 
-def edge_case(graph, label: str, dev, gen, c: int = 256, keep=None, h: int = 4, names=None) -> dict:
+def edge_case(graph, label: str, dev, gen, c: int = 256, keep=None, h: int = 4, names=None,
+              trainable: int = TRAINABLE_EDGES) -> dict:
     """One real edge set of the main path on the card, with seeded inputs:
     the flat graph's processor, encoder or decoder set, or the set between
-    the node sets ``names`` (source, destination)."""
+    the node sets ``names`` (source, destination), with ``trainable``
+    trainable edge features beside the static ones."""
     s_name, d_name = names or {"processor": ("hidden", "hidden"), "encoder": ("data", "hidden"),
                                "decoder": ("hidden", "data")}[label]
     es = graph[(s_name, "to", d_name)]
@@ -459,7 +485,7 @@ def edge_case(graph, label: str, dev, gen, c: int = 256, keep=None, h: int = 4, 
     static = torch.from_numpy(es.attr_tensor(EDGE_ATTRS))
     if keep is not None:
         static = static[torch.from_numpy(keep)]
-    a = torch.cat([static, torch.randn(num_edges, TRAINABLE_EDGES, generator=gen) * 0.1,
+    a = torch.cat([static, torch.randn(num_edges, trainable, generator=gen) * 0.1,
                    torch.ones(num_edges, 1)], dim=-1)
     return {
         "ns": ns, "nd": nd, "num_edges": num_edges, "a": a,
@@ -1181,18 +1207,20 @@ def phase_determinism(graph, dev, flavor: str) -> dict:
 
 def phase_attn_widths(graph, dev, cases) -> list:
     """edge_attn_csr and edge_attn_csr_bwd on ``graph``'s edge sets at the
-    widths of ``cases`` ((label, (source, destination), C, heads): WIDE_ATTN,
-    HIER_ATTN, FLAT_ATTN), fp32 and bf16, batch 1, against their plain
+    widths of ``cases`` ((label, (source, destination), C, heads) and, where
+    given, the count of trainable edge features: WIDE_ATTN, HIER_ATTN,
+    FLAT_ATTN, A2_ATTN), fp32 and bf16, batch 1, against their plain
     versions at the flagship's bounds (forward elementwise, backward
     normwise), two calls of each bit-identical; each timed beside its bound
     and its plain version, with the backward's count of dw_aug partials."""
     gen = torch.Generator().manual_seed(8)
     rows = []
-    for label, names, c, h in cases:
-        case = edge_case(graph, label, dev, gen, c, h=h, names=names)
+    for label, names, c, h, *trainable in cases:
+        case = edge_case(graph, label, dev, gen, c, h=h, names=names, trainable=(trainable or [TRAINABLE_EDGES])[0])
         rp, sr, csr_t = case["rowptr"], case["src"], case["csr_t"]
         g_num, g_den = case["g_num"].to(dev), case["g_den"].to(dev)
-        shape = f"{label} C={c} H={h} D={c // h} E={case['num_edges']} Nd={case['nd']} Ns={case['ns']}"
+        shape = (f"{label} C={c} H={h} D={c // h} A2={case['a'].shape[1]} E={case['num_edges']} Nd={case['nd']} "
+                 f"Ns={case['ns']}")
         for dt in (torch.float32, torch.bfloat16):
             q, kv, a, wa = (case[k].to(dev, dt) for k in ("q", "kv", "a", "w_aug"))
             fwd = (q, kv, rp, sr, a, wa, h)
@@ -1742,6 +1770,204 @@ def phase_cli(dev) -> dict:
             "eval_rmse_mean": float(np.mean(scores["rmse"])), "launches": counts}
 
 
+O96_GRAPH = dict(grid_lat=96, mesh_refinements=5, grid="octahedral")
+PARALLEL_WORLD = 2  # ranks of phase_parallel, data = 1, model = 2, sharing cuda:0
+PARALLEL_LR = 1e-4  # a constant learning rate, so the one step's update is not zero
+PARALLEL_STEPS = 2  # rollout lead times of the GraphTransformer's sharded rollout train step
+PARALLEL_EXPECTED = {  # launches of each rank's sharded forward and train step (remat "full")
+    "graphtransformer": EXPECTED["graphtransformer"],
+    "gnn": EXPECTED["gnn"],
+    # under the mesh the processor's windowed attention is the halo path, plain in both packages
+    "transformer": ({"kv_proj": 2, "edge_attn_csr": 2}, {"kv_proj": 2, "edge_attn_csr": 2, "edge_attn_csr_bwd": 2}),
+}
+
+
+def _parallel_setup(graph, dev, flavor: str):
+    """The flagship of one flavor (bf16, C = 256, 8 layers in 2 chunks,
+    remat "full") from its seed, its seeded batch and rollout inputs on the
+    CPU, and an AdamW at PARALLEL_LR."""
+    cfg = model_config(num_channels=256, num_layers=8, num_chunks=2, dtype="bfloat16", remat_policy="full",
+                       flavor=flavor)
+    iface = interface(graph, cfg, dev, seed=4)
+    x, y = train_batch(iface, graph["data"].num_nodes, seed=20)
+    rng = np.random.RandomState(22)
+    di = iface.data_indices
+    shape = (PARALLEL_STEPS, 1, 1, graph["data"].num_nodes)
+    truth = torch.from_numpy(rng.randn(*shape, len(di.internal_model.input)).astype(np.float32))
+    targets = torch.from_numpy(0.1 * rng.randn(*shape, len(di.internal_model.output)).astype(np.float32))
+
+    def optimizer():
+        return AdamW(iface.model.parameters(), lambda count: PARALLEL_LR, clip_norm=32.0)
+
+    return iface, (x, y, truth, targets), optimizer
+
+
+def _event_ms(fn) -> float:
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def _parallel_reference(graph, dev, flavor: str) -> dict:
+    """The unsharded run on the card that the ranks are held to: the
+    forward, one train step's loss, gradients and parameters, the rollout
+    train step's loss (GraphTransformer), and the call ms."""
+    iface, (x, y, truth, targets), optimizer = _parallel_setup(graph, dev, flavor)
+    model = iface.model
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    x, y = x.to(dev), y.to(dev)
+    with torch.no_grad():
+        out = model(x)
+        forward_ms = [_event_ms(lambda: model(x)) for _ in range(3)]
+    step = make_train_step(model, optimizer())
+    loss = float(step(x, y))
+    ref = {"forward": out.float().cpu(), "loss": loss, "forward_ms": forward_ms,
+           "grads": {k: p.grad.float().cpu() for k, p in model.named_parameters()},
+           "params": {k: p.detach().float().cpu() for k, p in model.named_parameters()}}
+    ref["step_ms"] = [_event_ms(lambda: step(x, y)) for _ in range(2)]
+    if flavor == "graphtransformer":
+        model.load_state_dict(state)
+        rstep = make_rollout_train_step(model, iface.data_indices, optimizer(), n_steps=PARALLEL_STEPS)
+        ref["rollout_loss"] = float(rstep(x, truth.to(dev), targets.to(dev)))
+    return ref
+
+
+def _parallel_flavor(graph, dev, mesh, flavor: str, ref: dict) -> dict:
+    """One rank's sharded forward, train step (twice from the same state:
+    bit for bit) and, for the GraphTransformer, rollout train step, held to
+    the unsharded ``ref``; launches by path; call ms."""
+    iface, (x, y, truth, targets), optimizer = _parallel_setup(graph, dev, flavor)
+    model = iface.model
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    lo, hi = mesh.rows(graph["data"].num_nodes)
+    x, y = x[..., lo:hi, :].to(dev), y[..., lo:hi, :].to(dev)
+    truth, targets = truth[..., lo:hi, :].to(dev), targets[..., lo:hi, :].to(dev)
+    out = {"rows": [lo, hi]}
+    with use_mesh(mesh):
+        with torch.no_grad():
+            model(x)  # the first call plans the rank's parts of the edge sets
+            reset_launches()
+            fwd = model(x)
+            out["forward_launches"] = launches()
+            out["forward_ms"] = [_event_ms(lambda: model(x)) for _ in range(3)]
+        if tuple(fwd.shape) != tuple(ref["forward"][..., lo:hi, :].shape) or not bool(torch.isfinite(fwd).all()):
+            raise AssertionError(f"parallel {flavor}: sharded forward of shape {tuple(fwd.shape)} or not finite")
+        out["forward_err"] = normwise_err(fwd, ref["forward"][..., lo:hi, :].to(dev), f"parallel {flavor} forward",
+                                          TOL[torch.bfloat16])
+        steps = []
+        for _ in range(2):  # the same step from the same state: bit for bit
+            model.load_state_dict(state)
+            step = make_train_step(model, optimizer())
+            reset_launches()
+            loss = step(x, y)
+            counts = launches()
+            steps.append({"loss": loss, "counts": counts,
+                          "grads": {k: p.grad.clone() for k, p in model.named_parameters()},
+                          "params": {k: p.detach().clone() for k, p in model.named_parameters()}})
+        first, again = steps
+        differ = [f"{kind} {k}" for kind in ("grads", "params") for k in first[kind]
+                  if not torch.equal(first[kind][k], again[kind][k])]
+        if not torch.equal(first["loss"], again["loss"]) or differ:
+            raise AssertionError(f"parallel {flavor}: two sharded steps from one state differ: losses "
+                                 f"{float(first['loss'])}, {float(again['loss'])}; {len(differ)} leaves, {differ[:4]}")
+        out["step_launches"] = first["counts"]
+        out["loss"] = float(first["loss"])
+        out["loss_err"] = normwise_err(first["loss"], torch.tensor(ref["loss"], device=dev),
+                                       f"parallel {flavor} loss", TOL[torch.bfloat16])
+        out["grad_err"] = max(normwise_err(g, ref["grads"][k].to(dev), f"parallel {flavor} grad {k}",
+                                           TOL[torch.bfloat16]) for k, g in first["grads"].items())
+        out["param_err"] = max(normwise_err(p, ref["params"][k].to(dev), f"parallel {flavor} param {k}",
+                                            TOL[torch.bfloat16]) for k, p in first["params"].items())
+        out["step_ms"] = [_event_ms(lambda: step(x, y)) for _ in range(2)]
+        if flavor == "graphtransformer":
+            model.load_state_dict(state)
+            rstep = make_rollout_train_step(model, iface.data_indices, optimizer(), n_steps=PARALLEL_STEPS)
+            reset_launches()
+            rloss = rstep(x, truth, targets)
+            out["rollout_launches"] = launches()
+            out["rollout_loss"] = float(rloss)
+            out["rollout_loss_err"] = normwise_err(rloss, torch.tensor(ref["rollout_loss"], device=dev),
+                                                   "parallel rollout loss", TOL[torch.bfloat16])
+    fwd_want, step_want = PARALLEL_EXPECTED[flavor]
+    for what, counts, want in (("forward", out["forward_launches"], fwd_want),
+                               ("train step", out["step_launches"], step_want)):
+        if counts != expect(counts, want):
+            raise AssertionError(f"parallel {flavor} {what}: expected {expect(counts, want)} launches, got {counts}")
+    return out
+
+
+def parallel_rank(rank: int, world: int, port: int, graph_kwargs: dict, dev: torch.device, ref_path: str,
+                  out_dir: str) -> None:
+    """A rank of phase_parallel: a gloo process group on localhost, a
+    (1, world) mesh on ``dev`` (the parent's card), the graph of
+    ``graph_kwargs``, each flavor's sharded run against the unsharded
+    references in ``ref_path``; its numbers saved to ``out_dir``."""
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        load_kernels()  # built by the parent: loaded, not compiled
+        mesh = make_mesh(1, world, backend="gloo", device=dev)
+        graph = build_enc_proc_dec_graph(**graph_kwargs)
+        refs = torch.load(ref_path, weights_only=False)
+        out = {flavor: _parallel_flavor(graph, dev, mesh, flavor, refs[flavor]) for flavor in refs}
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_parallel(graph_kwargs: dict, dev) -> dict:
+    """The sharded flagship of each flavor in PARALLEL_WORLD gloo ranks that
+    share cuda:0 (nccl refuses two ranks on one device), data = 1 and model
+    = 2, against the unsharded run on the same card: the forward, one train
+    step's loss, gradients and parameters (bf16 normwise 2e-2), the step
+    again bit for bit, and the GraphTransformer's 2-step rollout train
+    step's loss. Every rank's launches are checked; a failing rank fails the
+    phase (``mp.spawn`` raises). The ms are two ranks sharing one card, not
+    a speed across cards."""
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "parallel")
+    os.makedirs(out_dir, exist_ok=True)
+    graph = build_enc_proc_dec_graph(**graph_kwargs)  # and each rank builds its own: 1 s at O96
+    refs = {flavor: _parallel_reference(graph, dev, flavor) for flavor in PARALLEL_EXPECTED}
+    ref_path = os.path.join(out_dir, "unsharded.pt")
+    torch.save(refs, ref_path)
+    torch.cuda.empty_cache()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    mp.spawn(parallel_rank, args=(PARALLEL_WORLD, port, graph_kwargs, dev, ref_path, out_dir),
+             nprocs=PARALLEL_WORLD, join=True)
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False) for r in range(PARALLEL_WORLD)]
+    out = {"ranks_s": time.perf_counter() - t0}
+    for flavor, ref in refs.items():
+        per_rank = [r[flavor] for r in ranks]
+        rows = [r["rows"] for r in per_rank]
+        if rows[0][0] != 0 or rows[-1][1] != graph["data"].num_nodes or any(
+                a[1] != b[0] for a, b in zip(rows, rows[1:])):
+            raise AssertionError(f"parallel {flavor}: the ranks' grid rows {rows} do not tile the grid")
+        if len({r["loss"] for r in per_rank}) != 1:
+            raise AssertionError(f"parallel {flavor}: the ranks report different losses")
+        out[flavor] = {
+            "unsharded_forward_ms": ref["forward_ms"], "unsharded_step_ms": ref["step_ms"],
+            "sharded_forward_ms": [r["forward_ms"] for r in per_rank],
+            "sharded_step_ms": [r["step_ms"] for r in per_rank],
+            "launches": {k: sum(r["step_launches"][k] for r in per_rank) for k in per_rank[0]["step_launches"]},
+            **{k: max(r[k] for r in per_rank) for k in ("forward_err", "loss_err", "grad_err", "param_err")},
+            "per_rank_forward_launches": per_rank[0]["forward_launches"],
+            "per_rank_step_launches": per_rank[0]["step_launches"],
+        }
+        if flavor == "graphtransformer":
+            out[flavor]["rollout_loss_err"] = max(r["rollout_loss_err"] for r in per_rank)
+            out[flavor]["rollout_launches"] = per_rank[0]["rollout_launches"]
+    return out
+
+
 def phase_profile(run, out_dir: str, label: str) -> dict:
     """One call of ``run`` under torch.profiler: device time by kernel, and
     the device's busy share (union of kernel intervals over the span)."""
@@ -1816,7 +2042,7 @@ def main() -> None:
         print("build-times", json.dumps(build_times(args.build_times)))
 
     t0 = time.perf_counter()
-    graph = build_enc_proc_dec_graph(grid_lat=96, mesh_refinements=5, grid="octahedral")
+    graph = build_enc_proc_dec_graph(**O96_GRAPH)
     print(f"graph O96 r5: {graph['data'].num_nodes} grid, {graph['hidden'].num_nodes} hidden, "
           f"built in {time.perf_counter() - t0:.1f} s")
 
@@ -1832,6 +2058,8 @@ def main() -> None:
             print(f"card: {name_power} gnn-layered-split", json.dumps({k: row[k] for k in ("shape", "ms", "split")}))
     for row in phase_attn_widths(graph, dev, WIDE_ATTN):
         print("attn-width-vs-plain", json.dumps(row))
+    for row in phase_attn_widths(graph, dev, A2_ATTN):
+        print(f"card: {name_power} attn-a2-vs-plain", json.dumps(row))
     reduced_graph = build_enc_proc_dec_graph(grid_lat=48, mesh_refinements=4, grid="octahedral")
     for flavor in FLAVOR_KERNEL:
         print(f"reduced-model {flavor}", json.dumps(phase_reduced_model(reduced_graph, dev, flavor)))
@@ -1931,6 +2159,12 @@ def main() -> None:
     # the command line in-process: train, predict, evaluate
     train["cli"] = phase_cli(dev)
     print(f"card: {name_power} cli", json.dumps(train["cli"]))
+    # model parallelism: each flavor's flagship sharded over two gloo ranks on this card against unsharded
+    parallel = phase_parallel(O96_GRAPH, dev)
+    for flavor in PARALLEL_EXPECTED:
+        train[f"parallel {flavor}"] = {"launches": parallel[flavor]["launches"]}
+    print(f"card: {name_power} parallel (2 gloo ranks sharing one card, not a speed across cards)",
+          json.dumps(parallel))
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "anemoi_models_tpu"))
     if leaked:
         raise AssertionError(f"the port imported {leaked}")

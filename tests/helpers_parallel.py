@@ -1,0 +1,261 @@
+"""Rank targets of the parallel port's tests, run in spawned processes.
+
+``spawn(fn, world, *args)`` starts ``world`` processes in ``spawn`` mode
+(a forked pytest worker would carry JAX's threads), joins them into one
+gloo process group on ``localhost`` and saves what ``fn(rank, world,
+*args)`` returns to ``out_dir``; the parent reads every rank's result back.
+A failing rank fails the spawn. This module imports torch and the port
+only: a spawned child imports it by name to find its target.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import socket
+import sys
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from anemoi_models_tpu_torch.data_indices import IndexCollection
+from anemoi_models_tpu_torch.graphs import build_enc_proc_dec_graph
+from anemoi_models_tpu_torch.models import AnemoiModelEncProcDec
+from anemoi_models_tpu_torch.parallel import (
+    gather_tensor,
+    halo_graph_conv,
+    halo_graph_transformer_conv,
+    make_mesh,
+    reduce_shard_tensor,
+    reduce_tensor,
+    row_range,
+    shard_edge_values,
+    shard_tensor,
+    sync_tensor,
+    use_mesh,
+)
+from anemoi_models_tpu_torch.training import AdamW, WeightedMSELoss, make_rollout_train_step, make_train_step
+
+PRIMITIVES = ("shard_tensor", "gather_tensor", "sync_tensor", "reduce_shard_tensor", "reduce_tensor")
+PRIM_ROWS, PRIM_COLS = 7, 3  # 7 rows: uneven over 2 and 4 ranks
+# attention under a model-sharded mesh that the halo path does not take
+NON_HALO_ATTENTION = {
+    "causal": dict(window_size=4, is_causal=True, attention_impl="chunked"),
+    "flash": dict(window_size=4, attention_impl="flash"),
+    "no_window": dict(window_size=None),
+}
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _entry(rank: int, world: int, port: int, out_dir: str, fn, args) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        result = fn(rank, world, *args)
+        torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(fn, world: int, out_dir: str, *args) -> list:
+    """Every rank's result of ``fn(rank, world, *args)``, in rank order."""
+    os.makedirs(out_dir, exist_ok=True)
+    mp.spawn(_entry, args=(world, _free_port(), out_dir, fn, args), nprocs=world, join=True)
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False) for r in range(world)]
+
+
+def tasks(rank: int, world: int, named: dict) -> dict:
+    """Several tasks in one spawn: ``named`` maps a name to ``(fn, args)``;
+    ``"leaked"``, what of jax, flax or the JAX package the rank imported."""
+    out = {name: fn(rank, world, *args) for name, (fn, args) in named.items()}
+    out["leaked"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "anemoi_models_tpu"))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# primitives
+# ---------------------------------------------------------------------------
+
+
+def primitive_inputs(world: int, rank: int) -> dict[str, tuple[np.ndarray, np.ndarray]]:
+    """(input, cotangent) of each primitive on ``rank``: whole arrays where
+    the primitive takes replicated or partial inputs, the rank's rows where
+    it takes rows."""
+    lo, hi = row_range(PRIM_ROWS, world, rank)
+    full = np.random.RandomState(0).randn(PRIM_ROWS, PRIM_COLS)  # replicated
+    mine = np.random.RandomState(10 + rank).randn(PRIM_ROWS, PRIM_COLS)  # differs by rank
+    return {
+        "shard_tensor": (full, mine[lo:hi]),
+        "gather_tensor": (full[lo:hi], full[::-1].copy()),  # a replicated consumer: one cotangent
+        "sync_tensor": (full[lo:hi], mine),
+        "reduce_shard_tensor": (mine, mine[lo:hi] * 2.0),
+        "reduce_tensor": (mine, mine * 3.0),
+    }
+
+
+def primitives_task(rank: int, world: int) -> dict:
+    mesh = make_mesh(1, world, backend="gloo", device="cpu")
+    fns = {"shard_tensor": shard_tensor, "gather_tensor": gather_tensor, "sync_tensor": sync_tensor,
+           "reduce_shard_tensor": reduce_shard_tensor, "reduce_tensor": reduce_tensor}
+    out = {}
+    with use_mesh(mesh):
+        for name, (x, g) in primitive_inputs(world, rank).items():
+            x = torch.tensor(x, dtype=torch.float32, requires_grad=True)
+            y = fns[name](x, 0) if name != "reduce_tensor" else fns[name](x)
+            y.backward(torch.tensor(g, dtype=torch.float32))
+            out[name] = (y.detach().numpy(), x.grad.numpy())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the halo layers
+# ---------------------------------------------------------------------------
+
+
+def layers_task(rank: int, world: int, spec: dict) -> dict:
+    """The halo GNN conv, the halo GraphTransformer conv and the halo window
+    attention on this rank's rows of ``spec``'s whole inputs, forward and
+    backward against the given cotangents."""
+    from anemoi_models_tpu_torch.graphs.partition import halo_shard, partition_1hop
+    from anemoi_models_tpu_torch.layers.attention import MultiHeadSelfAttention
+    from anemoi_models_tpu_torch.ops.ring_attention import halo_window_attention
+
+    mesh = make_mesh(1, world, backend="gloo", device="cpu")
+    graph = build_enc_proc_dec_graph(**spec["graph"])
+    es = graph[("hidden", "to", "hidden")]
+    n = graph["hidden"].num_nodes
+    shard = halo_shard(partition_1hop(es.edge_index, n, world), rank, "cpu")
+    lo, hi = mesh.rows(n)
+
+    def t(a, grad=True):
+        return torch.tensor(a, dtype=torch.float32, requires_grad=grad)
+
+    out = {}
+    with use_mesh(mesh):
+        # GNN conv
+        g = spec["gnn"]
+        x = t(g["x"][:, lo:hi])
+        e = t(shard_edge_values(torch.tensor(g["e"]), shard).numpy())
+        params = [t(p) for p in g["params"]]
+        agg, msg = halo_graph_conv(mesh, shard, params, x, e, g["activation"])
+        ((agg * t(g["g_agg"][:, lo:hi], False)).sum()
+         + (msg * t(shard_edge_values(torch.tensor(g["g_msg"]), shard).numpy(), False)).sum()).backward()
+        out["gnn"] = dict(agg=agg.detach().numpy(), msg=msg.detach().numpy(), dx=x.grad.numpy(), de=e.grad.numpy(),
+                          dparams=[p.grad.numpy() for p in params], edge_range=(shard.edge_lo, shard.edge_hi))
+        # GraphTransformer conv
+        a = spec["gt"]
+        q, f = t(a["q"][:, lo:hi]), t(a["feats"][:, lo:hi])
+        ea = t(a["edge_attr"][shard.edge_lo:shard.edge_hi])
+        w = {k: t(a[k]) for k in ("w_kv", "b_kv", "w_edge", "b_edge")}
+        o = halo_graph_transformer_conv(mesh, shard, q, f, w["w_kv"], w["b_kv"], ea, w["w_edge"], w["b_edge"])
+        (o * t(a["g_out"][:, lo:hi], False)).sum().backward()
+        out["gt"] = dict(out=o.detach().numpy(), dq=q.grad.numpy(), dfeats=f.grad.numpy(), dedge=ea.grad.numpy(),
+                         **{f"d{k}": v.grad.numpy() for k, v in w.items()})
+        # window attention at p = 0, and the keep rate at p = 0.5
+        wa = spec["window"]
+        q, k, v = (t(wa[name][:, :, lo:hi]) for name in ("q", "k", "v"))
+        o = halo_window_attention(q, k, v, window_size=wa["window"], seq_len=n, mesh=mesh)
+        (o * t(wa["g_out"][:, :, lo:hi], False)).sum().backward()
+        ones = torch.ones_like(v)
+        dropped = halo_window_attention(q.detach(), k.detach(), ones, window_size=wa["window"], seq_len=n,
+                                        mesh=mesh, dropout_rate=0.5, dropout_key=7)
+        out["window"] = dict(out=o.detach().numpy(), dq=q.grad.numpy(), dk=k.grad.numpy(), dv=v.grad.numpy(),
+                             dropped=dropped.numpy())
+        # any other attention under the mesh raises, naming the ROADMAP item
+        for case, kw in NON_HALO_ATTENTION.items():
+            layer = MultiHeadSelfAttention(2, 8, seq_len=n, **kw)
+            try:
+                layer(torch.zeros(1, hi - lo, 8))
+                out[f"non_halo_{case}"] = "ran"
+            except NotImplementedError as err:
+                out[f"non_halo_{case}"] = str(err)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the model: forward, train step, rollout
+# ---------------------------------------------------------------------------
+
+
+def _rank_batch(a: np.ndarray, mesh, batch_axis: int, grid_axis: int) -> torch.Tensor:
+    """This rank's slice of the data axis and rows of the model axis."""
+    b = a.shape[batch_axis] // mesh.shape["data"]
+    d = mesh.coords["data"]
+    lo, hi = mesh.rows(a.shape[grid_axis])
+    idx = [slice(None)] * a.ndim
+    idx[batch_axis] = slice(d * b, (d + 1) * b)
+    idx[grid_axis] = slice(lo, hi)
+    return torch.from_numpy(np.ascontiguousarray(a[tuple(idx)]))
+
+
+def model_task(rank: int, world: int, spec: dict) -> dict:
+    """Per flavor: the sharded forward of a model loaded from the unsharded
+    model's checkpoint, one sharded train step (its loss, the reduced
+    gradients and the updated parameters) and a 2-step sharded rollout
+    train step's loss; with ``spec["negative"]``, the GraphTransformer's
+    step again without the reduction of the gradients."""
+    from anemoi_models_tpu_torch.checkpoint import load_checkpoint
+
+    data, model_ax = spec["mesh"]
+    mesh = make_mesh(data, model_ax, backend="gloo", device="cpu")
+    graph = build_enc_proc_dec_graph(**spec["graph"])
+    s = spec["inputs"]
+    x, y = _rank_batch(s["x"], mesh, 0, 3), _rank_batch(s["y"], mesh, 0, 2)
+    truth, targets = _rank_batch(s["truth"], mesh, 1, 3), _rank_batch(s["targets"], mesh, 1, 3)
+    node_weights = torch.from_numpy(s["node_weights"])  # whole grid: the loss takes the rank's rows
+    out = {}
+    for flavor, fs in spec["flavors"].items():
+        di = IndexCollection(fs["cfg"], spec["name_to_index"])
+
+        def build():
+            net = AnemoiModelEncProcDec(model_config=fs["cfg"], data_indices=di, graph_data=graph, device="cpu")
+            net.load_state_dict(load_checkpoint(fs["checkpoint"])["params"], strict=True)
+            return net
+
+        res = {}
+        with use_mesh(mesh):
+            net = build()
+            with torch.no_grad():
+                res["forward"] = net(x).numpy()
+            opt = AdamW(net.parameters(), lambda count: spec["lr"], clip_norm=32.0)
+            res["loss"] = float(make_train_step(net, opt, WeightedMSELoss(node_weights))(x, y))
+            res["grads"] = {k: p.grad.numpy().copy() for k, p in net.named_parameters()}
+            res["params"] = {k: p.detach().numpy().copy() for k, p in net.named_parameters()}
+            net = build()
+            opt = AdamW(net.parameters(), lambda count: spec["lr"], clip_norm=32.0)
+            res["rollout_loss"] = float(make_rollout_train_step(net, di, opt, n_steps=2)(x, truth, targets))
+            if spec.get("negative") and flavor == "graphtransformer":
+                # the step with the reduction of the replicated parameters' gradients left out
+                net = build()
+                opt = AdamW(net.parameters(), lambda count: spec["lr"], clip_norm=32.0)
+                WeightedMSELoss(node_weights)(net(x), y).backward()
+                res["negative_grads"] = {k: p.grad.numpy().copy() for k, p in net.named_parameters()}
+                opt.step()
+                res["negative_params"] = {k: p.detach().numpy().copy() for k, p in net.named_parameters()}
+        out[flavor] = res
+    if "halo_gnn" in spec:
+        out["halo_gnn"] = _halo_gnn(mesh, spec["halo_gnn"], graph)
+    return out
+
+
+def _halo_gnn(mesh, spec: dict, graph) -> np.ndarray:
+    """A HaloGNNProcessor loaded from a JAX tree, its sharded forward."""
+    from anemoi_models_tpu_torch.layers.processor import HaloGNNProcessor
+    from anemoi_models_tpu_torch.weights import load_flax_params
+
+    n = graph["hidden"].num_nodes
+    proc = HaloGNNProcessor(spec["num_layers"], num_channels=spec["channels"], trainable_size=2,
+                            sub_graph=graph[("hidden", "to", "hidden")], src_grid_size=n, dst_grid_size=n,
+                            device="cpu")
+    proc.load_state_dict(load_flax_params(spec["tree"]), strict=True)
+    lo, hi = mesh.rows(n)
+    with use_mesh(mesh), torch.no_grad():
+        return proc(torch.from_numpy(spec["x"][:, lo:hi])).numpy()

@@ -86,10 +86,14 @@ def test_kv_proj_matches_plain(dev, dtype, out_dtype, shape):
 
 
 def test_kv_proj_rejects_misaligned_rows(dev):
+    """A bf16 row that is not whole 16-byte vectors (K = 36: 72-byte rows)
+    is padded with zero columns by the wrapper and runs; an operand that
+    starts off a 16-byte boundary is refused."""
     f = torch.randn(64, 36, device=dev).bfloat16()  # 72-byte rows
     w = torch.randn(128, 36, device=dev).bfloat16()
-    with pytest.raises(ValueError, match="16-byte"):
-        ea.kv_proj(f, w, torch.zeros(128, device=dev))
+    before = ea.LAUNCHES["kv_proj"]
+    got = ea.kv_proj(f, w, torch.zeros(128, device=dev))
+    assert ea.LAUNCHES["kv_proj"] == before + 1 and got.shape == (64, 128)
     flat = torch.randn(64 * 64 + 1, device=dev).bfloat16()
     with pytest.raises(ValueError, match="16-byte"):
         ea.kv_proj(flat[1:].view(64, 64), torch.randn(128, 64, device=dev).bfloat16(), torch.zeros(128, device=dev))
@@ -447,7 +451,7 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(dev, graph):
     agg, msg = gc.gnn_conv(x, x, e, rowptr, src, odd, "SiLU")
     assert gc.LAUNCHES["gnn_conv_layered"] == before + 1 and agg.shape == (1, n, c) and msg.shape == e.shape
     with pytest.raises(NotImplementedError, match="activation"):
-        gc.gnn_conv(x, x, e, rowptr, src, ops, "mish")
+        gc.gnn_conv(x, x, e, rowptr, src, ops, "hardswish")  # no such name in the reference's registry
     q = torch.randn(1, 2, 100, 64, device=dev)
     with pytest.raises(ValueError, match="fp32 or bf16"):
         fa.flash_attention(q.half(), q.half(), q.half(), 8)
@@ -746,3 +750,169 @@ def test_flavor_model_on_card_matches_cpu(dev, graph, flavor):
     card_grads = dict(card.model.named_parameters())
     for pname, p in cpu.model.named_parameters():
         assert _normwise(card_grads[pname].grad.cpu(), p.grad) <= BWD_TOL, pname
+
+
+# ---------------------------------------------------------------------------
+# repairs: every activation of the registry, kv_proj off 16-byte rows, more than 15 edge attributes
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("route,channels,extra", [("fused", 64, 0), ("layered", 48, 1)])
+@pytest.mark.parametrize("activation", ["LeakyReLU", "ELU", "Softplus", "Mish"])
+def test_gnn_conv_takes_every_activation(dev, graph, dtype, route, channels, extra, activation):
+    """The four activations the kernels took last (LeakyReLU slope 0.01,
+    ELU alpha 1, overflow-safe softplus, mish) on both routes, against the
+    plain version (torch.nn.functional's defaults), batch 2, inputs scaled
+    so that the softplus of 30 and of -30 are reached; two calls
+    bit-identical."""
+    es = graph[("data", "to", "hidden")]
+    ns, nd = graph["data"].num_nodes, graph["hidden"].num_nodes
+    rowptr, src, num_edges = _csr(es, ns, nd, dev)
+    gen = torch.Generator().manual_seed(12)
+    c = channels
+    x_dst = (10 * torch.randn(2, nd, c, generator=gen)).to(dev, dtype)
+    x_src = torch.randn(2, ns, c, generator=gen).to(dev, dtype)
+    e = torch.randn(2, num_edges, c, generator=gen).to(dev, dtype)
+    dense = [(torch.randn(c, k, generator=gen) * k ** -0.5, torch.randn(c, generator=gen) * 0.1)
+             for k in (3 * c,) + (c,) * (2 + extra)]
+    norm = (1 + 0.1 * torch.randn(c, generator=gen), 0.1 * torch.randn(c, generator=gen))
+    ops = [t.to(dev) for t in gc.mlp_operands(dense, norm, dtype)]
+    assert gc._gnn_route(c, 3 + extra) == route
+    name = "gnn_conv" if route == "fused" else "gnn_conv_layered"
+    before = gc.LAUNCHES[name]
+    got = gc.gnn_conv(x_dst, x_src, e, rowptr, src, ops, activation)
+    again = gc.gnn_conv(x_dst, x_src, e, rowptr, src, ops, activation)
+    assert gc.LAUNCHES[name] == before + 2
+    want = gc.gnn_conv_plain(x_dst, x_src, e, rowptr, src, ops, activation)
+    torch.cuda.synchronize()
+    for label, g, g2, w in zip(("agg", "msg"), got, again, want):
+        assert torch.equal(g, g2), f"{label} differs between two calls"
+        assert bool(torch.isfinite(g).all()), label
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, atol=TOL[dtype], rtol=TOL[dtype], msg=label)
+        else:
+            assert _normwise(g, w) <= TOL[dtype], f"{label}: normwise error {_normwise(g, w):.3e}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [36, 100])
+def test_kv_proj_off_16_byte_rows_matches_plain(dev, dtype, k):
+    """kv_proj at K = 36 and 100 (the GraphTransformer's source width at C =
+    36 and 100; N = 2C), and at an odd N, against its plain version."""
+    gen = torch.Generator().manual_seed(13)
+    for n in (2 * k, 2 * k + 3):
+        f = torch.randn(1000, k, generator=gen).to(dev, dtype)
+        w = (torch.randn(n, k, generator=gen) * k ** -0.5).to(dev, dtype)
+        b = torch.randn(n, generator=gen).to(dev)
+        got, again = ea.kv_proj(f, w, b), ea.kv_proj(f, w, b)
+        want = ea.kv_proj_plain(f, w, b)
+        torch.cuda.synchronize()
+        assert got.shape == (1000, n) and got.is_contiguous() and torch.equal(got, again)
+        torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def _gt_interface(graph, channels, compute_dtype, device):
+    from anemoi_models_tpu_torch.data_indices import IndexCollection
+    from anemoi_models_tpu_torch.interface import AnemoiModelInterface
+    from anemoi_models_tpu_torch.utils import DotDict
+
+    mapper = {"trainable_size": 4, "num_heads": 4, "sub_graph_edge_attributes": ["edge_length", "edge_dirs"]}
+    cfg = DotDict({
+        "data": {"forcing": ["lsm"], "diagnostic": ["tp"], "processors": {}},
+        "graph": {"data": "data", "hidden": "hidden"},
+        "training": {"multistep_input": 2},
+        "model": {
+            "num_channels": channels, "compute_dtype": compute_dtype, "trainable_parameters": {"hidden": 8},
+            "model": {"_target_": "anemoi.models.models.encoder_processor_decoder.AnemoiModelEncProcDec"},
+            "encoder": {"_target_": "anemoi.models.layers.mapper.GraphTransformerForwardMapper", **mapper},
+            "processor": {"_target_": "anemoi.models.layers.processor.GraphTransformerProcessor",
+                          "num_layers": 2, "num_chunks": 2, **mapper},
+            "decoder": {"_target_": "anemoi.models.layers.mapper.GraphTransformerBackwardMapper", **mapper},
+        },
+    })
+    di = IndexCollection(cfg, {"lsm": 0, "z_500": 1, "t_850": 2, "t2m": 3, "tp": 4})
+    iface = AnemoiModelInterface(config=cfg, graph_data=graph, statistics={}, data_indices=di, device="cpu")
+    gen = torch.Generator().manual_seed(14)
+    iface.init_params(gen)
+    with torch.no_grad():
+        for p in iface.model.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=gen))
+    return iface.to(device)
+
+
+@pytest.mark.parametrize("channels", [36, 100])
+def test_bf16_graph_transformer_off_16_byte_rows_matches_cpu(dev, graph, channels):
+    """A bf16 GraphTransformer at C = 36 and 100 (4 heads of 9 and 25
+    channels, padded in the kernels) on the card, forward and every
+    parameter's gradient after one backward, against the CPU's fp32 run of
+    the same weights, normwise 2e-2; kv_proj and both attention kernels
+    launched. The same model in fp32 on the card holds every gradient to
+    the CPU's at the backward's normwise 1e-4."""
+    from anemoi_models_tpu_torch.training import weighted_mse
+
+    cpu = _gt_interface(graph, channels, "float32", "cpu")
+    card = _gt_interface(graph, channels, "bfloat16", dev)
+    gen = torch.Generator().manual_seed(15)
+    x = torch.randn(1, 2, 1, graph["data"].num_nodes, 4, generator=gen)
+    y = torch.randn(1, 1, graph["data"].num_nodes, 4, generator=gen)
+    ref = cpu.forward(x)
+    before = dict(ea.LAUNCHES)
+    out = card.forward(x.to(dev)).float().cpu()
+    assert {k: ea.LAUNCHES[k] - before[k] for k in before} == {"kv_proj": 4, "edge_attn_csr": 4, "edge_attn_csr_bwd": 0}
+    assert _normwise(out, ref) <= TOL[torch.bfloat16]
+    weighted_mse(cpu.model(x), y).backward()
+    before = ea.LAUNCHES["edge_attn_csr_bwd"]
+    weighted_mse(card.model(x.to(dev)), y.to(dev)).backward()
+    torch.cuda.synchronize()
+    assert ea.LAUNCHES["edge_attn_csr_bwd"] == before + 4
+    card_fp32 = _gt_interface(graph, channels, "float32", dev)
+    weighted_mse(card_fp32.model(x.to(dev)), y.to(dev)).backward()
+    torch.cuda.synchronize()
+    assert ea.LAUNCHES["edge_attn_csr_bwd"] == before + 8
+    grads = dict(card.model.named_parameters())
+    grads_fp32 = dict(card_fp32.model.named_parameters())
+    for name, p in cpu.model.named_parameters():
+        assert _normwise(grads[name].grad.float().cpu(), p.grad) <= TOL[torch.bfloat16], name
+        assert _normwise(grads_fp32[name].grad.cpu(), p.grad) <= BWD_TOL, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels,heads", [(256, 4), (192, 6), (1024, 16), (64, 4)])
+@pytest.mark.parametrize("a2", [17, 24, 32])
+def test_edge_attention_takes_more_than_16_attributes(dev, graph, dtype, channels, heads, a2):
+    """Both kernels with 16 to 31 edge attributes (A2 = 17, 24, 32 with the
+    ones column: the attribute loops run 32 long) against the plain
+    versions, batch 2, two calls bit-identical. Where the backward's per-warp
+    dw_aug partials (A2 x C fp32) do not fit a CTA's shared memory (C = 1024
+    in fp32) the wrapper refuses, naming it."""
+    rowptr, src, num_edges, ns, nd, _ = _bwd_edge_set(graph, "data-hidden", dev)
+    csr_t = _csr_t(rowptr, src, ns)
+    gen = torch.Generator().manual_seed(16)
+    batch = 2
+    q = torch.randn(batch * nd, channels, generator=gen).to(dev, dtype)
+    kv = torch.randn(batch * ns, 2 * channels, generator=gen).to(dev, dtype)
+    a = torch.randn(num_edges, a2, generator=gen).to(dev, dtype)
+    w_aug = (torch.randn(a2, channels, generator=gen) * 0.3).to(dev, dtype)
+    g_num = torch.randn(batch * nd, channels, generator=gen).to(dev)
+    g_den = torch.randn(batch * nd, heads, generator=gen).to(dev)
+    got, again = (ea.edge_attn_csr(q, kv, rowptr, src, a, w_aug, heads) for _ in range(2))
+    want = ea.edge_attn_csr_plain(q, kv, rowptr, src, a, w_aug, heads)
+    torch.cuda.synchronize()
+    for g, g2, w in zip(got, again, want):
+        torch.testing.assert_close(g, w, atol=TOL[dtype], rtol=TOL[dtype])
+        assert torch.equal(g, g2), "two forward calls differ"
+    args = (q, kv, rowptr, src, a, w_aug, got.m, g_num, g_den, heads)
+    try:
+        ea._bwd_warps_smem(channels, a2, ea._lane_layout(channels, heads)[2], dtype)
+    except ValueError:
+        with pytest.raises(ValueError, match="shared memory"):
+            ea.edge_attn_csr_bwd(*args, csr_t)
+        assert channels == 1024 and dtype == torch.float32
+        return
+    bgot, bagain = (ea.edge_attn_csr_bwd(*args, csr_t) for _ in range(2))
+    bwant = ea.edge_attn_csr_bwd_plain(*args)
+    torch.cuda.synchronize()
+    for name, g, g2, w in zip(("dq", "dkv", "da", "dw_aug"), bgot, bagain, bwant):
+        assert torch.equal(g, g2), f"{name} differs between two calls"
+        assert _normwise(g, w) <= BWD_TOL, f"{name}: normwise error {_normwise(g, w):.3e}"

@@ -167,9 +167,10 @@ def test_config_targets_resolve_to_port_classes(setup):
 
 
 def test_unported_options_raise():
-    """The halo attention (the parallel port) raises before any device
-    dispatch; attention-weight dropout, now ported, raises the same way when
-    it is asked for without a dropout key, in the op and in a Transformer
+    """The halo attention raises before any device dispatch without a
+    mesh, and for a causal mask, which it has none of; attention-weight
+    dropout, now ported, raises the same way when it is asked for without
+    a dropout key, in the op and in a Transformer
     processor built non-deterministic with dropout_p > 0. (A GraphConv with
     mlp_extra_layers > 0 raises on a CUDA tensor only: the CPU runs the plain
     version at any depth; tests/test_torch_port_cuda.py holds that case.)"""
@@ -183,7 +184,9 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="dropout_key"):
         proc(torch.randn(1, 8, 16))
     with pytest.raises(NotImplementedError, match="halo"):
-        MultiHeadSelfAttention(2, 16, window_size=2, attention_impl="halo")
+        MultiHeadSelfAttention(2, 16, window_size=2, is_causal=True, attention_impl="halo")
+    with pytest.raises(ValueError, match="halo"):
+        MultiHeadSelfAttention(2, 16, window_size=2, attention_impl="halo")(torch.randn(1, 8, 16))
 
 
 def test_port_runs_without_jax():

@@ -1,0 +1,574 @@
+"""PyTorch port, model parallelism on ``torch.distributed`` against the JAX
+package on the CPU.
+
+The ranks are processes spawned with ``torch.multiprocessing`` (spawn mode)
+and joined in a gloo process group (``helpers_parallel``); each module
+fixture spawns once and runs every check of its grid in the ranks, and the
+parametrised tests below assert each case on what the ranks returned. The
+JAX side runs in this process on the 8-device CPU mesh of
+``tests/conftest.py``, with the same numpy-seeded inputs and its flax
+parameters carried into the port by ``weights.load_flax_params``.
+
+Sizes are those of ``__graft_entry__.py:dryrun_multichip``: ``grid_lat=8,
+mesh_refinements=1`` (42 hidden nodes), C = 16, 2 processor layers, a
+window of 8. Tolerances: the JAX gate's for a sharded forward against the
+unsharded one (``__graft_entry__.py:251-253``: atol 5e-4, rtol 1e-3) and
+its rollout loss (rtol 5e-5, ``:308-311``); the port's sharded forward
+against its own unsharded one at 2e-5, gradients and the layers' backward at
+the reference's fp32 gradient tolerance 5e-4 (``tests/layers/test_commuted.py``);
+the primitives at 1e-6. Parameters after one AdamW step at lr 1e-4 are held
+at 5e-4 (an update moves a parameter by about the learning rate, so the
+reduced gradients carry that check).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from helpers_models import VARS, make_config
+from helpers_parallel import (
+    NON_HALO_ATTENTION,
+    PRIM_COLS,
+    PRIM_ROWS,
+    PRIMITIVES,
+    layers_task,
+    model_task,
+    primitive_inputs,
+    primitives_task,
+    spawn,
+    tasks,
+)
+
+from anemoi_models_tpu.data_indices import IndexCollection
+from anemoi_models_tpu.graphs import build_enc_proc_dec_graph
+from anemoi_models_tpu.graphs import partition as jpart
+from anemoi_models_tpu.layers.processor import HaloGNNProcessor as JaxHaloGNNProcessor
+from anemoi_models_tpu.models import AnemoiModelEncProcDec as JaxModel
+from anemoi_models_tpu.ops.ring_attention import halo_window_attention as jax_halo_window_attention
+from anemoi_models_tpu.parallel import make_mesh as jax_make_mesh
+from anemoi_models_tpu.parallel import use_mesh as jax_use_mesh
+from anemoi_models_tpu.parallel.halo_conv import halo_graph_conv as jax_halo_graph_conv
+from anemoi_models_tpu.parallel.halo_conv import halo_graph_transformer_conv as jax_halo_gt_conv
+from anemoi_models_tpu.parallel.halo_conv import shard_edge_values as jax_shard_edge_values
+from anemoi_models_tpu.training import make_rollout_fn as jax_make_rollout_fn
+from anemoi_models_tpu_torch.checkpoint import save_checkpoint
+from anemoi_models_tpu_torch.data_indices import IndexCollection as PortIndexCollection
+from anemoi_models_tpu_torch.graphs import build_enc_proc_dec_graph as port_build_graph
+from anemoi_models_tpu_torch.graphs import partition as ppart
+from anemoi_models_tpu_torch.layers.processor import HaloGNNProcessor
+from anemoi_models_tpu_torch.models import AnemoiModelEncProcDec
+from anemoi_models_tpu_torch.ops.edge_attention import csr_from_edge_index
+from anemoi_models_tpu_torch.ops.gnn_conv import GNNConv
+from anemoi_models_tpu_torch.ops.ring_attention import _local_attention
+from anemoi_models_tpu_torch.parallel import row_range
+from anemoi_models_tpu_torch.training import AdamW, WeightedMSELoss, make_train_step
+from anemoi_models_tpu_torch.weights import load_flax_params, to_flax_params
+
+GRAPH = dict(grid_lat=8, mesh_refinements=1)
+C = 16
+FLAVORS = ("graphtransformer", "gnn", "transformer")
+MESHES = {"model2": (1, 2), "data2_model2": (2, 2)}
+GATE = dict(atol=5e-4, rtol=1e-3)  # __graft_entry__.py:251-253
+OUT = dict(atol=2e-5, rtol=2e-5)
+GRAD = dict(atol=5e-4, rtol=5e-4)
+LR = 1e-4
+WINDOW = 8
+
+
+def _flat(tree):
+    return {"/".join(str(k.key) for k in path): np.asarray(v)
+            for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def _cfg(flavor):
+    cfg = make_config(flavor, num_channels=C)
+    if flavor == "transformer":  # the JAX layer's default, which selects the halo path under a mesh
+        cfg.model.processor.attention_impl = "auto"
+    return cfg
+
+
+@pytest.fixture(scope="module")
+def setup(tmp_path_factory):
+    jgraph = build_enc_proc_dec_graph(**GRAPH)
+    pgraph = port_build_graph(**GRAPH)
+    n_grid = jgraph["data"].num_nodes
+    rng = np.random.RandomState(11)
+    out = {"jgraph": jgraph, "pgraph": pgraph, "flavors": {}}
+    inputs = None
+    for flavor in FLAVORS:
+        cfg = _cfg(flavor)
+        di = IndexCollection(cfg, dict(VARS))
+        n_in, n_out = len(di.internal_model.input), len(di.internal_model.output)
+        if inputs is None:
+            inputs = dict(
+                x=rng.randn(2, 2, 1, n_grid, n_in).astype(np.float32),
+                y=rng.randn(2, 1, n_grid, n_out).astype(np.float32),
+                truth=rng.randn(2, 2, 1, n_grid, n_in).astype(np.float32),
+                targets=(0.1 * rng.randn(2, 2, 1, n_grid, n_out)).astype(np.float32),
+                node_weights=(0.5 + rng.rand(n_grid)).astype(np.float32),
+            )
+        jmodel = JaxModel(model_config=cfg, data_indices=di, graph_data=jgraph)
+        params = jax.jit(jmodel.init)(jax.random.key(0), jnp.asarray(inputs["x"]))
+        params = jax.tree_util.tree_map(
+            lambda a: np.asarray(a) + 0.02 * rng.randn(*a.shape).astype(np.float32), params)
+        x = jnp.asarray(inputs["x"])
+        forward = np.asarray(jax.jit(jmodel.apply)(params, x))
+        forcing = np.asarray(di.internal_model.input.forcing)
+        _, preds = jax.jit(jax_make_rollout_fn(jmodel, di, 2))(params, x, jnp.asarray(inputs["truth"][..., forcing]))
+        rollout_loss = float(jnp.mean((preds.astype(jnp.float32) - inputs["targets"]) ** 2))
+        state = load_flax_params(params)
+        ckpt = save_checkpoint(str(tmp_path_factory.mktemp(f"ckpt_{flavor}")), params=state, config=cfg.to_dict())
+        # the port's unsharded references: the forward and one train step on the whole batch
+        pdi = PortIndexCollection(cfg.to_dict(), dict(VARS))
+        model = AnemoiModelEncProcDec(model_config=cfg.to_dict(), data_indices=pdi, graph_data=pgraph, device="cpu")
+        model.load_state_dict(state, strict=True)
+        with torch.no_grad():
+            port_forward = model(torch.from_numpy(inputs["x"])).numpy()
+        opt = AdamW(model.parameters(), lambda count: LR, clip_norm=32.0)
+        loss = float(make_train_step(model, opt, WeightedMSELoss(torch.from_numpy(inputs["node_weights"])))(
+            torch.from_numpy(inputs["x"]), torch.from_numpy(inputs["y"])))
+        out["flavors"][flavor] = dict(
+            cfg=cfg.to_dict(), checkpoint=ckpt, jax_forward=forward, jax_rollout_loss=rollout_loss,
+            port_forward=port_forward, port_loss=loss,
+            port_grads={k: p.grad.numpy().copy() for k, p in model.named_parameters()},
+            port_params={k: p.detach().numpy().copy() for k, p in model.named_parameters()},
+        )
+    out["inputs"] = inputs
+    return out
+
+
+def _model_spec(setup, mesh, **extra):
+    return dict(mesh=mesh, graph=GRAPH, inputs=setup["inputs"], lr=LR, name_to_index=dict(VARS),
+                flavors={f: {"cfg": s["cfg"], "checkpoint": s["checkpoint"]} for f, s in setup["flavors"].items()},
+                **extra)
+
+
+# ---------------------------------------------------------------------------
+# the halo GNN processor, as JAX builds and runs it
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def halo_gnn(setup):
+    g = setup["jgraph"]
+    n = g["hidden"].num_nodes
+    proc = JaxHaloGNNProcessor(num_layers=2, num_channels=C, trainable_size=2, sub_graph=g[("hidden", "to", "hidden")])
+    x = np.random.RandomState(5).randn(1, n, C).astype(np.float32)
+    tree = proc.init(jax.random.key(3), jnp.asarray(x))
+    rng = np.random.RandomState(6)
+    tree = jax.tree_util.tree_map(lambda a: np.asarray(a) + 0.05 * rng.randn(*a.shape).astype(np.float32), tree)
+    ref = np.asarray(jax.jit(proc.apply)(tree, jnp.asarray(x)))
+    mesh = jax_make_mesh(data=1, model=2, devices=jax.devices()[:2])
+    with jax_use_mesh(mesh):
+        sharded = np.asarray(jax.jit(proc.apply)(tree, jnp.asarray(x)))
+    return dict(tree=tree, x=x, ref=ref, jax_sharded=sharded)
+
+
+# ---------------------------------------------------------------------------
+# the halo layers' inputs and the JAX package's outputs
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def layers(setup):
+    g = setup["jgraph"]
+    es = g[("hidden", "to", "hidden")]
+    n, ne = g["hidden"].num_nodes, es.num_edges
+    rng = np.random.RandomState(21)
+    mesh = jax_make_mesh(data=1, model=2, devices=jax.devices()[:2])
+    part = jpart.partition_1hop(es.edge_index, n, 2)
+
+    def r(*shape, scale=1.0):
+        return (scale * rng.randn(*shape)).astype(np.float32)
+
+    # the GNN conv: the edge MLP with its LayerNorm (the GNN processors' layout)
+    tree = {"w1": r(3 * C, C, scale=(3 * C) ** -0.5), "b1": r(C, scale=0.1), "w2": r(C, C, scale=C ** -0.5),
+            "b2": r(C, scale=0.1), "w3": r(C, C, scale=C ** -0.5), "b3": r(C, scale=0.1),
+            "ln_s": 1 + r(C, scale=0.1), "ln_b": r(C, scale=0.1)}
+    gnn = dict(x=r(2, n, C), e=r(2, ne, C), g_agg=r(2, n, C), g_msg=r(2, ne, C), activation="SiLU",
+               params=[tree["w1"].T.copy(), tree["b1"], tree["w2"].T.copy(), tree["b2"], tree["w3"].T.copy(),
+                       tree["b3"], tree["ln_s"], tree["ln_b"]])
+    e_sh = jax_shard_edge_values(jnp.asarray(gnn["e"]), part)
+    agg, edges_new = jax.jit(lambda x, e, p: jax_halo_graph_conv(mesh, part, p, x, e))(
+        jnp.asarray(gnn["x"]), e_sh, jax.tree_util.tree_map(jnp.asarray, tree))
+    jax_gnn = dict(agg=np.asarray(agg), edges_new=np.asarray(edges_new))
+
+    # the GraphTransformer conv: 4 heads, 3 edge attributes
+    h, a_n = 4, 3
+    gt = dict(q=r(2, n, h, C // h), feats=r(2, n, C), w_kv=r(2 * C, C, scale=C ** -0.5), b_kv=r(2 * C, scale=0.1),
+              edge_attr=r(ne, a_n), w_edge=r(C, a_n), b_edge=r(C, scale=0.1), g_out=r(2, n, h, C // h))
+    kv = gt["feats"] @ gt["w_kv"].T + gt["b_kv"]
+    k, v = (t.reshape(2, n, h, C // h) for t in np.split(kv, 2, axis=-1))
+    a = np.concatenate([gt["edge_attr"], np.ones((ne, 1), np.float32)], axis=1)
+    w_aug = np.concatenate([gt["w_edge"].T, gt["b_edge"][None]], axis=0).reshape(a_n + 1, h, C // h)
+    a_sh = jax_shard_edge_values(jnp.asarray(a), part)
+
+    def gt_loss(q, k, v, a_sh, w_aug):
+        out = jax_halo_gt_conv(mesh, part, q, k, v, a_sh, w_aug)
+        return jnp.sum(out * gt["g_out"]), out
+
+    (_, out), grads = jax.jit(jax.value_and_grad(gt_loss, argnums=(0, 1, 2, 3, 4), has_aux=True))(
+        jnp.asarray(gt["q"]), jnp.asarray(k), jnp.asarray(v), a_sh, jnp.asarray(w_aug))
+    dq, dk, dv, da_sh, dw_aug = (np.asarray(t) for t in grads)
+    da = np.zeros_like(a)
+    for s in range(2):
+        live = part.edge_mask[s]
+        da[part.edge_ids[s][live]] = da_sh[s][live]
+    dkv = np.concatenate([dk.reshape(2, n, C), dv.reshape(2, n, C)], axis=-1).reshape(-1, 2 * C)
+    f2 = gt["feats"].reshape(-1, C)
+    jax_gt = dict(out=np.asarray(out), dq=dq, dfeats=(dkv @ gt["w_kv"]).reshape(2, n, C), dw_kv=dkv.T @ f2,
+                  db_kv=dkv.sum(0), dedge=da[:, :a_n], dw_edge=dw_aug[:a_n].reshape(a_n, C).T,
+                  db_edge=dw_aug[a_n].reshape(C))
+
+    # the window attention
+    win = dict(q=r(1, 2, n, 8), k=r(1, 2, n, 8), v=r(1, 2, n, 8), g_out=r(1, 2, n, 8), window=WINDOW)
+
+    def win_loss(q, k, v):
+        out = jax_halo_window_attention(q, k, v, window_size=WINDOW, mesh=mesh)
+        return jnp.sum(out * win["g_out"]), out
+
+    (_, out), grads = jax.jit(jax.value_and_grad(win_loss, argnums=(0, 1, 2), has_aux=True))(
+        *(jnp.asarray(win[k]) for k in ("q", "k", "v")))
+    jax_win = dict(out=np.asarray(out), **{f"d{k}": np.asarray(t) for k, t in zip("qkv", grads)})
+    spec = dict(graph=GRAPH, gnn=gnn, gt=gt, window=win)
+    return dict(spec=spec, part=part, jax_gnn=jax_gnn, jax_gt=jax_gt, jax_win=jax_win, n=n)
+
+
+@pytest.fixture(scope="module")
+def ranks2(setup, layers, halo_gnn, tmp_path_factory):
+    """Two ranks (model = 2): the primitives, the halo layers, every flavor
+    and the HaloGNNProcessor, and the step without the gradient reduction."""
+    hg = dict(tree=halo_gnn["tree"], x=halo_gnn["x"], num_layers=2, channels=C)
+    ranks = spawn(tasks, 2, str(tmp_path_factory.mktemp("ranks2")), {
+        "prims": (primitives_task, ()), "layers": (layers_task, (layers["spec"],)),
+        "model": (model_task, (_model_spec(setup, MESHES["model2"], negative=True, halo_gnn=hg),)),
+    })
+    return {key: [r[key] for r in ranks] for key in ("prims", "layers", "model", "leaked")}
+
+
+@pytest.fixture(scope="module")
+def ranks4(setup, tmp_path_factory):
+    """Four ranks: the primitives, and every flavor at data = 2, model = 2."""
+    ranks = spawn(tasks, 4, str(tmp_path_factory.mktemp("ranks4")), {
+        "prims": (primitives_task, ()), "model": (model_task, (_model_spec(setup, MESHES["data2_model2"]),))})
+    return {key: [r[key] for r in ranks] for key in ("prims", "model", "leaked")}
+
+
+def _ranks(request, world):
+    return request.getfixturevalue(f"ranks{world}")
+
+
+def _assemble(ranks, flavor, key, mesh, n_grid, grid_axis=2):
+    """The whole batch from the ranks' (data slice, grid rows) outputs."""
+    data, model = mesh
+    rows = [np.concatenate([ranks[d * model + m][flavor][key] for m in range(model)], axis=grid_axis)
+            for d in range(data)]
+    out = np.concatenate(rows, axis=0)
+    assert out.shape[grid_axis] == n_grid
+    return out
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_ranks_run_without_jax(request, world):
+    """Every rank ran the sharded model, its layers and the primitives with
+    nothing of jax, flax or the JAX package imported (the card's machine
+    has none of them)."""
+    assert _ranks(request, world)["leaked"] == [[]] * world
+
+
+# ---------------------------------------------------------------------------
+# the plans
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("edges", ["processor", "encoder", "decoder"])
+def test_partition_matches_jax(setup, edges, shards):
+    """partition_1hop (the processor's self-graph): every array equal to the
+    JAX package's. mapper_shard (the mappers' bipartite sets): each rank's
+    destinations, edges and the sources they read, in order, equal to the
+    JAX package's destination split (mapper_shard_tables' live slots)."""
+    jg, pg = setup["jgraph"], setup["pgraph"]
+    names = {"processor": ("hidden", "hidden"), "encoder": ("data", "hidden"), "decoder": ("hidden", "data")}[edges]
+    key = (names[0], "to", names[1])
+    ns, nd = jg[names[0]].num_nodes, jg[names[1]].num_nodes
+    np.testing.assert_array_equal(pg[key].edge_index, jg[key].edge_index)
+    if edges == "processor":
+        want, got = jpart.partition_1hop(jg[key].edge_index, nd, shards), ppart.partition_1hop(pg[key].edge_index,
+                                                                                               nd, shards)
+        assert (got.num_shards, got.num_nodes) == (shards, nd)
+        for f in ("local_edges", "edge_mask", "boundary_contrib", "halo_select", "halo_mask", "edge_ids"):
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f)
+        for s in range(shards):
+            sh = ppart.halo_shard(got, s, "cpu")
+            lo, hi = row_range(nd, shards, s)
+            assert sh.num_local == hi - lo and sh.edge_hi - sh.edge_lo == int(got.edge_mask[s].sum())
+        return
+    want = jpart.mapper_shard_tables(jg[key], nd, ns, shards)
+    gids = want.slot_edge_gids.reshape(want.mask.shape)
+    for s in range(shards):
+        sh = ppart.mapper_shard(pg[key].edge_index, ns, nd, shards, s, "cpu")
+        lo, hi = row_range(nd, shards, s)
+        assert (sh.dst_lo, sh.dst_hi) == (lo, hi) and lo == min(s * want.dst_per_shard, nd)
+        live = want.mask[s][: hi - lo]
+        np.testing.assert_array_equal(np.diff(sh.rowptr.numpy()), live.sum(axis=1))
+        np.testing.assert_array_equal(np.arange(sh.edge_lo, sh.edge_hi), gids[s][: hi - lo][live])
+        np.testing.assert_array_equal(sh.src_rows.numpy()[sh.src.numpy()], want.src_ids[s][: hi - lo][live])
+
+
+def test_khop_matches_jax(setup):
+    """graphs/khop.py: the 2-hop closure of the processor's edge set and its
+    destination-range chunks, equal to the JAX package's."""
+    from anemoi_models_tpu.graphs import khop as jkhop
+    from anemoi_models_tpu_torch.graphs import khop as pkhop
+
+    es = setup["pgraph"][("hidden", "to", "hidden")]
+    n = setup["pgraph"]["hidden"].num_nodes
+    np.testing.assert_array_equal(pkhop.get_k_hop_edges(es.edge_index, n, 2), jkhop.get_k_hop_edges(es.edge_index, n, 2))
+    for got, want in zip(pkhop.sort_edges_1hop_chunks(es.edge_index, n, 3),
+                         jkhop.sort_edges_1hop_chunks(es.edge_index, n, 3), strict=True):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_shape_helpers_and_padding_match_jax(setup):
+    """get_shape_shards and change_channels_in_shape (tensor_split shapes),
+    and pad_nodes / unpad_nodes over a partition, against the JAX
+    package's."""
+    from anemoi_models_tpu.parallel import halo as jhalo
+    from anemoi_models_tpu.parallel import primitives as jprim
+    from anemoi_models_tpu_torch.parallel import change_channels_in_shape, get_shape_shards, pad_nodes, unpad_nodes
+
+    x = np.random.RandomState(3).randn(2, 43, 5).astype(np.float32)
+    for shards in (2, 4):
+        shapes = get_shape_shards(torch.from_numpy(x), 1, shards)
+        assert shapes == jprim.get_shape_shards(jnp.asarray(x), 1, shards)
+        assert change_channels_in_shape(shapes, 7) == jprim.change_channels_in_shape(shapes, 7)
+    es = setup["pgraph"][("hidden", "to", "hidden")]
+    n = setup["pgraph"]["hidden"].num_nodes
+    part = ppart.partition_1hop(es.edge_index, n, 4)
+    y = np.random.RandomState(4).randn(2, n, 3).astype(np.float32)
+    padded = pad_nodes(torch.from_numpy(y), part)
+    np.testing.assert_array_equal(padded.numpy(), np.asarray(jhalo.pad_nodes(jnp.asarray(y), part)))
+    np.testing.assert_array_equal(unpad_nodes(padded, part).numpy(), y)
+
+
+# ---------------------------------------------------------------------------
+# the primitives
+# ---------------------------------------------------------------------------
+
+
+def _primitive_reference(name, world):
+    """Every rank's (output, input gradient), from the whole arrays."""
+    ins = [primitive_inputs(world, r)[name] for r in range(world)]
+    rows = [row_range(PRIM_ROWS, world, r) for r in range(world)]
+    xs, gs = [i[0] for i in ins], [i[1] for i in ins]
+    if name == "shard_tensor":
+        return [(xs[r][lo:hi], np.concatenate(gs)) for r, (lo, hi) in enumerate(rows)]
+    if name == "gather_tensor":
+        return [(np.concatenate(xs), gs[r][lo:hi]) for r, (lo, hi) in enumerate(rows)]
+    if name == "sync_tensor":
+        return [(np.concatenate(xs), sum(gs)[lo:hi]) for lo, hi in rows]
+    if name == "reduce_shard_tensor":
+        return [(sum(xs)[lo:hi], np.concatenate(gs)) for lo, hi in rows]
+    return [(sum(xs), gs[r]) for r in range(world)]
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("name", PRIMITIVES)
+def test_primitive_forward_and_adjoint(request, name, world):
+    """Each collective and its adjoint on every rank against the function
+    of the whole arrays (7 rows: uneven over 2 and 4 ranks), fp32 1e-6."""
+    got = _ranks(request, world)["prims"]
+    for r, (y, dx) in enumerate(_primitive_reference(name, world)):
+        np.testing.assert_allclose(got[r][name][0], y, atol=1e-6, rtol=1e-6, err_msg=f"{name} rank {r} forward")
+        np.testing.assert_allclose(got[r][name][1], dx, atol=1e-6, rtol=1e-6, err_msg=f"{name} rank {r} adjoint")
+        assert got[r][name][1].shape[1] == PRIM_COLS
+
+
+# ---------------------------------------------------------------------------
+# the halo layers
+# ---------------------------------------------------------------------------
+
+
+def test_halo_graph_conv_matches_jax(ranks2, layers):
+    """agg and the threaded edge features of the halo GNN conv against the
+    JAX package's halo_graph_conv on a 2-device mesh."""
+    got = [r["gnn"] for r in ranks2["layers"]]
+    np.testing.assert_allclose(np.concatenate([g["agg"] for g in got], axis=1), layers["jax_gnn"]["agg"], **OUT)
+    part = layers["part"]
+    for s, g in enumerate(got):
+        live = int(part.edge_mask[s].sum())
+        np.testing.assert_allclose(g["msg"], layers["jax_gnn"]["edges_new"][s][:, :live], **OUT)
+
+
+def test_halo_graph_conv_matches_unsharded(ranks2, layers):
+    """The halo GNN conv's outputs and every gradient (the rows', the edges',
+    the edge MLP's summed over ranks) against the port's unsharded GNNConv."""
+    spec = layers["spec"]["gnn"]
+    g = port_build_graph(**GRAPH)[("hidden", "to", "hidden")]
+    n = layers["n"]
+    rowptr, src = (torch.from_numpy(t) for t in csr_from_edge_index(g.edge_index, n, n))
+    x, e = (torch.tensor(spec[k], requires_grad=True) for k in ("x", "e"))
+    params = [torch.tensor(p, requires_grad=True) for p in spec["params"]]
+    agg, msg = GNNConv.apply(x, x, e, rowptr, src, spec["activation"], *params)
+    ((agg * torch.from_numpy(spec["g_agg"])).sum() + (msg * torch.from_numpy(spec["g_msg"])).sum()).backward()
+    got = [r["gnn"] for r in ranks2["layers"]]
+    np.testing.assert_allclose(np.concatenate([r["agg"] for r in got], axis=1), agg.detach().numpy(), **OUT)
+    np.testing.assert_allclose(np.concatenate([r["msg"] for r in got], axis=1), msg.detach().numpy(), **OUT)
+    np.testing.assert_allclose(np.concatenate([r["dx"] for r in got], axis=1), x.grad.numpy(), **GRAD)
+    np.testing.assert_allclose(np.concatenate([r["de"] for r in got], axis=1), e.grad.numpy(), **GRAD)
+    for i, p in enumerate(params):
+        np.testing.assert_allclose(sum(r["dparams"][i] for r in got), p.grad.numpy(), **GRAD)
+    assert g.num_edges == sum(r["edge_range"][1] - r["edge_range"][0] for r in got)
+
+
+def test_halo_graph_transformer_conv_matches_jax(ranks2, layers):
+    """The halo GraphTransformer conv (kv projected on the rank's rows, one
+    halo exchange of [k|v], the attention over the rank's CSR) against the
+    JAX package's halo_graph_transformer_conv: the output at 2e-5, and every
+    gradient, the JAX ones carried through the projections, at 5e-4."""
+    got = [r["gt"] for r in ranks2["layers"]]
+    want = layers["jax_gt"]
+    np.testing.assert_allclose(np.concatenate([g["out"] for g in got], axis=1), want["out"], **OUT)
+    for key in ("dq", "dfeats"):
+        np.testing.assert_allclose(np.concatenate([g[key] for g in got], axis=1), want[key], **GRAD, err_msg=key)
+    np.testing.assert_allclose(np.concatenate([g["dedge"] for g in got]), want["dedge"], **GRAD)
+    for key in ("dw_kv", "db_kv", "dw_edge", "db_edge"):
+        np.testing.assert_allclose(sum(g[key] for g in got), want[key], **GRAD, err_msg=key)
+
+
+def test_halo_window_attention_matches_jax(ranks2, layers):
+    """The halo window attention at p = 0 (the rows of 2 ranks, a window of
+    8) against the JAX package's, forward and gradients."""
+    got = [r["window"] for r in ranks2["layers"]]
+    want = layers["jax_win"]
+    np.testing.assert_allclose(np.concatenate([g["out"] for g in got], axis=2), want["out"], **OUT)
+    for key in ("dq", "dk", "dv"):
+        np.testing.assert_allclose(np.concatenate([g[key] for g in got], axis=2), want[key], **GRAD, err_msg=key)
+
+
+@pytest.mark.parametrize("case", sorted(NON_HALO_ATTENTION))
+def test_non_halo_attention_under_mesh_raises(ranks2, case):
+    """Attention under a model-sharded mesh that the halo path does not take
+    (a causal mask, another attention_impl, no window) raises on every rank,
+    naming the ROADMAP item, rather than running a plain version where the
+    JAX package runs its flash kernel."""
+    for r in ranks2["layers"]:
+        assert "ROADMAP Queue 1 #11" in r[f"non_halo_{case}"]
+
+
+def test_halo_window_attention_dropout_keep_rate(ranks2, layers):
+    """At p = 0.5 each rank draws its own mask (its pattern depends on the
+    rank count, as the JAX package's does), so it is held by its statistics:
+    with v = 1 an output is the kept weights' sum over (1 - p), 1 on average,
+    and at p = 0 the same call gives exactly 1."""
+    dropped = np.concatenate([r["window"]["dropped"] for r in ranks2["layers"]], axis=2)
+    assert abs(float(dropped.mean()) - 1.0) < 0.1
+    assert float(dropped.std()) > 0.1
+    n = layers["n"]
+    q = torch.from_numpy(layers["spec"]["window"]["q"])
+    pos = torch.arange(n)
+    ones = _local_attention(q, q, torch.ones_like(q), pos, pos, n, WINDOW, 0.0, None)
+    np.testing.assert_allclose(ones.numpy(), 1.0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the model
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("flavor", FLAVORS)
+def test_sharded_forward(request, setup, flavor, mesh):
+    """The sharded forward (a model loaded from the unsharded model's
+    checkpoint, each rank its data slice and grid rows) against the JAX
+    package's unsharded forward at the gate's tolerance and the port's
+    unsharded forward at 2e-5."""
+    ranks = _ranks(request, 4 if mesh == "data2_model2" else 2)["model"]
+    s = setup["flavors"][flavor]
+    got = _assemble(ranks, flavor, "forward", MESHES[mesh], setup["jgraph"]["data"].num_nodes)
+    np.testing.assert_allclose(got, s["jax_forward"], **GATE)
+    np.testing.assert_allclose(got, s["port_forward"], **OUT)
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("flavor", FLAVORS)
+def test_sharded_train_step(request, setup, flavor, mesh):
+    """One sharded train step against the unsharded step on the whole
+    batch: the loss, every reduced gradient (the same on every rank) and
+    every updated parameter."""
+    ranks = _ranks(request, 4 if mesh == "data2_model2" else 2)["model"]
+    s = setup["flavors"][flavor]
+    for r in ranks:
+        np.testing.assert_allclose(r[flavor]["loss"], s["port_loss"], rtol=5e-4)
+        for k, want in s["port_grads"].items():
+            np.testing.assert_allclose(r[flavor]["grads"][k], want, **GRAD, err_msg=k)
+        for k, want in s["port_params"].items():
+            np.testing.assert_allclose(r[flavor]["params"][k], want, **GRAD, err_msg=k)
+    for r in ranks[1:]:
+        for k, v in r[flavor]["params"].items():
+            np.testing.assert_array_equal(v, ranks[0][flavor]["params"][k], err_msg=f"ranks disagree on {k}")
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("flavor", FLAVORS)
+def test_sharded_rollout_loss(request, setup, flavor, mesh):
+    """The 2-step sharded rollout train step's loss against the JAX
+    package's unsharded rollout loss (rtol 5e-5, the gate's)."""
+    ranks = _ranks(request, 4 if mesh == "data2_model2" else 2)["model"]
+    for r in ranks:
+        np.testing.assert_allclose(r[flavor]["rollout_loss"], setup["flavors"][flavor]["jax_rollout_loss"], rtol=5e-5)
+
+
+def test_step_without_gradient_reduction_differs(ranks2, setup):
+    """The check can fail: the same sharded step with the reduction of the
+    replicated parameters' gradients left out gives each rank its partial
+    gradients, far outside the tolerance, and parameters that differ from
+    the unsharded step's and between the ranks."""
+    s = setup["flavors"]["graphtransformer"]
+    ranks = [r["graphtransformer"] for r in ranks2["model"]]
+    worst = max(np.abs(r["negative_grads"][k] - want).max() for r in ranks for k, want in s["port_grads"].items())
+    assert worst > 100 * GRAD["atol"]
+    moved = max(np.abs(r["negative_params"][k] - want).max() for r in ranks for k, want in s["port_params"].items())
+    assert moved > 1e-6
+    assert any(not np.array_equal(ranks[0]["negative_params"][k], ranks[1]["negative_params"][k])
+               for k in s["port_params"])
+
+
+# ---------------------------------------------------------------------------
+# the HaloGNNProcessor
+# ---------------------------------------------------------------------------
+
+
+def _port_halo_gnn(setup, halo_gnn):
+    n = setup["pgraph"]["hidden"].num_nodes
+    proc = HaloGNNProcessor(2, num_channels=C, trainable_size=2, sub_graph=setup["pgraph"][("hidden", "to", "hidden")],
+                            src_grid_size=n, dst_grid_size=n, device="cpu")
+    proc.load_state_dict(load_flax_params(halo_gnn["tree"]), strict=True)
+    return proc
+
+
+def test_halo_gnn_processor_unsharded_matches_jax(setup, halo_gnn):
+    """The HaloGNNProcessor with no mesh (its plain path) against JAX's."""
+    with torch.no_grad():
+        got = _port_halo_gnn(setup, halo_gnn)(torch.from_numpy(halo_gnn["x"])).numpy()
+    np.testing.assert_allclose(got, halo_gnn["ref"], **OUT)
+
+
+def test_halo_gnn_processor_sharded_matches_jax(ranks2, halo_gnn):
+    """The HaloGNNProcessor on 2 ranks against JAX's on a 2-device mesh."""
+    got = np.concatenate([r["halo_gnn"] for r in ranks2["model"]], axis=1)
+    np.testing.assert_allclose(got, halo_gnn["jax_sharded"], **GATE)
+    np.testing.assert_allclose(got, halo_gnn["ref"], **GATE)
+
+
+def test_halo_gnn_processor_weights_round_trip(setup, halo_gnn):
+    """weights.py maps the HaloGNNProcessor's tree both ways: its own
+    conv_{i}_* parameters as they are, its MLPs by the usual rules."""
+    proc = _port_halo_gnn(setup, halo_gnn)
+    want = _flat(halo_gnn["tree"])
+    got = _flat(to_flax_params(proc.state_dict()))
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
