@@ -5,8 +5,8 @@ Counterpart of ``anemoi_models_tpu/commands/``: an argparse registry with
 ``train-demo``, each taking the JAX package's arguments plus ``--device``
 (the card unless it names another; ``--device cpu`` runs the kernels' plain
 versions). ``bench`` waits for the port's benchmark and ``plan`` (the TPU
-kernel planner) is not ported; the parallel flags (``--data-parallel``)
-wait for the parallel port.
+kernel planner) is not ported. ``train --data-parallel N`` runs under a
+launcher (``torchrun``), one process a rank.
 """
 
 from __future__ import annotations

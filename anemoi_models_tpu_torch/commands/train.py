@@ -1,8 +1,15 @@
 """``train`` command: full training runs on real or synthetic datasets.
 
 Counterpart of ``anemoi_models_tpu/commands/train.py`` on the port's
-``train_run``, with ``--device``; ``--data-parallel`` waits for the parallel
-port.
+``train_run``, with ``--device``. ``--data-parallel N`` trains on N ranks,
+each a process: the command reads the launch environment ``torchrun`` sets
+(``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``; ``LOCAL_RANK``
+picks a rank's card), joins the default process group over the
+``--backend`` the caller names (``gloo`` or ``nccl``, as ``make_mesh``
+takes it) and trains on ``make_mesh(data=N)``::
+
+    torchrun --nproc-per-node 2 -m anemoi_models_tpu_torch train --synthetic \
+        --data-parallel 2 --backend nccl
 
 The reference leaves training to the external anemoi-training package; this
 command makes the framework self-sufficient: point it at a dataset directory
@@ -75,6 +82,11 @@ class Train:
                             help="warm-start parameters from another checkpoint")
         parser.add_argument("--eval-every", type=int, default=0)
         parser.add_argument("--eval-rollout", type=int, default=4)
+        parser.add_argument("--data-parallel", type=int, default=0,
+                            help="shard the batch over this many ranks (0 = one process); read the launch "
+                                 "environment torchrun sets")
+        parser.add_argument("--backend", choices=("gloo", "nccl"), default=None,
+                            help="the collectives' backend of --data-parallel (required with it)")
         parser.add_argument("--seed", type=int, default=0)
         add_device_argument(parser)
 
@@ -99,37 +111,47 @@ class Train:
         if unknown:
             raise SystemExit(f"variables {unknown} not in dataset: {source.variables}")
 
-        result = train_run(
-            source,
-            forcing=tuple(args.forcing),
-            diagnostic=tuple(args.diagnostic),
-            flavor=args.flavor,
-            architecture=args.architecture,
-            num_hidden_levels=args.hidden_levels,
-            mesh_refinements=args.mesh_refinements,
-            model_kwargs={
-                "num_channels": args.channels,
-                "num_layers": args.layers,
-                "num_heads": args.heads,
-            },
-            steps=args.steps,
-            batch_size=args.batch_size,
-            rollout=args.rollout,
-            rollout_schedule=_parse_schedule(args.rollout_schedule),
-            ensemble=args.ensemble,
-            perturb_sigma=args.perturb_sigma,
-            loss=args.loss or ("crps" if args.ensemble > 1 else "mse"),
-            peak_lr=args.lr,
-            ema_decay=args.ema,
-            checkpoint_dir=args.checkpoint_dir,
-            save_every=args.save_every,
-            resume=args.resume,
-            init_from=args.init_from,
-            eval_every=args.eval_every,
-            eval_rollout=args.eval_rollout,
-            seed=args.seed,
-            device=args.device,
-        )
+        mesh, device = None, args.device
+        if args.data_parallel:
+            mesh, device = _data_parallel_mesh(args.data_parallel, args.backend, args.device)
+        try:
+            result = train_run(
+                source,
+                forcing=tuple(args.forcing),
+                diagnostic=tuple(args.diagnostic),
+                flavor=args.flavor,
+                architecture=args.architecture,
+                num_hidden_levels=args.hidden_levels,
+                mesh_refinements=args.mesh_refinements,
+                model_kwargs={
+                    "num_channels": args.channels,
+                    "num_layers": args.layers,
+                    "num_heads": args.heads,
+                },
+                steps=args.steps,
+                batch_size=args.batch_size,
+                rollout=args.rollout,
+                rollout_schedule=_parse_schedule(args.rollout_schedule),
+                ensemble=args.ensemble,
+                perturb_sigma=args.perturb_sigma,
+                loss=args.loss or ("crps" if args.ensemble > 1 else "mse"),
+                peak_lr=args.lr,
+                ema_decay=args.ema,
+                checkpoint_dir=args.checkpoint_dir,
+                save_every=args.save_every,
+                resume=args.resume,
+                init_from=args.init_from,
+                eval_every=args.eval_every,
+                eval_rollout=args.eval_rollout,
+                mesh=mesh,
+                seed=args.seed,
+                device=device,
+            )
+        finally:
+            if mesh is not None:
+                import torch.distributed as dist
+
+                dist.destroy_process_group()
         losses = result["losses"]
         if losses:
             print(f"loss: first {losses[0]:.5f} -> last {losses[-1]:.5f}")
@@ -140,3 +162,34 @@ class Train:
         if result["checkpoint"]:
             print(f"checkpoint: {result['checkpoint']}")
         return 0
+
+
+LAUNCH_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+
+
+def _data_parallel_mesh(n: int, backend, device: str):
+    """``(mesh, device)`` of ``--data-parallel n``: the default process group
+    from the launch environment, over ``backend``, and ``make_mesh(data=n)``
+    on this rank's device (``cuda:LOCAL_RANK`` for the card)."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from anemoi_models_tpu_torch.parallel import make_mesh
+
+    missing = [k for k in LAUNCH_ENV if k not in os.environ]
+    if missing:
+        raise SystemExit(f"--data-parallel {n} runs under a launcher (torchrun): the launch environment lacks "
+                         f"{', '.join(missing)}")
+    if backend is None:
+        raise SystemExit("--data-parallel needs --backend gloo or nccl")
+    world = int(os.environ["WORLD_SIZE"])
+    if world != n:
+        raise SystemExit(f"--data-parallel {n} but the launch environment's WORLD_SIZE is {world}")
+    if torch.device(device).type == "cuda" and "LOCAL_RANK" in os.environ:
+        device = f"cuda:{int(os.environ['LOCAL_RANK'])}"
+        torch.cuda.set_device(device)
+    dist.init_process_group(backend, init_method=f"tcp://{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}",
+                            world_size=world, rank=int(os.environ["RANK"]))
+    return make_mesh(data=n, backend=backend, device=device), device

@@ -44,39 +44,41 @@ struct kv_proj_tag {};  // names the kv_proj instantiations of gemm_sm90.cuh
 //   den    = sum exp(logit - m)
 //   num    = sum exp(logit - m) (v[src] + e)
 //
-// The backward's destination pass without the gradient work. A persistent
-// grid, sized by occupancy; a CTA serves one head group (the lane layout of
-// edge_logit.cuh: G channels of whole heads, VB a lane, at most 32 lanes, a
-// head of D channels on D / VB lanes rounded up to a power of two; a head
-// wider than 256 a group of its own, VB = 16 or 32, one chain a lane) and
-// its warps take destinations cta, cta + ctas, ... one at a time. Per warp:
-// the source ids and attributes of 32 edges at a time in registers, one edge a
-// lane, shuffled out per edge; a ring of kRing k/v row slices in shared memory
-// filled by cp.async kRing - 1 edges ahead, each lane copying its own VB
-// channels where they are whole 16-byte copies (else the warp, 16 bytes a
-// lane);
-// one online softmax per head over the destination's edges; and, while it
-// stores a destination, the next one's edge range, ids, attributes, q row and
-// first k/v rows already in flight (the decoder's destinations have 3 edges).
-// w_aug's slice of the group sits in shared memory in its own dtype with rows
-// past A2 zero, so the attribute loops run MAXA2 long with no branch; HC, when
-// not 0, is the heads of a group at compile time (4: the flagship's C = 256,
-// and C = 1024 with 16 heads) and unrolls the shuffle trees; FLAT, one group
-// of 32 lanes (C = 32 VB at compile time: the row strides fold into the
-// addresses). No atomics: two calls give the same bits.
+// A persistent grid, sized by occupancy; a CTA serves one head group (the
+// lane layout of edge_logit.cuh: G channels of whole heads, VB a lane, at
+// most 32 lanes, a head of D channels on D / VB lanes rounded up to a power
+// of two; a head wider than 256 a group of its own, VB = 16 or 32, one chain
+// a lane) and its warps take destinations cta, cta + ctas, ... one at a time.
+// Per warp: the source ids of 32 edges at a time, one edge a lane, shuffled
+// out per edge; a ring of kRing k/v row slices in shared memory filled by
+// cp.async kRing - 1 edges ahead, each lane copying its own VB channels where
+// they are whole 16-byte copies (else the warp, 16 bytes a lane); one online
+// softmax per head over the destination's edges; and, while it stores a
+// destination, the next one's edge range, ids, q row and first k/v rows
+// already in flight (the decoder's destinations have 3 edges).
 //
-// The arithmetic is the first version's (one CTA a destination, one thread per
-// VF channels): edge_logit.cuh's edge term and exact_dot, then the same
-// sequential online softmax with expf, so num, den and m keep its bits (up to
-// the sign of an exact zero from the zero rows) and the backward's replay of
-// the logit stays exact.
+// The edge term is factored (edge_logit.cuh): per destination the factors
+// qw[r, h] = <q, w_r>_h; per batch of 32 edges the terms sum_r a_r qw[r, h]
+// by (edge, head) pair, so an edge's logit costs its q . k and one value read
+// from shared memory; and the numerator's part sum_e p_e e_e =
+// sum_r (sum_e p_e a_er) w_r is added at the batch's end, in the gauge of the
+// running max m then: the batch's logits kept in shared memory give
+// p_e = exp(logit_e - m), their sums s[r, h] = sum_e p_e a_er by (attribute,
+// head) pair, and each lane adds s[r, h] w_r[c] to its channels. Attributes
+// stream in chunks (attr_chunk): where one chunk holds them all the factors
+// are taken once a destination, else again for every batch and chunk. w_aug
+// is read from device memory (L2, a few KB); a warp's shared memory holds its
+// ring and four small tables of the chunk's factors and sums and the batch's
+// terms and logits. HC, when not 0, is the heads of a group at compile time
+// (4: the flagship's C = 256, and C = 1024 with 16 heads) and unrolls the
+// shuffle trees; FLAT, one group of 32 lanes (C = 32 VB at compile time: the
+// row strides fold into the addresses). No atomics: two calls give the same
+// bits, and the backward replays the logit with edge_logit.cuh's arithmetic.
 //
 // Bound on the H100: at O96 the function's bytes (q, kv, a once, the fp32
-// outputs) take 8-23 us at 3.35 TB/s, but every edge gathers a k/v row from L2
-// and recomputes a_e . w_aug per channel (A2 fmaf), so the kernel is bound by
-// its instruction issue: about 300 a warp an edge at C = 256 in bf16 (SASS),
-// 64 of them the edge term's fmaf and as many its bf16 unpacking, 21 the
-// shuffles (attributes, source id, the exact tree).
+// outputs) take 8-23 us at 3.35 TB/s, but every edge gathers a k/v row from
+// L2 and runs its softmax step alone, so the kernel is bound by its
+// instruction rate and the latency of its per-edge chain.
 // ---------------------------------------------------------------------------
 
 using edge_logit::kFull;
@@ -85,21 +87,26 @@ using edge_logit::Layout;
 using edge_logit::Row;
 using edge_logit::to_f;
 
-// the most edge attributes (with the ones column): the attribute loops run 8, 16 or 32 long, the
-// smallest that holds A2, so an A2 the narrower paths take keeps their code and bits
-constexpr int kMaxA2 = 32;
 constexpr int kWarps = 4;  // warps a CTA
 constexpr int kThreads = 32 * kWarps;
 // ring stages a warp: kRing - 1 edges in flight (a fourth stage gains 1-3 % in bf16, loses as much in fp32)
 template <typename T>
 constexpr int kRingOf = sizeof(T) == 2 ? 4 : 3;
 
-template <typename T, int VB, int MAXA2, int HC, bool FLAT>
+// a warp's tables in bytes, 16-byte rounded: the chunk's factors qw and sums s (rc x HG each) and the
+// batch's edge terms (32 x HG) in the wide type (acc bytes), then the batch's logits (32 x HG) and the
+// heads' running max (HG) in fp32
+__host__ __device__ inline int fwd_table_bytes(int rc, int HG, int acc) {
+  return ((2 * rc * HG + 32 * HG) * acc + (32 * HG + HG) * 4 + 15) / 16 * 16;
+}
+
+template <typename T, int VB, int HC, bool FLAT>
 __global__ void __launch_bounds__(kThreads) edge_attn_csr_kernel(
     const T* __restrict__ q, const T* __restrict__ kv, const int* __restrict__ rowptr,
     const int* __restrict__ src, const T* __restrict__ a, const T* __restrict__ w_aug,
     float* __restrict__ num, float* __restrict__ den, float* __restrict__ m_out, int batch, int num_dst,
     int num_src, int c_arg, int H, Layout L, int A2, float scale) {
+  using A = edge_logit::wide_t<T>;
   constexpr int kTs = static_cast<int>(sizeof(T));
   constexpr int kRing = kRingOf<T>;
   const int C = FLAT ? 32 * VB : c_arg;
@@ -108,7 +115,6 @@ __global__ void __launch_bounds__(kThreads) edge_attn_csr_kernel(
   const int HG = HC ? HC : L.HG;
   const int lanes = (HC || FLAT) ? 32 : L.lanes;
   const int groups = FLAT ? 1 : L.groups;
-  const int vf = HC ? (VB >= 4 ? VB / 4 : 1) : L.vf;  // HC = 4: D = 8 VB
   const int stage = 2 * G * kTs;  // a k slice, then a v slice
   extern __shared__ __align__(16) uint8_t smem[];
   const int warp = threadIdx.x / 32;
@@ -120,20 +126,24 @@ __global__ void __launch_bounds__(kThreads) edge_attn_csr_kernel(
   const int ll = active ? lane : lane % LB;
   bool owns;  // false on a lane that pads its head (D not a power of two): q reads as 0, no store
   const int c0 = edge_logit::lane_channel(ll, LB, HC ? LB : L.DV, HC ? LB * VB : L.D, VB, &owns);  // in the group
-  const int head = grp * HG + ll / LB;
-  const T* w_s = reinterpret_cast<const T*>(smem) + c0;  // row r at r * G
-  uint8_t* ring = smem + MAXA2 * G * kTs + warp * kRing * stage;
+  const int hl = ll / LB;  // head of the group
+  const int head = grp * HG + hl;
+  const bool lead = active && ll % LB == 0;  // the head's first lane writes its per-head values
+  uint8_t* ring = smem + warp * kRing * stage;
   const int64_t gc0 = static_cast<int64_t>(grp) * G;  // the group's first channel
+  const T* w_lane = w_aug + gc0 + c0;  // this lane's channels of w_aug's row 0
+  const int rc = edge_logit::attr_chunk(A2, HG, sizeof(A));
+  const bool one_chunk = rc == A2;
+  A* qw_s = reinterpret_cast<A*>(smem + kWarps * kRing * stage + warp * fwd_table_bytes(rc, HG, sizeof(A)));
+  A* s_s = qw_s + rc * HG;  // the chunk's sum_e p_e a_er, (r, h) at r HG + h
+  A* e_s = s_s + rc * HG;   // the batch's edge terms, (n, h) at n HG + h
+  float* lg_s = reinterpret_cast<float*>(e_s + 32 * HG);  // the batch's logits, then exp(logit - m)
+  float* m_s = lg_s + 32 * HG;                            // the heads' running max
 
   int cnt = 0, sid = 0;
-  float areg[MAXA2];
-  auto load_batch = [&](int base, int end) {  // lane l: edge base + l's source and attributes
+  auto load_batch = [&](int base, int end) {  // lane l: edge base + l's source
     cnt = min(32, end - base);
-    const int64_t mine = base + lane;
-    const bool have = lane < cnt;
-    sid = have ? src[mine] : 0;
-#pragma unroll
-    for (int r = 0; r < MAXA2; ++r) areg[r] = have && r < A2 ? to_f(a[mine * A2 + r]) : 0.f;
+    sid = lane < cnt ? src[base + lane] : 0;
   };
   constexpr int kChunk = VB * kTs;  // a lane's bytes of a slice
   auto copy_rows = [&](uint8_t* st, const T* krow) {  // the group's k and v slices of one row
@@ -158,16 +168,6 @@ __global__ void __launch_bounds__(kThreads) edge_attn_csr_kernel(
   if (t < num_dst) q_next.load(q + (int64_t)t * C + gc0 + c0);
   load_batch(e_begin, e_end);
   prime(0);
-  // w_aug's slice of the group, a word at a time, zero rows past A2
-  {
-    const int words = G * kTs / 4;
-    for (int i = threadIdx.x; i < MAXA2 * words; i += kThreads) {
-      const int r = i / words;
-      reinterpret_cast<uint32_t*>(smem)[i] =
-          r < A2 ? reinterpret_cast<const uint32_t*>(w_aug + r * C + gc0)[i - r * words] : 0u;
-    }
-  }
-  __syncthreads();
 
   for (; t < num_dst; t += step) {
     const int tn = t + step;
@@ -189,6 +189,10 @@ __global__ void __launch_bounds__(kThreads) edge_attn_csr_kernel(
           acc[c] = 0.f;
         }
       }
+      if (one_chunk && e_begin < e_end) {  // the factors of every attribute, once for the destination
+        __syncwarp();  // every lane is done with the previous destination's factors
+        edge_logit::head_factors<T, VB, false>(qw_s, nullptr, qv, nullptr, w_lane, C, 0, A2, LB, HG, hl, lead);
+      }
       float m = kNeg;
       float l = 0.f;
       const T* kv_b = kv + (int64_t)b * num_src * 2 * C + gc0;
@@ -197,6 +201,17 @@ __global__ void __launch_bounds__(kThreads) edge_attn_csr_kernel(
           load_batch(base, e_end);
           prime(b);
         }
+        // the batch's edge terms sum_r a_r qw[r, h], chunk by chunk
+        for (int r0 = 0; r0 < A2; r0 += rc) {
+          const int rn = min(rc, A2 - r0);
+          __syncwarp();
+          if (!one_chunk) {
+            edge_logit::head_factors<T, VB, false>(qw_s, nullptr, qv, nullptr, w_lane, C, r0, rn, LB, HG, hl, lead);
+            __syncwarp();
+          }
+          edge_logit::edge_terms<T, false>(e_s, nullptr, qw_s, nullptr, a, A2, base, cnt, HG, r0, rn, r0 > 0, lane);
+        }
+        __syncwarp();
         for (int n = 0, rd = 0; n < cnt; ++n, rd = rd == kRing - 1 ? 0 : rd + 1) {  // rd: edge n's stage
           {  // the row kRing - 1 edges on, into the stage edge n - 1 freed
             edge_logit::slice_sync<kChunk>();
@@ -206,27 +221,53 @@ __global__ void __launch_bounds__(kThreads) edge_attn_csr_kernel(
                         kv_b + (int64_t)__shfl_sync(kFull, sid, nx) * 2 * C);
             edge_logit::copy_commit();
           }
-          float ar[MAXA2];
-#pragma unroll
-          for (int r = 0; r < MAXA2; ++r) ar[r] = __shfl_sync(kFull, areg[r], n);
+          const A term = e_s[n * HG + hl];
           edge_logit::copy_wait<kRing - 1>();  // this lane's copies of edge n have landed,
           edge_logit::slice_sync<kChunk>();     // and every other lane's
           const uint8_t* st = ring + rd * stage + c0 * kTs;
           Row<T, VB> kr, vr;
           kr.load_shared(st);
           vr.load_shared(st + G * kTs);
-          float ev[VB];
-          edge_logit::edge_term<T, VB, MAXA2>(ev, ar, w_s, G);
-          const float s = edge_logit::exact_dot_vf<T, VB>(vf, qv, kr, ev, LB);
-          const float logit = s * scale;
+          const float logit = edge_logit::logit_sum<T, VB>(qv, kr, term, LB) * scale;
+          if (lead) lg_s[n * HG + hl] = logit;
           const float m_new = fmaxf(m, logit);
           const float corr = expf(m - m_new);
           const float p = expf(logit - m_new);
           l = fmaf(l, corr, p);
 #pragma unroll
-          for (int c = 0; c < VB; ++c) acc[c] = fmaf(acc[c], corr, p * (vr[c] + ev[c]));
+          for (int c = 0; c < VB; ++c) acc[c] = fmaf(acc[c], corr, p * vr[c]);
           m = m_new;
         }
+        // the batch's part of sum_e p_e e_e in the gauge of m: s[r, h] = sum_n exp(logit_n - m) a_nr,
+        // then acc[c] += sum_r s[r, h] w_r[c], both sums in A
+        if (lead) m_s[hl] = m;
+        __syncwarp();
+        for (int p = lane; p < cnt * HG; p += 32) lg_s[p] = expf(lg_s[p] - m_s[p % HG]);
+        A ea[VB];
+#pragma unroll
+        for (int c = 0; c < VB; ++c) ea[c] = 0;
+        for (int r0 = 0; r0 < A2; r0 += rc) {
+          const int rn = min(rc, A2 - r0);
+          __syncwarp();
+          for (int p = lane; p < rn * HG; p += 32) {
+            const int i = p / HG, h = p - i * HG;
+            const T* ar = a + (int64_t)base * A2 + r0 + i;
+            A x = 0;
+            for (int n = 0; n < cnt; ++n) x = edge_logit::fma_as<A>(lg_s[n * HG + h], to_f(ar[(int64_t)n * A2]), x);
+            s_s[p] = x;
+          }
+          __syncwarp();
+#pragma unroll 4
+          for (int i = 0; i < rn; ++i) {
+            Row<T, VB> wv;
+            wv.load(w_lane + (int64_t)(r0 + i) * C);
+            const A sv = s_s[i * HG + hl];
+#pragma unroll
+            for (int c = 0; c < VB; ++c) ea[c] = edge_logit::fma_as<A>(sv, wv[c], ea[c]);
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < VB; ++c) acc[c] += static_cast<float>(ea[c]);
       }
       if (b == batch - 1) {  // the next destination's edges and q, in flight during the stores
         load_batch(next_begin, next_end);
@@ -234,7 +275,7 @@ __global__ void __launch_bounds__(kThreads) edge_attn_csr_kernel(
       }
       if (active && owns) {
         edge_logit::store_row<VB>(num + row * C + gc0 + c0, acc);
-        if (ll % LB == 0) {
+        if (lead) {
           den[row * H + head] = l;
           m_out[row * H + head] = m;
         }
@@ -260,18 +301,21 @@ struct FwdArgs {
   int Dt;  // the head width before padding: the logit's scale is 1 / sqrt(Dt)
 };
 
-template <typename T, int VB, int MAXA2, int HC, bool FLAT>
+template <typename T, int VB, int HC, bool FLAT>
 int launch_fwd(const FwdArgs& x, const Layout& L, cudaStream_t s) {
-  auto kernel = edge_attn_csr_kernel<T, VB, MAXA2, HC, FLAT>;
-  const size_t smem = static_cast<size_t>(MAXA2 + 2 * kWarps * kRingOf<T>) * L.G * sizeof(T);
-  int rc = set_smem(kernel, smem);
-  if (rc != 0) return rc;
+  auto kernel = edge_attn_csr_kernel<T, VB, HC, FLAT>;
+  using A = edge_logit::wide_t<T>;
+  const int rc = edge_logit::attr_chunk(x.A2, L.HG, sizeof(A));
+  const size_t smem = static_cast<size_t>(kWarps) *
+                      (2 * kRingOf<T> * L.G * sizeof(T) + fwd_table_bytes(rc, L.HG, sizeof(A)));
+  int rc_set = set_smem(kernel, smem);
+  if (rc_set != 0) return rc_set;
   // a persistent grid: as many CTAs as fit the card at once, split evenly over the head groups
   static size_t sized_for = 0;  // the occupancy of this instantiation, per shared-memory size
   static int per_sm = 0;
   if (sized_for != smem) {
-    rc = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem));
-    if (rc != 0) return rc;
+    const int rc_occ = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem));
+    if (rc_occ != 0) return rc_occ;
     sized_for = smem;
   }
   int device = 0, sms = 0;
@@ -287,28 +331,25 @@ int launch_fwd(const FwdArgs& x, const Layout& L, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// attributes padded to 8 (16 past 8, 32 past 16); the heads of a group compile-time for 4 unpadded heads on 32
-// lanes, the whole row one such group (C = 32 VB) compile-time too; a head wider than 256 (VB = 16,
-// 32) is a group of its own, with no compile-time variant
+// the heads of a group compile-time for 4 unpadded heads on 32 lanes, the whole row one such group
+// (C = 32 VB) compile-time too; a head wider than 256 (VB = 16, 32) is a group of its own, with no
+// compile-time variant
 template <typename T, int VB>
 int launch_vb(const FwdArgs& x, cudaStream_t s) {
   Layout L;
   if (!edge_logit::make_layout<VB>(x.C, x.H, x.G, sizeof(T), &L) || x.Dt <= 0 || x.Dt > L.D)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (x.A2 > 16) return launch_fwd<T, VB, kMaxA2, 0, false>(x, L, s);
-  if (x.A2 > 8) return launch_fwd<T, VB, 16, 0, false>(x, L, s);
   if constexpr (VB <= 8) {
     if (L.lanes == 32 && L.HG == 4 && L.DV == L.LB) {
-      return L.groups == 1 ? launch_fwd<T, VB, 8, 4, true>(x, L, s) : launch_fwd<T, VB, 8, 4, false>(x, L, s);
+      return L.groups == 1 ? launch_fwd<T, VB, 4, true>(x, L, s) : launch_fwd<T, VB, 4, false>(x, L, s);
     }
   }
-  return launch_fwd<T, VB, 8, 0, false>(x, L, s);
+  return launch_fwd<T, VB, 0, false>(x, L, s);
 }
 
 template <typename T>
 int launch_edge_attn_csr(const FwdArgs& x, void* stream) {
-  if (x.A2 <= 0 || x.A2 > kMaxA2 || x.num_dst <= 0 || x.batch <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (x.A2 <= 0 || x.num_dst <= 0 || x.batch <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (x.VB) {
     case 1: return launch_vb<T, 1>(x, s);

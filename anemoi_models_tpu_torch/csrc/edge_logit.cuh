@@ -6,18 +6,15 @@
 // channels of whole heads, lane l owning channels [l VB, l VB + VB) of the
 // group, a head spanning LB = D / VB lanes. The backward recomputes the
 // forward's logit and has to get the same bits, so the logit's arithmetic
-// lives here once:
+// lives here once, in the factored form of the edge term (below):
 //
-//   the edge term   ev[c] = sum_r a_r w_aug[r, c], one fmaf chain a channel in
-//                   r order (rows past A2 are zero: a zero term changes at most
-//                   the sign of an exact zero);
-//   the dot         <q, k + ev>_h as the first edge kernel summed it: a thread
-//                   of VF = max(1, D / 32) channels ran one fmaf chain, then an
-//                   xor shuffle tree over the head's threads, highest level
-//                   first. A lane holds P = VB / VF such chains and runs the
-//                   tree's upper levels across lanes, its lower ones inside.
-//                   Where D is not a power of two (no first kernel ran it),
-//                   VF = VB: one chain a lane, then the tree over the lanes.
+//   the factors     qw[r, h] = <q, w_aug[r]>_h, once a destination: a lane's
+//                   fma chain over its channels, then the sum over the head;
+//   the edge term   sum_r a_r qw[r, h], by (edge, head) pair: four fma chains
+//                   a chunk of attributes (chunk_dot), the chunks added in order;
+//   the logit       (the head's sum of a lane's fmaf chain q . k) + the edge
+//                   term, rounded to fp32, times 1 / sqrt(D);
+// the factors and the edge term in wide_t<T> (fp64 for fp32 operands).
 //
 // A head of D channels spans LB lanes, D / VB rounded up to a power of two:
 // where D is not a power of two (D = 48, 96, 192, ...), the lanes past D / VB
@@ -33,6 +30,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace edge_logit {
 
@@ -154,72 +153,126 @@ __device__ __forceinline__ void slice_sync() {
   if constexpr (kChunk % 16 != 0) __syncwarp();
 }
 
-// the sum over the `lanes` lanes of an aligned group (a head), every lane
-// getting the same bits
-__device__ __forceinline__ float group_sum(float s, int lanes) {
+// The edge term, factored (a_r attribute r of the edge, w_r row r of w_aug,
+// <.,.>_h a dot over head h's channels):
+//   <q, k + a.w_aug>_h = <q, k>_h + sum_r a_r <q, w_r>_h,
+// so a destination's per-head factors <x, w_r>_h are taken once (x = q, or
+// g_num in the backward) and an edge needs A2 products a head. The attributes
+// stream in chunks of attr_chunk rows, whose factors a warp keeps in its
+// shared memory (kAttrBytes at most), so A2 is bounded by nothing but device
+// memory. The factors and the sums over attributes accumulate in wide_t<T>:
+// fp64 for fp32 operands, whose sums over many attributes would otherwise
+// round at the level of the fp32 bound a kernel is held to (a plain fp32
+// version of the same function is itself that far from the exact value at
+// 64 attributes of unit scale); fp32 for bf16 ones.
+constexpr int kAttrBytes = 4096;  // the factors of one chunk a warp: rows x heads of the group
+
+template <typename T>
+struct Wide {
+  using type = float;
+};
+template <>
+struct Wide<float> {
+  using type = double;
+};
+template <typename T>
+using wide_t = typename Wide<T>::type;
+
+template <typename A>
+__device__ __forceinline__ A fma_as(A a, A b, A c) {
+  if constexpr (std::is_same_v<A, double>) {
+    return fma(a, b, c);
+  } else {
+    return fmaf(a, b, c);
+  }
+}
+
+// the attribute rows of a chunk: as many as fit kAttrBytes of factors of acc_bytes each for HG heads
+__host__ __device__ __forceinline__ int attr_chunk(int A2, int HG, int acc_bytes) {
+  const int rows = kAttrBytes / (acc_bytes * HG) > 0 ? kAttrBytes / (acc_bytes * HG) : 1;
+  return A2 < rows ? A2 : rows;
+}
+
+// the sum over the head's LB lanes in A (every lane of the head gets the same bits)
+template <typename A>
+__device__ __forceinline__ A group_sum(A s, int lanes) {
 #pragma unroll
   for (int off = lanes >> 1; off > 0; off >>= 1) s += __shfl_xor_sync(kFull, s, off);
   return s;
 }
 
-// ev[c] = sum_r a_r w[r, c] for this lane's VB channels, one fmaf chain a
-// channel in r order; w points at the lane's channels of row 0 in shared
-// memory, rows `stride` values apart.
-template <typename T, int VB, int MAXA2>
-__device__ __forceinline__ void edge_term(float* ev, const float* ar, const T* w, int stride) {
+// <x, row>_h in A: one fma chain over the lane's VB channels, then the sum over the head's lanes
+template <typename A, typename T, int VB>
+__device__ __forceinline__ A head_dot(const float* xv, const Row<T, VB>& row, int LB) {
+  A s = 0;
 #pragma unroll
-  for (int c = 0; c < VB; ++c) ev[c] = 0.f;
-#pragma unroll
-  for (int r = 0; r < MAXA2; ++r) {
+  for (int c = 0; c < VB; ++c) s = fma_as<A>(xv[c], row[c], s);
+  return group_sum<A>(s, LB);
+}
+
+// out0[(r - r0) HG + h] = <x0, w_r>_h (and out1 of x1 where TWO) for rows r0 .. r0 + rn - 1 of
+// w_aug, in wide_t<T>, x0 and x1 the lane's VB channels (zeros on a lane that pads its head); w
+// points at the lane's channels of row 0 in device memory, rows C apart. Written by each head's
+// first lane.
+template <typename T, int VB, bool TWO>
+__device__ __forceinline__ void head_factors(wide_t<T>* out0, wide_t<T>* out1, const float* x0, const float* x1,
+                                             const T* w, int C, int r0, int rn, int LB, int HG, int hl,
+                                             bool lead) {
+  using A = wide_t<T>;
+#pragma unroll 4
+  for (int i = 0; i < rn; ++i) {
     Row<T, VB> wv;
-    wv.load_shared(reinterpret_cast<const uint8_t*>(w + r * stride));
-#pragma unroll
-    for (int c = 0; c < VB; ++c) ev[c] = fmaf(ar[r], wv[c], ev[c]);
+    wv.load(w + static_cast<int64_t>(r0 + i) * C);
+    const A p0 = head_dot<A, T, VB>(x0, wv, LB);
+    if (lead) out0[i * HG + hl] = p0;
+    if constexpr (TWO) {
+      const A p1 = head_dot<A, T, VB>(x1, wv, LB);
+      if (lead) out1[i * HG + hl] = p1;
+    }
   }
 }
 
-// <q, k + ev> over the head, exactly as the first edge kernel summed it (see
-// the top of this file); LB lanes a head.
-template <typename T, int VB, int VF>
-__device__ __forceinline__ float exact_dot(const float* qv, const Row<T, VB>& kr, const float* ev, int LB) {
-  constexpr int P = VB / VF;
-  float s[P];
+// sum_i a_i f_i over a chunk of rn attributes in A: four fma chains (attributes i = j mod 4),
+// summed pairwise
+template <typename A, typename T>
+__device__ __forceinline__ A chunk_dot(const T* ar, const A* f, int HG, int rn) {
+  A x[4] = {0, 0, 0, 0};
+  int i = 0;
+  for (; i + 4 <= rn; i += 4) {
 #pragma unroll
-  for (int u = 0; u < P; ++u) {
-    float x = 0.f;
-#pragma unroll
-    for (int f = 0; f < VF; ++f) x = fmaf(qv[u * VF + f], kr[u * VF + f] + ev[u * VF + f], x);
-    s[u] = x;
+    for (int j = 0; j < 4; ++j) x[j] = fma_as<A>(to_f(ar[i + j]), f[(i + j) * HG], x[j]);
   }
 #pragma unroll
-  for (int off = LB >> 1; off > 0; off >>= 1) {
-#pragma unroll
-    for (int u = 0; u < P; ++u) s[u] += __shfl_xor_sync(kFull, s[u], off);
-  }
-#pragma unroll
-  for (int off = P >> 1; off > 0; off >>= 1) {
-#pragma unroll
-    for (int u = 0; u < off; ++u) s[u] = s[u] + s[u + off];
-  }
-  return s[0];
+  for (int j = 0; j < 3; ++j)
+    if (i + j < rn) x[j] = fma_as<A>(to_f(ar[i + j]), f[(i + j) * HG], x[j]);
+  return (x[0] + x[1]) + (x[2] + x[3]);
 }
 
+// The edge terms of a batch of cnt edges (edge base + n), by (edge, head) pair p = n HG + h over
+// the warp's lanes: out0[p] (+)= sum_i a[base + n, r0 + i] f0[i HG + h], i < rn (and out1 of f1
+// where TWO), a chunk_dot a pair and chunk, added to the earlier chunks' (add) in chunk order.
+template <typename T, bool TWO>
+__device__ __forceinline__ void edge_terms(wide_t<T>* out0, wide_t<T>* out1, const wide_t<T>* f0,
+                                           const wide_t<T>* f1, const T* a, int A2, int base, int cnt, int HG,
+                                           int r0, int rn, bool add, int lane) {
+  using A = wide_t<T>;
+  for (int p = lane; p < cnt * HG; p += 32) {
+    const int n = p / HG, h = p - n * HG;
+    const T* ar = a + static_cast<int64_t>(base + n) * A2 + r0;
+    const A x0 = chunk_dot<A, T>(ar, f0 + h, HG, rn);
+    out0[p] = add ? out0[p] + x0 : x0;
+    if constexpr (TWO) {
+      const A x1 = chunk_dot<A, T>(ar, f1 + h, HG, rn);
+      out1[p] = add ? out1[p] + x1 : x1;
+    }
+  }
+}
+
+// The logit's sum before the scale, as both kernels take it: <q, k>_h in fp32 (a lane's chain,
+// then the head's lanes), plus the edge's term in wide_t<T>, rounded once to fp32
 template <typename T, int VB>
-__device__ __forceinline__ float exact_dot_vf(int vf, const float* qv, const Row<T, VB>& kr, const float* ev,
-                                              int LB) {
-  if constexpr (VB >= 16) {  // a head wider than 256: one chain a lane
-    if (vf == VB) return exact_dot<T, VB, VB>(qv, kr, ev, LB);
-  }
-  if constexpr (VB >= 8) {
-    if (vf == 8) return exact_dot<T, VB, 8>(qv, kr, ev, LB);
-  }
-  if constexpr (VB >= 4) {
-    if (vf == 4) return exact_dot<T, VB, 4>(qv, kr, ev, LB);
-  }
-  if constexpr (VB >= 2) {
-    if (vf == 2) return exact_dot<T, VB, 2>(qv, kr, ev, LB);
-  }
-  return exact_dot<T, VB, 1>(qv, kr, ev, LB);
+__device__ __forceinline__ float logit_sum(const float* qv, const Row<T, VB>& kr, wide_t<T> term, int LB) {
+  return static_cast<float>(static_cast<wide_t<T>>(head_dot<float, T, VB>(qv, kr, LB)) + term);
 }
 
 // Where a layout's runtime values must agree with the compile-time ones.
@@ -231,16 +284,14 @@ struct Layout {
   int DV;     // lanes of a head that own channels: D / VB (DV < LB pads the head)
   int HG;     // heads of a group
   int groups; // C / G
-  int vf;     // channels of one fmaf chain of the dot: max(1, D / 32) for a power-of-two D
-              // (the first kernel's threads), else VB
 };
 
 // The layout of (C, H) with group width G, checked: D at most 1024, a power
 // of two or a multiple of 8, that VB divides; a group of whole heads, each on
 // LB lanes (a power of two: the shuffle trees run over it; its lanes past DV
-// own no channel and add zeros), HG LB <= 32 lanes in all, so VF divides VB
-// (a head wider than 256 is a group of its own on 32 lanes of VB = 16 or 32
-// channels, one chain a lane); and a group's rows 16-byte multiples. Returns
+// own no channel and add zeros), HG LB <= 32 lanes in all (a head wider than
+// 256 is a group of its own on 32 lanes of VB = 16 or 32 channels); and a
+// group's rows 16-byte multiples. Returns
 // false where the kernels cannot run it. A head width that no layout takes is
 // padded with zero channels by the wrapper (ops/edge_attention.py:_kernel_head).
 template <int VB>
@@ -253,7 +304,7 @@ inline bool make_layout(int C, int H, int G, int item, Layout* out) {
   int LB = 1;
   while (LB < DV) LB *= 2;
   if ((G / D) * LB > 32) return false;
-  *out = Layout{G, (G / D) * LB, D, LB, DV, G / D, C / G, pow2 ? (D > 32 ? D / 32 : 1) : VB};
+  *out = Layout{G, (G / D) * LB, D, LB, DV, G / D, C / G};
   return true;
 }
 

@@ -33,9 +33,13 @@ for ``dq`` and the edge gradients (a warp per destination, its head groups in
 sequence, its edges' k/v rows several at a time in flight) and the
 transposed list (:func:`csr_transpose`) for the per-source ``[dk|dv]``,
 reading the edge scalars at each edge's position there (the inverse
-permutation ``pos``), and sums ``dw_aug`` in per-warp partials, one row a
-CTA of a grid sized from the shape alone (:func:`_bwd_parts`), then in a
-fixed order; fixed-order sums only, so every card gives the same bits.
+permutation ``pos``), and sums ``dw_aug`` from per-destination terms in a
+fixed split of the destinations (:func:`_bwd_parts`), then in a fixed order;
+fixed-order sums only, so every card gives the same bits. Both kernels take
+the edge term ``e = a . w_aug`` in its factored form (``csrc/edge_logit.cuh``):
+per destination the products ``<q, w_r>_h`` (and ``<g_num, w_r>_h``), per
+edge ``A2 H`` terms, so any number of edge attributes runs, streamed in
+chunks.
 :class:`EdgeAttnCSR` and :class:`KVProj` are the autograd Functions the
 conv runs through; the chain through ``w_kv`` is ``torch.matmul``, as the JAX
 package leaves it to XLA.
@@ -75,13 +79,11 @@ __all__ = [
 ]
 
 _NEG = -1e30
-_MAX_A2 = 32  # kMaxA2 in csrc/edge_attention.cu: the edge attributes with the ones column
 _GROUP_CHANNELS = 256  # the most channels of a group of several heads
 _MAX_HEAD = 1024  # the widest head: a group of its own, 32 channels a lane
 _GROUP_LANES = 32  # the lanes of a group: a lane never holds two heads
-_REF_SMS = 132  # the H100 SXM's SMs: the backward's dw_aug partials are counted for it on every card
-_BWD_SMEM = 227 * 1024  # kMaxSmem in csrc/edge_attention_bwd.cu: a CTA's shared memory on Hopper
-_BWD_RING = 3  # kRing in csrc/edge_attention_bwd.cu
+_DW_CTAS = 4 * 132  # the dw pass's CTAs to aim at: four waves of the H100 SXM's SMs
+_DW_COLS, _DW_ROWS = 128, 8  # kDwCols, kDwRows in csrc/edge_attention_bwd.cu: a dw CTA's tile of w_aug
 _DTYPES = (torch.float32, torch.bfloat16)
 
 # kernel launches per wrapper; a CPU call runs the plain version and adds nothing
@@ -414,7 +416,7 @@ def edge_attn_csr(
     batch = bnd // nd
     _require(kv.shape[1] == 2 * c and kv.shape[0] % batch == 0, f"kv shape {tuple(kv.shape)} for C={c}, B={batch}")
     a2 = a.shape[1]
-    _require(a.shape[0] == src.numel() and 0 < a2 <= _MAX_A2, f"a shape {tuple(a.shape)} for {src.numel()} edges")
+    _require(a.shape[0] == src.numel() and a2 > 0, f"a shape {tuple(a.shape)} for {src.numel()} edges")
     _require(w_aug.shape == (a2, c), f"w_aug shape {tuple(w_aug.shape)} != ({a2}, {c})")
     _require_contiguous(q=q, kv=kv, rowptr=rowptr, src=src, a=a, w_aug=w_aug)
     _require(all(t.data_ptr() % 16 == 0 for t in (q, kv, w_aug)),
@@ -425,10 +427,6 @@ def edge_attn_csr(
         q, kv, w_aug = (_pad_heads(t, num_heads, d, dp) for t in (q, kv, w_aug))
         c = num_heads * dp
     vb, _, group = _lane_layout(c, num_heads)
-    item = 2 if dt == torch.bfloat16 else 4
-    smem = (_attr_rows(a2) + 2 * 4 * (4 if item == 2 else 3)) * group * item  # launch_fwd's w_aug slice and rings
-    _require(smem <= _BWD_SMEM, f"edge_attn_csr: a head group of {group} channels with {a2} attributes needs "
-                                f"{smem} bytes of shared memory a CTA, more than {_BWD_SMEM}")
     num = torch.empty((bnd, c), dtype=torch.float32, device=q.device)
     den = torch.empty((bnd, num_heads), dtype=torch.float32, device=q.device)
     m = torch.empty((bnd, num_heads), dtype=torch.float32, device=q.device)
@@ -450,71 +448,16 @@ def edge_attn_csr(
     return AttentionPartials(num.view(bnd, num_heads, d), den, m)
 
 
-def _attr_rows(a2: int) -> int:
-    """The attribute rows both kernels' loops run for ``a2`` attributes: 8,
-    16 or 32, the smallest that holds them."""
-    return 8 if a2 <= 8 else 16 if a2 <= 16 else _MAX_A2
-
-
-def _bwd_warps_smem(c: int, a2: int, group: int, dtype: torch.dtype) -> tuple[int, int]:
-    """The backward's dst-pass CTA as ``launch_passes`` sizes it: its warps
-    (4, halved while w_aug, the rings, the q / g_num slices and the per-warp
-    dw_aug partials exceed 227 KB) and its shared memory in bytes."""
-    item = 2 if dtype == torch.bfloat16 else 4
-    maxa2 = _attr_rows(a2)
-
-    def smem(warps: int) -> int:
-        return maxa2 * c * item + warps * (_BWD_RING * 2 * group * item + group * (item + 4) + a2 * c * 4)
-
-    warps = 4
-    while smem(warps) > _BWD_SMEM and warps > 1:
-        warps //= 2
-    _require(smem(warps) <= _BWD_SMEM,
-             f"edge_attn_csr_bwd: C={c} with {a2} attributes needs {smem(warps)} bytes of shared memory "
-             f"a CTA, more than {_BWD_SMEM}")
-    return warps, smem(warps)
-
-
-def _bwd_registers(c: int, num_heads: int, a2: int, dtype: torch.dtype) -> int:
-    """An upper bound of the registers a thread of the dst pass's
-    instantiation for this shape takes (ptxas for sm_90a on
-    csrc/edge_attention_bwd.cu: 56-242), as one of three budgets: 256 with
-    16 or 32 attribute slots a lane; 168 where every lane keeps all eight
-    attributes (unless it holds one channel) or in fp32 with eight channels
-    a lane and no compile-time head count; else 128. So the modelled
-    occupancy is never above the card's (no second wave of CTAs); a cuda
-    test holds it equal at the model paths' shapes."""
-    vb, lanes, group = _lane_layout(c, num_heads)
-    d = c // num_heads
-    lb = _pow2_at_least(d // vb)
-    hc = lanes == 32 and group // d == 4 and d // vb == lb  # launch_vb's compile-time head count
-    if a2 > 8 or vb >= 16:  # 16 or 32 attribute slots a lane, or 16-32 channels a lane
-        return 256
-    if a2 > lb:
-        return 128 if vb == 1 else 168
-    return 168 if dtype == torch.float32 and vb == 8 and not hc else 128
-
-
-def _bwd_ctas_per_sm(c: int, num_heads: int, a2: int, dtype: torch.dtype) -> int:
-    """The dst pass's CTAs an SM of any Hopper card (228 KB of shared memory
-    and 64 K registers an SM, 1 KB of it reserved a CTA), from the shape."""
-    _, _, group = _lane_layout(c, num_heads)
-    warps, smem = _bwd_warps_smem(c, a2, group, dtype)
-    by_regs = 65536 // (_bwd_registers(c, num_heads, a2, dtype) * 32 * warps)
-    return max(1, min(by_regs, 233472 // (smem + 1024), 64 // warps))
-
-
 @functools.lru_cache(maxsize=256)
-def _bwd_parts(nd: int, c: int, num_heads: int, a2: int, dtype: torch.dtype) -> int:
-    """The rows of the backward's ``dw_aug`` partials, which is also its dst
-    pass's grid: one CTA a row, at most a warp a destination, and at most
-    the CTAs an H100 SXM (132 SMs) holds at once for this shape
-    (:func:`_bwd_ctas_per_sm`). A function of the shape alone, so which warp
-    sums which destinations' terms, and in what order, is the same on every
-    card; on a card with fewer SMs the CTAs it cannot hold wait for a slot."""
-    _, _, group = _lane_layout(c, num_heads)
-    warps, _ = _bwd_warps_smem(c, a2, group, dtype)
-    return min(-(-nd // warps), _REF_SMS * _bwd_ctas_per_sm(c, num_heads, a2, dtype))
+def _bwd_parts(rows: int, c: int, a2: int) -> int:
+    """The parts the backward's ``dw_aug`` sum splits the ``rows``
+    destination rows (batch x destinations) into, each summed by its own
+    CTAs before the parts are summed in order: enough for about
+    ``_DW_CTAS`` CTAs over the (column, attribute-row) tiles of ``(a2, c)``,
+    at least 32 rows a part. A function of the shape alone, so every card
+    sums in the same order."""
+    tiles = -(-c // _DW_COLS) * -(-a2 // _DW_ROWS)
+    return max(1, min(-(-rows // 32), -(-_DW_CTAS // tiles)))
 
 
 def edge_attn_csr_bwd(
@@ -552,7 +495,7 @@ def edge_attn_csr_bwd(
     _require(kv.shape[1] == 2 * c and kv.shape[0] % batch == 0, f"kv shape {tuple(kv.shape)} for C={c}, B={batch}")
     ns = kv.shape[0] // batch
     num_edges, a2 = a.shape
-    _require(num_edges == src.numel() and 0 < a2 <= _MAX_A2, f"a shape {tuple(a.shape)} for {src.numel()} edges")
+    _require(num_edges == src.numel() and a2 > 0, f"a shape {tuple(a.shape)} for {src.numel()} edges")
     _require(w_aug.shape == (a2, c), f"w_aug shape {tuple(w_aug.shape)} != ({a2}, {c})")
     _require(m.shape == (bnd, num_heads) and g_den.shape == (bnd, num_heads) and g_num.shape == (bnd, c),
              f"m, g_num, g_den shapes {tuple(m.shape)}, {tuple(g_num.shape)}, {tuple(g_den.shape)}")
@@ -569,12 +512,14 @@ def edge_attn_csr_bwd(
         q, kv, w_aug, g_num = (_pad_heads(t, num_heads, d, dp) for t in (q, kv, w_aug, g_num))
         c = num_heads * dp
     vb, _, group = _lane_layout(c, num_heads)
-    parts = _bwd_parts(nd, c, num_heads, a2, dt)  # rows of the dw_aug partials, from the shape alone
+    parts = _bwd_parts(bnd, c, a2)  # the dw_aug sum's split of the destination rows, from the shape alone
     dq = torch.empty((bnd, c), dtype=torch.float32, device=dev)
     dkv = torch.empty((batch * ns, 2 * c), dtype=torch.float32, device=dev)
     da = torch.empty((num_edges, a2), dtype=torch.float32, device=dev)
     dw = torch.empty((a2, c), dtype=torch.float32, device=dev)
     dlw = torch.empty((batch, num_edges, num_heads, 2), dtype=torch.float32, device=dev)  # (dl, w) by position
+    adl = torch.empty((bnd, num_heads, a2), dtype=torch.float32, device=dev)  # sum_e a_e dl, per destination
+    aw = torch.empty((bnd, num_heads, a2), dtype=torch.float32, device=dev)  # sum_e a_e w
     dw_part = torch.empty((parts, a2, c), dtype=torch.float32, device=dev)
     from anemoi_models_tpu_torch.ops.kernels import load_kernels
 
@@ -587,7 +532,7 @@ def edge_attn_csr_bwd(
             w_aug.data_ptr(), m.data_ptr(), g_num.data_ptr(), g_den.data_ptr(),
             colptr.data_ptr(), perm.data_ptr(), dst.data_ptr(), pos.data_ptr(),
             dq.data_ptr(), dkv.data_ptr(), da.data_ptr(), dw.data_ptr(),
-            dlw.data_ptr(), dw_part.data_ptr(),
+            dlw.data_ptr(), adl.data_ptr(), aw.data_ptr(), dw_part.data_ptr(),
             batch, nd, ns, num_edges, c, num_heads, a2, group, vb, parts, d, stream,
         )
     _check_launch(rc, "edge_attn_csr_bwd")

@@ -44,10 +44,8 @@ _SIGNATURES = {
     "kv_proj_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "edge_attn_csr_f32": [_P] * 9 + [_I] * 9 + [_P],
     "edge_attn_csr_bf16": [_P] * 9 + [_I] * 9 + [_P],
-    "edge_attn_csr_bwd_f32": [_P] * 19 + [_I] * 11 + [_P],
-    "edge_attn_csr_bwd_bf16": [_P] * 19 + [_I] * 11 + [_P],
-    "edge_attn_csr_bwd_per_sm_f32": [_I] * 5 + [_P],
-    "edge_attn_csr_bwd_per_sm_bf16": [_I] * 5 + [_P],
+    "edge_attn_csr_bwd_f32": [_P] * 21 + [_I] * 11 + [_P],
+    "edge_attn_csr_bwd_bf16": [_P] * 21 + [_I] * 11 + [_P],
     "gnn_conv_f32": [_P] * 17 + [_I] * 6 + [_P],
     "gnn_conv_bf16": [_P] * 17 + [_I] * 6 + [_P],
     "gnn_conv_layered_f32": [_P] * 5 + [ctypes.POINTER(_P), _I] + [_P] * 7 + [_I] + [_P] * 2 + [_I] * 7 + [_P],

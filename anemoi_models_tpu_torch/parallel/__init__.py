@@ -7,11 +7,23 @@ and GraphTransformer layers under it (``halo_conv``) and the
 destination-sharded mappers (``mapper_conv``). The layers take these paths
 by themselves under an active mesh whose ``model`` axis is larger than 1;
 ``all_reduce_gradients`` is the train step's reduction of the replicated
-parameters' gradients. ZeRO-1 / FSDP (``fsdp``) and ``make_hybrid_mesh``
-are not ported yet.
+parameters' gradients; ``fsdp`` shards the parameters and the optimizer
+state (ZeRO-1 / FSDP) for ``training.train_run``; ``make_hybrid_mesh`` lays
+the data axis over hosts and a host's ranks.
 """
 
-from anemoi_models_tpu_torch.parallel.api import Mesh, get_mesh, make_mesh, model_sharded, row_range, set_mesh, use_mesh
+from anemoi_models_tpu_torch.parallel.api import (
+    Mesh,
+    get_mesh,
+    hybrid_rank_grid,
+    make_hybrid_mesh,
+    make_mesh,
+    model_sharded,
+    row_range,
+    set_mesh,
+    use_mesh,
+)
+from anemoi_models_tpu_torch.parallel.fsdp import ShardPlan, array_shardings, shard_train_state, train_state_shardings
 from anemoi_models_tpu_torch.parallel.halo import halo_exchange, pad_nodes, unpad_nodes
 from anemoi_models_tpu_torch.parallel.halo_conv import halo_graph_conv, halo_graph_transformer_conv, shard_edge_values
 from anemoi_models_tpu_torch.parallel.mapper_conv import (
@@ -32,7 +44,9 @@ from anemoi_models_tpu_torch.parallel.primitives import (
 
 __all__ = [
     "Mesh",
+    "ShardPlan",
     "all_reduce_gradients",
+    "array_shardings",
     "change_channels_in_shape",
     "gather_source_rows",
     "gather_tensor",
@@ -41,6 +55,8 @@ __all__ = [
     "halo_exchange",
     "halo_graph_conv",
     "halo_graph_transformer_conv",
+    "hybrid_rank_grid",
+    "make_hybrid_mesh",
     "make_mesh",
     "model_sharded",
     "pad_nodes",
@@ -50,9 +66,11 @@ __all__ = [
     "set_mesh",
     "shard_edge_values",
     "shard_tensor",
+    "shard_train_state",
     "sharded_mapper_edge_attention",
     "sharded_mapper_gnn_conv",
     "sync_tensor",
+    "train_state_shardings",
     "unpad_nodes",
     "use_mesh",
 ]

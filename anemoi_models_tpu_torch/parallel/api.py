@@ -33,10 +33,12 @@ from __future__ import annotations
 from contextlib import contextmanager
 from typing import Iterator, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["Mesh", "get_mesh", "make_mesh", "model_sharded", "row_range", "set_mesh", "use_mesh"]
+__all__ = ["Mesh", "get_mesh", "hybrid_rank_grid", "make_hybrid_mesh", "make_mesh", "model_sharded", "row_range",
+           "set_mesh", "use_mesh"]
 
 BACKENDS = ("gloo", "nccl")
 
@@ -115,6 +117,27 @@ def make_mesh(data: int = 1, model: int = 1, *, backend: str, device="cuda") -> 
     if backend == "nccl" and device.type != "cuda":
         raise ValueError("the nccl backend needs device='cuda'")
     return Mesh(data, model, backend, device)
+
+
+def hybrid_rank_grid(dcn_data: int, ici_data: int = 1, model: int = 1) -> np.ndarray:
+    """The ranks of :func:`make_hybrid_mesh`'s grid, (dcn_data ici_data,
+    model): consecutive ranks form a model group and the two data factors
+    flatten into one ``data`` axis, the JAX package's device order where the
+    devices have no slice topology (``parallel/api.py:make_hybrid_mesh``)."""
+    return np.arange(dcn_data * ici_data * model).reshape(dcn_data * ici_data, model)
+
+
+def make_hybrid_mesh(dcn_data: int, ici_data: int = 1, model: int = 1, *, backend: str, device="cuda") -> Mesh:
+    """The multi-host (data, model) mesh: the data axis spans the hosts
+    (``dcn_data``) and the ranks of a host (``ici_data``), the model axis
+    stays among consecutive ranks, the ones a host's fast links join
+    (:func:`hybrid_rank_grid`). One host has no slice topology to lay it
+    on, so this is the JAX package's branch for devices without one; raises
+    by name when the process group has fewer ranks than the grid."""
+    n = dcn_data * ici_data * model
+    if dist.is_initialized() and dist.get_world_size() < n:
+        raise ValueError(f"hybrid mesh needs {n} ranks, have {dist.get_world_size()}")
+    return make_mesh(dcn_data * ici_data, model, backend=backend, device=device)
 
 
 def set_mesh(mesh: Optional[Mesh]) -> None:

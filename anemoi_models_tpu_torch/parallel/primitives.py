@@ -208,7 +208,7 @@ def change_channels_in_shape(shapes: list[tuple[int, ...]], channels: int) -> li
 
 
 @torch.no_grad()
-def all_reduce_gradients(params: Iterable[torch.Tensor]) -> None:
+def all_reduce_gradients(params: Iterable[torch.Tensor], plan=None) -> None:
     """Make each replicated parameter's gradient the whole model's: sum
     the ranks' partial gradients over ``model`` (each rank's holds its own
     rows' terms), then average them over ``data`` (each data index trains on
@@ -216,23 +216,34 @@ def all_reduce_gradients(params: Iterable[torch.Tensor]) -> None:
     rank issues the same collectives whatever gradients it holds (a missing
     gradient counts as zeros, as the optimizer reads it). Under GSPMD the
     JAX package gets this from the replicated parameters' sharding; without
-    it each rank would step a different model."""
+    it each rank would step a different model.
+
+    Under an FSDP ``plan`` (``parallel.fsdp``) a sharded parameter's
+    gradient is its shard's, already summed over the plan's axis by the
+    gather's adjoint: a second buffer takes the sum over the other axis, if
+    it is ``model``, and the average over ``data``."""
     mesh = get_mesh()
     if mesh is None or mesh.shape["model"] * mesh.shape["data"] == 1:
         return
     params = [p for p in params if p.requires_grad]
-    if not params:
-        return
-    grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
-    flat = torch.cat([g.reshape(-1).float() for g in grads])
-    mesh.check_device(flat)
-    if mesh.shape["model"] > 1:
-        dist.all_reduce(flat, group=mesh.groups["model"])
-    if mesh.shape["data"] > 1:
-        dist.all_reduce(flat, group=mesh.groups["data"])
-        flat /= mesh.shape["data"]
-    offset = 0
-    for p, g in zip(params, grads):
-        n = g.numel()
-        p.grad = flat[offset:offset + n].view_as(g).to(p.dtype)
-        offset += n
+    sharded = plan is not None and plan.mode == "fsdp"
+    buffers = [([p for p in params if not sharded or plan.dim_of(p) is None], ("model", "data"))]
+    if sharded:
+        buffers.append(([p for p in params if plan.dim_of(p) is not None],
+                        tuple(a for a in ("model", "data") if a != plan.axis)))
+    for group, axes in buffers:
+        if not group:
+            continue
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in group]
+        flat = torch.cat([g.reshape(-1).float() for g in grads])
+        mesh.check_device(flat)
+        for axis in axes:
+            if mesh.shape[axis] > 1:
+                dist.all_reduce(flat, group=mesh.groups[axis])
+        if mesh.shape["data"] > 1:
+            flat /= mesh.shape["data"]
+        offset = 0
+        for p, g in zip(group, grads):
+            n = g.numel()
+            p.grad = flat[offset:offset + n].view_as(g).to(p.dtype)
+            offset += n

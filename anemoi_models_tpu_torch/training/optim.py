@@ -14,6 +14,10 @@ the JAX package's step for step:
   whenever it is above);
 - AdamW is ``optax.adamw``: bias-corrected moments, ``eps`` added outside the
   square root, decoupled decay ``lr * wd * p`` on every parameter.
+
+Under a ZeRO-1 / FSDP plan (``parallel.fsdp``, attached as ``plan``) each
+rank holds its slice of a sharded leaf's moments and updates its slice of
+the leaf; the clip reads the norm of the whole gradient.
 """
 
 from __future__ import annotations
@@ -51,7 +55,9 @@ class AdamW(torch.optim.Optimizer):
     """``optax.chain(clip_by_global_norm(clip_norm), adamw(schedule, ...))``
     as a torch optimizer. ``count`` is the number of updates taken, optax's
     step counter. A parameter without a gradient is updated as if its
-    gradient were zero, as optax updates every leaf."""
+    gradient were zero, as optax updates every leaf. ``plan``, when a
+    ``parallel.fsdp.ShardPlan`` sets it, says which slice of each leaf this
+    rank updates and how the gradient's global norm is summed."""
 
     def __init__(self, params: Iterable[torch.Tensor], schedule: Callable[[int], float], *,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 0.0,
@@ -60,6 +66,7 @@ class AdamW(torch.optim.Optimizer):
         self.schedule = schedule
         self.clip_norm = clip_norm
         self.count = 0
+        self.plan = None
 
     def state_dict(self) -> dict:
         """torch's optimizer state (each parameter's ``mu`` and ``nu``) and
@@ -79,23 +86,31 @@ class AdamW(torch.optim.Optimizer):
             (group, group["params"], [torch.zeros_like(p) if p.grad is None else p.grad for p in group["params"]])
             for group in self.param_groups
         ]
+        plan = self.plan
         if self.clip_norm is not None:
             # optax.clip_by_global_norm, on the device (no host sync): the
             # per-tensor norms are combined as sqrt(sum of squares)
             norms = [n for _, _, grads in groups for n in torch._foreach_norm(grads)]
-            g_norm = torch.linalg.vector_norm(torch.stack(norms).float())
+            if plan is not None and plan.mode == "fsdp":
+                g_norm = plan.global_norm([p for _, params, _ in groups for p in params], norms)
+            else:
+                g_norm = torch.linalg.vector_norm(torch.stack(norms).float())
             factor = torch.where(g_norm < self.clip_norm, 1.0, self.clip_norm / g_norm)
             groups = [(group, params, torch._foreach_mul(grads, factor)) for group, params, grads in groups]
         lr = self.schedule(self.count)
         self.count += 1
-        for group, params, grads in groups:
+        for group, leaves, grads in groups:
             b1, b2, eps, wd = group["b1"], group["b2"], group["eps"], group["weight_decay"]
-            for p in params:
-                if not self.state[p]:
-                    self.state[p]["mu"] = torch.zeros_like(p)
-                    self.state[p]["nu"] = torch.zeros_like(p)
-            mus = [self.state[p]["mu"] for p in params]
-            nus = [self.state[p]["nu"] for p in params]
+            # what this rank updates: each leaf, or under ZeRO-1 its slice of a sharded one
+            params = leaves if plan is None else plan.views(leaves)
+            if plan is not None:
+                grads = plan.grad_views(leaves, grads)
+            for leaf, p in zip(leaves, params):
+                if not self.state[leaf]:
+                    self.state[leaf]["mu"] = torch.zeros_like(p)
+                    self.state[leaf]["nu"] = torch.zeros_like(p)
+            mus = [self.state[leaf]["mu"] for leaf in leaves]
+            nus = [self.state[leaf]["nu"] for leaf in leaves]
             torch._foreach_mul_(mus, b1)
             torch._foreach_add_(mus, grads, alpha=1.0 - b1)
             torch._foreach_mul_(nus, b2)

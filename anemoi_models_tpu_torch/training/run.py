@@ -15,16 +15,24 @@ same arguments and the same run on the card:
   with exact resume: parameters, AdamW moments and count, EMA, the
   sampler's position. A checkpoint the JAX package's ``train_run`` wrote
   resumes here too (its optax moments map onto the port's AdamW,
-  ``checkpoint.load_jax_opt_state``).
+  ``checkpoint.load_jax_opt_state``);
+- on a (data, model) ``mesh`` of ranks (``parallel.make_mesh``): each rank
+  trains on its rows of every batch (the batch rows its ``data`` index owns,
+  in the unsharded run's sample order, and its grid rows of the ``model``
+  axis), with ``param_sharding`` ``"zero1"`` or ``"fsdp"`` over
+  ``param_sharding_axis`` (``parallel.fsdp``). Rank 0 writes the logs,
+  ``metrics.jsonl`` and the checkpoints, in the unsharded format;
+  evaluations run whole on every rank.
 
-What is left out raises a ``ValueError`` naming its reason: ``mesh`` and
-``param_sharding`` (the parallel port), ``remat_policy="auto"`` (it reads
-XLA's memory analysis) and ``steps_per_call > 1`` (the dispatch
-amortization whose counterpart is CUDA graphs).
+What is left out raises a ``ValueError`` naming its reason:
+``remat_policy="auto"`` (it reads XLA's memory analysis) and
+``steps_per_call > 1`` (the dispatch amortization whose counterpart is CUDA
+graphs).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import signal
@@ -34,8 +42,11 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from anemoi_models_tpu_torch.ops.flash_attention import fold_key
+from anemoi_models_tpu_torch.parallel.api import use_mesh
+from anemoi_models_tpu_torch.parallel.fsdp import check_mode, shard_train_state
 from anemoi_models_tpu_torch.training.evaluate import evaluate_interface
 from anemoi_models_tpu_torch.training.loader import BatchLoader, WindowSampler, device_prefetch
 from anemoi_models_tpu_torch.training.loss import WeightedCRPSLoss, WeightedMSELoss, loss_mask
@@ -96,6 +107,7 @@ def train_run(
     eval_rollout: int = 4,
     mesh=None,
     param_sharding: Optional[str] = None,
+    param_sharding_axis: str = "data",
     seed: int = 0,
     log_every: int = 10,
     log: Callable[[str], None] = print,
@@ -129,11 +141,18 @@ def train_run(
     writes a ``torch.profiler`` trace of the steps ``[start, stop)`` of
     ``profile_steps``. With ``overlap_calls`` a step's loss is read after
     the next step is queued, so the host never waits on the card for it.
+    ``mesh`` (a ``parallel.Mesh`` over the ranks of the default process
+    group, every rank calling ``train_run`` with the same arguments) trains
+    each rank on its rows of each batch; ``param_sharding`` (which needs a
+    mesh) shards the AdamW moments (``"zero1"``) or the parameters, moments
+    and EMA too (``"fsdp"``) over ``param_sharding_axis``.
 
     Returns ``{"interface", "model", "optimizer", "ema", "graph", "losses",
-    "eval", "steps_done", "checkpoint", "loader_wait_s", "step_ms"}`` (and
-    ``"interrupted"`` after a signal); ``step_ms`` are the CUDA-event times
-    of the steps on the card (empty on the CPU).
+    "eval", "steps_done", "checkpoint", "loader_wait_s", "step_ms", "plan"}``
+    (and ``"interrupted"`` after a signal); ``step_ms`` are the CUDA-event
+    times of the steps on the card (empty on the CPU); ``plan`` the shard
+    plan (None without ``param_sharding``); under it the model, optimizer
+    and EMA hold this rank's slices.
     """
     from anemoi_models_tpu_torch import configs
     from anemoi_models_tpu_torch.checkpoint import load_checkpoint, load_jax_opt_state
@@ -141,10 +160,13 @@ def train_run(
     from anemoi_models_tpu_torch.graphs import build_enc_proc_dec_graph, build_hierarchical_graph, nodes_from_coords
     from anemoi_models_tpu_torch.interface import AnemoiModelInterface
 
-    if mesh is not None or param_sharding:
-        raise ValueError("train_run's mesh and param_sharding (zero1 / fsdp on the port's AdamW) are the next "
-                         "slice of the parallel port (ROADMAP Queue 1 #9); the sharded train step is "
-                         "make_train_step under parallel.use_mesh")
+    if param_sharding is not None and mesh is None:
+        raise ValueError(f"param_sharding={param_sharding!r} shards the train state over a mesh: pass mesh= "
+                         "(parallel.make_mesh)")
+    if param_sharding is not None:
+        check_mode(param_sharding)
+    if mesh is not None and batch_size % mesh.shape["data"]:
+        raise ValueError(f"batch_size {batch_size} does not split over the mesh's {mesh.shape['data']} data ranks")
     if int(steps_per_call) > 1:
         raise ValueError("steps_per_call > 1 is not ported; its counterpart is CUDA graphs (ROADMAP Queue 1 #4)")
     model_kwargs = dict(model_kwargs or {})
@@ -155,6 +177,9 @@ def train_run(
     if architecture not in ("enc_proc_dec", "hierarchical"):
         raise ValueError(f"unknown architecture {architecture!r}")
 
+    lead = mesh is None or mesh.rank == 0  # the rank that logs and writes
+    if not lead:
+        log = _quiet
     data_nodes = nodes_from_coords(np.asarray(source.coords, np.float64))
     if architecture == "hierarchical":
         graph, hidden_names = build_hierarchical_graph(
@@ -174,6 +199,8 @@ def train_run(
         metadata={"dataset": getattr(source, "path", type(source).__name__)}, device=device,
     )
     dev = iface.device
+    if mesh is not None and mesh.device != dev:
+        raise ValueError(f"the mesh's ranks hold their tensors on {mesh.device}, train_run's device is {dev}")
     iface.init_params(torch.Generator().manual_seed(seed))
     model = iface.model
 
@@ -238,8 +265,9 @@ def train_run(
 
     def core_for(r: int):
         if r not in cores:
-            cores[r] = (make_train_step(train_model, optimizer, loss_fn, dropout_seed=seed + 3) if r == 1 else
-                        make_rollout_train_step(train_model, indices, optimizer, r, loss_fn, dropout_seed=seed + 3))
+            cores[r] = (make_train_step(train_model, optimizer, loss_fn, dropout_seed=seed + 3, plan=plan) if r == 1
+                        else make_rollout_train_step(train_model, indices, optimizer, r, loss_fn,
+                                                     dropout_seed=seed + 3, plan=plan))
         return cores[r]
 
     forcing_in = np.asarray(indices.internal_model.input.forcing)
@@ -252,8 +280,20 @@ def train_run(
         future = pre[:, multi_step:, None]  # (b, rollout, 1, grid, vars)
         return x0, future[..., data_in].movedim(1, 0), future[..., data_out].movedim(1, 0)
 
+    def rank_rows(t: torch.Tensor, batch_axis: int) -> torch.Tensor:
+        """This rank's rows of a whole batch: its data index's batch rows and
+        its grid rows (axis -2) of the model axis."""
+        if mesh is None:
+            return t
+        n = t.shape[batch_axis] // mesh.shape["data"]
+        t = t.narrow(batch_axis, mesh.coords["data"] * n, n)
+        lo, hi = mesh.rows(t.shape[-2])
+        return t.narrow(-2, lo, hi - lo)
+
     def run_step(raw: torch.Tensor, r: int) -> torch.Tensor:
+        # the whole batch's inputs, noise and targets, then this rank's rows of them
         x0, truth_in, targets = prep(raw, optimizer.count)
+        x0, truth_in, targets = rank_rows(x0, 0), rank_rows(truth_in, 1), rank_rows(targets, 1)
         if r == 1:
             return core_for(1)(x0, targets[0])
         return core_for(r)(x0, truth_in[:r], targets[:r])
@@ -263,13 +303,14 @@ def train_run(
     if checkpoint_dir:
         # graph-once layout: the graph is immutable across a run, so it is
         # written once beside the periodic checkpoints
-        os.makedirs(checkpoint_dir, exist_ok=True)
         graph_path = os.path.join(checkpoint_dir, "graph.npz")
-        if not os.path.exists(graph_path):
-            graph.save(graph_path)
+        if lead:
+            os.makedirs(checkpoint_dir, exist_ok=True)
+            if not os.path.exists(graph_path):
+                graph.save(graph_path)
 
     def log_metrics(record: dict) -> None:
-        if metrics_path:
+        if metrics_path and lead:
             with open(metrics_path, "a") as fh:
                 fh.write(json.dumps(record) + "\n")
 
@@ -312,11 +353,29 @@ def train_run(
         total = base_epoch * bpe + base_pos + consumed
         return {"epoch": total // bpe, "position": total % bpe, "seed": sampler.seed}
 
+    # ZeRO-1 / FSDP: the state as the checkpoint left it (whole), then cut to this rank's slices
+    plan = None
+    if param_sharding is not None:
+        plan, ema = shard_train_state(model, optimizer, mesh, param_sharding, param_sharding_axis, ema=ema)
+        if train_model is not model:
+            plan.attach(train_model)
+        log(f"parameter sharding: {param_sharding} over the '{param_sharding_axis}' axis "
+            f"({mesh.shape[param_sharding_axis]}-way)")
+
+    def whole_state():
+        """The run's state whole (every rank: the gathers are collectives):
+        yields the EMA as the unsharded run holds it."""
+        return plan.gathered(optimizer, ema) if plan is not None else contextlib.nullcontext(ema)
+
     def save(step_no: int) -> None:
         if not ckpt_path:
             return
         iface.metadata["sampler"] = sampler_state_at(step_no - start_step)
-        iface.save(ckpt_path, optimizer=optimizer, step=step_no, include_graph=False, ema=ema)
+        with whole_state() as whole_ema:
+            if lead:
+                iface.save(ckpt_path, optimizer=optimizer, step=step_no, include_graph=False, ema=whole_ema)
+        if mesh is not None:
+            dist.barrier()  # every rank sees the checkpoint before it goes on
 
     remaining = steps - start_step
     if max_steps_this_run is not None:
@@ -356,6 +415,8 @@ def train_run(
         log(f"step {step:6d}  loss {lv:.5f}  ({rate:.2f} steps/s)")
         log_metrics({"step": step, "loss": lv, "steps_per_s": round(rate, 4)})
 
+    mesh_scope = use_mesh(mesh)
+    mesh_scope.__enter__()
     try:
         stream = device_prefetch((ingest(b) for b in loader), prefetch=prefetch, device=dev)
         cur_rollout = None
@@ -371,7 +432,7 @@ def train_run(
                 if cur_rollout is not None:
                     log(f"rollout curriculum: {cur_rollout} -> {r} at step {step_no}")
                 cur_rollout = r
-            if profile_dir and step_no - start_step == profile_steps[0] + 1:
+            if profile_dir and lead and step_no - start_step == profile_steps[0] + 1:
                 profiler = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU] + (
                     [torch.profiler.ProfilerActivity.CUDA] if dev.type == "cuda" else []))
                 profiler.__enter__()
@@ -397,7 +458,8 @@ def train_run(
             else:
                 flush(step_no, loss_t)
             if eval_now:
-                scores = _eval_tail(iface, source, eval_rollout, ema)
+                with whole_state() as whole_ema, use_mesh(None):  # every rank scores the whole grid
+                    scores = _eval_tail(iface, source, eval_rollout, whole_ema)
                 evals.append({"step": step_no, **scores})
                 log_metrics({"step": step_no, "eval_rmse": scores["rmse_mean"], "eval_skill": scores["skill_mean"]})
                 log(f"eval @ {step_no}: rollout-{eval_rollout} rmse {scores['rmse_mean']:.5f}  "
@@ -408,12 +470,14 @@ def train_run(
                 _stop_profile(profiler, profile_dir, dev)
                 profiler = None
                 log(f"profile trace written to {profile_dir}")
-            if stop_requested:
+            # under a mesh with signals handled, a stop any rank was asked for stops every rank
+            if _any_rank(bool(stop_requested), mesh if prev_handlers else None, dev):
                 save(step_no)
                 log(f"stopped at step {step_no} on request; checkpoint saved")
                 interrupted = True
                 break
     finally:
+        mesh_scope.__exit__(None, None, None)
         if profiler is not None:  # the run ended inside the window
             _stop_profile(profiler, profile_dir, dev)
         loader.close()
@@ -431,11 +495,26 @@ def train_run(
     out = {
         "interface": iface, "model": model, "optimizer": optimizer, "ema": ema, "graph": graph,
         "losses": losses, "eval": evals, "steps_done": step_no, "checkpoint": ckpt_path,
-        "loader_wait_s": loader_wait, "step_ms": [a.elapsed_time(b) for a, b in step_events],
+        "loader_wait_s": loader_wait, "step_ms": [a.elapsed_time(b) for a, b in step_events], "plan": plan,
     }
     if interrupted:
         out["interrupted"] = True
     return out
+
+
+def _quiet(msg: str) -> None:
+    """The log of a rank other than the first."""
+
+
+def _any_rank(flag: bool, mesh, dev: torch.device) -> bool:
+    """``flag`` of any rank (a stop request), so every rank stops at one
+    step: a sum over the default group under a mesh, else ``flag``."""
+    if mesh is None:
+        return flag
+    t = torch.tensor([int(flag)], device=dev)
+    mesh.check_device(t)
+    dist.all_reduce(t)
+    return bool(t.item())
 
 
 def perturb_members(x0: torch.Tensor, members: int, sigma: float, seed: int, step: int,

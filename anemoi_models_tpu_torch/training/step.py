@@ -15,7 +15,11 @@ of the model axis, its loss a partial (``training.loss``), and before the
 update every replicated parameter's gradient is summed over ``model`` and
 averaged over ``data`` (:func:`~anemoi_models_tpu_torch.parallel.primitives.all_reduce_gradients`),
 the one reduction GSPMD makes for the JAX package that the port makes by
-hand. The loss returned is the whole grid's, averaged over ``data``.
+hand. The loss returned is the whole grid's, averaged over ``data``. Given a
+ZeRO-1 / FSDP ``plan`` (``parallel.fsdp.shard_train_state``) the step runs
+the reduction, then the sharded update (the optimizer updates this rank's
+slices), then the gather of the updated slices (``plan.sync_params``); with
+no plan it is the replicated step, bit for bit.
 
 A model built with ``deterministic=False`` (:func:`dropout_twin`) trains with
 attention-weight dropout: the step's key is :func:`dropout_key_at` of the
@@ -73,11 +77,21 @@ def mesh_loss(loss: torch.Tensor) -> torch.Tensor:
     return loss if mesh is None else loss / mesh.shape["data"]
 
 
+def _update(model: nn.Module, optimizer: torch.optim.Optimizer, plan) -> None:
+    """The gradient reduction, the (sharded) update, the gather of the
+    updated slices."""
+    all_reduce_gradients(model.parameters(), plan)
+    optimizer.step()
+    if plan is not None:
+        plan.sync_params(model.parameters())
+
+
 def make_train_step(
     model: nn.Module,
     optimizer: torch.optim.Optimizer,
     loss_fn: Optional[Callable] = None,
     dropout_seed: int = 0,
+    plan=None,
 ) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
     """Return ``train_step(x, y) -> loss``: forward, loss, backward, clip and
     update (both in ``optimizer.step``), step counter (``optimizer.count``).
@@ -85,7 +99,8 @@ def make_train_step(
     x: (batch, time, ensemble, grid, vars_in), y: (batch, ensemble, grid,
     vars_out) at the internal model widths. The loss is returned detached,
     on the model's device. A ``deterministic=False`` model runs under
-    ``dropout_key_at(dropout_seed, optimizer.count)``.
+    ``dropout_key_at(dropout_seed, optimizer.count)``. ``plan``: a ZeRO-1 /
+    FSDP shard plan, or None.
     """
     loss_fn = loss_fn or weighted_mse
     drops = not getattr(model, "deterministic", True)
@@ -96,8 +111,7 @@ def make_train_step(
         pred = model(x, dropout_key=dropout_key_at(dropout_seed, optimizer.count)) if drops else model(x)
         loss = loss_fn(pred, y)
         loss.backward()
-        all_reduce_gradients(model.parameters())
-        optimizer.step()
+        _update(model, optimizer, plan)
         return mesh_loss(loss)
 
     return train_step
@@ -110,6 +124,7 @@ def make_rollout_train_step(
     n_steps: int,
     loss_fn: Optional[Callable] = None,
     dropout_seed: int = 0,
+    plan=None,
 ) -> Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]:
     """Train through an ``n_steps`` autoregressive rollout (the rollout
     fine-tuning stage). Returns ``train_step(x0, truth_inputs, targets) ->
@@ -123,7 +138,8 @@ def make_rollout_train_step(
 
     The loss is returned detached, on the model's device. A
     ``deterministic=False`` model rolls out under ``dropout_key_at(dropout_seed,
-    optimizer.count)``, lead time t folding in t.
+    optimizer.count)``, lead time t folding in t. ``plan``: a ZeRO-1 / FSDP
+    shard plan, or None.
     """
     loss_fn = loss_fn or weighted_mse
     drops = not getattr(model, "deterministic", True)
@@ -139,8 +155,7 @@ def make_rollout_train_step(
         _, preds = rollout(x0, forcings, key)
         loss = loss_fn(preds, targets)
         loss.backward()
-        all_reduce_gradients(model.parameters())
-        optimizer.step()
+        _update(model, optimizer, plan)
         return mesh_loss(loss)
 
     return train_step

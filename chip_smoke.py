@@ -19,8 +19,8 @@ Builds the port's CUDA kernels from ``anemoi_models_tpu_torch/csrc``, then:
    bit-identical; then both edge-attention kernels at the production width
    (C = 1024, 16 heads: four head groups a row) on the same three edge sets,
    at the same bounds, two calls of each bit-identical, and at C = 256 on
-   the processor set with A2 = 8, 17, 24 and 32 edge attributes, each
-   timed beside its bound;
+   the processor set with A2 = 8, 17, 24, 32, 33, 48 and 64 edge
+   attributes and at C = 1024 with 24 and 32, each timed beside its bound;
 3. runs a reduced model (O48 grid, refinement-4 mesh, C=64, 2 layers; and,
    for the GraphTransformer, the production width C=1024 with 16 heads on a
    16-latitude grid and a refinement-3 mesh) in fp32 through the kernels on
@@ -170,6 +170,7 @@ non-zero, with no result line, on any failure or when there is no card.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import datetime
 import json
 import os
@@ -264,9 +265,11 @@ FLAT_ATTN = (("processor D=96", ("hidden", "hidden"), 384, 4), ("processor D=48"
 # the flat graph's three sets at the production width (C = 1024, 16 heads: four head groups a row)
 WIDE_ATTN = tuple((label, names, 1024, 16) for label, names in (
     ("processor", ("hidden", "hidden")), ("encoder", ("data", "hidden")), ("decoder", ("hidden", "data"))))
-# more than 15 edge attributes (A2 with the ones column; the static edge_length and edge_dirs are 3): the
-# flagship's processor set at A2 = 8, 17, 24 and 32
-A2_ATTN = tuple(("processor", ("hidden", "hidden"), 256, 4, a2 - 4) for a2 in (8, 17, 24, 32))
+# edge attribute counts (A2 with the ones column; the static edge_length and edge_dirs are 3): the
+# flagship's processor set at A2 = 8 to 64, and the production width at A2 = 24 and 32 (in fp32 the
+# backward of the first design refused them)
+A2_ATTN = tuple(("processor", ("hidden", "hidden"), 256, 4, a2 - 4) for a2 in (8, 17, 24, 32, 33, 48, 64)) + \
+    tuple(("processor", ("hidden", "hidden"), 1024, 16, a2 - 4) for a2 in (24, 32))
 ROLLOUT_STEPS = 4  # lead times of the rollout phase
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 BWD_TOL = 1e-4
@@ -278,7 +281,7 @@ HBM_BPS = 3.35e12
 PEAK_FLOPS = {"bf16 tensor": 989e12, "fp32": 67e12}
 # device kernels of a profiled step, grouped by what they do (first match)
 PROFILE_KINDS = [
-    ("edge_attn_csr_bwd (3 phases)", ("bwd_dst_kernel", "bwd_src_kernel", "dw_reduce_kernel")),
+    ("edge_attn_csr_bwd (4 phases)", ("bwd_dst_kernel", "bwd_src_kernel", "dw_parts_kernel", "dw_reduce_kernel")),
     ("gnn_conv layered row table", ("gnn_rows_kernel",)),
     ("gnn_conv layered Dense 0", ("gnn_dense0_tag",)),
     ("gnn_conv layered hidden Dense", ("gnn_dense_tag",)),
@@ -1212,7 +1215,7 @@ def phase_attn_widths(graph, dev, cases) -> list:
     FLAT_ATTN, A2_ATTN), fp32 and bf16, batch 1, against their plain
     versions at the flagship's bounds (forward elementwise, backward
     normwise), two calls of each bit-identical; each timed beside its bound
-    and its plain version, with the backward's count of dw_aug partials."""
+    and its plain version, with the backward's count of dw_aug parts."""
     gen = torch.Generator().manual_seed(8)
     rows = []
     for label, names, c, h, *trainable in cases:
@@ -1246,8 +1249,7 @@ def phase_attn_widths(graph, dev, cases) -> list:
                          "fwd_plain_ms": cuda_ms(lambda: ea.edge_attn_csr_plain(*fwd), iters=3, warmup=1),
                          "bwd_ms": cuda_ms(lambda: ea.edge_attn_csr_bwd(*args, csr_t)), "bwd_bound_ms": bb["bound_ms"],
                          "bwd_plain_ms": cuda_ms(lambda: ea.edge_attn_csr_bwd_plain(*args), iters=3, warmup=1),
-                         "bwd_parts": ea._bwd_parts(case["nd"], h * ea._kernel_head(c, h), h,
-                                                    case["a"].shape[1], dt)})
+                         "bwd_parts": ea._bwd_parts(case["nd"], h * ea._kernel_head(c, h), case["a"].shape[1])})
             del want, bwant
     return rows
 
@@ -1968,6 +1970,136 @@ def phase_parallel(graph_kwargs: dict, dev) -> dict:
     return out
 
 
+FSDP_WORLD = 2  # ranks of phase_fsdp, data = 2, model = 1, sharing cuda:0
+FSDP_STEPS = 4
+FSDP_MODES = ("zero1", "fsdp")
+
+
+def _fsdp_args(dev) -> dict:
+    """train_run's arguments of phase_fsdp: the flagship, batch 2 (one row
+    a rank), 4 steps, lr 1e-4 after a one-step warm-up, no EMA and no eval."""
+    return dict(forcing=TRAIN_RUN_FORCING, mesh_refinements=5, model_kwargs=FLAGSHIP_KWARGS, steps=FSDP_STEPS,
+                batch_size=2, peak_lr=1e-4, warmup_steps=1, seed=0, log_every=1, log=lambda s: None, device=dev,
+                handle_signals=False)
+
+
+def _fsdp_whole(run: dict) -> dict:
+    """A run's parameters whole, on the CPU (gathered under a shard plan)."""
+    plan = run["plan"]
+    ctx = plan.gathered(run["optimizer"]) if plan is not None else contextlib.nullcontext()
+    with ctx:
+        return {n: p.detach().float().cpu() for n, p in run["model"].named_parameters()}
+
+
+def _fsdp_bytes(run: dict) -> dict:
+    """This rank's bytes of parameters and AdamW moments, and its peak memory."""
+    opt = run["optimizer"]
+    params = [p for group in opt.param_groups for p in group["params"]]
+    moments = [t for p in params for k, t in opt.state[p].items() if k in ("mu", "nu")]
+    return {"param_bytes": sum(p.numel() * p.element_size() for p in params),
+            "moment_bytes": sum(t.numel() * t.element_size() for t in moments),
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def fsdp_rank(rank: int, world: int, port: int, dev: torch.device, path: str, out_dir: str) -> None:
+    """A rank of phase_fsdp: a gloo process group on localhost, a (world, 1)
+    mesh on the parent's card, the flagship's train_run under each of
+    zero1 and fsdp: its launches, bytes and peak memory, its losses and
+    whole parameters, and the run again saved at step 2 and resumed, bit for
+    bit against the uninterrupted one."""
+    from anemoi_models_tpu_torch.training import open_dataset, train_run
+
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        load_kernels()  # built by the parent: loaded, not compiled
+        mesh = make_mesh(world, 1, backend="gloo", device=dev)
+        source = open_dataset(path)
+        args = _fsdp_args(dev)
+        out = {}
+        for mode in FSDP_MODES:
+            root = os.path.join(out_dir, mode)
+            reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            full = train_run(source, mesh=mesh, param_sharding=mode, checkpoint_dir=os.path.join(root, "a"), **args)
+            torch.cuda.synchronize()
+            res = {"launches": launches(), "run_s": time.perf_counter() - t0, **_fsdp_bytes(full),
+                   "losses": full["losses"], "step_ms": full["step_ms"], "whole": _fsdp_whole(full)}
+            train_run(source, mesh=mesh, param_sharding=mode, checkpoint_dir=os.path.join(root, "b"),
+                      max_steps_this_run=2, save_every=2, **args)
+            rest = train_run(source, mesh=mesh, param_sharding=mode, checkpoint_dir=os.path.join(root, "b"),
+                             resume=True, **args)
+            want, got = _state(full), _state(rest)
+            differ = [k for k in want if not torch.equal(want[k], got[k])]
+            res["resume_bit_identical"] = not differ and rest["losses"] == full["losses"][2:]
+            res["resume_differ"] = differ[:4]
+            out[mode] = res
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_fsdp(source, dev) -> dict:
+    """ZeRO-1 and FSDP: the flagship's train_run (O96, C = 256, 8 layers, bf16,
+    remat "full"), 4 steps at batch 2, in FSDP_WORLD gloo ranks sharing cuda:0
+    (data = 2, model = 1: a row of the batch a rank), under zero1 and fsdp,
+    against the unsharded train_run on the same card: the losses and the
+    final parameters within bf16 normwise 2e-2, each rank's launches of the
+    edge-attention kernels equal to the unsharded run's per step, a save at
+    step 2 and a resume bit for bit against the uninterrupted sharded run,
+    and each rank's parameter and moment bytes and peak memory beside the
+    unsharded run's."""
+    from anemoi_models_tpu_torch.training import train_run
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "fsdp")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    path = source.path
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    ref = train_run(source, **_fsdp_args(dev))
+    torch.cuda.synchronize()
+    ref_counts = launches()
+    per_step = {k: FSDP_STEPS * v for k, v in EXPECTED["graphtransformer"][1].items()}
+    if ref_counts != expect(ref_counts, per_step):
+        raise AssertionError(f"fsdp reference: expected {expect(ref_counts, per_step)} launches, got {ref_counts}")
+    ref_bytes, ref_whole, ref_losses = _fsdp_bytes(ref), _fsdp_whole(ref), ref["losses"]
+    del ref
+    torch.cuda.empty_cache()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    mp.spawn(fsdp_rank, args=(FSDP_WORLD, port, dev, path, out_dir), nprocs=FSDP_WORLD, join=True)
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False) for r in range(FSDP_WORLD)]
+    out = {"ranks_s": time.perf_counter() - t0, "unsharded": {**ref_bytes, "losses": ref_losses,
+                                                              "launches": ref_counts}}
+    for mode in FSDP_MODES:
+        per_rank = [r[mode] for r in ranks]
+        for r, res in enumerate(per_rank):
+            if res["launches"] != expect(res["launches"], per_step):
+                raise AssertionError(f"fsdp {mode} rank {r}: expected {expect(res['launches'], per_step)} "
+                                     f"launches, got {res['launches']}")
+            if not res["resume_bit_identical"]:
+                raise AssertionError(f"fsdp {mode} rank {r}: the resumed run differs ({res['resume_differ']})")
+        if any(res["losses"] != per_rank[0]["losses"] for res in per_rank):
+            raise AssertionError(f"fsdp {mode}: the ranks report different losses")
+        loss_err = normwise_err(torch.tensor(per_rank[0]["losses"]), torch.tensor(ref_losses), f"fsdp {mode} losses",
+                                TOL[torch.bfloat16])
+        param_err = max(normwise_err(per_rank[0]["whole"][k], v, f"fsdp {mode} param {k}", TOL[torch.bfloat16])
+                        for k, v in ref_whole.items())
+        out[mode] = {"losses": per_rank[0]["losses"], "loss_err": loss_err, "param_err": param_err,
+                     "launches": per_rank[0]["launches"], "resume_bit_identical": True,
+                     **{k: [res[k] for res in per_rank] for k in ("param_bytes", "moment_bytes", "peak_mem_gib",
+                                                                  "run_s", "step_ms")}}
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return out
+
+
 def phase_profile(run, out_dir: str, label: str) -> dict:
     """One call of ``run`` under torch.profiler: device time by kernel, and
     the device's busy share (union of kernel intervals over the span)."""
@@ -2140,6 +2272,11 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f} s")
     train["train_run"] = phase_train_run(source, dev)
     print(f"card: {name_power} train_run", json.dumps(train["train_run"]))
+    # ZeRO-1 and FSDP: the flagship's train_run in two gloo ranks on this card against the unsharded run
+    fsdp = phase_fsdp(source, dev)
+    for mode in FSDP_MODES:
+        train[f"train_run {mode}"] = {"launches": fsdp[mode]["launches"]}
+    print(f"card: {name_power} fsdp (2 gloo ranks sharing one card, a rank's numbers each)", json.dumps(fsdp))
     # attention dropout: the kernel against plain under one key, its keep rate, the Transformer trained with it
     dropout, train["dropout"] = phase_dropout(source, dev)
     for row in dropout.pop("rows"):

@@ -54,8 +54,11 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _entry(rank: int, world: int, port: int, out_dir: str, fn, args) -> None:
+def _entry(rank: int, world: int, port: int, out_dir: str, fn, args, init: bool) -> None:
     torch.set_num_threads(1)
+    if not init:  # the target joins a process group itself, on ``port``
+        torch.save(fn(rank, world, port, *args), os.path.join(out_dir, f"rank{rank}.pt"))
+        return
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world, rank=rank,
                             timeout=datetime.timedelta(seconds=120))
     try:
@@ -65,11 +68,26 @@ def _entry(rank: int, world: int, port: int, out_dir: str, fn, args) -> None:
         dist.destroy_process_group()
 
 
-def spawn(fn, world: int, out_dir: str, *args) -> list:
-    """Every rank's result of ``fn(rank, world, *args)``, in rank order."""
+def spawn(fn, world: int, out_dir: str, *args, init: bool = True) -> list:
+    """Every rank's result of ``fn(rank, world, *args)``, in rank order;
+    with ``init=False`` no process group is made and the target is called
+    as ``fn(rank, world, port, *args)`` with a free port for its own."""
+    return start(fn, world, out_dir, *args, init=init)()
+
+
+def start(fn, world: int, out_dir: str, *args, init: bool = True):
+    """:func:`spawn` started, not joined: returns the function that joins
+    the ranks and returns their results (so the parent can work meanwhile)."""
     os.makedirs(out_dir, exist_ok=True)
-    mp.spawn(_entry, args=(world, _free_port(), out_dir, fn, args), nprocs=world, join=True)
-    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False) for r in range(world)]
+    ctx = mp.start_processes(_entry, args=(world, _free_port(), out_dir, fn, args, init), nprocs=world, join=False,
+                             start_method="spawn")
+
+    def join() -> list:
+        while not ctx.join():
+            pass
+        return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False) for r in range(world)]
+
+    return join
 
 
 def tasks(rank: int, world: int, named: dict) -> dict:
@@ -259,3 +277,91 @@ def _halo_gnn(mesh, spec: dict, graph) -> np.ndarray:
     lo, hi = mesh.rows(n)
     with use_mesh(mesh), torch.no_grad():
         return proc(torch.from_numpy(spec["x"][:, lo:hi])).numpy()
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1 / FSDP and train_run on a mesh
+# ---------------------------------------------------------------------------
+
+
+def fsdp_source():
+    """The JAX package's fsdp tests' source: an 8-row lat/lon grid, 4
+    variables, 48 steps (``tests/parallel/test_fsdp.py``)."""
+    from anemoi_models_tpu_torch.graphs.build import latlon_grid_nodes
+    from anemoi_models_tpu_torch.training import SyntheticSource
+
+    return SyntheticSource(latlon_grid_nodes(8).coords, num_vars=4, num_steps=48, seed=1)
+
+
+def _layout(run: dict) -> dict:
+    """Per parameter: its shape on this rank, the shapes of its moments and
+    of its EMA entry."""
+    opt, model = run["optimizer"], run["model"]
+    out = {}
+    for name, p in model.named_parameters():
+        state = opt.state.get(p) or {}
+        out[name] = {"param": tuple(p.shape), "mu": tuple(state["mu"].shape) if "mu" in state else None,
+                     "ema": tuple(run["ema"][name].shape) if run.get("ema") else None}
+    return out
+
+
+def _whole(run: dict) -> dict:
+    """The run's parameters whole (gathered under FSDP), on every rank."""
+    plan = run["plan"]
+    if plan is None:
+        return {k: p.detach().clone().numpy() for k, p in run["model"].named_parameters()}
+    with plan.gathered(run["optimizer"]):
+        return {k: p.detach().clone().numpy() for k, p in run["model"].named_parameters()}
+
+
+def fsdp_task(rank: int, world: int, spec: dict) -> dict:
+    """train_run on a (2, 2) mesh of gloo ranks on the CPU: from the JAX
+    run's initial parameters, 4 steps under each of None, "zero1" and "fsdp"
+    (min size 64, as the JAX tests patch it); zero1 with an EMA; an FSDP run
+    checkpointed at step 2 and resumed to 4 against the uninterrupted run;
+    and a hybrid (2, 1, 2) mesh's run writing metrics.jsonl."""
+    from anemoi_models_tpu_torch.parallel import fsdp, make_hybrid_mesh
+    from anemoi_models_tpu_torch.training import train_run
+
+    fsdp.DEFAULT_MIN_SIZE = 64
+    mesh = make_mesh(2, 2, backend="gloo", device="cpu")
+    common = dict(spec["common"], device="cpu", log=lambda s: None, handle_signals=False)
+    out = {"coords": mesh.coords}
+    for mode in (None, "zero1", "fsdp"):
+        run = train_run(fsdp_source(), mesh=mesh, param_sharding=mode, init_from=spec["init"], **common)
+        out[str(mode)] = {"losses": run["losses"], "params": _whole(run), "layout": _layout(run)}
+    run = train_run(fsdp_source(), mesh=mesh, param_sharding="zero1", ema_decay=0.9, **common)
+    out["zero1_ema"] = {"losses": run["losses"], "layout": _layout(run)}
+    root = spec["root"]
+    full = train_run(fsdp_source(), mesh=mesh, param_sharding="fsdp", checkpoint_dir=f"{root}/full", **common)
+    train_run(fsdp_source(), mesh=mesh, param_sharding="fsdp", checkpoint_dir=f"{root}/part", save_every=2,
+              max_steps_this_run=2, **common)
+    rest = train_run(fsdp_source(), mesh=mesh, param_sharding="fsdp", checkpoint_dir=f"{root}/part", resume=True,
+                     **common)
+    out["roundtrip"] = {"full": _whole(full), "resumed": _whole(rest), "steps": rest["steps_done"],
+                        "checkpoint": full["checkpoint"]}
+    hybrid = make_hybrid_mesh(2, 1, 2, backend="gloo", device="cpu")
+    hy = {k: v for k, v in common.items() if k not in ("batch_size", "log_every", "steps", "peak_lr")}
+    run = train_run(fsdp_source(), mesh=hybrid, steps=2, batch_size=2, peak_lr=1e-3, log_every=1,
+                    checkpoint_dir=f"{root}/hybrid", **hy)
+    out["hybrid"] = {"shape": hybrid.shape, "coords": hybrid.coords, "steps": run["steps_done"],
+                     "losses": run["losses"]}
+    return out
+
+
+def cli_task(rank: int, world: int, port: int, args: list) -> dict:
+    """``train --data-parallel`` on this rank under the launch environment
+    torchrun would set (spawned with ``init=False``: the command joins the
+    process group itself); what it printed, and what of JAX it imported."""
+    import contextlib
+    import io
+
+    from anemoi_models_tpu_torch.commands import main
+
+    os.environ.update({"RANK": str(rank), "WORLD_SIZE": str(world), "MASTER_ADDR": "localhost",
+                       "MASTER_PORT": str(port)})
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = main(["train", *args])
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "anemoi_models_tpu"))
+    return {"rc": rc, "printed": printed.getvalue(), "group_left": not dist.is_initialized(), "leaked": leaked}

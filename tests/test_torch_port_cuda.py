@@ -230,41 +230,12 @@ def test_edge_attn_csr_bwd_matches_plain_and_repeats_bit_for_bit(dev, graph, dty
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("channels,heads", WIDTHS)
-@pytest.mark.parametrize("a2", [5, 8, 12])
-def test_bwd_occupancy_model_matches_the_runtime(dev, dtype, channels, heads, a2):
-    """The backward's dw_aug partials are counted from the shape alone, with
-    a model of its dst pass's CTAs an SM (shared memory, and a bound of the
-    registers ptxas gives each instantiation): the model is never above the
-    runtime's occupancy of the built kernel (on the H100 the grid fits the
-    card at once: no second wave of CTAs), and equal to it at the shapes the
-    models run (the flagship's C = 256, the production C = 1024 with 16
-    heads, the hierarchical levels' C = 512 and 1024 with 4 heads, and head
-    widths 96 and 48), where the grid then fills the card."""
-    import ctypes
-
-    from anemoi_models_tpu_torch.ops.kernels import load_kernels
-
-    lib = load_kernels()
-    channels = heads * ea._kernel_head(channels, heads)  # the width the kernels run (padded heads)
-    vb, _, group = ea._lane_layout(channels, heads)
-    fn = lib.edge_attn_csr_bwd_per_sm_bf16 if dtype == torch.bfloat16 else lib.edge_attn_csr_bwd_per_sm_f32
-    per_sm = ctypes.c_int(0)
-    assert fn(channels, heads, a2, group, vb, ctypes.addressof(per_sm)) == 0
-    model = ea._bwd_ctas_per_sm(channels, heads, a2, dtype)
-    assert model <= per_sm.value
-    if a2 == 8 and (channels, heads) in ((256, 4), (1024, 16), (512, 4), (1024, 4), (384, 4), (192, 4)):
-        assert model == per_sm.value
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("channels,heads", [(256, 4), (192, 6), (1024, 16), (1024, 4), (384, 4)])
 @pytest.mark.parametrize("a2", [5, 12, 16])
 def test_edge_attention_takes_every_attribute_count(dev, graph, dtype, channels, heads, a2):
-    """Both kernels at attribute counts other than the flagship's 8: padded
-    to 8 (5) or to 16 (12, 16: every lane keeps all attributes, and at C =
-    1024 in fp32 the dst pass's dw_aug partials leave room for two warps a
-    CTA), against the plain versions, batch 2, two calls bit-identical."""
+    """Both kernels at attribute counts other than the flagship's 8 (5, 12,
+    16: the factored edge term takes any count), against the plain
+    versions, batch 2, two calls bit-identical."""
     rowptr, src, num_edges, ns, nd, _ = _bwd_edge_set(graph, "data-hidden", dev)
     csr_t = _csr_t(rowptr, src, ns)
     gen = torch.Generator().manual_seed(4)
@@ -879,13 +850,13 @@ def test_bf16_graph_transformer_off_16_byte_rows_matches_cpu(dev, graph, channel
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("channels,heads", [(256, 4), (192, 6), (1024, 16), (64, 4)])
-@pytest.mark.parametrize("a2", [17, 24, 32])
+@pytest.mark.parametrize("a2", [17, 24, 32, 33, 48, 64])
 def test_edge_attention_takes_more_than_16_attributes(dev, graph, dtype, channels, heads, a2):
-    """Both kernels with 16 to 31 edge attributes (A2 = 17, 24, 32 with the
-    ones column: the attribute loops run 32 long) against the plain
-    versions, batch 2, two calls bit-identical. Where the backward's per-warp
-    dw_aug partials (A2 x C fp32) do not fit a CTA's shared memory (C = 1024
-    in fp32) the wrapper refuses, naming it."""
+    """Both kernels with 16 to 63 edge attributes (A2 = 17 to 64 with the
+    ones column: the factored edge term streams them in chunks, so no count
+    is refused) against the plain versions, batch 2, two calls
+    bit-identical; the backward at every width and dtype, C = 1024 in fp32
+    among them."""
     rowptr, src, num_edges, ns, nd, _ = _bwd_edge_set(graph, "data-hidden", dev)
     csr_t = _csr_t(rowptr, src, ns)
     gen = torch.Generator().manual_seed(16)
@@ -903,13 +874,6 @@ def test_edge_attention_takes_more_than_16_attributes(dev, graph, dtype, channel
         torch.testing.assert_close(g, w, atol=TOL[dtype], rtol=TOL[dtype])
         assert torch.equal(g, g2), "two forward calls differ"
     args = (q, kv, rowptr, src, a, w_aug, got.m, g_num, g_den, heads)
-    try:
-        ea._bwd_warps_smem(channels, a2, ea._lane_layout(channels, heads)[2], dtype)
-    except ValueError:
-        with pytest.raises(ValueError, match="shared memory"):
-            ea.edge_attn_csr_bwd(*args, csr_t)
-        assert channels == 1024 and dtype == torch.float32
-        return
     bgot, bagain = (ea.edge_attn_csr_bwd(*args, csr_t) for _ in range(2))
     bwant = ea.edge_attn_csr_bwd_plain(*args)
     torch.cuda.synchronize()

@@ -164,8 +164,8 @@ def test_ensemble_crps_curriculum_run():
     run = train_run(_source(), steps=4, ensemble=2, loss="crps", rollout_schedule=[(0, 1), (2, 2)], ema_decay=0.9,
                     **PORT)
     assert run["steps_done"] == 4 and np.isfinite(run["losses"]).all()
-    with pytest.raises(ValueError, match="Queue 1 #9"):
-        train_run(_source(), steps=1, mesh=object(), **PORT)
+    with pytest.raises(ValueError, match="needs a mesh|pass mesh="):
+        train_run(_source(), steps=1, param_sharding="zero1", **PORT)
     with pytest.raises(ValueError, match="CUDA graphs"):
         train_run(_source(), steps=1, steps_per_call=2, **PORT)
 

@@ -314,6 +314,41 @@ def test_model_grads_match_jax(graph, model_setup, graph_impl):
         np.testing.assert_allclose(got[name], want[name], err_msg=name, **GRAD)
 
 
+def test_many_edge_attributes_match_jax(graph):
+    """The GraphTransformer with A2 = 33 edge attributes in its mappers and
+    64 in its processor (3 static, A2 - 4 trainable, the ones column; the
+    card's kernels take them in the factored form): the forward (2e-5) and
+    every parameter's gradient (5e-4) against the JAX model, through the
+    plain versions."""
+    cfg = make_config("graphtransformer")
+    for part, a2 in (("encoder", 33), ("processor", 64), ("decoder", 33)):
+        cfg.model[part].trainable_size = a2 - 4
+    cfg.model.processor.graph_impl = "dense"
+    di = IndexCollection(cfg, dict(VARS))
+    n_grid = graph["data"].num_nodes
+    rng = np.random.RandomState(33)
+    x = rng.randn(1, 2, 1, n_grid, len(di.internal_model.input)).astype(np.float32)
+    y = rng.randn(1, 1, n_grid, len(di.internal_model.output)).astype(np.float32)
+    jmodel = JaxModel(model_config=cfg, data_indices=di, graph_data=graph)
+    params = jax.jit(jmodel.init)(jax.random.key(0), jnp.asarray(x))
+    params = jax.tree_util.tree_map(lambda a: np.asarray(a) + 0.02 * rng.randn(*a.shape).astype(np.float32), params)
+
+    def loss_and_out(p):
+        out = jmodel.apply(p, jnp.asarray(x))
+        return jax_weighted_mse(out, jnp.asarray(y)), out
+
+    (loss_ref, out_ref), grads_ref = jax.jit(jax.value_and_grad(loss_and_out, has_aux=True))(params)
+    model = _port_model(cfg, di, graph, params)
+    with torch.no_grad():
+        np.testing.assert_allclose(model(torch.from_numpy(x)).numpy(), np.asarray(out_ref), **OUT)
+    loss, grads = _port_grads(model, x, y)
+    np.testing.assert_allclose(loss, float(loss_ref), **OUT)
+    want, got = _flat(grads_ref), _flat(to_flax_params(grads))
+    assert got.keys() == want.keys()
+    for name in want:
+        np.testing.assert_allclose(got[name], want[name], err_msg=name, **GRAD)
+
+
 def test_remat_full_and_none_give_equal_gradients(graph, model_setup):
     di, x, y, params = model_setup
     runs = [_port_grads(_port_model(_configs(remat_policy=p), di, graph, params), x, y) for p in ("full", "none")]

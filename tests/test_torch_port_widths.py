@@ -89,19 +89,18 @@ def test_lane_layout_takes_every_width_the_forward_takes():
 
 
 def test_bwd_partials_follow_the_shape_alone():
-    """The backward's dw_aug partials (its dst pass's grid): at most a warp a
-    destination and at most the CTAs an H100 SXM holds for the shape; a
-    function of (destinations, C, heads, attributes, dtype) only, so every
-    card sums in the same order. Pinned at the main path's shapes."""
-    bf16, fp32 = torch.bfloat16, torch.float32
-    assert ea._bwd_parts(10242, 256, 4, 8, bf16) == 528  # the flagship's processor: 132 x 4
-    assert ea._bwd_parts(10242, 256, 4, 8, fp32) == 396  # 72 KB of shared memory: 3 an SM
-    assert ea._bwd_parts(10242, 1024, 16, 8, bf16) == 132  # the per-warp partials: one CTA an SM
-    assert ea._bwd_parts(2562, 512, 4, 8, bf16) == 264  # the hierarchical model's r4 level
-    assert ea._bwd_parts(642, 1024, 4, 8, bf16) == 132  # its r3 level, D = 256
-    assert ea._bwd_parts(13, 256, 4, 8, bf16) == 4  # a warp a destination
-    assert ea._bwd_parts(10242, 256, 4, 12, bf16) == 264  # 16 attribute slots: 227 registers
-    assert ea._bwd_parts(10242, 256, 8, 8, bf16) == 396  # every lane all eight attributes
+    """The backward's dw_aug sum splits the destination rows into parts
+    (about 528 CTAs over the (column, attribute) tiles, at least 32 rows a
+    part), a function of (rows, C, attributes) only, so every card sums in
+    the same order. Pinned at the main path's shapes, and at 64 attributes."""
+    assert ea._bwd_parts(10242, 256, 8) == 264  # the flagship's processor: two tiles
+    assert ea._bwd_parts(2 * 10242, 256, 8) == 264  # batch 2: the same tiles
+    assert ea._bwd_parts(10242, 1024, 8) == 66  # the production width: eight column tiles
+    assert ea._bwd_parts(2562, 512, 8) == 81  # the hierarchical model's r4 level: 32 rows a part
+    assert ea._bwd_parts(642, 1024, 8) == 21  # its r3 level, D = 256
+    assert ea._bwd_parts(13, 256, 8) == 1  # fewer rows than a part
+    assert ea._bwd_parts(10242, 256, 12) == 132  # two attribute tiles
+    assert ea._bwd_parts(10242, 1024, 64) == 9  # 64 attributes: 64 tiles
 
 
 @pytest.fixture(scope="module")
