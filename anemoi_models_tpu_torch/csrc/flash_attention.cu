@@ -57,14 +57,26 @@
 // softmax in fp32. The shuffle chain of each (row, key) bounds it: staging
 // the band in shared memory for a CTA's rows gained nothing on an H100.
 //
+// Queries and keys at offsets (every kernel): q holds Nq rows at global positions q_pos0, q_pos0 + 1, ...
+// and k, v hold Nk rows at k_pos0, ...; query i attends key j where |(q_pos0 + i) - (k_pos0 + j)| <= w,
+// k_pos0 + j <= q_pos0 + i when causal, and 0 <= k_pos0 + j < n_valid. So a rank of a sequence split over
+// ranks runs its own query rows against its halo-extended keys (or every key), and its output rows are the
+// unsharded call's. A query tile walks only the key tiles its band reaches, in the key tensor's indices; a
+// query that sees no key gets 0. Offsets are a template parameter (OFF) of each kernel: with the defaults
+// (q_pos0 = k_pos0 = 0, Nq = Nk = n_valid = N, and k, v at q's strides) every field of the band takes its
+// single-sequence value at compile time and k, v are read at q's strides, so the kernels keep the code and
+// bits they had before offsets.
+//
 // Attention-weight dropout (every kernel): the JAX package drops normalized
 // probabilities, out_i = sum_j keep_ij p_ij v_j / ((1 - p) l_i), with l_i the
 // sum of every p_ij, the dropped pairs' included. So the online softmax keeps
 // l undropped, P . V takes keep_ij p_ij, and the epilogue scales by
 // 1 / (1 - p). keep_ij is a pure function of the call's 64-bit key and of
-// (b h, i, j): word j % 4 of Philox4x32-10 at counter (j / 4, i, b H + h, 0),
+// (b h, i, j) at global positions: word j % 4 of Philox4x32-10 at counter (j / 4, i, b H + h, 0),
 // kept where it is below round((1 - p) 2^32) (ops/flash_attention.py:
-// dropout_keep draws the same bits in torch). Dropout is a template
+// dropout_keep draws the same bits in torch), so a sharded call drops the pairs the unsharded one drops.
+// The bf16 kernel draws one Philox for four registers; it lays its key tiles at global multiples of 4
+// (a TMA box may start at a negative row, which it fills with zeros). Dropout is a template
 // parameter of each kernel: without it none of its code is compiled in, and
 // the kernels keep their earlier code and bits.
 //
@@ -95,6 +107,61 @@ struct Dropout {
   uint32_t keep_below, k0, k1;
   float rscale;
 };
+
+// which keys each query sees, in the key tensor's local indices: query i sits at key position i + delta
+// (delta = q_pos0 - k_pos0), and keys [jlo, jhi] are those at global positions [0, n_valid)
+struct Band {
+  int nq, nk;          // query and key rows
+  int delta;           // q_pos0 - k_pos0
+  int jlo, jhi;        // the valid keys
+  int window, causal;  // window < 0: none
+  int q_pos0, k_pos0;  // global positions of row 0 (the dropout counter's)
+  int off;             // any of the above off its single-sequence value, or k's strides not q's: the OFF kernels
+};
+
+Band make_band(int nq, int nk, int window, int causal, int q_pos0, int k_pos0, int n_valid, const int64_t qs[3],
+               const int64_t ks[3]) {
+  const int jlo = k_pos0 < 0 ? -k_pos0 : 0;
+  const int jend = n_valid - k_pos0 < nk ? n_valid - k_pos0 : nk;
+  const int off = q_pos0 != 0 || k_pos0 != 0 || nq != nk || n_valid != nk || qs[0] != ks[0] || qs[1] != ks[1] ||
+                  qs[2] != ks[2];
+  return Band{nq, nk, q_pos0 - k_pos0, jlo, jend - 1, window, causal, q_pos0, k_pos0, off};
+}
+
+// the band a kernel runs: without OFF, the single-sequence values (one length N), known at compile time
+template <bool OFF>
+__device__ __forceinline__ Band local_band(Band bd) {
+  if constexpr (!OFF) {
+    bd.delta = bd.jlo = bd.q_pos0 = bd.k_pos0 = 0;
+    bd.nk = bd.nq;
+    bd.jhi = bd.nq - 1;
+  }
+  return bd;
+}
+
+// [lo, hi]: the keys query rows [qa, qb] can see (hi < lo: none)
+__device__ __forceinline__ void key_range(const Band& bd, int qa, int qb, int& lo, int& hi) {
+  lo = bd.jlo;
+  hi = bd.jhi;
+  if (bd.window >= 0) {
+    lo = max(lo, qa + bd.delta - bd.window);
+    hi = min(hi, qb + bd.delta + bd.window);
+  }
+  if (bd.causal) hi = min(hi, qb + bd.delta);
+}
+
+// whether query row i sees key j: live (the pair in range) and in the band (window and causal mask)
+__device__ __forceinline__ bool in_band(const Band& bd, int i, int j, bool live) {
+  if (bd.window >= 0) live = live && abs(i + bd.delta - j) <= bd.window;
+  if (bd.causal) live = live && j <= i + bd.delta;
+  return live;
+}
+
+// whether key j is valid: without OFF, below N, the single-sequence kernels' test
+template <bool OFF>
+__device__ __forceinline__ bool valid_key(const Band& bd, int j) {
+  return OFF ? j >= bd.jlo && j <= bd.jhi : j < bd.nk;
+}
 
 // Philox4x32-10 (Salmon et al., SC 2011): ten rounds of two 32 x 32 -> 64-bit products, the key
 // bumped by the Weyl constants between rounds
@@ -153,11 +220,12 @@ struct FlashMaps {
   CUtensorMap q, k, v;  // (D, N, H, B) bf16, boxes of kBoxCols x rows
 };
 
-template <int D, bool DROP>
+template <int D, bool DROP, bool OFF>
 __global__ void __launch_bounds__(Flash<D>::kThreads, 1)
-flash_attn_bf16_kernel(const __grid_constant__ FlashMaps maps, bf16* __restrict__ o, int H, int N, int64_t ob,
-                       int64_t oh, int64_t on, int window, int causal, float scale, Dropout dp) {
+flash_attn_bf16_kernel(const __grid_constant__ FlashMaps maps, bf16* __restrict__ o, int H, int64_t ob, int64_t oh,
+                       int64_t on, Band band, float scale, Dropout dp) {
   using F = Flash<D>;
+  const Band bd = local_band<OFF>(band);
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = sm90::align_1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + F::kBarOff);
@@ -168,15 +236,13 @@ flash_attn_bf16_kernel(const __grid_constant__ FlashMaps maps, bf16* __restrict_
   const int bh = blockIdx.y;
   const int bidx = bh / H, hidx = bh % H;
 
-  int lo = 0, hi = N - 1;  // the keys this CTA can see
-  const int q1 = min(q0 + F::kBM, N) - 1;
-  if (window >= 0) {
-    lo = max(0, q0 - window);
-    hi = min(N - 1, q1 + window);
-  }
-  if (causal) hi = min(hi, q1);
-  const int kb0 = lo / F::kBN;
-  const int nblocks = hi / F::kBN - kb0 + 1;
+  // the keys this CTA can see, in key tiles laid at global multiples of 4 under dropout (a Philox counter
+  // then covers four keys of one tile): tile t holds keys [t kBN - a, (t + 1) kBN - a)
+  int lo, hi;
+  key_range(bd, q0, min(q0 + F::kBM, bd.nq) - 1, lo, hi);
+  const int a = DROP && OFF ? (bd.k_pos0 & 3) : 0;
+  const int kb0 = (lo + a) / F::kBN;
+  const int nblocks = OFF && hi < lo ? 0 : (hi + a) / F::kBN - kb0 + 1;  // without OFF a row sees a key
 
   if (tid == 0) {
     for (int s = 0; s < F::kStages; ++s) {
@@ -197,7 +263,7 @@ flash_attn_bf16_kernel(const __grid_constant__ FlashMaps maps, bf16* __restrict_
         const int s = i % F::kStages;
         if (i >= F::kStages) sm90::mbar_wait(empty + s, ((i / F::kStages) - 1) & 1);
         uint8_t* stage = smem + F::kQBytes + s * F::kStage;
-        const int k0 = (kb0 + i) * F::kBN;
+        const int k0 = (kb0 + i) * F::kBN - a;
         sm90::mbar_expect_tx(full + s, F::kStage);
         for (int x = 0; x < F::kBoxes; ++x) {
           sm90::tma_load_4d(stage + x * F::kKVBox, &maps.k, full + s, x * F::kBoxCols, k0, hidx, bidx);
@@ -233,18 +299,23 @@ flash_attn_bf16_kernel(const __grid_constant__ FlashMaps maps, bf16* __restrict_
     const int s = i % F::kStages;
     const uint8_t* k_tile = smem + F::kQBytes + s * F::kStage;
     const uint8_t* v_tile = k_tile + F::kKVBytes;
-    const int k0 = (kb0 + i) * F::kBN;
+    const int k0 = (kb0 + i) * F::kBN - a;
     const int k1 = k0 + F::kBN - 1;
-    // what this warpgroup's 64 rows need of the block
-    bool dead = r0 >= N;
-    bool masked = k1 >= N;
-    if (window >= 0) {
-      dead = dead || k0 > r0 + 63 + window || k1 < r0 - window;
-      masked = masked || k1 - r0 > window || r0 + 63 - k0 > window;
+    // what this warpgroup's 64 rows (at key positions rk ... rk + 63) need of the block
+    const int rk = r0 + bd.delta;
+    bool dead = r0 >= bd.nq;
+    bool masked = k1 > bd.jhi;
+    if constexpr (OFF) {
+      dead = dead || k1 < bd.jlo || k0 > bd.jhi;
+      masked = masked || k0 < bd.jlo;
     }
-    if (causal) {
-      dead = dead || k0 > r0 + 63;
-      masked = masked || k1 > r0;
+    if (bd.window >= 0) {
+      dead = dead || k0 > rk + 63 + bd.window || k1 < rk - bd.window;
+      masked = masked || k1 - rk > bd.window || rk + 63 - k0 > bd.window;
+    }
+    if (bd.causal) {
+      dead = dead || k0 > rk + 63;
+      masked = masked || k1 > rk;
     }
     sm90::mbar_wait(full + s, (i / F::kStages) & 1);
     if (!dead) {
@@ -280,10 +351,7 @@ flash_attn_bf16_kernel(const __grid_constant__ FlashMaps maps, bf16* __restrict_
         for (int r = 0; r < kS; ++r) {
           const int qi = rowa + 8 * ((r / 2) % 2);
           const int kj = k0 + 8 * (r / 4) + 2 * (lane % 4) + (r % 2);
-          bool live = kj < N;
-          if (window >= 0) live = live && abs(qi - kj) <= window;
-          if (causal) live = live && kj <= qi;
-          if (!live) sacc[r] = kNeg;
+          if (!in_band(bd, qi, kj, valid_key<OFF>(bd, kj))) sacc[r] = kNeg;
         }
       }
       float mx[2] = {m[0], m[1]};
@@ -301,16 +369,17 @@ flash_attn_bf16_kernel(const __grid_constant__ FlashMaps maps, bf16* __restrict_
       uint32_t pf[F::kBN / 16][4];  // P in bf16, as the A fragments of P . V
       float ls[2] = {0.f, 0.f};
       // dropout: registers r, r + 1 (row h = 0) and r + 2, r + 3 (h = 1) hold keys kj, kj + 1 of one Philox
-      // counter, kj / 4, which lanes 2m and 2m + 1 share (their kj differ by 2): the even lane draws row h = 0's
-      // four words, the odd lane row h = 1's, and they swap, so a lane draws one Philox for four registers
+      // counter, (k_pos0 + kj) / 4, which lanes 2m and 2m + 1 share (the tiles sit at global multiples of 4 and
+      // their kj differ by 2): the even lane draws row h = 0's four words, the odd lane row h = 1's, and they
+      // swap, so a lane draws one Philox for four registers
       uint64_t kept = 0;  // bit r: register r's pair survives
       if constexpr (DROP) {
 #pragma unroll
         for (int r = 0; r < kS; r += 4) {
-          const int kj = k0 + 8 * (r / 4) + 2 * (lane % 4);
+          const int kj = bd.k_pos0 + k0 + 8 * (r / 4) + 2 * (lane % 4);  // global
           const int odd = lane & 1;
-          const uint4 mine =
-              philox4x32_10(make_uint4(static_cast<uint32_t>(kj) >> 2, rowa + 8 * odd, bh, 0), dp.k0, dp.k1);
+          const uint4 mine = philox4x32_10(
+              make_uint4(static_cast<uint32_t>(kj) >> 2, bd.q_pos0 + rowa + 8 * odd, bh, 0), dp.k0, dp.k1);
           const uint4 theirs = make_uint4(__shfl_xor_sync(0xffffffffu, mine.x, 1), __shfl_xor_sync(0xffffffffu, mine.y, 1),
                                           __shfl_xor_sync(0xffffffffu, mine.z, 1), __shfl_xor_sync(0xffffffffu, mine.w, 1));
           const uint4 u0 = odd ? theirs : mine, u1 = odd ? mine : theirs;
@@ -387,7 +456,7 @@ flash_attn_bf16_kernel(const __grid_constant__ FlashMaps maps, bf16* __restrict_
     for (int r = 0; r < kO; r += 2) {
       const int h = (r / 2) % 2;
       const int row = r0 + orow + 8 * h;
-      if (row < N)
+      if (row < bd.nq)
         *reinterpret_cast<__nv_bfloat162*>(out + (int64_t)row * on + c0 + 8 * (r / 4) + 2 * (lane % 4)) =
             __floats2bfloat162_rn(oacc[r] * inv[h], oacc[r + 1] * inv[h]);
     }
@@ -406,41 +475,45 @@ flash_attn_bf16_kernel(const __grid_constant__ FlashMaps maps, bf16* __restrict_
   for (int idx = t; idx < 64 * kChunks; idx += 128) {
     const int r = idx / kChunks;
     const int c = (idx % kChunks) * 8;
-    if (r0 + r < N)
+    if (r0 + r < bd.nq)
       *reinterpret_cast<int4*>(out + (int64_t)(r0 + r) * on + c) =
           *reinterpret_cast<const int4*>(otile + r * F::kLdO + c);
   }
 }
 
 // a kernel without dropout compiles none of its code
-template <int D, bool DROP>
-int launch_bf16_kernel(dim3 grid, const FlashMaps& maps, void* o, int H, int N, int64_t ob, int64_t oh, int64_t on,
-                       int window, int causal, float scale, const Dropout& dp, cudaStream_t stream) {
+template <int D, bool DROP, bool OFF>
+int launch_bf16_kernel(dim3 grid, const FlashMaps& maps, void* o, int H, int64_t ob, int64_t oh, int64_t on,
+                       const Band& bd, float scale, const Dropout& dp, cudaStream_t stream) {
   using F = Flash<D>;
-  auto kernel = flash_attn_bf16_kernel<D, DROP>;
+  auto kernel = flash_attn_bf16_kernel<D, DROP, OFF>;
   static const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(F::kSmem));
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  kernel<<<grid, F::kThreads, F::kSmem, stream>>>(maps, static_cast<bf16*>(o), H, N, ob, oh, on, window, causal,
-                                                  scale, dp);
+  kernel<<<grid, F::kThreads, F::kSmem, stream>>>(maps, static_cast<bf16*>(o), H, ob, oh, on, bd, scale, dp);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-int launch_flash_bf16(const void* q, const void* k, const void* v, void* o, int B, int H, int N, int64_t sb,
-                      int64_t sh, int64_t sn, int64_t ob, int64_t oh, int64_t on, int window, int causal,
-                      float scale, const Dropout& dp, cudaStream_t stream) {
+int launch_flash_bf16(const void* q, const void* k, const void* v, void* o, int B, int H, const int64_t qs[3],
+                      const int64_t ks[3], int64_t ob, int64_t oh, int64_t on, const Band& bd, float scale,
+                      const Dropout& dp, cudaStream_t stream) {
   using F = Flash<D>;
   FlashMaps maps;
-  const int64_t dims[4] = {D, N, H, B};
-  const int64_t strides[3] = {sn, sh, sb};
-  int rc = sm90::make_map_bf16_4d(&maps.q, q, dims, strides, F::kBM, F::kBoxCols);
-  if (rc == 0) rc = sm90::make_map_bf16_4d(&maps.k, k, dims, strides, F::kBN, F::kBoxCols);
-  if (rc == 0) rc = sm90::make_map_bf16_4d(&maps.v, v, dims, strides, F::kBN, F::kBoxCols);
+  const int64_t qdims[4] = {D, bd.nq, H, B};
+  const int64_t kdims[4] = {D, bd.nk, H, B};
+  const int64_t qstrides[3] = {qs[2], qs[1], qs[0]};
+  const int64_t kstrides[3] = {ks[2], ks[1], ks[0]};
+  int rc = sm90::make_map_bf16_4d(&maps.q, q, qdims, qstrides, F::kBM, F::kBoxCols);
+  if (rc == 0) rc = sm90::make_map_bf16_4d(&maps.k, k, kdims, kstrides, F::kBN, F::kBoxCols);
+  if (rc == 0) rc = sm90::make_map_bf16_4d(&maps.v, v, kdims, kstrides, F::kBN, F::kBoxCols);
   if (rc != 0) return rc;
-  const dim3 grid((N + F::kBM - 1) / F::kBM, B * H);
-  return dp.on ? launch_bf16_kernel<D, true>(grid, maps, o, H, N, ob, oh, on, window, causal, scale, dp, stream)
-               : launch_bf16_kernel<D, false>(grid, maps, o, H, N, ob, oh, on, window, causal, scale, dp, stream);
+  const dim3 grid((bd.nq + F::kBM - 1) / F::kBM, B * H);
+  if (dp.on)
+    return bd.off ? launch_bf16_kernel<D, true, true>(grid, maps, o, H, ob, oh, on, bd, scale, dp, stream)
+                  : launch_bf16_kernel<D, true, false>(grid, maps, o, H, ob, oh, on, bd, scale, dp, stream);
+  return bd.off ? launch_bf16_kernel<D, false, true>(grid, maps, o, H, ob, oh, on, bd, scale, dp, stream)
+                : launch_bf16_kernel<D, false, false>(grid, maps, o, H, ob, oh, on, bd, scale, dp, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -474,12 +547,13 @@ __device__ __forceinline__ void load_tile_f32(float* dst, const float* src, int6
   }
 }
 
-template <int D, bool DROP>
+template <int D, bool DROP, bool OFF>
 __global__ void __launch_bounds__(kF32Threads)
 flash_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                      float* __restrict__ o, int H, int N, int64_t sb, int64_t sh, int64_t sn, int64_t ob,
-                      int64_t oh, int64_t on, int window, int causal, float scale, Dropout dp) {
+                      float* __restrict__ o, int H, int64_t qb, int64_t qh, int64_t qn, int64_t kb_, int64_t kh,
+                      int64_t kn, int64_t ob, int64_t oh, int64_t on, Band band, float scale, Dropout dp) {
   using L = F32Layout<D>;
+  const Band bd = local_band<OFF>(band);
   extern __shared__ __align__(128) unsigned char smem_f32[];
   float* Qs = reinterpret_cast<float*>(smem_f32);
   float* Ks = reinterpret_cast<float*>(smem_f32 + L::kTile);
@@ -492,30 +566,29 @@ flash_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, 
   const int half = lane & 1;   // and which half of the keys / channels
   const int q0 = blockIdx.x * kF32BM;
   const int bh = blockIdx.y;
-  const int64_t in_off = (int64_t)(bh / H) * sb + (int64_t)(bh % H) * sh;
+  const int64_t q_off = (int64_t)(bh / H) * qb + (int64_t)(bh % H) * qh;
+  // without OFF, k and v have q's strides: the single-sequence kernel's addressing
+  const int64_t k_off = OFF ? (int64_t)(bh / H) * kb_ + (int64_t)(bh % H) * kh : q_off;
+  const int64_t ksn = OFF ? kn : qn;
   const int64_t out_off = (int64_t)(bh / H) * ob + (int64_t)(bh % H) * oh;
   const int qpos = q0 + warp * 16 + r;
 
-  load_tile_f32<D>(Qs, q + in_off, sn, q0, N);
+  load_tile_f32<D>(Qs, q + q_off, qn, q0, bd.nq);
 
-  int lo = 0, hi = N - 1;  // key range this CTA can see
-  const int q1 = min(q0 + kF32BM, N) - 1;
-  if (window >= 0) {
-    lo = max(0, q0 - window);
-    hi = min(N - 1, q1 + window);
-  }
-  if (causal) hi = min(hi, q1);
+  int lo, hi;  // key range this CTA can see
+  key_range(bd, q0, min(q0 + kF32BM, bd.nq) - 1, lo, hi);
 
   float m = kNeg, l = 0.f;
   float acc[D / 2];
 #pragma unroll
   for (int c = 0; c < D / 2; ++c) acc[c] = 0.f;
 
-  for (int kb = lo / kF32BN; kb <= hi / kF32BN; ++kb) {
+  const int kb_last = OFF && hi < lo ? lo / kF32BN - 1 : hi / kF32BN;  // no keys: no block (only with OFF)
+  for (int kb = lo / kF32BN; kb <= kb_last; ++kb) {
     const int k0 = kb * kF32BN;
     __syncthreads();  // the previous block's K and V are consumed
-    load_tile_f32<D>(Ks, k + in_off, sn, k0, N);
-    load_tile_f32<D>(Vs, v + in_off, sn, k0, N);
+    load_tile_f32<D>(Ks, k + k_off, ksn, k0, bd.nk);
+    load_tile_f32<D>(Vs, v + k_off, ksn, k0, bd.nk);
     __syncthreads();
 
     // s = q_row . K^T for this lane's 32 keys
@@ -534,9 +607,7 @@ flash_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, 
 #pragma unroll
     for (int c = 0; c < kF32BN / 2; ++c) {
       const int kpos = k0 + half * (kF32BN / 2) + c;
-      bool live = kpos < N && qpos < N;
-      if (window >= 0) live = live && abs(qpos - kpos) <= window;
-      if (causal) live = live && kpos <= qpos;
+      const bool live = in_band(bd, qpos, kpos, valid_key<OFF>(bd, kpos) && qpos < bd.nq);
       s[c] = live ? s[c] * scale : kNeg;
       mloc = fmaxf(mloc, s[c]);
     }
@@ -549,7 +620,7 @@ flash_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, 
       const float p = s[c] > 0.5f * kNeg ? expf(s[c] - m_new) : 0.f;
       lsum += p;  // the normalizer sums every pair, dropped or not
       Pw[r * L::kLdP + half * (kF32BN / 2) + c] =
-          DROP && !keep(dp, bh, qpos, k0 + half * (kF32BN / 2) + c) ? 0.f : p;
+          DROP && !keep(dp, bh, bd.q_pos0 + qpos, bd.k_pos0 + k0 + half * (kF32BN / 2) + c) ? 0.f : p;
     }
     lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
     l = fmaf(l, corr, lsum);
@@ -568,7 +639,7 @@ flash_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, 
     __syncwarp();
   }
 
-  if (qpos < N) {
+  if (qpos < bd.nq) {
     const float inv = DROP ? 1.f / fmaxf(l, 1e-30f) * dp.rscale : 1.f / fmaxf(l, 1e-30f);
     float* orow = o + out_off + (int64_t)qpos * on + half * (D / 2);
 #pragma unroll
@@ -577,18 +648,19 @@ flash_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, 
 }
 
 template <int D>
-int launch_flash_f32(const void* q, const void* k, const void* v, void* o, int B, int H, int N, int64_t sb,
-                     int64_t sh, int64_t sn, int64_t ob, int64_t oh, int64_t on, int window, int causal, float scale,
+int launch_flash_f32(const void* q, const void* k, const void* v, void* o, int B, int H, const int64_t qs[3],
+                     const int64_t ks[3], int64_t ob, int64_t oh, int64_t on, const Band& bd, float scale,
                      const Dropout& dp, cudaStream_t stream) {
   using L = F32Layout<D>;
-  auto kernel = dp.on ? flash_attn_f32_kernel<D, true> : flash_attn_f32_kernel<D, false>;
+  auto kernel = dp.on ? (bd.off ? flash_attn_f32_kernel<D, true, true> : flash_attn_f32_kernel<D, true, false>)
+                      : (bd.off ? flash_attn_f32_kernel<D, false, true> : flash_attn_f32_kernel<D, false, false>);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(L::kBytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((N + kF32BM - 1) / kF32BM, B * H);
+  const dim3 grid((bd.nq + kF32BM - 1) / kF32BM, B * H);
   kernel<<<grid, kF32Threads, L::kBytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), H, N, sb, sh, sn, ob, oh, on, window, causal, scale, dp);
+      static_cast<float*>(o), H, qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], ob, oh, on, bd, scale, dp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -604,17 +676,21 @@ __device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_f(bf16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 // lane l owns channels l, l + 32, ..., l + 32 (NV - 1) below D; R rows a warp share every key row
-template <typename T, int NV, int R, bool DROP>
+template <typename T, int NV, int R, bool DROP, bool OFF>
 __global__ void __launch_bounds__(32 * kRowWarps)
 flash_attn_rows_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ o,
-                       int H, int N, int D, int64_t sb, int64_t sh, int64_t sn, int64_t ob, int64_t oh, int64_t on,
-                       int window, int causal, float scale, Dropout dp) {
+                       int H, int D, int64_t qb, int64_t qh, int64_t qn, int64_t kb, int64_t kh, int64_t kn,
+                       int64_t ob, int64_t oh, int64_t on, Band band, float scale, Dropout dp) {
+  const Band bd = local_band<OFF>(band);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int bh = blockIdx.y;
   const int i0 = (blockIdx.x * kRowWarps + warp) * R;
-  if (i0 >= N) return;
-  const int64_t in_off = (int64_t)(bh / H) * sb + (int64_t)(bh % H) * sh;
+  if (i0 >= bd.nq) return;
+  const int64_t q_off = (int64_t)(bh / H) * qb + (int64_t)(bh % H) * qh;
+  // without OFF, k and v have q's strides: the single-sequence kernel's addressing
+  const int64_t k_off = OFF ? (int64_t)(bh / H) * kb + (int64_t)(bh % H) * kh : q_off;
+  const int64_t ksn = OFF ? kn : qn;
   const int64_t out_off = (int64_t)(bh / H) * ob + (int64_t)(bh % H) * oh;
   float qv[R][NV], acc[R][NV], m[R], l[R];
 #pragma unroll
@@ -624,24 +700,19 @@ flash_attn_rows_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
 #pragma unroll
     for (int c = 0; c < NV; ++c) {
       const int ch = lane + 32 * c;
-      qv[r][c] = i0 + r < N && ch < D ? load_f(q + in_off + (int64_t)(i0 + r) * sn + ch) : 0.f;
+      qv[r][c] = i0 + r < bd.nq && ch < D ? load_f(q + q_off + (int64_t)(i0 + r) * qn + ch) : 0.f;
       acc[r][c] = 0.f;
     }
   }
-  const int last = min(i0 + R - 1, N - 1);
-  int lo = 0, hi = N - 1;
-  if (window >= 0) {
-    lo = max(0, i0 - window);
-    hi = min(N - 1, last + window);
-  }
-  if (causal) hi = min(hi, last);
+  int lo, hi;
+  key_range(bd, i0, min(i0 + R - 1, bd.nq - 1), lo, hi);
   for (int j = lo; j <= hi; ++j) {
     float kr[NV], vr[NV];
 #pragma unroll
     for (int c = 0; c < NV; ++c) {
       const int ch = lane + 32 * c;
-      kr[c] = ch < D ? load_f(k + in_off + (int64_t)j * sn + ch) : 0.f;
-      vr[c] = ch < D ? load_f(v + in_off + (int64_t)j * sn + ch) : 0.f;
+      kr[c] = ch < D ? load_f(k + k_off + (int64_t)j * ksn + ch) : 0.f;
+      vr[c] = ch < D ? load_f(v + k_off + (int64_t)j * ksn + ch) : 0.f;
     }
 #pragma unroll
     for (int r = 0; r < R; ++r) {
@@ -651,16 +722,13 @@ flash_attn_rows_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
       const int i = i0 + r;  // every branch below is uniform over the warp
-      bool live = i < N;
-      if (window >= 0) live = live && abs(i - j) <= window;
-      if (causal) live = live && j <= i;
-      if (!live) continue;
+      if (!in_band(bd, i, j, i < bd.nq)) continue;  // j is valid: key_range keeps it there
       const float logit = s * scale;
       const float m_new = fmaxf(m[r], logit);
       const float corr = expf(m[r] - m_new);
       const float p = expf(logit - m_new);
       l[r] = fmaf(l[r], corr, p);  // the normalizer sums every pair, dropped or not
-      const float pk = DROP && !keep(dp, bh, i, j) ? 0.f : p;
+      const float pk = DROP && !keep(dp, bh, bd.q_pos0 + i, bd.k_pos0 + j) ? 0.f : p;
 #pragma unroll
       for (int c = 0; c < NV; ++c) acc[r][c] = fmaf(acc[r][c], corr, pk * vr[c]);
       m[r] = m_new;
@@ -668,7 +736,7 @@ flash_attn_rows_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
   }
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    if (i0 + r >= N) break;
+    if (i0 + r >= bd.nq) break;
     const float inv = DROP ? 1.f / fmaxf(l[r], 1e-30f) * dp.rscale : 1.f / fmaxf(l[r], 1e-30f);
 #pragma unroll
     for (int c = 0; c < NV; ++c) {
@@ -679,25 +747,28 @@ flash_attn_rows_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
 }
 
 template <typename T, int NV>
-int launch_rows(const void* q, const void* k, const void* v, void* o, int B, int H, int N, int D, int64_t sb,
-                int64_t sh, int64_t sn, int64_t ob, int64_t oh, int64_t on, int window, int causal, float scale,
+int launch_rows(const void* q, const void* k, const void* v, void* o, int B, int H, int D, const int64_t qs[3],
+                const int64_t ks[3], int64_t ob, int64_t oh, int64_t on, const Band& bd, float scale,
                 const Dropout& dp, cudaStream_t stream) {
   constexpr int R = 64 / NV;  // rows a warp: 64 accumulators a lane
-  const dim3 grid((N + kRowWarps * R - 1) / (kRowWarps * R), B * H);
-  auto kernel = dp.on ? flash_attn_rows_kernel<T, NV, R, true> : flash_attn_rows_kernel<T, NV, R, false>;
+  const dim3 grid((bd.nq + kRowWarps * R - 1) / (kRowWarps * R), B * H);
+  auto kernel = dp.on ? (bd.off ? flash_attn_rows_kernel<T, NV, R, true, true>
+                                : flash_attn_rows_kernel<T, NV, R, true, false>)
+                      : (bd.off ? flash_attn_rows_kernel<T, NV, R, false, true>
+                                : flash_attn_rows_kernel<T, NV, R, false, false>);
   kernel<<<grid, 32 * kRowWarps, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(o), H, N, D, sb,
-      sh, sn, ob, oh, on, window, causal, scale, dp);
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(o), H, D, qs[0],
+      qs[1], qs[2], ks[0], ks[1], ks[2], ob, oh, on, bd, scale, dp);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_rows_any(const void* q, const void* k, const void* v, void* o, int B, int H, int N, int D, int64_t sb,
-                    int64_t sh, int64_t sn, int64_t ob, int64_t oh, int64_t on, int window, int causal,
-                    float scale, const Dropout& dp, cudaStream_t s) {
-  if (D <= 256) return launch_rows<T, 8>(q, k, v, o, B, H, N, D, sb, sh, sn, ob, oh, on, window, causal, scale, dp, s);
-  if (D <= 512) return launch_rows<T, 16>(q, k, v, o, B, H, N, D, sb, sh, sn, ob, oh, on, window, causal, scale, dp, s);
-  if (D <= 1024) return launch_rows<T, 32>(q, k, v, o, B, H, N, D, sb, sh, sn, ob, oh, on, window, causal, scale, dp, s);
+int launch_rows_any(const void* q, const void* k, const void* v, void* o, int B, int H, int D, const int64_t qs[3],
+                    const int64_t ks[3], int64_t ob, int64_t oh, int64_t on, const Band& bd, float scale,
+                    const Dropout& dp, cudaStream_t s) {
+  if (D <= 256) return launch_rows<T, 8>(q, k, v, o, B, H, D, qs, ks, ob, oh, on, bd, scale, dp, s);
+  if (D <= 512) return launch_rows<T, 16>(q, k, v, o, B, H, D, qs, ks, ob, oh, on, bd, scale, dp, s);
+  if (D <= 1024) return launch_rows<T, 32>(q, k, v, o, B, H, D, qs, ks, ob, oh, on, bd, scale, dp, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -705,41 +776,45 @@ int launch_rows_any(const void* q, const void* k, const void* v, void* o, int B,
 
 extern "C" {
 
-// dropout: 0 or 1; keep_below = round((1 - p) 2^32); k0, k1: the Philox key; rscale = 1 / (1 - p)
-int flash_attn_f32(const void* q, const void* k, const void* v, void* o, int B, int H, int N, int D,
-                   int64_t sb, int64_t sh, int64_t sn, int64_t ob, int64_t oh, int64_t on,
-                   int window, int causal, float scale, int dropout, uint32_t keep_below, uint32_t k0, uint32_t k1,
-                   float rscale, void* stream) {
+// q (B, H, Nq, D) and k, v (B, H, Nk, D) by their (batch, head, row) strides qs and ks (channels contiguous);
+// q_pos0, k_pos0: the global positions of q's and k's row 0; keys outside [0, n_valid) are masked; window < 0:
+// none. dropout: 0 or 1; keep_below = round((1 - p) 2^32); k0, k1: the Philox key; rscale = 1 / (1 - p)
+int flash_attn_f32(const void* q, const void* k, const void* v, void* o, int B, int H, int Nq, int Nk, int D,
+                   int64_t qsb, int64_t qsh, int64_t qsn, int64_t ksb, int64_t ksh, int64_t ksn, int64_t ob,
+                   int64_t oh, int64_t on, int window, int causal, int q_pos0, int k_pos0, int n_valid, float scale,
+                   int dropout, uint32_t keep_below, uint32_t k0, uint32_t k1, float rscale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout dp{dropout, keep_below, k0, k1, rscale};
+  const int64_t qs[3] = {qsb, qsh, qsn}, ks[3] = {ksb, ksh, ksn};
+  const Band bd = make_band(Nq, Nk, window, causal, q_pos0, k_pos0, n_valid, qs, ks);
   switch (D) {  // the wrapper pads every head width up to 128 to one of these
-    case 16: return launch_flash_f32<16>(q, k, v, o, B, H, N, sb, sh, sn, ob, oh, on, window, causal, scale, dp, s);
-    case 32: return launch_flash_f32<32>(q, k, v, o, B, H, N, sb, sh, sn, ob, oh, on, window, causal, scale, dp, s);
-    case 64: return launch_flash_f32<64>(q, k, v, o, B, H, N, sb, sh, sn, ob, oh, on, window, causal, scale, dp, s);
-    case 128: return launch_flash_f32<128>(q, k, v, o, B, H, N, sb, sh, sn, ob, oh, on, window, causal, scale, dp, s);
+    case 16: return launch_flash_f32<16>(q, k, v, o, B, H, qs, ks, ob, oh, on, bd, scale, dp, s);
+    case 32: return launch_flash_f32<32>(q, k, v, o, B, H, qs, ks, ob, oh, on, bd, scale, dp, s);
+    case 64: return launch_flash_f32<64>(q, k, v, o, B, H, qs, ks, ob, oh, on, bd, scale, dp, s);
+    case 128: return launch_flash_f32<128>(q, k, v, o, B, H, qs, ks, ob, oh, on, bd, scale, dp, s);
     default:
-      if (D > 128)
-        return launch_rows_any<float>(q, k, v, o, B, H, N, D, sb, sh, sn, ob, oh, on, window, causal, scale, dp, s);
+      if (D > 128) return launch_rows_any<float>(q, k, v, o, B, H, D, qs, ks, ob, oh, on, bd, scale, dp, s);
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-int flash_attn_bf16(const void* q, const void* k, const void* v, void* o, int B, int H, int N, int D,
-                    int64_t sb, int64_t sh, int64_t sn, int64_t ob, int64_t oh, int64_t on,
-                    int window, int causal, float scale, int dropout, uint32_t keep_below, uint32_t k0, uint32_t k1,
-                    float rscale, void* stream) {
+int flash_attn_bf16(const void* q, const void* k, const void* v, void* o, int B, int H, int Nq, int Nk, int D,
+                    int64_t qsb, int64_t qsh, int64_t qsn, int64_t ksb, int64_t ksh, int64_t ksn, int64_t ob,
+                    int64_t oh, int64_t on, int window, int causal, int q_pos0, int k_pos0, int n_valid, float scale,
+                    int dropout, uint32_t keep_below, uint32_t k0, uint32_t k1, float rscale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout dp{dropout, keep_below, k0, k1, rscale};
+  const int64_t qs[3] = {qsb, qsh, qsn}, ks[3] = {ksb, ksh, ksn};
+  const Band bd = make_band(Nq, Nk, window, causal, q_pos0, k_pos0, n_valid, qs, ks);
   switch (D) {  // the wrapper pads every head width up to 512 to one of these
-    case 16: return launch_flash_bf16<16>(q, k, v, o, B, H, N, sb, sh, sn, ob, oh, on, window, causal, scale, dp, s);
-    case 32: return launch_flash_bf16<32>(q, k, v, o, B, H, N, sb, sh, sn, ob, oh, on, window, causal, scale, dp, s);
-    case 64: return launch_flash_bf16<64>(q, k, v, o, B, H, N, sb, sh, sn, ob, oh, on, window, causal, scale, dp, s);
-    case 128: return launch_flash_bf16<128>(q, k, v, o, B, H, N, sb, sh, sn, ob, oh, on, window, causal, scale, dp, s);
-    case 256: return launch_flash_bf16<256>(q, k, v, o, B, H, N, sb, sh, sn, ob, oh, on, window, causal, scale, dp, s);
-    case 512: return launch_flash_bf16<512>(q, k, v, o, B, H, N, sb, sh, sn, ob, oh, on, window, causal, scale, dp, s);
+    case 16: return launch_flash_bf16<16>(q, k, v, o, B, H, qs, ks, ob, oh, on, bd, scale, dp, s);
+    case 32: return launch_flash_bf16<32>(q, k, v, o, B, H, qs, ks, ob, oh, on, bd, scale, dp, s);
+    case 64: return launch_flash_bf16<64>(q, k, v, o, B, H, qs, ks, ob, oh, on, bd, scale, dp, s);
+    case 128: return launch_flash_bf16<128>(q, k, v, o, B, H, qs, ks, ob, oh, on, bd, scale, dp, s);
+    case 256: return launch_flash_bf16<256>(q, k, v, o, B, H, qs, ks, ob, oh, on, bd, scale, dp, s);
+    case 512: return launch_flash_bf16<512>(q, k, v, o, B, H, qs, ks, ob, oh, on, bd, scale, dp, s);
     default:
-      if (D > 512)
-        return launch_rows_any<bf16>(q, k, v, o, B, H, N, D, sb, sh, sn, ob, oh, on, window, causal, scale, dp, s);
+      if (D > 512) return launch_rows_any<bf16>(q, k, v, o, B, H, D, qs, ks, ob, oh, on, bd, scale, dp, s);
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }

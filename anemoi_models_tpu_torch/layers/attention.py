@@ -12,10 +12,12 @@ rows), ``attention_impl="halo"`` and, for a non-causal windowed attention,
 ``"auto"`` take :func:`~anemoi_models_tpu_torch.ops.ring_attention.halo_window_attention`
 (a +-window halo of k and v from the neighbouring ranks), as the JAX layer
 selects it. Any other attention under such a mesh (a causal mask, no
-window, or another ``attention_impl``) raises: the JAX package reshards it
-over heads and runs its flash kernel, which the port does not do yet
-(ROADMAP Queue 1 #11). ``seq_len`` is the whole sequence's length, which a
-rank holding its rows alone cannot see.
+window, or another ``attention_impl``) takes
+:func:`~anemoi_models_tpu_torch.ops.ring_attention.gathered_attention` (k and
+v of every rank gathered, the rank's queries against the whole sequence):
+the function the JAX layer computes after resharding over heads. Both run
+the flash kernel on the rank's rows. ``seq_len`` is the whole sequence's
+length, which a rank holding its rows alone cannot see.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from torch import nn
 from anemoi_models_tpu_torch.layers.utils import Dense
 from anemoi_models_tpu_torch.ops.attention import dot_product_attention
 from anemoi_models_tpu_torch.ops.flash_attention import fold_key
-from anemoi_models_tpu_torch.ops.ring_attention import halo_window_attention
+from anemoi_models_tpu_torch.ops.ring_attention import gathered_attention, halo_window_attention
 from anemoi_models_tpu_torch.parallel.api import model_sharded
 
 __all__ = ["MultiHeadSelfAttention"]
@@ -81,11 +83,10 @@ class MultiHeadSelfAttention(nn.Module):
                 raise ValueError("attention over a sequence split by the mesh needs the whole length (seq_len)")
             halo = self.attention_impl == "halo" or (
                 self.attention_impl == "auto" and self.window_size is not None and not self.is_causal)
-            if not halo:
-                raise NotImplementedError(
-                    "under a model-sharded mesh only the halo window attention runs (a window, no causal mask, "
-                    f"attention_impl 'auto' or 'halo'; got {self.attention_impl!r}, window {self.window_size}, "
-                    f"causal {self.is_causal}): ROADMAP Queue 1 #11")
-            out = halo_window_attention(query, key, value, window_size=self.window_size, seq_len=self.seq_len,
-                                        mesh=mesh, dropout_rate=rate, dropout_key=key_l)
+            if halo:
+                out = halo_window_attention(query, key, value, window_size=self.window_size, seq_len=self.seq_len,
+                                            mesh=mesh, dropout_rate=rate, dropout_key=key_l)
+            else:
+                out = gathered_attention(query, key, value, window_size=self.window_size, is_causal=self.is_causal,
+                                         seq_len=self.seq_len, mesh=mesh, dropout_rate=rate, dropout_key=key_l)
         return self.projection(out.transpose(1, 2).reshape(batch, seq, self.embed_dim))

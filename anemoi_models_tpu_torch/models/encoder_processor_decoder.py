@@ -112,6 +112,26 @@ class AnemoiModelEncProcDec(nn.Module):
         self.register_buffer("_internal_input_idx", torch.as_tensor(prog_in, device=device), persistent=False)
         self.register_buffer("_internal_output_idx", torch.as_tensor(prog_out, device=device), persistent=False)
 
+    def _rank_rows(self, names: list, grid: int) -> dict:
+        """Per node set of ``names`` (the data grid first), this rank's
+        ``(lo, hi)`` under a model-sharded mesh, None without one; raises
+        where a node set has fewer rows than the model axis has ranks (the
+        JAX equal-pad split has the same limit), or the input's ``grid`` is
+        not the rank's grid rows."""
+        mesh = model_sharded()
+        if mesh is None:
+            return dict.fromkeys(names)
+        num_nodes = self.node_attributes.num_nodes
+        for name in names:
+            if num_nodes[name] < mesh.shape["model"]:
+                raise ValueError(f"node set {name!r} has {num_nodes[name]} rows, fewer than the mesh's "
+                                 f"{mesh.shape['model']} model ranks")
+        rows = {name: mesh.rows(num_nodes[name]) for name in names}
+        lo, hi = rows[names[0]]
+        if grid != hi - lo:
+            raise ValueError(f"rank {mesh.rank} holds grid rows [{lo}, {hi}); the input has {grid}")
+        return rows
+
     def _finish(self, x_out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         """The residual connection for the prognostic variables, then the
         boundings in config order."""
@@ -129,13 +149,7 @@ class AnemoiModelEncProcDec(nn.Module):
         data grid (``mesh.rows``) and so is the output."""
         batch_size, _, ensemble_size, grid, _ = x.shape
         bse = batch_size * ensemble_size
-        rows = {self._graph_name_data: None, self._graph_name_hidden: None}
-        mesh = model_sharded()
-        if mesh is not None:  # this rank's rows of each node set
-            rows = {name: mesh.rows(self.node_attributes.num_nodes[name]) for name in rows}
-            lo, hi = rows[self._graph_name_data]
-            if grid != hi - lo:
-                raise ValueError(f"rank {mesh.rank} holds grid rows [{lo}, {hi}); the input has {grid}")
+        rows = self._rank_rows([self._graph_name_data, self._graph_name_hidden], grid)
         x_flat = x.permute(0, 2, 3, 1, 4).reshape(bse, grid, -1)
         x_data_latent = torch.cat(
             [x_flat, self.node_attributes(self._graph_name_data, bse, rows[self._graph_name_data]).to(x_flat.dtype)],

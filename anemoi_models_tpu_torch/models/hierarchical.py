@@ -11,6 +11,13 @@ per-level modules sit in ``nn.ModuleDict``s keyed by the level's name; the
 JAX package names them ``down_level_processor_<name>``,
 ``up_level_processor_<name>``, ``downscale_<name>`` and ``upscale_<name>``
 (``weights.py`` maps the two).
+
+Under a mesh whose ``model`` axis is larger than 1 each rank holds its rows
+of the data grid and of every hidden level (``mesh.rows``, the ceil split):
+the encoder, decoder and the level mappers take the destination-sharded
+path, each level processor its own halo path planned from its level's
+edges, and the skip connections add the rank's rows of their level, as the
+JAX model runs under GSPMD.
 """
 
 from __future__ import annotations
@@ -22,7 +29,6 @@ from torch import nn
 
 from anemoi_models_tpu_torch.layers.graph import NamedNodesAttributes
 from anemoi_models_tpu_torch.ops.flash_attention import fold_key
-from anemoi_models_tpu_torch.parallel.api import model_sharded
 from anemoi_models_tpu_torch.models.encoder_processor_decoder import (
     AnemoiModelEncProcDec,
     _accepted,
@@ -128,22 +134,22 @@ class AnemoiModelEncProcDecHierarchical(AnemoiModelEncProcDec):
     def forward(self, x: torch.Tensor, dropout_key: Optional[int] = None) -> torch.Tensor:
         """x (batch, time, ensemble, grid, vars) -> (batch, ensemble, grid, vars_out).
         ``dropout_key``: the attention-dropout key of a ``deterministic=False``
-        model; the down and up processors of level l fold in 2 l and 2 l + 1."""
+        model; the down and up processors of level l fold in 2 l and 2 l + 1.
+        Under a model-sharded mesh ``grid`` is this rank's rows of the data
+        grid, and so is the output."""
 
         def key(i: int) -> Optional[int]:
             return None if dropout_key is None else fold_key(dropout_key, i)
 
-        if model_sharded() is not None:
-            raise NotImplementedError("the hierarchical model under a model-sharded mesh is not ported "
-                                      "(ROADMAP Queue 1 #9)")
         batch_size, _, ensemble_size, grid, _ = x.shape
         bse = batch_size * ensemble_size
-        names = self._graph_hidden_names
+        names, name_data = self._graph_hidden_names, self._graph_name_data
+        rows = self._rank_rows([name_data, *names], grid)
         x_flat = x.permute(0, 2, 3, 1, 4).reshape(bse, grid, -1)
         x_trainable_data = torch.cat(
-            [x_flat, self.node_attributes(self._graph_name_data, bse).to(x_flat.dtype)], dim=-1
+            [x_flat, self.node_attributes(name_data, bse, rows[name_data]).to(x_flat.dtype)], dim=-1
         )
-        x_trainable_hiddens = {name: self.node_attributes(name, bse) for name in names}
+        x_trainable_hiddens = {name: self.node_attributes(name, bse, rows[name]) for name in names}
 
         x_data_latent, curr_latent = self.encoder((x_trainable_data, x_trainable_hiddens[names[0]]))
 

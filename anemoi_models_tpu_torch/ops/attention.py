@@ -2,8 +2,9 @@
 
 Counterpart of ``anemoi_models_tpu/ops/attention.py:dot_product_attention``.
 The JAX package picks among a plain einsum version, a chunked version and the
-Pallas kernel with ``impl``; all three compute one function. The port has one
-path for every ``impl``: :class:`~anemoi_models_tpu_torch.ops.flash_attention.FlashAttention`,
+Pallas kernel with ``impl`` (any other name, ``"flash"`` among them, takes
+the einsum version); all compute one function. The port has one path for
+every ``impl``: :class:`~anemoi_models_tpu_torch.ops.flash_attention.FlashAttention`,
 which runs the hand-written kernel on a CUDA tensor and the plain blockwise
 version on a CPU tensor. Attention-weight dropout runs inside the kernel,
 keyed by ``dropout_key`` (``ops/flash_attention.py``); the JAX package draws
@@ -21,7 +22,7 @@ from anemoi_models_tpu_torch.ops.flash_attention import FlashAttention
 
 __all__ = ["dot_product_attention"]
 
-IMPLS = ("auto", "pallas", "chunked", "reference")
+IMPLS = ("auto", "pallas", "chunked", "reference", "flash")
 
 
 def dot_product_attention(

@@ -16,7 +16,14 @@ kernel, so the port has none either.
 - :class:`FlashAttention` is the Function the attention layer runs through.
 
 Shapes: q, k, v are (batch, heads, seq, head_dim); ``window_size`` is the
-half-width w, query i attends keys j with ``|i - j| <= w``.
+half-width w, query i attends keys j with ``|i - j| <= w``. With
+``q_offset``, ``k_offset`` and ``n_valid`` the rows are a part of a longer
+sequence: q's rows sit at global positions ``q_offset + i``, k's and v's
+(their own count of rows) at ``k_offset + j``; the band and the causal mask
+compare global positions, and keys outside ``[0, n_valid)`` are masked. A
+rank of a sequence split over ranks so computes its rows of the unsharded
+output, from halo-extended keys (``ops/ring_attention.py``) or from every
+key (``layers/attention.py``). A query that sees no key gets 0.
 
 Every head width runs on the card: bf16 heads up to 512 on the ``wgmma``
 kernel (a width other than 16, 32, 64, 128, 256 or 512 padded with zero
@@ -29,7 +36,9 @@ Attention-weight dropout (``dropout_rate`` with a ``dropout_key``) drops
 normalized probabilities as the JAX package does: ``out_i = sum_j keep_ij
 p_ij v_j / ((1 - rate) l_i)``, the normalizer summing every pair. ``keep_ij``
 is :func:`dropout_keep`: word ``j % 4`` of Philox4x32-10 at counter ``(j // 4,
-i, b H + h, 0)`` under the 64-bit key, below ``round((1 - rate) 2^32)``. The
+i, b H + h, 0)`` under the 64-bit key, below ``round((1 - rate) 2^32)``, at
+the global positions i and j, so a sharded call drops the unsharded call's
+pairs. The
 kernels and the plain version draw the same bits, so the backward, which
 recomputes through :func:`blockwise_attention` with the same key,
 differentiates the mask the forward used. :func:`fold_key` derives a key
@@ -130,51 +139,75 @@ def blockwise_attention(
     block_size: int = 512,
     dropout_rate: float = 0.0,
     dropout_key: Optional[int] = None,
+    q_offset: int = 0,
+    k_offset: int = 0,
+    n_valid: Optional[int] = None,
 ) -> torch.Tensor:
     """Windowed attention over q-blocks, fp32 logits and softmax; the
     weights are rounded to v's dtype before the product with v, and the
     output is in q's dtype. With ``dropout_rate`` > 0 the normalized weights
     of the pairs :func:`dropout_keep` drops under ``dropout_key`` are zeroed
-    and the rest divided by ``1 - dropout_rate``."""
-    b, h, n, d = q.shape
-    blk = min(block_size, n)
+    and the rest divided by ``1 - dropout_rate``. ``q_offset``, ``k_offset``
+    and ``n_valid`` (default: every key valid) place the rows in a longer
+    sequence (see the module's docstring)."""
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    if n_valid is None:
+        n_valid = k_offset + nk
+    if nq == 0:
+        return q.new_empty(b, h, 0, d)
+    blk = min(block_size, nq)
     scale = 1.0 / math.sqrt(d)
-    kwidth = n if window_size is None else min(blk + 2 * window_size, n)
+    kwidth = nk if window_size is None else min(blk + 2 * window_size, nk)
+    shift = q_offset - k_offset  # query i sits at key row i + shift
+    edges = k_offset < 0 or k_offset + nk > n_valid  # some keys are out of [0, n_valid)
     if dropout_rate > 0.0:
         if dropout_key is None:
             raise ValueError("attention dropout_rate > 0 needs a dropout_key")
         keep_below = keep_threshold(dropout_rate)
         bh = torch.arange(b * h, device=q.device).view(b, h, 1, 1)
     blocks = []
-    for q0 in range(0, n, blk):
-        q1 = min(q0 + blk, n)
-        kstart = 0 if window_size is None else min(max(q0 - window_size, 0), n - kwidth)
+    for q0 in range(0, nq, blk):
+        q1 = min(q0 + blk, nq)
+        kstart = 0 if window_size is None else min(max(q0 + shift - window_size, 0), nk - kwidth)
         ks = k[:, :, kstart:kstart + kwidth].float()
         vs = v[:, :, kstart:kstart + kwidth]
         s = torch.einsum("bhqd,bhkd->bhqk", q[:, :, q0:q1].float(), ks) * scale
-        qpos = torch.arange(q0, q1, device=q.device)[:, None]
-        kpos = torch.arange(kstart, kstart + kwidth, device=q.device)[None, :]
+        qpos = torch.arange(q0, q1, device=q.device)[:, None] + q_offset
+        kpos = torch.arange(kstart, kstart + kwidth, device=q.device)[None, :] + k_offset
         mask = torch.ones(q1 - q0, kwidth, dtype=torch.bool, device=q.device)
         if window_size is not None:
             mask &= (qpos - kpos).abs() <= window_size
         if is_causal:
             mask &= qpos >= kpos
+        if edges:
+            mask &= (kpos >= 0) & (kpos < n_valid)
         w = torch.softmax(s.masked_fill(~mask, _NEG), dim=-1)
+        if edges or shift:  # a query that sees no key gets 0, as the kernels give it
+            w = torch.where(mask.any(-1, keepdim=True), w, 0.0)
         if dropout_rate > 0.0:
-            keep = dropout_keep(dropout_key, keep_below, bh, qpos, kpos)
+            keep = dropout_keep(dropout_key, keep_below, bh, qpos, kpos.clamp_min(0))
             w = torch.where(keep, w / (1.0 - dropout_rate), 0.0)
         blocks.append(torch.einsum("bhqk,bhkd->bhqd", w.to(v.dtype).float(), vs.float()))
     return torch.cat(blocks, dim=2).to(q.dtype)
 
 
-def live_pairs(n: int, window_size: Optional[int], is_causal: bool) -> int:
-    """(query, key) pairs inside the mask: the work the attention needs."""
-    i = torch.arange(n, dtype=torch.int64)
-    lo = torch.zeros_like(i) if window_size is None else (i - window_size).clamp_min(0)
-    hi = torch.full_like(i, n - 1) if window_size is None else (i + window_size).clamp_max(n - 1)
+def live_pairs(n: int, window_size: Optional[int], is_causal: bool, nk: Optional[int] = None, q_offset: int = 0,
+               k_offset: int = 0, n_valid: Optional[int] = None) -> int:
+    """(query, key) pairs inside the mask: the work the attention needs. ``n``
+    query rows; ``nk`` key rows (default ``n``), placed as
+    :func:`blockwise_attention` places them."""
+    nk = n if nk is None else nk
+    n_valid = k_offset + nk if n_valid is None else n_valid
+    i = torch.arange(n, dtype=torch.int64) + q_offset
+    lo = torch.full_like(i, max(k_offset, 0))
+    hi = torch.full_like(i, min(k_offset + nk, n_valid) - 1)
+    if window_size is not None:
+        lo = torch.maximum(lo, i - window_size)
+        hi = torch.minimum(hi, i + window_size)
     if is_causal:
         hi = torch.minimum(hi, i)
-    return int((hi - lo + 1).sum())
+    return int((hi - lo + 1).clamp_min(0).sum())
 
 
 def _strides_ok(t: torch.Tensor) -> bool:
@@ -200,26 +233,38 @@ def flash_attention(
     is_causal: bool = False,
     dropout_rate: float = 0.0,
     dropout_key: Optional[int] = None,
+    q_offset: int = 0,
+    k_offset: int = 0,
+    n_valid: Optional[int] = None,
 ) -> torch.Tensor:
-    """Attention output (B, H, N, D) in q's dtype. On the card q, k and v
-    share one dtype (fp32 or bf16), shape and strides; rows may be strided
-    (a view of a fused projection), channels are contiguous. The output is
-    a (B, H, N, D) view of a (B, N, H, D) buffer. ``dropout_rate`` > 0 drops
-    attention weights under ``dropout_key`` (see the module's docstring)."""
+    """Attention output (B, H, Nq, D) in q's dtype. On the card q, k and v
+    share one dtype (fp32 or bf16), B, H and D; k and v share one shape
+    (B, H, Nk, D) and strides; rows may be strided (a view of a fused
+    projection), channels are contiguous. The output is a (B, H, Nq, D) view
+    of a (B, Nq, H, D) buffer. ``dropout_rate`` > 0 drops attention weights
+    under ``dropout_key``; ``q_offset``, ``k_offset`` and ``n_valid`` place
+    the rows in a longer sequence (see the module's docstring)."""
     if dropout_rate > 0.0 and dropout_key is None:
         raise ValueError("attention dropout_rate > 0 needs a dropout_key")
     if _on_cpu(q, k, v):
         return blockwise_attention(q, k, v, window_size=window_size, is_causal=is_causal,
-                                   dropout_rate=dropout_rate, dropout_key=dropout_key)
+                                   dropout_rate=dropout_rate, dropout_key=dropout_key, q_offset=q_offset,
+                                   k_offset=k_offset, n_valid=n_valid)
     _require(q.dtype in _DTYPES and k.dtype == q.dtype and v.dtype == q.dtype,
              f"q, k, v must share fp32 or bf16, got {q.dtype}, {k.dtype}, {v.dtype}")
-    _require(q.dim() == 4 and k.shape == q.shape and v.shape == q.shape,
-             f"q, k, v must share one (B, H, N, D) shape, got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    b, h, n, d = q.shape
+    _require(q.dim() == 4 and k.dim() == 4 and v.shape == k.shape and k.shape[:2] == q.shape[:2]
+             and k.shape[3] == q.shape[3],
+             f"q (B, H, Nq, D) and k, v (B, H, Nk, D) must share B, H and D, got {tuple(q.shape)}, "
+             f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    n_valid = k_offset + nk if n_valid is None else n_valid
     _require(0 < d <= _MAX_HEAD, f"flash_attention takes head widths up to {_MAX_HEAD}, got {d}")
-    _require(k.stride() == q.stride() and v.stride() == q.stride(), "q, k, v must share strides")
+    _require(v.stride() == k.stride(), "k and v must share strides")
     _require(window_size is None or window_size >= 0, f"window_size must be >= 0, got {window_size}")
-    _require(0 < b * h < 65536 and n > 0, f"batch * heads {b * h} or sequence {n} out of range")
+    _require(0 < b * h < 65536 and nk > 0, f"batch * heads {b * h} or key rows {nk} out of range")
+    _require(q_offset >= 0 and max(q_offset + nq, abs(k_offset) + nk, n_valid) < 2**31,
+             f"positions out of range: q_offset {q_offset}, k_offset {k_offset}, n_valid {n_valid}")
     _require(0.0 <= dropout_rate < 1.0, f"dropout_rate must be in [0, 1), got {dropout_rate}")
     dk = _tile_width(d, q.dtype)
     if dk != d:  # zero channels: the logits are unchanged, the output's extra columns dropped
@@ -228,7 +273,9 @@ def flash_attention(
         _require(all(_strides_ok(t) for t in (q, k, v)), "q, k, v need contiguous channels and 16-byte aligned rows")
     else:
         _require(all(t.stride(-1) == 1 for t in (q, k, v)), "q, k, v need contiguous channels")
-    out = torch.empty((b, n, h, dk), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, nq, h, dk), dtype=q.dtype, device=q.device)
+    if nq == 0:  # no query rows: nothing to launch
+        return out.permute(0, 2, 1, 3)[..., :d]
     drop = dropout_rate > 0.0
     from anemoi_models_tpu_torch.ops.kernels import load_kernels
 
@@ -237,10 +284,11 @@ def flash_attention(
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, n, dk,
-            q.stride(0), q.stride(1), q.stride(2), out.stride(0), out.stride(2), out.stride(1),
-            -1 if window_size is None else window_size, int(is_causal), 1.0 / math.sqrt(d),
-            int(drop), keep_threshold(dropout_rate) if drop else 0,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, nq, nk, dk,
+            q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
+            out.stride(0), out.stride(2), out.stride(1),
+            -1 if window_size is None else window_size, int(is_causal), q_offset, k_offset, n_valid,
+            1.0 / math.sqrt(d), int(drop), keep_threshold(dropout_rate) if drop else 0,
             (dropout_key & _MASK32) if drop else 0, (dropout_key >> 32) if drop else 0,
             1.0 / (1.0 - dropout_rate), stream,
         )
@@ -256,17 +304,19 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, window_size: Optional[int], is_causal: bool, dropout_rate: float = 0.0,
-                dropout_key: Optional[int] = None):
+                dropout_key: Optional[int] = None, q_offset: int = 0, k_offset: int = 0,
+                n_valid: Optional[int] = None):
         ctx.save_for_backward(q, k, v)
-        ctx.window_size, ctx.is_causal = window_size, is_causal
-        ctx.dropout_rate, ctx.dropout_key = dropout_rate, dropout_key
-        return flash_attention(q, k, v, window_size, is_causal, dropout_rate, dropout_key)
+        ctx.kw = dict(window_size=window_size, is_causal=is_causal, dropout_rate=dropout_rate,
+                      dropout_key=dropout_key, q_offset=q_offset, k_offset=k_offset, n_valid=n_valid)
+        return flash_attention(q, k, v, **ctx.kw)
 
     @staticmethod
     def backward(ctx, g):
+        if g.shape[2] == 0:  # no query rows: no gradient
+            return (*(torch.zeros_like(t) for t in ctx.saved_tensors), None, None, None, None, None, None, None)
         leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
         with torch.enable_grad():
-            out = blockwise_attention(*leaves, window_size=ctx.window_size, is_causal=ctx.is_causal,
-                                      dropout_rate=ctx.dropout_rate, dropout_key=ctx.dropout_key)
+            out = blockwise_attention(*leaves, **ctx.kw)
         dq, dk, dv = torch.autograd.grad(out, leaves, g)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None

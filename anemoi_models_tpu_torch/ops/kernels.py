@@ -52,8 +52,8 @@ _SIGNATURES = {
     "gnn_conv_layered_bf16": [_P] * 5 + [ctypes.POINTER(_P), _I] + [_P] * 7 + [_I] + [_P] * 2 + [_I] * 7 + [_P],
     "gnn_prepass_f32": [_P] * 6 + [_I] * 3 + [_P],
     "gnn_prepass_bf16": [_P] * 6 + [_I] * 3 + [_P],
-    "flash_attn_f32": [_P] * 4 + [_I] * 4 + [_L] * 6 + [_I, _I, _F, _I, _U, _U, _U, _F, _P],
-    "flash_attn_bf16": [_P] * 4 + [_I] * 4 + [_L] * 6 + [_I, _I, _F, _I, _U, _U, _U, _F, _P],
+    "flash_attn_f32": [_P] * 4 + [_I] * 5 + [_L] * 9 + [_I] * 5 + [_F, _I, _U, _U, _U, _F, _P],
+    "flash_attn_bf16": [_P] * 4 + [_I] * 5 + [_L] * 9 + [_I] * 5 + [_F, _I, _U, _U, _U, _F, _P],
 }
 
 

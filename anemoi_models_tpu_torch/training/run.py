@@ -24,10 +24,8 @@ same arguments and the same run on the card:
   ``metrics.jsonl`` and the checkpoints, in the unsharded format;
   evaluations run whole on every rank.
 
-What is left out raises a ``ValueError`` naming its reason:
-``remat_policy="auto"`` (it reads XLA's memory analysis) and
-``steps_per_call > 1`` (the dispatch amortization whose counterpart is CUDA
-graphs).
+``remat_policy="auto"`` (it reads XLA's memory analysis) is left out and
+raises a ``ValueError`` naming its reason.
 """
 
 from __future__ import annotations
@@ -139,8 +137,11 @@ def train_run(
     ``handle_signals``) finish the update in flight, checkpoint and return.
     ``max_steps_this_run`` boxes the updates of this call. ``profile_dir``
     writes a ``torch.profiler`` trace of the steps ``[start, stop)`` of
-    ``profile_steps``. With ``overlap_calls`` a step's loss is read after
-    the next step is queued, so the host never waits on the card for it.
+    ``profile_steps``. ``steps_per_call`` is accepted and every step is its
+    own call: the dispatch amortisation it buys the JAX package waits for
+    CUDA graphs (ROADMAP Queue 1 #4). With ``overlap_calls`` a step's loss is
+    read after the next step is queued, so the host never waits on the card
+    for it.
     ``mesh`` (a ``parallel.Mesh`` over the ranks of the default process
     group, every rank calling ``train_run`` with the same arguments) trains
     each rank on its rows of each batch; ``param_sharding`` (which needs a
@@ -167,8 +168,6 @@ def train_run(
         check_mode(param_sharding)
     if mesh is not None and batch_size % mesh.shape["data"]:
         raise ValueError(f"batch_size {batch_size} does not split over the mesh's {mesh.shape['data']} data ranks")
-    if int(steps_per_call) > 1:
-        raise ValueError("steps_per_call > 1 is not ported; its counterpart is CUDA graphs (ROADMAP Queue 1 #4)")
     model_kwargs = dict(model_kwargs or {})
     if model_kwargs.get("remat_policy") == "auto":
         raise ValueError('remat_policy="auto" reads XLA\'s memory analysis and is not ported (ROADMAP, Do not port)')

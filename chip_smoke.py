@@ -151,9 +151,16 @@ Builds the port's CUDA kernels from ``anemoi_models_tpu_torch/csrc``, then:
     state bit for bit, the GraphTransformer's 2-lead-time rollout train
     step's loss, and each rank's launches: the halo processors and the
     destination-sharded mappers run ``kv_proj``, ``edge_attn_csr`` and
-    ``edge_attn_csr_bwd`` (GT) and ``gnn_conv`` (GNN); call ms of two
-    ranks sharing one card beside the unsharded run's, not a speed across
-    cards. A failing rank fails the run.
+    ``edge_attn_csr_bwd`` (GT) and ``gnn_conv`` (GNN), the attention
+    ``flash_attention`` on the rank's rows; the same for the Transformer on
+    the gathered keys' path (its window with ``attention_impl="chunked"``,
+    and no window) and bench.py's hierarchical model (r5 / r4 / r3, C = 256
+    / 512 / 1024, lr 1e-5: every level split over the ranks, each level
+    processor on its own halo plan, the level mappers destination-sharded);
+    call ms of two ranks sharing one card beside the unsharded run's, not a
+    speed across cards. A failing rank fails the run. Phase 6's flash checks
+    include a rank's rows of that split (``flash_offset_cases``: the halo
+    and gathered keys' shapes, and dropout drawn at global positions).
 
 Prints the card's name and power limit, each kernel's registers and spills
 from the compiler's report (``ptxas``), per-phase numbers, each wrapper's
@@ -882,7 +889,76 @@ def phase_flash_kernels(dev, n0: int = 10242, w0: int = 512) -> tuple[dict, list
                     row["host_us"] = host_us(lambda: fa.flash_attention(q, k, v, window, causal))
                     summary = {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_us")}
             rows.append(row)
-    return {**summary, "max_abs_err": bf16_err}, rows
+    offset_rows = flash_offset_cases(dev, n0, w0)
+    bf16_err = max([bf16_err] + [r["max_abs_err"] for r in offset_rows if r["dtype"] == "bfloat16"])
+    return {**summary, "max_abs_err": bf16_err}, rows + offset_rows
+
+
+def flash_offset_cases(dev, n0: int = 10242, w0: int = 512) -> list:
+    """flash_attention on a rank's rows of the O96 processor's sequence split
+    over two ranks (phase_parallel's shapes; B = 1, H = 4, D = 64), against
+    blockwise_attention with the same offsets, fp32 and bf16, two calls
+    bit-identical: the halo window path (each rank's 5,121 query rows against
+    [left | own | right] keys with w = 512 halos: rank 0's left halo and
+    rank 1's right halo lie outside [0, N) and are masked), the gathered
+    keys' path (rank 1's rows against every key, causal and with no window),
+    and rank 1's halo rows with dropout 0.1, whose output is also held to the
+    unsharded call's rows (the pairs are drawn at global positions).
+    library_ms is SDPA with the same boolean mask."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator().manual_seed(5)
+    h, d, half = 4, 64, n0 - n0 // 2  # rank 0 holds [0, half), rank 1 [half, n0)
+    qkv32 = torch.randn(1, n0, 3, h, d, generator=gen)
+    cases = (  # label, query rows, key rows (None: zero rows), q_offset, k_offset, window, causal, dropout
+        ("halo rank 0", (0, half), [(n0 - w0, n0), (0, half + w0)], 0, -w0, w0, False, 0.0),
+        ("halo rank 1", (half, n0), [(half - w0, n0), None], half, half - w0, w0, False, 0.0),
+        ("gathered causal rank 1", (half, n0), [(0, n0)], half, 0, None, True, 0.0),
+        ("gathered no window rank 1", (half, n0), [(0, n0)], half, 0, None, False, 0.0),
+        ("halo rank 1 dropout 0.1", (half, n0), [(half - w0, n0), None], half, half - w0, w0, False, 0.1),
+    )
+    key = fa.fold_key(77, 1)
+    rows = []
+    for label, (q0, q1), parts, q_off, k_off, window, causal, rate in cases:
+        for dt in (torch.float32, torch.bfloat16):
+            qkv = qkv32.to(dev, dt)
+            q, k_all, v_all = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+            q = q[:, :, q0:q1]  # a strided view of the fused projection, as the layer passes it
+            # k and v in one buffer, as the halo and gathered paths build them
+            k, v = torch.stack([torch.cat([t[:, :, p[0]:p[1]] if p else t.new_zeros(1, h, w0, d) for p in parts],
+                                          dim=2) for t in (k_all, v_all)])
+            kw = dict(window_size=window, is_causal=causal, dropout_rate=rate, dropout_key=key if rate else None,
+                      q_offset=q_off, k_offset=k_off, n_valid=n0)
+            args = (window, causal, rate, key if rate else None, q_off, k_off, n0)
+            got, again = fa.flash_attention(q, k, v, *args), fa.flash_attention(q, k, v, *args)
+            want = fa.blockwise_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            shape = f"{label}: {q1 - q0} query rows at {q_off}, {k.shape[2]} keys at {k_off}, N={n0} w={window}"
+            if not torch.equal(got, again):
+                raise AssertionError(f"flash_attention {shape} {dt}: two calls differ")
+            err = max_err(got, want, TOL[dt], f"flash_attention {shape} {dt}")
+            row = {"kernel": "flash_attention", "shape": shape, "dtype": str(dt).split(".")[-1], "max_abs_err": err,
+                   "bit_identical": True}
+            if rate:  # the sharded rows against the unsharded call's, both on the kernel
+                whole = fa.flash_attention(qkv[:, :, 0].transpose(1, 2), k_all, v_all, window, causal, rate, key)
+                row["vs_unsharded_err"] = max_err(got, whole[:, :, q0:q1], TOL[dt],
+                                                  f"flash_attention {shape} {dt} against the unsharded rows")
+            qpos = torch.arange(q_off, q_off + q1 - q0, device=dev)[:, None]
+            kpos = torch.arange(k_off, k_off + k.shape[2], device=dev)[None, :]
+            mask = (kpos >= 0) & (kpos < n0) & (qpos >= 0)  # (rows, keys)
+            if window is not None:
+                mask &= (qpos - kpos).abs() <= window
+            if causal:
+                mask &= qpos >= kpos
+            pairs = fa.live_pairs(q1 - q0, window, causal, k.shape[2], q_off, k_off, n0)
+            nbytes = (2 * (q1 - q0) + 2 * k.shape[2]) * h * d * qkv.element_size()
+            row.update(ms=cuda_ms(lambda: fa.flash_attention(q, k, v, *args)),
+                       plain_ms=cuda_ms(lambda: fa.blockwise_attention(q, k, v, **kw), iters=3, warmup=1),
+                       **bound(nbytes, 4.0 * h * pairs * d, "bf16 tensor" if dt == torch.bfloat16 else "fp32"),
+                       library_ms=None if rate else cuda_ms(lambda: F.scaled_dot_product_attention(
+                           q, k, v, attn_mask=mask), iters=5, warmup=1))
+            rows.append(row)
+    return rows
 
 
 def phase_reduced_model(graph, dev, flavor: str = "graphtransformer", channels: int = 64, heads: int = 4,
@@ -1776,20 +1852,35 @@ O96_GRAPH = dict(grid_lat=96, mesh_refinements=5, grid="octahedral")
 PARALLEL_WORLD = 2  # ranks of phase_parallel, data = 1, model = 2, sharing cuda:0
 PARALLEL_LR = 1e-4  # a constant learning rate, so the one step's update is not zero
 PARALLEL_STEPS = 2  # rollout lead times of the GraphTransformer's sharded rollout train step
-PARALLEL_EXPECTED = {  # launches of each rank's sharded forward and train step (remat "full")
-    "graphtransformer": EXPECTED["graphtransformer"],
-    "gnn": EXPECTED["gnn"],
-    # under the mesh the processor's windowed attention is the halo path, plain in both packages
-    "transformer": ({"kv_proj": 2, "edge_attn_csr": 2}, {"kv_proj": 2, "edge_attn_csr": 2, "edge_attn_csr_bwd": 2}),
+# the sharded cells: name -> (graph, model, the Transformer processor's overrides, learning rate). Each flavor's
+# flagship on the O96 graph; the Transformer on its halo window path (w = 512, "auto"), on the gathered keys'
+# path with its window ("chunked") and with no window (the JAX Transformer processor takes no causal mask);
+# bench.py's hierarchical model on the O96 pyramid at the C = 1024 phases' learning rate
+PARALLEL_CELLS = {
+    "graphtransformer": ("flat", "graphtransformer", {}, PARALLEL_LR),
+    "gnn": ("flat", "gnn", {}, PARALLEL_LR),
+    "transformer": ("flat", "transformer", {}, PARALLEL_LR),
+    "transformer gathered": ("flat", "transformer", {"attention_impl": "chunked"}, PARALLEL_LR),
+    "transformer no window": ("flat", "transformer", {"window_size": None}, PARALLEL_LR),
+    "hierarchical": ("hierarchical", "hierarchical", {}, 1e-5),
 }
+# launches of each rank's sharded forward and train step (remat "full"): the unsharded model's, every conv and
+# attention layer one launch a rank
+PARALLEL_EXPECTED = {cell: EXPECTED[model] for cell, (_, model, _, _) in PARALLEL_CELLS.items()}
 
 
-def _parallel_setup(graph, dev, flavor: str):
-    """The flagship of one flavor (bf16, C = 256, 8 layers in 2 chunks,
-    remat "full") from its seed, its seeded batch and rollout inputs on the
-    CPU, and an AdamW at PARALLEL_LR."""
-    cfg = model_config(num_channels=256, num_layers=8, num_chunks=2, dtype="bfloat16", remat_policy="full",
-                       flavor=flavor)
+def _parallel_setup(graphs: dict, dev, cell: str):
+    """The model of one cell (bf16, remat "full"; the flat flavors at C =
+    256, 8 layers in 2 chunks) from its seed, its seeded batch and rollout
+    inputs on the CPU, and an AdamW at the cell's learning rate."""
+    kind, model, overrides, lr = PARALLEL_CELLS[cell]
+    graph = graphs[kind]
+    if model == "hierarchical":
+        cfg = hier_config([n for n in graph.nodes if n != "data"])
+    else:
+        cfg = model_config(num_channels=256, num_layers=8, num_chunks=2, dtype="bfloat16", remat_policy="full",
+                           flavor=model)
+        cfg.model.processor.update(overrides)
     iface = interface(graph, cfg, dev, seed=4)
     x, y = train_batch(iface, graph["data"].num_nodes, seed=20)
     rng = np.random.RandomState(22)
@@ -1799,7 +1890,7 @@ def _parallel_setup(graph, dev, flavor: str):
     targets = torch.from_numpy(0.1 * rng.randn(*shape, len(di.internal_model.output)).astype(np.float32))
 
     def optimizer():
-        return AdamW(iface.model.parameters(), lambda count: PARALLEL_LR, clip_norm=32.0)
+        return AdamW(iface.model.parameters(), lambda count: lr, clip_norm=32.0)
 
     return iface, (x, y, truth, targets), optimizer
 
@@ -1813,11 +1904,11 @@ def _event_ms(fn) -> float:
     return start.elapsed_time(end)
 
 
-def _parallel_reference(graph, dev, flavor: str) -> dict:
+def _parallel_reference(graphs: dict, dev, cell: str) -> dict:
     """The unsharded run on the card that the ranks are held to: the
     forward, one train step's loss, gradients and parameters, the rollout
     train step's loss (GraphTransformer), and the call ms."""
-    iface, (x, y, truth, targets), optimizer = _parallel_setup(graph, dev, flavor)
+    iface, (x, y, truth, targets), optimizer = _parallel_setup(graphs, dev, cell)
     model = iface.model
     state = {k: v.clone() for k, v in model.state_dict().items()}
     x, y = x.to(dev), y.to(dev)
@@ -1830,18 +1921,19 @@ def _parallel_reference(graph, dev, flavor: str) -> dict:
            "grads": {k: p.grad.float().cpu() for k, p in model.named_parameters()},
            "params": {k: p.detach().float().cpu() for k, p in model.named_parameters()}}
     ref["step_ms"] = [_event_ms(lambda: step(x, y)) for _ in range(2)]
-    if flavor == "graphtransformer":
+    if cell == "graphtransformer":
         model.load_state_dict(state)
         rstep = make_rollout_train_step(model, iface.data_indices, optimizer(), n_steps=PARALLEL_STEPS)
         ref["rollout_loss"] = float(rstep(x, truth.to(dev), targets.to(dev)))
     return ref
 
 
-def _parallel_flavor(graph, dev, mesh, flavor: str, ref: dict) -> dict:
+def _parallel_cell(graphs: dict, dev, mesh, cell: str, ref: dict) -> dict:
     """One rank's sharded forward, train step (twice from the same state:
     bit for bit) and, for the GraphTransformer, rollout train step, held to
     the unsharded ``ref``; launches by path; call ms."""
-    iface, (x, y, truth, targets), optimizer = _parallel_setup(graph, dev, flavor)
+    graph = graphs[PARALLEL_CELLS[cell][0]]
+    iface, (x, y, truth, targets), optimizer = _parallel_setup(graphs, dev, cell)
     model = iface.model
     state = {k: v.clone() for k, v in model.state_dict().items()}
     lo, hi = mesh.rows(graph["data"].num_nodes)
@@ -1856,8 +1948,8 @@ def _parallel_flavor(graph, dev, mesh, flavor: str, ref: dict) -> dict:
             out["forward_launches"] = launches()
             out["forward_ms"] = [_event_ms(lambda: model(x)) for _ in range(3)]
         if tuple(fwd.shape) != tuple(ref["forward"][..., lo:hi, :].shape) or not bool(torch.isfinite(fwd).all()):
-            raise AssertionError(f"parallel {flavor}: sharded forward of shape {tuple(fwd.shape)} or not finite")
-        out["forward_err"] = normwise_err(fwd, ref["forward"][..., lo:hi, :].to(dev), f"parallel {flavor} forward",
+            raise AssertionError(f"parallel {cell}: sharded forward of shape {tuple(fwd.shape)} or not finite")
+        out["forward_err"] = normwise_err(fwd, ref["forward"][..., lo:hi, :].to(dev), f"parallel {cell} forward",
                                           TOL[torch.bfloat16])
         steps = []
         for _ in range(2):  # the same step from the same state: bit for bit
@@ -1873,18 +1965,18 @@ def _parallel_flavor(graph, dev, mesh, flavor: str, ref: dict) -> dict:
         differ = [f"{kind} {k}" for kind in ("grads", "params") for k in first[kind]
                   if not torch.equal(first[kind][k], again[kind][k])]
         if not torch.equal(first["loss"], again["loss"]) or differ:
-            raise AssertionError(f"parallel {flavor}: two sharded steps from one state differ: losses "
+            raise AssertionError(f"parallel {cell}: two sharded steps from one state differ: losses "
                                  f"{float(first['loss'])}, {float(again['loss'])}; {len(differ)} leaves, {differ[:4]}")
         out["step_launches"] = first["counts"]
         out["loss"] = float(first["loss"])
         out["loss_err"] = normwise_err(first["loss"], torch.tensor(ref["loss"], device=dev),
-                                       f"parallel {flavor} loss", TOL[torch.bfloat16])
-        out["grad_err"] = max(normwise_err(g, ref["grads"][k].to(dev), f"parallel {flavor} grad {k}",
+                                       f"parallel {cell} loss", TOL[torch.bfloat16])
+        out["grad_err"] = max(normwise_err(g, ref["grads"][k].to(dev), f"parallel {cell} grad {k}",
                                            TOL[torch.bfloat16]) for k, g in first["grads"].items())
-        out["param_err"] = max(normwise_err(p, ref["params"][k].to(dev), f"parallel {flavor} param {k}",
+        out["param_err"] = max(normwise_err(p, ref["params"][k].to(dev), f"parallel {cell} param {k}",
                                             TOL[torch.bfloat16]) for k, p in first["params"].items())
         out["step_ms"] = [_event_ms(lambda: step(x, y)) for _ in range(2)]
-        if flavor == "graphtransformer":
+        if cell == "graphtransformer":
             model.load_state_dict(state)
             rstep = make_rollout_train_step(model, iface.data_indices, optimizer(), n_steps=PARALLEL_STEPS)
             reset_launches()
@@ -1893,20 +1985,21 @@ def _parallel_flavor(graph, dev, mesh, flavor: str, ref: dict) -> dict:
             out["rollout_loss"] = float(rloss)
             out["rollout_loss_err"] = normwise_err(rloss, torch.tensor(ref["rollout_loss"], device=dev),
                                                    "parallel rollout loss", TOL[torch.bfloat16])
-    fwd_want, step_want = PARALLEL_EXPECTED[flavor]
+    fwd_want, step_want = PARALLEL_EXPECTED[cell]
     for what, counts, want in (("forward", out["forward_launches"], fwd_want),
                                ("train step", out["step_launches"], step_want)):
         if counts != expect(counts, want):
-            raise AssertionError(f"parallel {flavor} {what}: expected {expect(counts, want)} launches, got {counts}")
+            raise AssertionError(f"parallel {cell} {what}: expected {expect(counts, want)} launches, got {counts}")
     return out
 
 
-def parallel_rank(rank: int, world: int, port: int, graph_kwargs: dict, dev: torch.device, ref_path: str,
+def parallel_rank(rank: int, world: int, port: int, graph_kwargs: dict, hgraph, dev: torch.device, ref_path: str,
                   out_dir: str) -> None:
     """A rank of phase_parallel: a gloo process group on localhost, a
-    (1, world) mesh on ``dev`` (the parent's card), the graph of
-    ``graph_kwargs``, each flavor's sharded run against the unsharded
-    references in ``ref_path``; its numbers saved to ``out_dir``."""
+    (1, world) mesh on ``dev`` (the parent's card), the flat graph of
+    ``graph_kwargs`` and the parent's hierarchical graph ``hgraph``, each
+    cell's sharded run against the unsharded references in ``ref_path``;
+    its numbers saved to ``out_dir``."""
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1915,27 +2008,28 @@ def parallel_rank(rank: int, world: int, port: int, graph_kwargs: dict, dev: tor
     try:
         load_kernels()  # built by the parent: loaded, not compiled
         mesh = make_mesh(1, world, backend="gloo", device=dev)
-        graph = build_enc_proc_dec_graph(**graph_kwargs)
+        graphs = {"flat": build_enc_proc_dec_graph(**graph_kwargs), "hierarchical": hgraph}
         refs = torch.load(ref_path, weights_only=False)
-        out = {flavor: _parallel_flavor(graph, dev, mesh, flavor, refs[flavor]) for flavor in refs}
+        out = {cell: _parallel_cell(graphs, dev, mesh, cell, refs[cell]) for cell in refs}
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
 
 
-def phase_parallel(graph_kwargs: dict, dev) -> dict:
-    """The sharded flagship of each flavor in PARALLEL_WORLD gloo ranks that
-    share cuda:0 (nccl refuses two ranks on one device), data = 1 and model
-    = 2, against the unsharded run on the same card: the forward, one train
-    step's loss, gradients and parameters (bf16 normwise 2e-2), the step
-    again bit for bit, and the GraphTransformer's 2-step rollout train
+def phase_parallel(graph_kwargs: dict, hgraph, dev) -> dict:
+    """Each cell of PARALLEL_CELLS sharded over PARALLEL_WORLD gloo ranks
+    that share cuda:0 (nccl refuses two ranks on one device), data = 1 and
+    model = 2, against the unsharded run on the same card: the forward, one
+    train step's loss, gradients and parameters (bf16 normwise 2e-2), the
+    step again bit for bit, and the GraphTransformer's 2-step rollout train
     step's loss. Every rank's launches are checked; a failing rank fails the
     phase (``mp.spawn`` raises). The ms are two ranks sharing one card, not
     a speed across cards."""
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "parallel")
     os.makedirs(out_dir, exist_ok=True)
-    graph = build_enc_proc_dec_graph(**graph_kwargs)  # and each rank builds its own: 1 s at O96
-    refs = {flavor: _parallel_reference(graph, dev, flavor) for flavor in PARALLEL_EXPECTED}
+    # each rank builds its own flat graph (1 s at O96) and is handed the hierarchical one
+    graphs = {"flat": build_enc_proc_dec_graph(**graph_kwargs), "hierarchical": hgraph}
+    refs = {cell: _parallel_reference(graphs, dev, cell) for cell in PARALLEL_CELLS}
     ref_path = os.path.join(out_dir, "unsharded.pt")
     torch.save(refs, ref_path)
     torch.cuda.empty_cache()
@@ -1943,19 +2037,20 @@ def phase_parallel(graph_kwargs: dict, dev) -> dict:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
     t0 = time.perf_counter()
-    mp.spawn(parallel_rank, args=(PARALLEL_WORLD, port, graph_kwargs, dev, ref_path, out_dir),
+    mp.spawn(parallel_rank, args=(PARALLEL_WORLD, port, graph_kwargs, hgraph, dev, ref_path, out_dir),
              nprocs=PARALLEL_WORLD, join=True)
     ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False) for r in range(PARALLEL_WORLD)]
     out = {"ranks_s": time.perf_counter() - t0}
-    for flavor, ref in refs.items():
-        per_rank = [r[flavor] for r in ranks]
+    for cell, ref in refs.items():
+        graph = graphs[PARALLEL_CELLS[cell][0]]
+        per_rank = [r[cell] for r in ranks]
         rows = [r["rows"] for r in per_rank]
         if rows[0][0] != 0 or rows[-1][1] != graph["data"].num_nodes or any(
                 a[1] != b[0] for a, b in zip(rows, rows[1:])):
-            raise AssertionError(f"parallel {flavor}: the ranks' grid rows {rows} do not tile the grid")
+            raise AssertionError(f"parallel {cell}: the ranks' grid rows {rows} do not tile the grid")
         if len({r["loss"] for r in per_rank}) != 1:
-            raise AssertionError(f"parallel {flavor}: the ranks report different losses")
-        out[flavor] = {
+            raise AssertionError(f"parallel {cell}: the ranks report different losses")
+        out[cell] = {
             "unsharded_forward_ms": ref["forward_ms"], "unsharded_step_ms": ref["step_ms"],
             "sharded_forward_ms": [r["forward_ms"] for r in per_rank],
             "sharded_step_ms": [r["step_ms"] for r in per_rank],
@@ -1964,9 +2059,9 @@ def phase_parallel(graph_kwargs: dict, dev) -> dict:
             "per_rank_forward_launches": per_rank[0]["forward_launches"],
             "per_rank_step_launches": per_rank[0]["step_launches"],
         }
-        if flavor == "graphtransformer":
-            out[flavor]["rollout_loss_err"] = max(r["rollout_loss_err"] for r in per_rank)
-            out[flavor]["rollout_launches"] = per_rank[0]["rollout_launches"]
+        if cell == "graphtransformer":
+            out[cell]["rollout_loss_err"] = max(r["rollout_loss_err"] for r in per_rank)
+            out[cell]["rollout_launches"] = per_rank[0]["rollout_launches"]
     return out
 
 
@@ -2297,9 +2392,9 @@ def main() -> None:
     train["cli"] = phase_cli(dev)
     print(f"card: {name_power} cli", json.dumps(train["cli"]))
     # model parallelism: each flavor's flagship sharded over two gloo ranks on this card against unsharded
-    parallel = phase_parallel(O96_GRAPH, dev)
-    for flavor in PARALLEL_EXPECTED:
-        train[f"parallel {flavor}"] = {"launches": parallel[flavor]["launches"]}
+    parallel = phase_parallel(O96_GRAPH, hgraph, dev)
+    for cell in PARALLEL_CELLS:
+        train[f"parallel {cell}"] = {"launches": parallel[cell]["launches"]}
     print(f"card: {name_power} parallel (2 gloo ranks sharing one card, not a speed across cards)",
           json.dumps(parallel))
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "anemoi_models_tpu"))

@@ -21,8 +21,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from anemoi_models_tpu_torch.data_indices import IndexCollection
-from anemoi_models_tpu_torch.graphs import build_enc_proc_dec_graph
-from anemoi_models_tpu_torch.models import AnemoiModelEncProcDec
+from anemoi_models_tpu_torch.graphs import build_enc_proc_dec_graph, build_hierarchical_graph
 from anemoi_models_tpu_torch.parallel import (
     gather_tensor,
     halo_graph_conv,
@@ -144,7 +143,7 @@ def layers_task(rank: int, world: int, spec: dict) -> dict:
     backward against the given cotangents."""
     from anemoi_models_tpu_torch.graphs.partition import halo_shard, partition_1hop
     from anemoi_models_tpu_torch.layers.attention import MultiHeadSelfAttention
-    from anemoi_models_tpu_torch.ops.ring_attention import halo_window_attention
+    from anemoi_models_tpu_torch.ops.ring_attention import gathered_attention, halo_window_attention
 
     mesh = make_mesh(1, world, backend="gloo", device="cpu")
     graph = build_enc_proc_dec_graph(**spec["graph"])
@@ -177,7 +176,7 @@ def layers_task(rank: int, world: int, spec: dict) -> dict:
         (o * t(a["g_out"][:, lo:hi], False)).sum().backward()
         out["gt"] = dict(out=o.detach().numpy(), dq=q.grad.numpy(), dfeats=f.grad.numpy(), dedge=ea.grad.numpy(),
                          **{f"d{k}": v.grad.numpy() for k, v in w.items()})
-        # window attention at p = 0, and the keep rate at p = 0.5
+        # window attention at p = 0, and with dropout at p = 0.5 (v = 1)
         wa = spec["window"]
         q, k, v = (t(wa[name][:, :, lo:hi]) for name in ("q", "k", "v"))
         o = halo_window_attention(q, k, v, window_size=wa["window"], seq_len=n, mesh=mesh)
@@ -187,14 +186,22 @@ def layers_task(rank: int, world: int, spec: dict) -> dict:
                                         mesh=mesh, dropout_rate=0.5, dropout_key=7)
         out["window"] = dict(out=o.detach().numpy(), dq=q.grad.numpy(), dk=k.grad.numpy(), dv=v.grad.numpy(),
                              dropped=dropped.numpy())
-        # any other attention under the mesh raises, naming the ROADMAP item
+        # every other attention under the mesh: the gathered keys' path, forward and backward, and the
+        # layer's rows against the same layer's unsharded output
         for case, kw in NON_HALO_ATTENTION.items():
+            q, k, v = (t(wa[name][:, :, lo:hi]) for name in ("q", "k", "v"))
+            o = gathered_attention(q, k, v, window_size=kw["window_size"], is_causal=kw.get("is_causal", False),
+                                   seq_len=n, mesh=mesh)
+            (o * t(wa["g_out"][:, :, lo:hi], False)).sum().backward()
+            torch.manual_seed(0)
             layer = MultiHeadSelfAttention(2, 8, seq_len=n, **kw)
-            try:
-                layer(torch.zeros(1, hi - lo, 8))
-                out[f"non_halo_{case}"] = "ran"
-            except NotImplementedError as err:
-                out[f"non_halo_{case}"] = str(err)
+            x = torch.from_numpy(wa["x"])
+            with torch.no_grad():
+                rows = layer(x[:, lo:hi])
+                with use_mesh(None):
+                    whole = layer(x)[:, lo:hi]
+            out[f"non_halo_{case}"] = dict(out=o.detach().numpy(), dq=q.grad.numpy(), dk=k.grad.numpy(),
+                                           dv=v.grad.numpy(), layer=rows.numpy(), layer_unsharded=whole.numpy())
     return out
 
 
@@ -214,17 +221,26 @@ def _rank_batch(a: np.ndarray, mesh, batch_axis: int, grid_axis: int) -> torch.T
     return torch.from_numpy(np.ascontiguousarray(a[tuple(idx)]))
 
 
+def model_graph(spec: dict):
+    """The graph of a model spec: ``spec["graph"]``'s keywords to the
+    hierarchical builder when ``spec["hierarchical"]``, else to the flat one."""
+    if spec.get("hierarchical"):
+        return build_hierarchical_graph(**spec["graph"])[0]
+    return build_enc_proc_dec_graph(**spec["graph"])
+
+
 def model_task(rank: int, world: int, spec: dict) -> dict:
-    """Per flavor: the sharded forward of a model loaded from the unsharded
-    model's checkpoint, one sharded train step (its loss, the reduced
-    gradients and the updated parameters) and a 2-step sharded rollout
-    train step's loss; with ``spec["negative"]``, the GraphTransformer's
-    step again without the reduction of the gradients."""
+    """Per flavor (a model config): the sharded forward of a model loaded
+    from the unsharded model's checkpoint, one sharded train step (its loss,
+    the reduced gradients and the updated parameters) and a 2-step sharded
+    rollout train step's loss; with ``spec["negative"]``, the
+    GraphTransformer's step again without the reduction of the gradients."""
     from anemoi_models_tpu_torch.checkpoint import load_checkpoint
+    from anemoi_models_tpu_torch.utils.config import DotDict, instantiate
 
     data, model_ax = spec["mesh"]
     mesh = make_mesh(data, model_ax, backend="gloo", device="cpu")
-    graph = build_enc_proc_dec_graph(**spec["graph"])
+    graph = model_graph(spec)
     s = spec["inputs"]
     x, y = _rank_batch(s["x"], mesh, 0, 3), _rank_batch(s["y"], mesh, 0, 2)
     truth, targets = _rank_batch(s["truth"], mesh, 1, 3), _rank_batch(s["targets"], mesh, 1, 3)
@@ -234,7 +250,8 @@ def model_task(rank: int, world: int, spec: dict) -> dict:
         di = IndexCollection(fs["cfg"], spec["name_to_index"])
 
         def build():
-            net = AnemoiModelEncProcDec(model_config=fs["cfg"], data_indices=di, graph_data=graph, device="cpu")
+            net = instantiate(DotDict(fs["cfg"]).model.model, model_config=fs["cfg"], data_indices=di,
+                              graph_data=graph, device="cpu")
             net.load_state_dict(load_checkpoint(fs["checkpoint"])["params"], strict=True)
             return net
 
@@ -261,7 +278,26 @@ def model_task(rank: int, world: int, spec: dict) -> dict:
         out[flavor] = res
     if "halo_gnn" in spec:
         out["halo_gnn"] = _halo_gnn(mesh, spec["halo_gnn"], graph)
+    if "train_run" in spec:
+        out["train_run"] = _train_run(mesh, spec["train_run"])
     return out
+
+
+def hier_source():
+    """A small record for the hierarchical model's train_run: a 6-row
+    lat/lon grid, 4 variables, 24 steps (``tests/training/test_run.py``'s)."""
+    from anemoi_models_tpu_torch.graphs.build import latlon_grid_nodes
+    from anemoi_models_tpu_torch.training import SyntheticSource
+
+    return SyntheticSource(latlon_grid_nodes(6).coords, num_vars=4, num_steps=24, seed=1)
+
+
+def _train_run(mesh, kwargs: dict) -> list:
+    """train_run's loss trace on ``mesh``."""
+    from anemoi_models_tpu_torch.training import train_run
+
+    return train_run(hier_source(), mesh=mesh, device="cpu", log=lambda s: None, handle_signals=False,
+                     **kwargs)["losses"]
 
 
 def _halo_gnn(mesh, spec: dict, graph) -> np.ndarray:

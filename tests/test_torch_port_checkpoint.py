@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 from helpers_models import VARS, make_config, make_statistics
+from helpers_torch import one_torch_thread  # noqa: F401 (autouse)
 
 from anemoi_models_tpu.checkpoint import save_checkpoint as jax_save_checkpoint
 from anemoi_models_tpu.data_indices import IndexCollection

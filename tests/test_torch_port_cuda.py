@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from helpers_torch import one_torch_thread  # noqa: F401 (autouse)
 from anemoi_models_tpu_torch.graphs import build_enc_proc_dec_graph
 from anemoi_models_tpu_torch.ops import edge_attention as ea
 from anemoi_models_tpu_torch.ops import flash_attention as fa
@@ -355,7 +356,8 @@ def test_flash_attention_matches_plain(dev, dtype, head_dim, n, window, causal):
     attention layer passes them) and ragged sequence lengths: windows
     narrower than a key block and not a multiple of 64, N below one
     128-query tile, N = 1 and N one past a 128 boundary; two calls
-    bit-identical."""
+    bit-identical, contiguous copies the same bits, and k, v at strides of
+    their own within the tolerance."""
     gen = torch.Generator().manual_seed(4)
     b, h = 2, 3
     qkv = torch.randn(b, n, 3, h, head_dim, generator=gen).to(dev, dtype)
@@ -370,6 +372,8 @@ def test_flash_attention_matches_plain(dev, dtype, head_dim, n, window, causal):
     assert torch.equal(fa.flash_attention(q, k, v, window, causal), got), "two calls differ"
     contiguous = [t.contiguous() for t in (q, k, v)]
     torch.testing.assert_close(fa.flash_attention(*contiguous, window, causal), got, atol=0, rtol=0)
+    mixed = fa.flash_attention(q, *contiguous[1:], window, causal)  # k, v off q's strides: the offset kernels
+    torch.testing.assert_close(mixed.float(), want.float(), atol=TOL[dtype], rtol=TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -392,6 +396,51 @@ def test_flash_attention_dropout_matches_plain(dev, dtype, head_dim, n, window, 
     assert torch.equal(fa.flash_attention(q, k, v, window, causal, 0.1, key), got)
     assert not torch.equal(fa.flash_attention(q, k, v, window, causal, 0.1, fa.fold_key(123, 8, 2)), got)
     assert torch.equal(fa.flash_attention(q, k, v, window, causal, 0.0, key), fa.flash_attention(q, k, v, window, causal))
+
+
+FLASH_OFFSETS = {  # query rows [q0, q1) of a 333-long sequence, key rows, the window, causal, dropout
+    "halo rank 0": ((0, 167), [(293, 333), (0, 207)], -40, 40, False, 0.0),
+    "halo rank 1": ((167, 333), [(127, 333), None], 127, 40, False, 0.0),
+    "gathered causal": ((167, 333), [(0, 333)], 0, None, True, 0.0),
+    "gathered no window": ((100, 333), [(0, 333)], 0, None, False, 0.0),
+    "halo rank 1 dropout": ((167, 333), [(127, 333), None], 127, 40, False, 0.1),
+    "gathered window dropout": ((101, 333), [(0, 333)], 0, 64, False, 0.1),
+    "no query rows": ((333, 333), [(0, 333)], 0, None, True, 0.0),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("head_dim", [64, 128, 24, 256, 512, 1024])
+@pytest.mark.parametrize("case", list(FLASH_OFFSETS))
+def test_flash_attention_offsets_match_plain(dev, dtype, head_dim, case):
+    """Queries and keys at offsets (a rank's rows of a sequence split over
+    two ranks: halo-extended keys, 40 zero rows past the end on rank 1, a
+    left halo before the start on rank 0; or every key): the kernels against
+    the plain version with the same offsets, two calls bit-identical, and
+    with dropout the rows of the unsharded call (the pairs drawn at global
+    positions; rank 1's keys start off a multiple of 4)."""
+    (q0, q1), parts, k_off, window, causal, rate = FLASH_OFFSETS[case]
+    gen = torch.Generator().manual_seed(6)
+    n, b, h = 333, 2, 3
+    qkv = torch.randn(b, n, 3, h, head_dim, generator=gen).to(dev, dtype)
+    q_all, k_all, v_all = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    k, v = torch.stack([torch.cat([t[:, :, p[0]:p[1]] if p else t.new_zeros(b, h, 40, head_dim) for p in parts],
+                                  dim=2) for t in (k_all, v_all)])
+    q = q_all[:, :, q0:q1]
+    key = fa.fold_key(5, 1) if rate else None
+    args = (window, causal, rate, key, q0, k_off, n)
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, *args)
+    assert fa.LAUNCHES["flash_attention"] == before + (q1 > q0)
+    want = fa.blockwise_attention(q, k, v, window_size=window, is_causal=causal, dropout_rate=rate, dropout_key=key,
+                                  q_offset=q0, k_offset=k_off, n_valid=n)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (b, h, q1 - q0, head_dim) and got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    assert torch.equal(fa.flash_attention(q, k, v, *args), got), "two calls differ"
+    if rate:
+        whole = fa.flash_attention(q_all, k_all, v_all, window, causal, rate, key)
+        torch.testing.assert_close(got.float(), whole[:, :, q0:q1].float(), atol=TOL[dtype], rtol=TOL[dtype])
 
 
 def test_new_wrappers_reject_what_the_kernels_do_not_take(dev, graph):

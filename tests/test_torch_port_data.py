@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from helpers_torch import one_torch_thread  # noqa: F401 (autouse)
 from anemoi_models_tpu.graphs import latlon_grid_nodes
 from anemoi_models_tpu.training import data as jdata
 from anemoi_models_tpu.training import dataset as jds

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 from helpers_models import VARS, make_config, make_statistics
+from helpers_torch import one_torch_thread  # noqa: F401 (autouse)
 from jax.experimental.pallas import tpu as pltpu
 
 from anemoi_models_tpu.data_indices import IndexCollection

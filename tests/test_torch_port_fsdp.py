@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 from helpers_parallel import cli_task, fsdp_task, start, tasks
+from helpers_torch import one_torch_thread  # noqa: F401 (autouse)
 
 import anemoi_models_tpu.parallel.fsdp as jax_fsdp
 from anemoi_models_tpu.checkpoint import save_checkpoint as jax_save_checkpoint

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from helpers_torch import one_torch_thread  # noqa: F401 (autouse)
 from anemoi_models_tpu_torch.graphs import build_enc_proc_dec_graph
 from anemoi_models_tpu_torch.layers.utils import get_activation
 from anemoi_models_tpu_torch.ops import edge_attention as ea

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from helpers_torch import one_torch_thread  # noqa: F401 (autouse)
 from anemoi_models_tpu.graphs import build_enc_proc_dec_graph
 from anemoi_models_tpu.graphs.kernel_plan import build_edge_kernel_plan
 from anemoi_models_tpu.ops.slot_gnn import planned_gnn_conv

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 from helpers_models import VARS, make_config, make_statistics
+from helpers_torch import one_torch_thread  # noqa: F401 (autouse)
 
 from anemoi_models_tpu import native
 from anemoi_models_tpu.data_indices import IndexCollection
@@ -187,3 +188,20 @@ def test_hierarchical_checkpoint_round_trip(setup, tmp_path):
     assert list(again.graph_data.nodes) == list(s["graph"].nodes)
     assert isinstance(again.model, AnemoiModelEncProcDecHierarchical)
     torch.testing.assert_close(again.predict_step(batch), iface.predict_step(batch), rtol=0, atol=0)
+
+
+def test_hierarchical_refuses_levels_smaller_than_the_model_axis(setup):
+    """Under a model-sharded mesh every node set splits into the ranks'
+    rows; a level with fewer rows than the model axis has ranks is refused
+    by name, with the counts, before any collective (the JAX equal-pad split
+    has the same limit)."""
+    from types import SimpleNamespace
+
+    from anemoi_models_tpu_torch.parallel import use_mesh
+
+    _, model = _models(setup)
+    coarsest = setup["names"][-1]
+    n = setup["graph"][coarsest].num_nodes
+    stub = SimpleNamespace(shape={"data": 1, "model": n + 1}, coords={"data": 0, "model": 0}, rank=0)
+    with use_mesh(stub), pytest.raises(ValueError, match=f"{coarsest}.*{n} rows.*{n + 1} model ranks"):
+        model(torch.from_numpy(setup["x"]))

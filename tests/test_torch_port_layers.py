@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from helpers_torch import one_torch_thread  # noqa: F401 (autouse)
 from anemoi_models_tpu.graphs import build_enc_proc_dec_graph
 from anemoi_models_tpu.layers import block as jblock
 from anemoi_models_tpu.layers import graph as jgraph

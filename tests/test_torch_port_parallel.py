@@ -11,14 +11,18 @@ parameters carried into the port by ``weights.load_flax_params``.
 
 Sizes are those of ``__graft_entry__.py:dryrun_multichip``: ``grid_lat=8,
 mesh_refinements=1`` (42 hidden nodes), C = 16, 2 processor layers, a
-window of 8. Tolerances: the JAX gate's for a sharded forward against the
+window of 8. The hierarchical model is ``tests/parallel/test_sharding.py``'s
+(``grid_lat=6, mesh_refinements=2, num_levels=2``, C = 8, level processors
+of 2 layers), held to the JAX model's single-device forward, gradients,
+AdamW step and rollout. Tolerances: the JAX gate's for a sharded forward against the
 unsharded one (``__graft_entry__.py:251-253``: atol 5e-4, rtol 1e-3) and
 its rollout loss (rtol 5e-5, ``:308-311``); the port's sharded forward
 against its own unsharded one at 2e-5, gradients and the layers' backward at
 the reference's fp32 gradient tolerance 5e-4 (``tests/layers/test_commuted.py``);
 the primitives at 1e-6. Parameters after one AdamW step at lr 1e-4 are held
-at 5e-4 (an update moves a parameter by about the learning rate, so the
-reduced gradients carry that check).
+to the port's unsharded step at 5e-4; against the JAX package the update
+itself (after - before, about the learning rate) is held at lr / 20, so a
+skipped or mis-scaled update fails.
 """
 
 import jax
@@ -32,6 +36,7 @@ from helpers_parallel import (
     PRIM_COLS,
     PRIM_ROWS,
     PRIMITIVES,
+    hier_source,
     layers_task,
     model_task,
     primitive_inputs,
@@ -39,13 +44,19 @@ from helpers_parallel import (
     spawn,
     tasks,
 )
+from helpers_torch import one_torch_thread  # noqa: F401 (autouse)
 
+from anemoi_models_tpu import native
 from anemoi_models_tpu.data_indices import IndexCollection
+from anemoi_models_tpu.graphs import build as jax_build
 from anemoi_models_tpu.graphs import build_enc_proc_dec_graph
 from anemoi_models_tpu.graphs import partition as jpart
 from anemoi_models_tpu.layers.processor import HaloGNNProcessor as JaxHaloGNNProcessor
 from anemoi_models_tpu.models import AnemoiModelEncProcDec as JaxModel
+from anemoi_models_tpu.models import AnemoiModelEncProcDecHierarchical as JaxHierarchical
+from anemoi_models_tpu.ops.attention import dot_product_attention as jax_dot_product_attention
 from anemoi_models_tpu.ops.ring_attention import halo_window_attention as jax_halo_window_attention
+from anemoi_models_tpu.training.loss import weighted_mse as jax_weighted_mse
 from anemoi_models_tpu.parallel import make_mesh as jax_make_mesh
 from anemoi_models_tpu.parallel import use_mesh as jax_use_mesh
 from anemoi_models_tpu.parallel.halo_conv import halo_graph_conv as jax_halo_graph_conv
@@ -55,17 +66,24 @@ from anemoi_models_tpu.training import make_rollout_fn as jax_make_rollout_fn
 from anemoi_models_tpu_torch.checkpoint import save_checkpoint
 from anemoi_models_tpu_torch.data_indices import IndexCollection as PortIndexCollection
 from anemoi_models_tpu_torch.graphs import build_enc_proc_dec_graph as port_build_graph
+from anemoi_models_tpu_torch.graphs import build_hierarchical_graph as port_build_hierarchical_graph
 from anemoi_models_tpu_torch.graphs import partition as ppart
 from anemoi_models_tpu_torch.layers.processor import HaloGNNProcessor
-from anemoi_models_tpu_torch.models import AnemoiModelEncProcDec
+from anemoi_models_tpu_torch.models import AnemoiModelEncProcDec, AnemoiModelEncProcDecHierarchical
 from anemoi_models_tpu_torch.ops.edge_attention import csr_from_edge_index
+from anemoi_models_tpu_torch.ops.flash_attention import blockwise_attention
 from anemoi_models_tpu_torch.ops.gnn_conv import GNNConv
-from anemoi_models_tpu_torch.ops.ring_attention import _local_attention
 from anemoi_models_tpu_torch.parallel import row_range
-from anemoi_models_tpu_torch.training import AdamW, WeightedMSELoss, make_train_step
+from anemoi_models_tpu_torch.training import AdamW, WeightedMSELoss, make_train_step, train_run
 from anemoi_models_tpu_torch.weights import load_flax_params, to_flax_params
 
 GRAPH = dict(grid_lat=8, mesh_refinements=1)
+HIER_GRAPH = dict(grid_lat=6, mesh_refinements=2, num_levels=2)  # tests/parallel/test_sharding.py:99
+# the hierarchical model's train_run: 2 steps on hier_source, under (1, 2) against unsharded
+HIER_RUN = dict(architecture="hierarchical", mesh_refinements=2, num_hidden_levels=2, steps=2, batch_size=2,
+                log_every=1, forcing=("var_0",), peak_lr=5e-3, warmup_steps=1, seed=2,
+                model_kwargs=dict(num_channels=8, num_layers=2, num_heads=2, num_chunks=1, trainable_hidden=2,
+                                  trainable_edges=2, compute_dtype="float32"))
 C = 16
 FLAVORS = ("graphtransformer", "gnn", "transformer")
 MESHES = {"model2": (1, 2), "data2_model2": (2, 2)}
@@ -88,6 +106,75 @@ def _cfg(flavor):
     return cfg
 
 
+def _run_once(fn, *args):
+    """``fn(*args)`` jitted at XLA's lowest backend optimisation level: the
+    references are run once, and their compiles cost more than their runs."""
+    return jax.jit(fn).lower(*args).compile(compiler_options={"xla_backend_optimization_level": 0})(*args)
+
+
+def _jax_step(jmodel, params, x, y, node_weights):
+    """The JAX model's single-device forward and train step: the output, the
+    weighted MSE loss, its gradients and the parameters after one AdamW step
+    at LR (the port's ``AdamW(..., lambda count: LR, clip_norm=32.0)``: optax's
+    clip_by_global_norm, then adamw's first step from zero moments, p - LR g
+    / (|g| + 1e-8), written out in numpy), as flat {path: array} dicts."""
+
+    def loss_of(p):
+        out = jmodel.apply(p, jnp.asarray(x))
+        return jax_weighted_mse(out, jnp.asarray(y), jnp.asarray(node_weights)), out
+
+    (loss, out), grads = _run_once(jax.value_and_grad(loss_of, has_aux=True), params)
+    grads, flat = _flat(grads), _flat(params)
+    norm = np.sqrt(sum(float(np.sum(np.square(g, dtype=np.float64))) for g in grads.values()))
+    scale = 32.0 / norm if norm >= 32.0 else 1.0
+    stepped = {k: flat[k] - LR * (scale * g) / (np.abs(scale * g) + 1e-8) for k, g in grads.items()}
+    return np.asarray(out), float(loss), grads, stepped, flat
+
+
+def _assert_update(after: dict, before: dict, stepped: dict, grads: dict) -> None:
+    """A rank's parameters after one AdamW step (flat, JAX names) against the
+    JAX step's: the update after - before at LR / 20. AdamW's first step
+    moves a parameter by about LR sign(g), so where JAX's gradient is within
+    the gradient tolerance of 0 its sign is not fixed by the gradients'
+    check, and there the update is only held to at most LR."""
+    assert after.keys() == stepped.keys()
+    for name, want in stepped.items():
+        got, want = after[name] - before[name], want - before[name]
+        sure = np.abs(grads[name]) > GRAD["atol"]
+        np.testing.assert_allclose(got[sure], want[sure], rtol=0, atol=LR / 20, err_msg=f"update {name}")
+        assert np.all(np.abs(got) <= LR * 1.001), f"update {name} larger than the learning rate"
+
+
+def _jax_params(model) -> dict:
+    """A port model's initial parameters as the JAX package's tree, perturbed
+    (no JAX init to compile)."""
+    rng = np.random.RandomState(12)
+    return jax.tree_util.tree_map(lambda a: np.asarray(a) + 0.05 * rng.randn(*a.shape).astype(np.float32),
+                                  to_flax_params(model.state_dict()))
+
+
+def _jax_rollout_loss(jmodel, di, params, inputs) -> float:
+    forcing = np.asarray(di.internal_model.input.forcing)
+    x = jnp.asarray(inputs["x"])
+    _, preds = _run_once(jax_make_rollout_fn(jmodel, di, 2), params, x, jnp.asarray(inputs["truth"][..., forcing]))
+    return float(jnp.mean((preds.astype(jnp.float32) - inputs["targets"]) ** 2))
+
+
+def _inputs(rng, n_grid, n_in, n_out) -> dict:
+    return dict(
+        x=rng.randn(2, 2, 1, n_grid, n_in).astype(np.float32),
+        y=rng.randn(2, 1, n_grid, n_out).astype(np.float32),
+        truth=rng.randn(2, 2, 1, n_grid, n_in).astype(np.float32),
+        targets=(0.1 * rng.randn(2, 2, 1, n_grid, n_out)).astype(np.float32),
+        node_weights=(0.5 + rng.rand(n_grid)).astype(np.float32),
+    )
+
+
+def _port_flat(named: dict) -> dict:
+    """A rank's {port name: array} as the JAX package's flat tree."""
+    return _flat(to_flax_params({k: torch.from_numpy(np.asarray(v)) for k, v in named.items()}))
+
+
 @pytest.fixture(scope="module")
 def setup(tmp_path_factory):
     jgraph = build_enc_proc_dec_graph(**GRAPH)
@@ -101,22 +188,13 @@ def setup(tmp_path_factory):
         di = IndexCollection(cfg, dict(VARS))
         n_in, n_out = len(di.internal_model.input), len(di.internal_model.output)
         if inputs is None:
-            inputs = dict(
-                x=rng.randn(2, 2, 1, n_grid, n_in).astype(np.float32),
-                y=rng.randn(2, 1, n_grid, n_out).astype(np.float32),
-                truth=rng.randn(2, 2, 1, n_grid, n_in).astype(np.float32),
-                targets=(0.1 * rng.randn(2, 2, 1, n_grid, n_out)).astype(np.float32),
-                node_weights=(0.5 + rng.rand(n_grid)).astype(np.float32),
-            )
+            inputs = _inputs(rng, n_grid, n_in, n_out)
         jmodel = JaxModel(model_config=cfg, data_indices=di, graph_data=jgraph)
-        params = jax.jit(jmodel.init)(jax.random.key(0), jnp.asarray(inputs["x"]))
+        params = _run_once(jmodel.init, jax.random.key(0), jnp.asarray(inputs["x"]))
         params = jax.tree_util.tree_map(
             lambda a: np.asarray(a) + 0.02 * rng.randn(*a.shape).astype(np.float32), params)
-        x = jnp.asarray(inputs["x"])
-        forward = np.asarray(jax.jit(jmodel.apply)(params, x))
-        forcing = np.asarray(di.internal_model.input.forcing)
-        _, preds = jax.jit(jax_make_rollout_fn(jmodel, di, 2))(params, x, jnp.asarray(inputs["truth"][..., forcing]))
-        rollout_loss = float(jnp.mean((preds.astype(jnp.float32) - inputs["targets"]) ** 2))
+        forward = np.asarray(_run_once(jmodel.apply, params, jnp.asarray(inputs["x"])))
+        rollout_loss = _jax_rollout_loss(jmodel, di, params, inputs)
         state = load_flax_params(params)
         ckpt = save_checkpoint(str(tmp_path_factory.mktemp(f"ckpt_{flavor}")), params=state, config=cfg.to_dict())
         # the port's unsharded references: the forward and one train step on the whole batch
@@ -138,10 +216,77 @@ def setup(tmp_path_factory):
     return out
 
 
-def _model_spec(setup, mesh, **extra):
-    return dict(mesh=mesh, graph=GRAPH, inputs=setup["inputs"], lr=LR, name_to_index=dict(VARS),
-                flavors={f: {"cfg": s["cfg"], "checkpoint": s["checkpoint"]} for f, s in setup["flavors"].items()},
+@pytest.fixture(scope="module")
+def global_attention(setup, tmp_path_factory):
+    """The Transformer flavor whose attention the halo path does not take
+    (no window: every rank's queries against the gathered keys), the JAX
+    model's single-device forward and train step. The JAX Transformer
+    processor has no causal mask (its block passes is_causal=False), so a
+    model cannot run one; the causal attention is held at the layer."""
+    cfg = make_config("transformer", num_channels=C)
+    cfg.model.processor.window_size = None
+    cfg.model.processor.attention_impl = "chunked"
+    di = IndexCollection(cfg, dict(VARS))
+    inputs = setup["inputs"]
+    jmodel = JaxModel(model_config=cfg, data_indices=di, graph_data=setup["jgraph"])
+    torch.manual_seed(1)
+    params = _jax_params(AnemoiModelEncProcDec(model_config=cfg.to_dict(), data_indices=PortIndexCollection(
+        cfg.to_dict(), dict(VARS)), graph_data=setup["pgraph"], device="cpu"))
+    forward, loss, grads, stepped, before = _jax_step(jmodel, params, inputs["x"], inputs["y"], inputs["node_weights"])
+    ckpt = save_checkpoint(str(tmp_path_factory.mktemp("ckpt_global")), params=load_flax_params(params),
+                           config=cfg.to_dict())
+    return dict(cfg=cfg.to_dict(), checkpoint=ckpt, jax_forward=forward, jax_loss=loss, jax_grads=grads,
+                jax_params=stepped, jax_before=before)
+
+
+def _jax_hier_graph():
+    saved = native._lib
+    native._lib = lambda: None  # the numpy code path, as the port's builder (test_torch_port_hierarchical.py)
+    try:
+        return jax_build.build_hierarchical_graph(**HIER_GRAPH)
+    finally:
+        native._lib = saved
+
+
+@pytest.fixture(scope="module")
+def hier(tmp_path_factory):
+    """The hierarchical model (tests/parallel/test_sharding.py:99's), the JAX
+    model's single-device forward, train step and 2-step rollout loss, and
+    the port's unsharded train_run loss trace."""
+    jgraph, names = _jax_hier_graph()
+    pgraph, _ = port_build_hierarchical_graph(**HIER_GRAPH)
+    cfg = make_config("graphtransformer", num_channels=8)
+    cfg.graph.hidden = list(names)
+    cfg.model.model._target_ = "anemoi.models.models.hierarchical.AnemoiModelEncProcDecHierarchical"
+    cfg.model.enable_hierarchical_level_processing = True
+    cfg.model.level_process_num_layers = 2
+    di = IndexCollection(cfg, dict(VARS))
+    n_grid = jgraph["data"].num_nodes
+    inputs = _inputs(np.random.RandomState(31), n_grid, len(di.internal_model.input), len(di.internal_model.output))
+    jmodel = JaxHierarchical(model_config=cfg, data_indices=di, graph_data=jgraph)
+    torch.manual_seed(2)
+    params = _jax_params(AnemoiModelEncProcDecHierarchical(model_config=cfg.to_dict(), data_indices=PortIndexCollection(
+        cfg.to_dict(), dict(VARS)), graph_data=pgraph, device="cpu"))
+    forward, loss, grads, stepped, before = _jax_step(jmodel, params, inputs["x"], inputs["y"], inputs["node_weights"])
+    ckpt = save_checkpoint(str(tmp_path_factory.mktemp("ckpt_hier")), params=load_flax_params(params),
+                           config=cfg.to_dict())
+    unsharded_run = train_run(hier_source(), device="cpu", log=lambda s: None, handle_signals=False, **HIER_RUN)
+    return dict(cfg=cfg.to_dict(), checkpoint=ckpt, inputs=inputs, n_grid=n_grid, levels=names, jax_forward=forward,
+                jax_loss=loss, jax_grads=grads, jax_params=stepped, jax_before=before,
+                jax_rollout_loss=_jax_rollout_loss(jmodel, di, params, inputs), run_losses=unsharded_run["losses"])
+
+
+def _model_spec(setup, mesh, extra_flavors=None, **extra):
+    flavors = {f: {"cfg": s["cfg"], "checkpoint": s["checkpoint"]} for f, s in setup["flavors"].items()}
+    flavors.update(extra_flavors or {})
+    return dict(mesh=mesh, graph=GRAPH, inputs=setup["inputs"], lr=LR, name_to_index=dict(VARS), flavors=flavors,
                 **extra)
+
+
+def _hier_spec(hier, mesh, **extra):
+    return dict(mesh=mesh, graph=HIER_GRAPH, hierarchical=True, inputs=hier["inputs"], lr=LR,
+                name_to_index=dict(VARS), flavors={"hierarchical": {"cfg": hier["cfg"],
+                                                                    "checkpoint": hier["checkpoint"]}}, **extra)
 
 
 # ---------------------------------------------------------------------------
@@ -158,7 +303,7 @@ def halo_gnn(setup):
     tree = proc.init(jax.random.key(3), jnp.asarray(x))
     rng = np.random.RandomState(6)
     tree = jax.tree_util.tree_map(lambda a: np.asarray(a) + 0.05 * rng.randn(*a.shape).astype(np.float32), tree)
-    ref = np.asarray(jax.jit(proc.apply)(tree, jnp.asarray(x)))
+    ref = np.asarray(_run_once(proc.apply, tree, jnp.asarray(x)))
     mesh = jax_make_mesh(data=1, model=2, devices=jax.devices()[:2])
     with jax_use_mesh(mesh):
         sharded = np.asarray(jax.jit(proc.apply)(tree, jnp.asarray(x)))
@@ -221,8 +366,8 @@ def layers(setup):
                   db_kv=dkv.sum(0), dedge=da[:, :a_n], dw_edge=dw_aug[:a_n].reshape(a_n, C).T,
                   db_edge=dw_aug[a_n].reshape(C))
 
-    # the window attention
-    win = dict(q=r(1, 2, n, 8), k=r(1, 2, n, 8), v=r(1, 2, n, 8), g_out=r(1, 2, n, 8), window=WINDOW)
+    # the window attention, and the layer's input for the attention the halo path does not take
+    win = dict(q=r(1, 2, n, 8), k=r(1, 2, n, 8), v=r(1, 2, n, 8), g_out=r(1, 2, n, 8), window=WINDOW, x=r(1, n, 8))
 
     def win_loss(q, k, v):
         out = jax_halo_window_attention(q, k, v, window_size=WINDOW, mesh=mesh)
@@ -231,28 +376,46 @@ def layers(setup):
     (_, out), grads = jax.jit(jax.value_and_grad(win_loss, argnums=(0, 1, 2), has_aux=True))(
         *(jnp.asarray(win[k]) for k in ("q", "k", "v")))
     jax_win = dict(out=np.asarray(out), **{f"d{k}": np.asarray(t) for k, t in zip("qkv", grads)})
+    # every other attention under a mesh: the JAX package's unsharded dot_product_attention
+    jax_attn = {}
+    for case, kw in NON_HALO_ATTENTION.items():
+        def attn_loss(q, k, v, kw=kw):
+            out = jax_dot_product_attention(q, k, v, window_size=kw["window_size"],
+                                            is_causal=kw.get("is_causal", False),
+                                            impl=kw.get("attention_impl", "auto"))
+            return jnp.sum(out * win["g_out"]), out
+
+        (_, out), grads = jax.jit(jax.value_and_grad(attn_loss, argnums=(0, 1, 2), has_aux=True))(
+            *(jnp.asarray(win[k]) for k in ("q", "k", "v")))
+        jax_attn[case] = dict(out=np.asarray(out), **{f"d{k}": np.asarray(t) for k, t in zip("qkv", grads)})
     spec = dict(graph=GRAPH, gnn=gnn, gt=gt, window=win)
-    return dict(spec=spec, part=part, jax_gnn=jax_gnn, jax_gt=jax_gt, jax_win=jax_win, n=n)
+    return dict(spec=spec, part=part, jax_gnn=jax_gnn, jax_gt=jax_gt, jax_win=jax_win, jax_attn=jax_attn, n=n)
 
 
 @pytest.fixture(scope="module")
-def ranks2(setup, layers, halo_gnn, tmp_path_factory):
+def ranks2(setup, layers, halo_gnn, global_attention, hier, tmp_path_factory):
     """Two ranks (model = 2): the primitives, the halo layers, every flavor
-    and the HaloGNNProcessor, and the step without the gradient reduction."""
+    (and the Transformer on the gathered keys' path) and the
+    HaloGNNProcessor, the step without the gradient reduction, and the
+    hierarchical model with its train_run."""
     hg = dict(tree=halo_gnn["tree"], x=halo_gnn["x"], num_layers=2, channels=C)
+    glob = {"transformer_global": {"cfg": global_attention["cfg"], "checkpoint": global_attention["checkpoint"]}}
     ranks = spawn(tasks, 2, str(tmp_path_factory.mktemp("ranks2")), {
         "prims": (primitives_task, ()), "layers": (layers_task, (layers["spec"],)),
-        "model": (model_task, (_model_spec(setup, MESHES["model2"], negative=True, halo_gnn=hg),)),
+        "model": (model_task, (_model_spec(setup, MESHES["model2"], glob, negative=True, halo_gnn=hg),)),
+        "hier": (model_task, (_hier_spec(hier, MESHES["model2"], train_run=HIER_RUN),)),
     })
-    return {key: [r[key] for r in ranks] for key in ("prims", "layers", "model", "leaked")}
+    return {key: [r[key] for r in ranks] for key in ("prims", "layers", "model", "hier", "leaked")}
 
 
 @pytest.fixture(scope="module")
-def ranks4(setup, tmp_path_factory):
-    """Four ranks: the primitives, and every flavor at data = 2, model = 2."""
+def ranks4(setup, hier, tmp_path_factory):
+    """Four ranks: the primitives, and every flavor and the hierarchical
+    model at data = 2, model = 2."""
     ranks = spawn(tasks, 4, str(tmp_path_factory.mktemp("ranks4")), {
-        "prims": (primitives_task, ()), "model": (model_task, (_model_spec(setup, MESHES["data2_model2"]),))})
-    return {key: [r[key] for r in ranks] for key in ("prims", "model", "leaked")}
+        "prims": (primitives_task, ()), "model": (model_task, (_model_spec(setup, MESHES["data2_model2"]),)),
+        "hier": (model_task, (_hier_spec(hier, MESHES["data2_model2"]),))})
+    return {key: [r[key] for r in ranks] for key in ("prims", "model", "hier", "leaked")}
 
 
 def _ranks(request, world):
@@ -449,28 +612,74 @@ def test_halo_window_attention_matches_jax(ranks2, layers):
 
 
 @pytest.mark.parametrize("case", sorted(NON_HALO_ATTENTION))
-def test_non_halo_attention_under_mesh_raises(ranks2, case):
+def test_non_halo_attention_under_mesh_raises(ranks2, layers, case):
     """Attention under a model-sharded mesh that the halo path does not take
-    (a causal mask, another attention_impl, no window) raises on every rank,
-    naming the ROADMAP item, rather than running a plain version where the
-    JAX package runs its flash kernel."""
-    for r in ranks2["layers"]:
-        assert "ROADMAP Queue 1 #11" in r[f"non_halo_{case}"]
+    (a causal mask, another attention_impl, no window) no longer raises: each
+    rank's queries attend the gathered keys on the flash kernel's path. The
+    ranks' rows against the JAX package's unsharded dot_product_attention,
+    the output at 2e-5 and dq, dk, dv at 5e-4; and the attention layer under
+    the mesh takes that path: its rows are its unsharded output's."""
+    got = [r[f"non_halo_{case}"] for r in ranks2["layers"]]
+    want = layers["jax_attn"][case]
+    np.testing.assert_allclose(np.concatenate([g["out"] for g in got], axis=2), want["out"], **OUT)
+    for key in ("dq", "dk", "dv"):
+        np.testing.assert_allclose(np.concatenate([g[key] for g in got], axis=2), want[key], **GRAD, err_msg=key)
+    for g in got:
+        np.testing.assert_allclose(g["layer"], g["layer_unsharded"], **OUT)
 
 
 def test_halo_window_attention_dropout_keep_rate(ranks2, layers):
-    """At p = 0.5 each rank draws its own mask (its pattern depends on the
-    rank count, as the JAX package's does), so it is held by its statistics:
-    with v = 1 an output is the kept weights' sum over (1 - p), 1 on average,
-    and at p = 0 the same call gives exactly 1."""
+    """At p = 0.5 the ranks draw their pairs at global positions, so the
+    sharded forward is the unsharded one's (with v = 1 an output is the kept
+    weights' sum over (1 - p): 1 on average); at p = 0 the same call gives
+    exactly 1. The JAX package draws per shard, a pattern that depends on
+    the rank count."""
     dropped = np.concatenate([r["window"]["dropped"] for r in ranks2["layers"]], axis=2)
+    spec = layers["spec"]["window"]
+    q, k = (torch.from_numpy(spec[name]) for name in ("q", "k"))
+    whole = blockwise_attention(q, k, torch.ones_like(q), window_size=WINDOW, dropout_rate=0.5, dropout_key=7)
+    np.testing.assert_allclose(dropped, whole.numpy(), **OUT)
     assert abs(float(dropped.mean()) - 1.0) < 0.1
     assert float(dropped.std()) > 0.1
-    n = layers["n"]
-    q = torch.from_numpy(layers["spec"]["window"]["q"])
-    pos = torch.arange(n)
-    ones = _local_attention(q, q, torch.ones_like(q), pos, pos, n, WINDOW, 0.0, None)
+    ones = blockwise_attention(q, k, torch.ones_like(q), window_size=WINDOW)
     np.testing.assert_allclose(ones.numpy(), 1.0, atol=1e-6)
+
+
+OFFSET_CASES = {"band": dict(window_size=4), "causal": dict(window_size=None, is_causal=True),
+                "dropout": dict(window_size=4, dropout_rate=0.3, dropout_key=11)}
+
+
+def _offset_rows(case: str, k_shift: int = 0):
+    """A rank's rows [19, 37) of a 37-long sequence against the whole call's:
+    windowed cases on the halo-extended keys [15, 41) (the last w rows past
+    the end padded), the causal case on every key."""
+    gen = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn(2, 3, 37, 8, generator=gen) for _ in range(3))
+    kw = OFFSET_CASES[case]
+    whole = blockwise_attention(q, k, v, block_size=8, **kw)
+    lo, w = 19, kw["window_size"]
+    if w is None:
+        rows = blockwise_attention(q[:, :, lo:], k, v, block_size=8, q_offset=lo, **kw)
+    else:
+        kk, vv = (torch.nn.functional.pad(t[:, :, lo - w:], (0, 0, 0, w)) for t in (k, v))
+        rows = blockwise_attention(q[:, :, lo:], kk, vv, block_size=8, q_offset=lo, k_offset=lo - w + k_shift,
+                                   n_valid=37, **kw)
+    return rows, whole[:, :, lo:]
+
+
+@pytest.mark.parametrize("case", sorted(OFFSET_CASES))
+def test_blockwise_offsets_give_the_whole_calls_rows(case):
+    """The plain version with q_offset / k_offset / n_valid on a rank's rows
+    (the band on halo-extended keys, causal on every key, dropout drawn at
+    global positions) gives those rows of the whole-sequence call."""
+    rows, want = _offset_rows(case)
+    np.testing.assert_allclose(rows.numpy(), want.numpy(), **OUT)
+
+
+def test_blockwise_wrong_key_offset_differs():
+    """The check can fail: the halo keys placed one row off give other rows."""
+    rows, want = _offset_rows("band", k_shift=1)
+    assert float((rows - want).abs().max()) > 0.1
 
 
 # ---------------------------------------------------------------------------
@@ -534,6 +743,80 @@ def test_step_without_gradient_reduction_differs(ranks2, setup):
     assert moved > 1e-6
     assert any(not np.array_equal(ranks[0]["negative_params"][k], ranks[1]["negative_params"][k])
                for k in s["port_params"])
+
+
+def test_sharded_transformer_without_halo_matches_jax(ranks2, global_attention, setup):
+    """The Transformer flavor with no window under (1, 2) (each rank's
+    queries against the gathered keys): the sharded forward against the JAX
+    model's single-device forward at the gate's tolerance, and one sharded
+    train step's loss, reduced gradients (5e-4) and parameter update (LR /
+    20) against the JAX model's single-device step."""
+    g = global_attention
+    ranks = ranks2["model"]
+    got = _assemble(ranks, "transformer_global", "forward", MESHES["model2"], setup["jgraph"]["data"].num_nodes)
+    np.testing.assert_allclose(got, g["jax_forward"], **GATE)
+    for r in ranks:
+        res = r["transformer_global"]
+        np.testing.assert_allclose(res["loss"], g["jax_loss"], rtol=5e-4)
+        grads = _port_flat(res["grads"])
+        assert grads.keys() == g["jax_grads"].keys()
+        for name, want in g["jax_grads"].items():
+            np.testing.assert_allclose(grads[name], want, **GRAD, err_msg=f"grads {name}")
+        _assert_update(_port_flat(res["params"]), g["jax_before"], g["jax_params"], g["jax_grads"])
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_sharded_hierarchical_forward(request, hier, mesh):
+    """The hierarchical model's sharded forward (every level's rows split
+    over model, the level mappers destination-sharded, each level processor
+    on its own halo plan) against the JAX model's single-device forward at
+    the gate's tolerance (tests/parallel/test_sharding.py:123)."""
+    ranks = _ranks(request, 4 if mesh == "data2_model2" else 2)["hier"]
+    got = _assemble(ranks, "hierarchical", "forward", MESHES[mesh], hier["n_grid"])
+    np.testing.assert_allclose(got, hier["jax_forward"], **GATE)
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_sharded_hierarchical_train_step(request, hier, mesh):
+    """One sharded train step of the hierarchical model against the JAX
+    model's single-device step: the loss, every reduced gradient at 5e-4 and
+    every parameter's AdamW update at LR / 20, the same on every rank."""
+    ranks = _ranks(request, 4 if mesh == "data2_model2" else 2)["hier"]
+    for r in ranks:
+        res = r["hierarchical"]
+        np.testing.assert_allclose(res["loss"], hier["jax_loss"], rtol=5e-4)
+        grads = _port_flat(res["grads"])
+        assert grads.keys() == hier["jax_grads"].keys()
+        for name, want in hier["jax_grads"].items():
+            np.testing.assert_allclose(grads[name], want, **GRAD, err_msg=f"grads {name}")
+        _assert_update(_port_flat(res["params"]), hier["jax_before"], hier["jax_params"], hier["jax_grads"])
+    for r in ranks[1:]:
+        for k, v in r["hierarchical"]["params"].items():
+            np.testing.assert_array_equal(v, ranks[0]["hierarchical"]["params"][k], err_msg=f"ranks disagree on {k}")
+
+
+def test_unapplied_update_fails_the_update_check(hier):
+    """The check can fail: parameters left where they were (the optimizer's
+    update skipped) are refused."""
+    with pytest.raises(AssertionError, match="update"):
+        _assert_update(hier["jax_before"], hier["jax_before"], hier["jax_params"], hier["jax_grads"])
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_sharded_hierarchical_rollout_loss(request, hier, mesh):
+    """The hierarchical model's 2-step sharded rollout train step's loss
+    against the JAX model's single-device rollout (rtol 5e-5, the gate's)."""
+    for r in _ranks(request, 4 if mesh == "data2_model2" else 2)["hier"]:
+        np.testing.assert_allclose(r["hierarchical"]["rollout_loss"], hier["jax_rollout_loss"], rtol=5e-5)
+
+
+def test_sharded_hierarchical_train_run(ranks2, hier):
+    """train_run(architecture="hierarchical") under (1, 2), 2 steps, against
+    the port's unsharded run: the loss trace at rtol 6e-4, the same on both
+    ranks."""
+    traces = [r["train_run"] for r in ranks2["hier"]]
+    assert len(hier["run_losses"]) == 2 and traces[0] == traces[1]
+    np.testing.assert_allclose(traces[0], hier["run_losses"], rtol=6e-4)
 
 
 # ---------------------------------------------------------------------------

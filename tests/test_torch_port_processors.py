@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 from helpers_models import make_config
+from helpers_torch import one_torch_thread  # noqa: F401 (autouse)
 
 from anemoi_models_tpu.data_indices import IndexCollection as JaxIndexCollection
 from anemoi_models_tpu.graphs import build_enc_proc_dec_graph

@@ -20,9 +20,11 @@ import numpy as np
 import pytest
 import torch
 
+from helpers_torch import one_torch_thread  # noqa: F401 (autouse)
 from anemoi_models_tpu.graphs import latlon_grid_nodes
 from anemoi_models_tpu.training import train_run as jax_train_run
 from anemoi_models_tpu.training.dataset import SyntheticSource as JaxSource
+from anemoi_models_tpu_torch.checkpoint import load_checkpoint
 from anemoi_models_tpu_torch.training import SyntheticSource, train_run
 from anemoi_models_tpu_torch.training.run import perturb_members
 from anemoi_models_tpu_torch.weights import to_flax_params
@@ -166,8 +168,25 @@ def test_ensemble_crps_curriculum_run():
     assert run["steps_done"] == 4 and np.isfinite(run["losses"]).all()
     with pytest.raises(ValueError, match="needs a mesh|pass mesh="):
         train_run(_source(), steps=1, param_sharding="zero1", **PORT)
-    with pytest.raises(ValueError, match="CUDA graphs"):
-        train_run(_source(), steps=1, steps_per_call=2, **PORT)
+
+
+def test_steps_per_call_changes_no_number(tmp_path):
+    """steps_per_call is accepted and runs every step as its own call: 4
+    steps at steps_per_call = 2 (a save every 2 steps) give the losses,
+    logged steps, parameters and checkpoint of steps_per_call = 1 bit for
+    bit."""
+    runs = {}
+    for spc in (1, 2):
+        lines = []
+        run = train_run(_source(), steps=4, steps_per_call=spc, save_every=2, checkpoint_dir=str(tmp_path / str(spc)),
+                        **{**PORT, "log": lines.append})
+        runs[spc] = (run, [int(line.split()[1]) for line in lines if line.startswith("step ")])
+    (base, logged), (run, got) = runs[1], runs[2]
+    assert logged == [1, 2, 3, 4] and got == logged and base["steps_done"] == run["steps_done"] == 4
+    assert run["losses"] == base["losses"]
+    for name, p in base["model"].named_parameters():
+        assert torch.equal(dict(run["model"].named_parameters())[name], p), name
+    assert load_checkpoint(str(tmp_path / "2" / "latest"))["step"] == 4
 
 
 def test_sigterm_checkpoints_and_init_from_warm_starts(tmp_path):
@@ -181,8 +200,6 @@ def test_sigterm_checkpoints_and_init_from_warm_starts(tmp_path):
 
     run = train_run(_source(), steps=6, checkpoint_dir=str(tmp_path / "a"), overlap_calls=False, **{**PORT, "log": log})
     assert run.get("interrupted") and run["steps_done"] == 2
-    from anemoi_models_tpu_torch.checkpoint import load_checkpoint
-
     saved = load_checkpoint(str(tmp_path / "a" / "latest"))
     assert saved["step"] == 2 and saved["metadata"]["sampler"]["position"] == 2
     warm = train_run(_source(), steps=1, init_from=str(tmp_path / "a" / "latest"), **PORT)

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 from helpers_models import VARS, make_config
+from helpers_torch import one_torch_thread  # noqa: F401 (autouse)
 
 from anemoi_models_tpu import native
 from anemoi_models_tpu.data_indices import IndexCollection as JaxIndexCollection
