@@ -2,12 +2,12 @@
 
 Counterparts of ``TransformerProcessorChunk``, ``GNNProcessorChunk`` and
 ``GraphTransformerProcessorChunk`` in ``anemoi_models_tpu/layers/chunk.py``.
-As the JAX package wraps each chunk in ``nn.remat``
-(``layers/processor.py:_remat``), ``remat_policy="full"`` runs a chunk under
-``torch.utils.checkpoint`` while gradients are recorded: its activations are
-dropped after the forward and recomputed in the backward. ``"none"`` keeps
-them. The JAX package's other policies (``"auto"``, ``"save_dots"``) are
-XLA-specific and not ported.
+A chunk is the processors' rematerialisation unit, as the JAX package
+wraps each chunk in ``nn.remat`` (``layers/processor.py:_remat``): it runs
+through :func:`~anemoi_models_tpu_torch.layers.remat.run_unit` under its
+``remat_policy`` (``"full"``, ``"save_dots"``, ``"none"``; ``"auto"`` is
+``"full"`` here) or, with ``cpu_offload``, with its saved activations in
+host memory (``layers/remat.py``).
 """
 
 from __future__ import annotations
@@ -16,7 +16,6 @@ from typing import Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from anemoi_models_tpu_torch.layers.block import (
     GraphConvProcessorBlock,
@@ -24,28 +23,23 @@ from anemoi_models_tpu_torch.layers.block import (
     TransformerProcessorBlock,
 )
 from anemoi_models_tpu_torch.layers.mlp import MLP
+from anemoi_models_tpu_torch.layers.remat import check_policy, run_unit
 from anemoi_models_tpu_torch.ops.edge_attention import CSRTranspose
 
 __all__ = ["TransformerProcessorChunk", "GNNProcessorChunk", "GraphTransformerProcessorChunk"]
 
-REMAT_POLICIES = ("full", "none")
-
 
 class _Chunk(nn.Module):
-    """Runs ``_run`` under ``torch.utils.checkpoint`` with ``"full"``."""
+    """Runs ``_run`` as a remat unit under ``remat_policy`` or
+    ``cpu_offload``."""
 
-    def __init__(self, remat_policy: str) -> None:
+    def __init__(self, remat_policy: str, cpu_offload: bool) -> None:
         super().__init__()
-        if remat_policy not in REMAT_POLICIES:
-            raise NotImplementedError(
-                f"remat_policy {remat_policy!r} is not ported; the port takes {REMAT_POLICIES}"
-            )
-        self.remat_policy = remat_policy
+        self.remat_policy = check_policy(remat_policy)
+        self.cpu_offload = cpu_offload
 
     def forward(self, *args):
-        if self.remat_policy == "full" and torch.is_grad_enabled():
-            return checkpoint(self._run, *args, use_reentrant=False)
-        return self._run(*args)
+        return run_unit(self._run, *args, remat_policy=self.remat_policy, cpu_offload=self.cpu_offload, owner=self)
 
 
 class TransformerProcessorChunk(_Chunk):
@@ -57,8 +51,9 @@ class TransformerProcessorChunk(_Chunk):
     def __init__(self, num_channels: int, num_layers: int, window_size: Optional[int], *, num_heads: int = 16,
                  mlp_hidden_ratio: int = 4, activation: str = "GELU", dropout_p: float = 0.0,
                  attention_impl: str = "auto", deterministic: bool = True, remat_policy: str = "full",
-                 first_layer: int = 0, seq_len: int = 0, dtype: torch.dtype = torch.float32, device=None) -> None:
-        super().__init__(remat_policy)
+                 cpu_offload: bool = False, first_layer: int = 0, seq_len: int = 0,
+                 dtype: torch.dtype = torch.float32, device=None) -> None:
+        super().__init__(remat_policy, cpu_offload)
         self.deterministic = deterministic
         self.blocks = nn.ModuleList(
             TransformerProcessorBlock(
@@ -80,9 +75,9 @@ class GNNProcessorChunk(_Chunk):
     (the first) embeds the edge attributes (``emb_edges``)."""
 
     def __init__(self, num_channels: int, num_layers: int, *, mlp_extra_layers: int = 0, activation: str = "SiLU",
-                 edge_dim: Optional[int] = None, remat_policy: str = "full", dtype: torch.dtype = torch.float32,
-                 device=None) -> None:
-        super().__init__(remat_policy)
+                 edge_dim: Optional[int] = None, remat_policy: str = "full", cpu_offload: bool = False,
+                 dtype: torch.dtype = torch.float32, device=None) -> None:
+        super().__init__(remat_policy, cpu_offload)
         self.emb_edges = MLP(
             edge_dim, num_channels, num_channels, n_extra_layers=mlp_extra_layers, activation=activation,
             dtype=dtype, device=device,
@@ -112,8 +107,8 @@ class GraphTransformerProcessorChunk(_Chunk):
 
     def __init__(self, num_channels: int, num_layers: int, edge_dim: int, *, num_heads: int = 16,
                  mlp_hidden_ratio: int = 4, activation: str = "GELU", remat_policy: str = "full",
-                 dtype: torch.dtype = torch.float32, device=None) -> None:
-        super().__init__(remat_policy)
+                 cpu_offload: bool = False, dtype: torch.dtype = torch.float32, device=None) -> None:
+        super().__init__(remat_policy, cpu_offload)
         self.blocks = nn.ModuleList(
             GraphTransformerProcessorBlock(
                 num_channels, mlp_hidden_ratio * num_channels, num_channels, edge_dim,

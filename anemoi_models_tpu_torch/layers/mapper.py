@@ -11,9 +11,15 @@ Counterparts of the mappers in ``anemoi_models_tpu/layers/mapper.py``:
 - ``GNNForwardMapper`` and ``GNNBackwardMapper``, edge-MLP message passing.
   The forward mapper embeds both node sets with MLPs and returns the
   updated source at hidden width; the backward mapper ends in the
-  ``node_data_extractor`` MLP (no LayerNorm, no final activation). The JAX
-  package rematerialises the mapper block; that changes memory, not
-  values, and is not done here.
+  ``node_data_extractor`` MLP (no LayerNorm, no final activation).
+
+Each mapper's block (``proc``) is a remat unit of ``layers/remat.py``,
+recomputed in the backward under every ``remat_policy`` as the JAX mappers
+wrap it in ``nn.remat`` (``mapper.py:140-148``, ``:272-277``), or, with
+``cpu_offload``, with its saved activations in host memory. The mappers take
+every field of their JAX classes; ``num_chunks`` splits the JAX block's
+edges into chunks that sum to the same aggregate, and the port's kernels
+never hold per-edge activations, so it has no code path here.
 
 Under a mesh whose ``model`` axis is larger than 1, each rank holds its rows
 of both node sets and the mappers take the destination-sharded path
@@ -33,7 +39,13 @@ from torch import nn
 
 from anemoi_models_tpu_torch.layers.block import GraphConvMapperBlock, GraphTransformerMapperBlock
 from anemoi_models_tpu_torch.layers.mlp import MLP
-from anemoi_models_tpu_torch.layers.processor import edge_csr_t, mapper_shard_of, register_edge_buffers
+from anemoi_models_tpu_torch.layers.processor import (
+    check_tpu_only,
+    edge_csr_t,
+    mapper_shard_of,
+    register_edge_buffers,
+)
+from anemoi_models_tpu_torch.layers.remat import run_unit
 from anemoi_models_tpu_torch.parallel.api import model_sharded
 from anemoi_models_tpu_torch.layers.utils import AutocastLayerNorm, Dense
 
@@ -56,18 +68,31 @@ class _GraphTransformerBaseMapper(nn.Module):
         in_channels_dst: int = 0,
         hidden_dim: int = 128,
         trainable_size: int = 8,
+        out_channels_dst: Optional[int] = None,
+        num_chunks: int = 1,
+        cpu_offload: bool = False,
+        activation: str = "GELU",
         num_heads: int = 16,
         mlp_hidden_ratio: int = 4,
-        activation: str = "GELU",
         sub_graph=None,
         sub_graph_edge_attributes: Optional[list[str]] = ("edge_length", "edge_dirs"),
         src_grid_size: int = 0,
         dst_grid_size: int = 0,
         graph_impl: str = "dense",
+        plan_block_nodes: int = 0,
+        plan_slab_width: int = 0,
+        kv_src_gather: str = "auto",
+        deterministic: bool = True,
         dtype: torch.dtype = torch.float32,
         device=None,
     ) -> None:
         super().__init__()
+        check_tpu_only(type(self).__name__, plan_block_nodes=plan_block_nodes, plan_slab_width=plan_slab_width,
+                       kv_src_gather=kv_src_gather)
+        # the backward mapper takes out_channels_dst; edge chunks sum alike; the JAX block picks its
+        # inference edge chunking by deterministic, and nothing here drops
+        del out_channels_dst, num_chunks, deterministic
+        self.cpu_offload = cpu_offload
         self.dtype = dtype
         edge_dim = register_edge_buffers(
             self, sub_graph, sub_graph_edge_attributes, trainable_size,
@@ -87,9 +112,8 @@ class _GraphTransformerBaseMapper(nn.Module):
             part = mapper_shard_of(self, mesh)
             edge_attr = edge_attr[part.edge_lo:part.edge_hi]
             rowptr, src, csr_t, shard = part.rowptr, part.src, part.csr_t, (mesh, part)
-        _, x_dst = self.proc(
-            (x_src, self.emb_nodes_dst(x_dst)), edge_attr, rowptr, src, csr_t, shard, src_transform
-        )
+        _, x_dst = run_unit(self.proc, (x_src, self.emb_nodes_dst(x_dst)), edge_attr, rowptr, src, csr_t, shard,
+                            src_transform, remat_policy="full", cpu_offload=self.cpu_offload, owner=self)
         return x_dst
 
 
@@ -111,7 +135,7 @@ class GraphTransformerBackwardMapper(_GraphTransformerBaseMapper):
     ``out_channels_dst``."""
 
     def __init__(self, *, out_channels_dst: int, hidden_dim: int = 128, device=None, **kwargs) -> None:
-        super().__init__(hidden_dim=hidden_dim, device=device, **kwargs)
+        super().__init__(out_channels_dst=out_channels_dst, hidden_dim=hidden_dim, device=device, **kwargs)
         self.node_data_extractor_norm = AutocastLayerNorm(hidden_dim, device=device)
         self.node_data_extractor = Dense(hidden_dim, out_channels_dst, dtype=self.dtype, device=device)
 
@@ -131,6 +155,7 @@ class _GNNBaseMapper(nn.Module):
         trainable_size: int = 8,
         out_channels_dst: Optional[int] = None,
         num_chunks: int = 1,
+        cpu_offload: bool = False,
         activation: str = "SiLU",
         mlp_extra_layers: int = 0,
         sub_graph=None,
@@ -148,6 +173,7 @@ class _GNNBaseMapper(nn.Module):
                 f"GNN mappers support graph_impl {GNN_MAPPER_GRAPH_IMPLS} (the slot kernel needs a "
                 f"self-graph; mapper convs are bipartite), got {graph_impl!r}"
             )
+        self.cpu_offload = cpu_offload
         self.dtype = dtype
         self.mlp_kw = dict(n_extra_layers=mlp_extra_layers, activation=activation, dtype=dtype, device=device)
         edge_dim = register_edge_buffers(
@@ -169,7 +195,8 @@ class _GNNBaseMapper(nn.Module):
             edge_attr = edge_attr[part.edge_lo:part.edge_hi]
             rowptr, src, shard = part.rowptr, part.src, (mesh, part)
         edge_attr = self.emb_edges(edge_attr).unsqueeze(0).expand(x_src.shape[0], -1, -1)
-        return self.proc((x_src, x_dst), edge_attr, rowptr, src, shard)[0]
+        return run_unit(self.proc, (x_src, x_dst), edge_attr, rowptr, src, shard, remat_policy="full",
+                        cpu_offload=self.cpu_offload, owner=self)[0]
 
 
 class GNNForwardMapper(_GNNBaseMapper):

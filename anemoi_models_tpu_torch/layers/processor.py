@@ -15,6 +15,12 @@ paths (``parallel/halo_conv.py``) on the rank's part of the edge set
 (:func:`halo_shard_of`), as the JAX processors route to them
 (``processor.py:110-140``); the Transformer's attention takes its halo
 window path (``layers/attention.py``).
+
+Each processor takes every field of its JAX class. Its chunks (or, in
+``HaloGNNProcessor``, its layers) are the remat units of ``layers/remat.py``
+under ``remat_policy`` and ``cpu_offload``. The JAX fields that lay the
+computation out for the TPU (:data:`TPU_ONLY`) are taken at their defaults
+only.
 """
 
 from __future__ import annotations
@@ -24,8 +30,6 @@ from typing import Optional
 import numpy as np
 import torch
 from torch import nn
-
-from torch.utils.checkpoint import checkpoint
 
 from anemoi_models_tpu_torch.graphs.partition import (
     HaloShard,
@@ -41,6 +45,7 @@ from anemoi_models_tpu_torch.layers.chunk import (
 )
 from anemoi_models_tpu_torch.layers.graph import TrainableTensor
 from anemoi_models_tpu_torch.layers.mlp import MLP
+from anemoi_models_tpu_torch.layers.remat import run_unit
 from anemoi_models_tpu_torch.ops.edge_attention import CSRTranspose, csr_from_edge_index, csr_transpose
 from anemoi_models_tpu_torch.parallel.api import Mesh, model_sharded
 from anemoi_models_tpu_torch.parallel.halo_conv import halo_graph_conv
@@ -55,11 +60,29 @@ __all__ = [
     "edge_csr_t",
     "halo_shard_of",
     "mapper_shard_of",
+    "check_tpu_only",
 ]
 
 # Layouts of the JAX package's convs; the port has one CSR path for each.
 GRAPH_IMPLS = ("dense", "pallas")
 GNN_GRAPH_IMPLS = ("dense", "pallas", "segment")
+# JAX layer fields that lay the computation out for the TPU: (default, what it does there)
+TPU_ONLY = {
+    "layer_scan": (False, "nn.scan over stacked layer parameters, to bound the size of XLA's program"),
+    "kv_src_gather": ("auto", "a dataflow of the TPU's bucketed gather tables; the port has one CSR path"),
+    "plan_block_nodes": (0, "the geometry of a TPU slot-kernel plan (graphs/kernel_plan.py)"),
+    "plan_slab_width": (0, "the geometry of a TPU slot-kernel plan (graphs/kernel_plan.py)"),
+}
+
+
+def check_tpu_only(layer: str, **values) -> None:
+    """Raises unless each of the :data:`TPU_ONLY` fields in ``values`` is at
+    its JAX default: the port has no such layout."""
+    for name, value in values.items():
+        default, what = TPU_ONLY[name]
+        if value != default:
+            raise ValueError(f"{layer}: {name}={value!r} is not ported ({what}; ROADMAP, \"Do not port\": "
+                             f"TPU-only); the port takes {name}={default!r}")
 
 
 def register_edges(
@@ -150,24 +173,28 @@ class TransformerProcessor(nn.Module):
         num_channels: int = 128,
         num_chunks: int = 2,
         activation: str = "GELU",
+        cpu_offload: bool = False,
         num_heads: int = 16,
         mlp_hidden_ratio: int = 4,
         dropout_p: float = 0.1,
         attention_impl: str = "auto",
         remat_policy: str = "full",
         deterministic: bool = True,
+        layer_scan: bool = False,
         dst_grid_size: int = 0,
         dtype: torch.dtype = torch.float32,
         device=None,
     ) -> None:
         super().__init__()
+        check_tpu_only(type(self).__name__, layer_scan=layer_scan)
         chunk_size = _chunk_size(num_layers, num_chunks)
         self.proc = nn.ModuleList(
             TransformerProcessorChunk(
                 num_channels, chunk_size, window_size, num_heads=num_heads,
                 mlp_hidden_ratio=mlp_hidden_ratio, activation=activation, dropout_p=dropout_p,
                 attention_impl=attention_impl, deterministic=deterministic, remat_policy=remat_policy,
-                first_layer=c * chunk_size, seq_len=dst_grid_size, dtype=dtype, device=device,
+                cpu_offload=cpu_offload, first_layer=c * chunk_size, seq_len=dst_grid_size, dtype=dtype,
+                device=device,
             )
             for c in range(num_chunks)
         )
@@ -194,16 +221,19 @@ class GNNProcessor(nn.Module):
         num_chunks: int = 2,
         mlp_extra_layers: int = 0,
         activation: str = "SiLU",
+        cpu_offload: bool = False,
         sub_graph=None,
         sub_graph_edge_attributes: Optional[list[str]] = ("edge_length", "edge_dirs"),
         src_grid_size: int = 0,
         dst_grid_size: int = 0,
         graph_impl: str = "dense",
         remat_policy: str = "full",
+        layer_scan: bool = False,
         dtype: torch.dtype = torch.float32,
         device=None,
     ) -> None:
         super().__init__()
+        check_tpu_only(type(self).__name__, layer_scan=layer_scan)
         chunk_size = _chunk_size(num_layers, num_chunks)
         self.dtype = dtype
         edge_dim = register_edge_buffers(
@@ -213,7 +243,8 @@ class GNNProcessor(nn.Module):
         self.proc = nn.ModuleList(
             GNNProcessorChunk(
                 num_channels, chunk_size, mlp_extra_layers=mlp_extra_layers, activation=activation,
-                edge_dim=edge_dim if c == 0 else None, remat_policy=remat_policy, dtype=dtype, device=device,
+                edge_dim=edge_dim if c == 0 else None, remat_policy=remat_policy, cpu_offload=cpu_offload,
+                dtype=dtype, device=device,
             )
             for c in range(num_chunks)
         )
@@ -246,17 +277,23 @@ class GraphTransformerProcessor(nn.Module):
         num_heads: int = 16,
         mlp_hidden_ratio: int = 4,
         activation: str = "GELU",
+        cpu_offload: bool = False,
         trainable_size: int = 8,
         sub_graph=None,
         sub_graph_edge_attributes: Optional[list[str]] = ("edge_length", "edge_dirs"),
         src_grid_size: int = 0,
         dst_grid_size: int = 0,
         graph_impl: str = "dense",
+        kv_src_gather: str = "auto",
         remat_policy: str = "full",
+        deterministic: bool = True,
+        layer_scan: bool = False,
         dtype: torch.dtype = torch.float32,
         device=None,
     ) -> None:
         super().__init__()
+        check_tpu_only(type(self).__name__, kv_src_gather=kv_src_gather, layer_scan=layer_scan)
+        del deterministic  # the JAX blocks pick their inference edge chunking by it; nothing here drops
         chunk_size = _chunk_size(num_layers, num_chunks)
         self.dtype = dtype
         edge_dim = register_edge_buffers(
@@ -267,7 +304,7 @@ class GraphTransformerProcessor(nn.Module):
             GraphTransformerProcessorChunk(
                 num_channels, chunk_size, edge_dim, num_heads=num_heads,
                 mlp_hidden_ratio=mlp_hidden_ratio, activation=activation, remat_policy=remat_policy,
-                dtype=dtype, device=device,
+                cpu_offload=cpu_offload, dtype=dtype, device=device,
             )
             for _ in range(num_chunks)
         )
@@ -299,7 +336,8 @@ class HaloGNNProcessor(nn.Module):
     ((in, out) kernels), through :class:`~anemoi_models_tpu_torch.ops.gnn_conv.GNNConv`;
     the updated edges thread into the next layer on the rank that owns them;
     then ``node_mlp_{i}`` on ``cat[x, aggregated]`` with a residual. Each
-    layer is recomputed in the backward, as the JAX layer checkpoints it."""
+    layer is a remat unit under ``"full"`` (recomputed in the backward, as
+    the JAX layer checkpoints it) or ``cpu_offload``."""
 
     def __init__(
         self,
@@ -310,6 +348,7 @@ class HaloGNNProcessor(nn.Module):
         num_chunks: int = 2,
         mlp_extra_layers: int = 0,
         activation: str = "SiLU",
+        cpu_offload: bool = False,
         sub_graph=None,
         sub_graph_edge_attributes: Optional[list[str]] = ("edge_length", "edge_dirs"),
         src_grid_size: int = 0,
@@ -322,6 +361,7 @@ class HaloGNNProcessor(nn.Module):
         del num_chunks  # accepted for config parity; the recompute is per layer
         self.num_layers = num_layers
         self.num_shards = num_shards
+        self.cpu_offload = cpu_offload
         self.activation = activation
         self.dtype = dtype
         c = num_channels
@@ -368,10 +408,7 @@ class HaloGNNProcessor(nn.Module):
             return agg.to(edges_.dtype), msg
 
         for i in range(self.num_layers):
-            params = self._conv_params(i)
-            if torch.is_grad_enabled():
-                agg, edges = checkpoint(layer, x, edges, *params, use_reentrant=False)
-            else:
-                agg, edges = layer(x, edges, *params)
+            agg, edges = run_unit(layer, x, edges, *self._conv_params(i), remat_policy="full",
+                                  cpu_offload=self.cpu_offload, owner=self)
             x = getattr(self, f"node_mlp_{i}")(torch.cat([x, agg], dim=-1)) + x
         return x

@@ -34,8 +34,10 @@ from anemoi_models_tpu_torch.training.run import train_run
 from anemoi_models_tpu_torch.training.step import (
     dropout_key_at,
     dropout_twin,
+    estimate_step_bytes,
     make_rollout_train_step,
     make_train_step,
+    resolve_remat_policy,
 )
 
 __all__ = [
@@ -55,6 +57,7 @@ __all__ = [
     "dropout_key_at",
     "dropout_twin",
     "ema_update",
+    "estimate_step_bytes",
     "evaluate_interface",
     "evaluate_rollout",
     "loss_mask",
@@ -63,6 +66,7 @@ __all__ = [
     "make_rollout_train_step",
     "make_train_step",
     "open_dataset",
+    "resolve_remat_policy",
     "rollout_scores",
     "save_memmap_dataset",
     "save_zarr_dataset",

@@ -24,8 +24,12 @@ same arguments and the same run on the card:
   ``metrics.jsonl`` and the checkpoints, in the unsharded format;
   evaluations run whole on every rank.
 
-``remat_policy="auto"`` (it reads XLA's memory analysis) is left out and
-raises a ``ValueError`` naming its reason.
+``remat_policy="auto"`` in ``model_kwargs`` builds the model with
+``"none"``, estimates the memory of the step variant the run executes
+(``training.step.resolve_remat_policy``: the longest curriculum rollout, the
+ensemble axis, the run's loss, the EMA) and rebuilds it with ``"full"``
+where that does not fit the card, as the JAX package's ``train_run`` does;
+with a ``config`` given, ``"auto"`` in ``model_kwargs`` means ``"full"``.
 """
 
 from __future__ import annotations
@@ -49,7 +53,12 @@ from anemoi_models_tpu_torch.training.evaluate import evaluate_interface
 from anemoi_models_tpu_torch.training.loader import BatchLoader, WindowSampler, device_prefetch
 from anemoi_models_tpu_torch.training.loss import WeightedCRPSLoss, WeightedMSELoss, loss_mask
 from anemoi_models_tpu_torch.training.optim import ema_update, make_optimizer
-from anemoi_models_tpu_torch.training.step import dropout_twin, make_rollout_train_step, make_train_step
+from anemoi_models_tpu_torch.training.step import (
+    dropout_twin,
+    make_rollout_train_step,
+    make_train_step,
+    resolve_remat_policy,
+)
 
 __all__ = ["perturb_members", "train_run"]
 
@@ -169,8 +178,10 @@ def train_run(
     if mesh is not None and batch_size % mesh.shape["data"]:
         raise ValueError(f"batch_size {batch_size} does not split over the mesh's {mesh.shape['data']} data ranks")
     model_kwargs = dict(model_kwargs or {})
+    # remat_policy="auto": build with "none", then keep it if the step's memory fits the card
+    auto_remat = model_kwargs.get("remat_policy") == "auto" and config is None
     if model_kwargs.get("remat_policy") == "auto":
-        raise ValueError('remat_policy="auto" reads XLA\'s memory analysis and is not ported (ROADMAP, Do not port)')
+        model_kwargs["remat_policy"] = "none" if auto_remat else "full"
     if loss not in ("mse", "crps"):
         raise ValueError(f"loss must be 'mse' or 'crps', got {loss!r}")
     if architecture not in ("enc_proc_dec", "hierarchical"):
@@ -184,22 +195,37 @@ def train_run(
         graph, hidden_names = build_hierarchical_graph(
             data_nodes=data_nodes, mesh_refinements=mesh_refinements, num_levels=num_hidden_levels,
         )
-        if config is None:
-            config = configs.hierarchical(forcing=tuple(forcing), diagnostic=tuple(diagnostic),
-                                          hidden_names=hidden_names, flavor=flavor, **model_kwargs)
+
+        def make_config(kwargs):
+            return configs.hierarchical(forcing=tuple(forcing), diagnostic=tuple(diagnostic),
+                                        hidden_names=hidden_names, flavor=flavor, **kwargs)
     else:
         graph = build_enc_proc_dec_graph(data_nodes=data_nodes, mesh_refinements=mesh_refinements)
-        if config is None:
-            config = configs.enc_proc_dec(forcing=tuple(forcing), diagnostic=tuple(diagnostic), flavor=flavor,
-                                          **model_kwargs)
-    indices = IndexCollection(config, source.name_to_index)
-    iface = AnemoiModelInterface(
-        config=config, graph_data=graph, statistics=source.statistics, data_indices=indices,
-        metadata={"dataset": getattr(source, "path", type(source).__name__)}, device=device,
-    )
+
+        def make_config(kwargs):
+            return configs.enc_proc_dec(forcing=tuple(forcing), diagnostic=tuple(diagnostic), flavor=flavor,
+                                        **kwargs)
+    if config is None:
+        config = make_config(model_kwargs)
+
+    def make_iface(cfg):
+        idx = IndexCollection(cfg, source.name_to_index)
+        return idx, AnemoiModelInterface(
+            config=cfg, graph_data=graph, statistics=source.statistics, data_indices=idx,
+            metadata={"dataset": getattr(source, "path", type(source).__name__)}, device=device,
+        )
+
+    indices, iface = make_iface(config)
     dev = iface.device
     if mesh is not None and mesh.device != dev:
         raise ValueError(f"the mesh's ranks hold their tensors on {mesh.device}, train_run's device is {dev}")
+    if auto_remat:
+        chosen = _resolve_auto(iface, indices, graph, config, mesh, batch_size, rollout, rollout_schedule,
+                               ensemble, loss, ema_decay is not None, log)
+        if chosen != "none":
+            model_kwargs["remat_policy"] = chosen
+            config = make_config(model_kwargs)
+            indices, iface = make_iface(config)
     iface.init_params(torch.Generator().manual_seed(seed))
     model = iface.model
 
@@ -503,6 +529,33 @@ def train_run(
 
 def _quiet(msg: str) -> None:
     """The log of a rank other than the first."""
+
+
+def _resolve_auto(iface, indices, graph, config, mesh, batch_size: int, rollout: int, rollout_schedule,
+                  ensemble: int, loss: str, ema: bool, log) -> str:
+    """``remat_policy="auto"``'s answer for ``iface``'s model (built with
+    ``"none"``): :func:`resolve_remat_policy` on the step variant the run
+    executes, on this rank's rows under a mesh, where every rank takes
+    ``"full"`` if any rank's step does not fit."""
+    dev = iface.device
+    n_grid = graph["data"].num_nodes
+    rows, batch = n_grid, batch_size
+    if mesh is not None:
+        lo, hi = mesh.rows(n_grid)
+        rows, batch = hi - lo, batch_size // mesh.shape["data"]
+    multi_step = int(config.training.multistep_input)
+    max_rollout = max((int(r) for _, r in rollout_schedule), default=rollout) if rollout_schedule else rollout
+    area = torch.as_tensor(graph["data"].attrs["area_weight"][:, 0], dtype=torch.float32, device=dev)
+    loss_fn = (WeightedCRPSLoss if loss == "crps" else WeightedMSELoss)(node_weights=area)
+    model = dropout_twin(iface.model) if _wants_dropout(config.model) else iface.model
+    with use_mesh(mesh):
+        chosen = resolve_remat_policy(
+            model, None,
+            (batch, multi_step, 1, rows, len(indices.internal_model.input)),
+            (batch, 1, rows, len(indices.internal_model.output)),
+            indices=indices, rollout=max_rollout, ensemble=ensemble, loss_fn=loss_fn, ema=ema, log=log,
+        )
+    return "full" if _any_rank(chosen == "full", mesh, dev) else "none"
 
 
 def _any_rank(flag: bool, mesh, dev: torch.device) -> bool:

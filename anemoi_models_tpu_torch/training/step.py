@@ -26,6 +26,9 @@ attention-weight dropout: the step's key is :func:`dropout_key_at` of the
 seed and the optimizer's update count, as the JAX package folds the step
 into its key (``_dropout_rng_for``), so a resumed run draws the masks the
 uninterrupted one would.
+
+:func:`resolve_remat_policy` resolves ``remat_policy="auto"``: it keeps
+``"none"`` when a step's estimated memory fits the device, else ``"full"``.
 """
 
 from __future__ import annotations
@@ -39,13 +42,15 @@ import numpy as np
 import torch
 from torch import nn
 
+from anemoi_models_tpu_torch.layers.remat import count_saved_bytes
 from anemoi_models_tpu_torch.ops.flash_attention import fold_key
 from anemoi_models_tpu_torch.parallel.api import get_mesh
 from anemoi_models_tpu_torch.parallel.primitives import all_reduce_gradients, reduce_tensor
 from anemoi_models_tpu_torch.training.loss import weighted_mse
 from anemoi_models_tpu_torch.training.rollout import make_rollout_fn
 
-__all__ = ["dropout_key_at", "dropout_twin", "make_rollout_train_step", "make_train_step", "mesh_loss"]
+__all__ = ["dropout_key_at", "dropout_twin", "estimate_step_bytes", "make_rollout_train_step", "make_train_step",
+           "mesh_loss", "resolve_remat_policy"]
 
 
 def dropout_key_at(dropout_seed: int, step: int) -> int:
@@ -159,3 +164,115 @@ def make_rollout_train_step(
         return mesh_loss(loss)
 
     return train_step
+
+
+def estimate_step_bytes(
+    model: nn.Module,
+    optimizer: Optional[torch.optim.Optimizer],
+    x_shape: tuple,
+    y_shape: tuple,
+    *,
+    indices=None,
+    rollout: int = 1,
+    ensemble: int = 1,
+    loss_fn: Optional[Callable] = None,
+    ema: bool = False,
+) -> int:
+    """The bytes one train step of ``model`` holds at once without
+    rematerialisation, counted on the model's device without holding them.
+
+    - The activations: the step's forward runs once with gradients on, from
+      zeros of ``x_shape`` (``rollout`` > 1: the ``make_rollout_train_step``
+      rollout, which needs ``indices``; ``ensemble`` multiplies the member
+      axis of ``x_shape`` and ``y_shape``), through ``loss_fn`` (the run's
+      loss; MSE by default), under
+      :func:`~anemoi_models_tpu_torch.layers.remat.count_saved_bytes`: each
+      storage an operation saves for the backward is counted once and none
+      is kept, and every remat unit runs unchecked, mapper blocks included
+      (a step holds a mapper's activations only while it recomputes that
+      mapper, so they count once too often).
+    - The state: the parameters and buffers, a gradient a parameter, the
+      optimizer's two moments a parameter it updates (AdamW's ``mu`` and
+      ``nu``, in the parameter's dtype) and, with ``ema``, a copy of the
+      parameters.
+
+    Transient buffers of the backward (the cotangents of one layer at a
+    time, the kernels' scratch) are not counted."""
+    dev = next(model.parameters()).device
+    x_shape, y_shape = list(x_shape), list(y_shape)
+    if ensemble > 1:
+        x_shape[2] *= ensemble
+        y_shape[1] *= ensemble
+    loss_fn = loss_fn or weighted_mse
+    key = dropout_key_at(0, 0) if not getattr(model, "deterministic", True) else None
+    x = torch.zeros(x_shape, device=dev)
+    training = model.training
+    model.train()
+    try:
+        with count_saved_bytes(model) as saved:
+            if rollout > 1:
+                if indices is None:
+                    raise ValueError("the rollout step's estimate needs the IndexCollection (indices=)")
+                forcing_in = torch.as_tensor(np.asarray(indices.internal_model.input.forcing), device=dev)
+                forcings = torch.zeros([rollout, x_shape[0], *x_shape[2:4], forcing_in.numel()], device=dev)
+                _, preds = make_rollout_fn(model, indices, rollout)(x, forcings if forcing_in.numel() else None, key)
+                loss_fn(preds, torch.zeros([rollout, *y_shape], device=dev))
+            else:
+                pred = model(x) if key is None else model(x, dropout_key=key)
+                loss_fn(pred, torch.zeros(y_shape, device=dev))
+    finally:
+        model.train(training)
+    param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    buffer_bytes = sum(b.numel() * b.element_size() for b in model.buffers())
+    updated = [p for group in optimizer.param_groups for p in group["params"]] if optimizer else model.parameters()
+    moment_bytes = 2 * sum(p.numel() * p.element_size() for p in updated)
+    return saved["bytes"] + buffer_bytes + param_bytes * (2 + int(ema)) + moment_bytes
+
+
+def resolve_remat_policy(
+    model: nn.Module,
+    optimizer: Optional[torch.optim.Optimizer],
+    x_shape: tuple,
+    y_shape: tuple,
+    *,
+    indices=None,
+    rollout: int = 1,
+    ensemble: int = 1,
+    loss_fn: Optional[Callable] = None,
+    ema: bool = False,
+    limit_bytes: Optional[int] = None,
+    headroom: float = 0.85,
+    log: Optional[Callable[[str], None]] = None,
+) -> str:
+    """Pick ``"none"`` or ``"full"`` for ``remat_policy="auto"``.
+
+    ``model`` must be built with ``remat_policy="none"``. Keeps ``"none"``
+    if :func:`estimate_step_bytes` of the step variant the run executes
+    (the arguments after ``y_shape`` are its, as in the JAX package's
+    resolver: the longest rollout, the ensemble axis, the run's loss, the
+    EMA) stays under ``headroom`` x the budget; else ``"full"``, the
+    reference's policy. The estimate never holds ``"none"``'s activations,
+    so a step that would not fit cannot run the card out of memory here.
+
+    The budget is ``limit_bytes``, else the card's total memory
+    (``torch.cuda.mem_get_info``); on the CPU, with no ``limit_bytes``,
+    there is no budget and the answer is ``"full"``, as the JAX package's
+    on a backend that reports none. ``log`` gets lines that start with
+    ``"remat auto:"``."""
+    say = log or (lambda s: None)
+    dev = next(model.parameters()).device
+    if limit_bytes is None and dev.type == "cuda":
+        limit_bytes = torch.cuda.mem_get_info(dev)[1]
+    if not limit_bytes:
+        say("remat auto: unknown device memory budget; using 'full'")
+        return "full"
+    try:
+        peak = estimate_step_bytes(model, optimizer, x_shape, y_shape, indices=indices, rollout=rollout,
+                                   ensemble=ensemble, loss_fn=loss_fn, ema=ema)
+    except torch.cuda.OutOfMemoryError:
+        say("remat auto: the counting forward ran out of memory; using 'full'")
+        return "full"
+    ok = peak < headroom * limit_bytes
+    say(f"remat auto: peak {peak / 2**30:.2f} GiB vs budget {limit_bytes / 2**30:.1f} GiB -> "
+        f"{'none' if ok else 'full'}")
+    return "none" if ok else "full"

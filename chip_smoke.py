@@ -36,9 +36,11 @@ Builds the port's CUDA kernels from ``anemoi_models_tpu_torch/csrc``, then:
 5. trains the flagship at full width with ``make_train_step`` +
    ``make_optimizer`` (``remat_policy="full"``, bench.py's default): one
    warm-up step and three timed steps on one seeded batch, finite losses,
-   the last below the first, launches per step (18 kv_proj, 18 edge_attn_csr:
-   10 forward + 8 recomputed, and 10 edge_attn_csr_bwd), peak memory; then
-   one step with ``remat_policy="none"`` (10 of each);
+   the last below the first, launches per step (20 kv_proj, 20 edge_attn_csr:
+   10 forward, 8 recomputed processor layers and 2 recomputed mapper blocks,
+   and 10 edge_attn_csr_bwd), peak memory; then one step with
+   ``remat_policy="none"`` (12 of each forward kernel: the mapper blocks are
+   recomputed under every policy; 10 edge_attn_csr_bwd);
 6. holds the GNN conv kernel (gnn_conv) against its plain version at the
    three O96 edge sets (the processor's as a self-graph, the mappers'
    bipartite) and the dead-destination set, its per-node pre-pass
@@ -67,7 +69,7 @@ Builds the port's CUDA kernels from ``anemoi_models_tpu_torch/csrc``, then:
    launches: 8 processor layers and 2 mappers; or 8 flash_attention, 2
    kv_proj and 2 edge_attn_csr) and four O96 bf16 train steps with
    ``remat_policy="full"`` (finite losses, the last below the first;
-   launches per step: 18 gnn_conv; or 16 flash_attention and 2 of each
+   launches per step: 20 gnn_conv; or 16 flash_attention and 4 of each
    GraphTransformer mapper kernel);
 8. the GraphTransformer at the production width of
    ``anemoi_models_tpu/configs.py`` (C = 1024, 16 heads; O96, r5, 8 layers in
@@ -160,7 +162,23 @@ Builds the port's CUDA kernels from ``anemoi_models_tpu_torch/csrc``, then:
     call ms of two ranks sharing one card beside the unsharded run's, not a
     speed across cards. A failing rank fails the run. Phase 6's flash checks
     include a rank's rows of that split (``flash_offset_cases``: the halo
-    and gathered keys' shapes, and dropout drawn at global positions).
+    and gathered keys' shapes, and dropout drawn at global positions);
+20. the memory policies of a train step (``phase_memory``): the
+    GraphTransformer (16 heads) and the GNN (the layered route) at C = 1024
+    on O96 / r5, 8 layers in 2 chunks, bf16, batch 1, 3 steps each (the
+    first a warm-up) under remat "full", "save_dots", "none" and
+    cpu_offload on every unit: step ms, peak memory, the host bytes
+    cpu_offload holds, launches a step (the mapper blocks recomputed under
+    every remat policy, the chunks under "full" and "save_dots"), and the
+    losses, gradients and parameters bit-identical across the four; the
+    Transformer at C = 256 with dropout 0.1, one step under "save_dots" and
+    one under cpu_offload, bit-identical to "full"'s; the ``remat_policy=
+    "auto"`` resolver on the GT step (its estimate beside the measured
+    "none" peak, at least 0.85x of it; "none" at the card's budget, "full"
+    at 1 KiB) and ``train_run(remat_policy="auto")`` for 2 steps on the O96
+    record (2 lead times, 2 members, CRPS, EMA: the variant it estimates);
+    and the GT at C = 256 on O320 / r6 (421,120 points) for 2 steps
+    under "full" and cpu_offload, with its peak memory.
 
 Prints the card's name and power limit, each kernel's registers and spills
 from the compiler's report (``ptxas``), per-phase numbers, each wrapper's
@@ -232,20 +250,21 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
 }
 LAUNCH_TABLES = (ea.LAUNCHES, gc.LAUNCHES, fa.LAUNCHES)
 FLAVOR_KERNEL = {"graphtransformer": "edge_attn_csr", "gnn": "gnn_conv", "transformer": "flash_attention"}
-# launches per request and per train step (remat "full") of each flavor's O96 flagship; the GNN at
+# launches per request and per train step (remat "full") of each flavor's O96 flagship: a step
+# recomputes the processor's 8 layers and, under every policy, the 2 mapper blocks; the GNN at
 # C = 1024 ("gnn production") runs the same count on the layered route
 EXPECTED = {
     "graphtransformer": ({"kv_proj": 10, "edge_attn_csr": 10},
-                         {"kv_proj": 18, "edge_attn_csr": 18, "edge_attn_csr_bwd": 10}),
-    "gnn": ({"gnn_conv": 10}, {"gnn_conv": 18}),
+                         {"kv_proj": 20, "edge_attn_csr": 20, "edge_attn_csr_bwd": 10}),
+    "gnn": ({"gnn_conv": 10}, {"gnn_conv": 20}),
     "transformer": ({"flash_attention": 8, "kv_proj": 2, "edge_attn_csr": 2},
-                    {"flash_attention": 16, "kv_proj": 2, "edge_attn_csr": 2, "edge_attn_csr_bwd": 2}),
-    "gnn production": ({"gnn_conv_layered": 10}, {"gnn_conv_layered": 18}),
+                    {"flash_attention": 16, "kv_proj": 4, "edge_attn_csr": 4, "edge_attn_csr_bwd": 2}),
+    "gnn production": ({"gnn_conv_layered": 10}, {"gnn_conv_layered": 20}),
     # the 3-level hierarchical model: 16 attention convs a request (encoder, 3 + 2 level processors of 2
     # layers, 2 downscale and 2 upscale mappers, decoder); a train step recomputes the level processors'
-    # 10 layers (remat "full") and runs 16 backward
+    # 10 layers (remat "full") and the 6 mapper blocks, and runs 16 backward
     "hierarchical": ({"kv_proj": 16, "edge_attn_csr": 16},
-                     {"kv_proj": 26, "edge_attn_csr": 26, "edge_attn_csr_bwd": 16}),
+                     {"kv_proj": 32, "edge_attn_csr": 32, "edge_attn_csr_bwd": 16}),
 }
 # the AIFS data path: an sst over the sea only (imputed), cloud cover, precipitation and its convective part
 AIFS_NAME_TO_INDEX = {"lsm": 0, "z_500": 1, "t_850": 2, "sst": 3, "tcc": 4, "t2m": 5, "tp": 6, "cp": 7}
@@ -1126,7 +1145,7 @@ def phase_train(graph, dev, profile_dir: str | None, flavor: str = "graphtransfo
     torch.cuda.reset_peak_memory_stats()
     losses_none, ms_none, per_step_none = timed_steps(step, x, y, 2)
     peak_none = torch.cuda.max_memory_allocated() / 2**30
-    expected = expect(counts, {"kv_proj": 10, "edge_attn_csr": 10, "edge_attn_csr_bwd": 10})
+    expected = expect(counts, {"kv_proj": 12, "edge_attn_csr": 12, "edge_attn_csr_bwd": 10})
     if any(c != expected for c in per_step_none) or not np.all(np.isfinite(losses_none)):
         raise AssertionError(f"train (remat none): expected {expected} launches per step, got {per_step_none}")
     out["remat_none"] = {"losses": losses_none, "step_ms": ms_none[1:], "peak_mem_gib": peak_none,
@@ -1685,6 +1704,201 @@ def phase_train_run(source, dev) -> dict:
             "peak_mem_gib": peak, "launches": counts,
             "per_step": {"rollout 1": expect(counts, one), "rollout 2": expect(counts, two)},
             "resume_bit_identical": True, "tensors_compared": len(want)}
+
+
+MEMORY_POLICIES = ("full", "save_dots", "none", "cpu_offload")
+MEMORY_STEPS = 3  # train steps of each policy's run, the first a warm-up (lr 0)
+O320_GRAPH = dict(grid_lat=320, mesh_refinements=6, grid="octahedral")
+
+
+def memory_config(flavor: str, channels: int, heads: int) -> DotDict:
+    """The O96 flagship config of ``flavor`` at ``channels``."""
+    return model_config(num_channels=channels, num_layers=8, num_chunks=2, dtype="bfloat16", flavor=flavor,
+                        num_heads=heads)
+
+
+def set_memory_policy(model: torch.nn.Module, policy: str) -> None:
+    """Every remat unit of ``model`` under ``policy``: the processor's chunks
+    under that ``remat_policy``, or every unit (the chunks, both mapper
+    blocks) under ``cpu_offload``, as a config that sets it builds them."""
+    for module in model.modules():
+        if hasattr(module, "cpu_offload"):
+            module.cpu_offload = policy == "cpu_offload"
+        if hasattr(module, "remat_policy"):
+            module.remat_policy = "full" if policy == "cpu_offload" else policy
+
+
+def policy_launches(flavor: str, policy: str) -> dict:
+    """Launches of a flagship train step under ``policy``: the forward's,
+    the processor's 8 layers again under "full" and "save_dots" (the kernels
+    are not 2-D products, so "save_dots" recomputes them), the 2 mapper
+    blocks again under every remat policy, nothing again under
+    cpu_offload."""
+    proc = 8 if policy in ("full", "save_dots") else 0
+    maps = 0 if policy == "cpu_offload" else 2
+    if flavor == "graphtransformer":
+        return {"kv_proj": 10 + proc + maps, "edge_attn_csr": 10 + proc + maps, "edge_attn_csr_bwd": 10}
+    if flavor == "gnn":
+        return {"gnn_conv_layered": 10 + proc + maps}
+    return {"flash_attention": 8 + proc, "kv_proj": 2 + maps, "edge_attn_csr": 2 + maps, "edge_attn_csr_bwd": 2}
+
+
+def _free_device_memory() -> int:
+    import gc as collector
+
+    collector.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def policy_runs(graph, dev, cfg: DotDict, flavor: str, policies: tuple, steps: int, lr: float,
+                dropout: bool = False) -> tuple[dict, AnemoiModelInterface]:
+    """``cfg``'s model (seed 4) trained from the same parameters under each
+    of ``policies`` (:func:`set_memory_policy`), ``steps`` steps on one
+    batch with a fresh optimizer each: step ms after the first, the peak
+    GiB of the steps after the first (or of the one step), the host bytes
+    cpu_offload held in the last step, launches a step against
+    :func:`policy_launches`; the losses, every parameter and every gradient
+    after the last step bit-identical to the first policy's. Returns the
+    numbers and the interface."""
+    from anemoi_models_tpu_torch.layers import remat
+    from anemoi_models_tpu_torch.training import dropout_twin
+
+    t0 = time.perf_counter()
+    iface = interface(graph, cfg, dev, seed=4)
+    model = iface.model
+    runs: dict = {"build_s": time.perf_counter() - t0}
+    initial = {name: p.detach().cpu() for name, p in model.named_parameters()}
+    x, y = (t.to(dev) for t in train_batch(iface, graph["data"].num_nodes, seed=20))
+    ref = None
+    for policy in policies:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                p.copy_(initial[name])
+                p.grad = None
+        set_memory_policy(model, policy)
+        step = make_train_step(dropout_twin(model) if dropout else model,
+                               make_optimizer(model.parameters(), lr, warmup_steps=1, total_steps=100),
+                               dropout_seed=3)
+        resident = _free_device_memory()
+        losses, ms, per_step = [], [], []
+        reset_launches()
+        for i in range(steps):
+            if i == min(1, steps - 1):
+                torch.cuda.reset_peak_memory_stats()
+            remat.OFFLOADED.update(tensors=0, bytes=0)
+            loss, t, counts = timed_steps(step, x, y, 1)
+            losses, ms, per_step = losses + loss, ms + t, per_step + counts
+        peak = torch.cuda.max_memory_allocated()
+        want = expect(per_step[0], policy_launches(flavor, policy))
+        if any(c != want for c in per_step) or not np.all(np.isfinite(losses)):
+            raise AssertionError(f"memory {flavor} {policy}: expected {want} launches a step, got {per_step}; "
+                                 f"losses {losses}")
+        state = {"losses": torch.tensor(losses)}
+        for name, p in model.named_parameters():
+            state[f"param {name}"], state[f"grad {name}"] = p.detach().cpu(), p.grad.cpu()
+        if ref is None:
+            ref = state
+        differ = [k for k in ref if not torch.equal(ref[k], state[k])]
+        if differ:
+            raise AssertionError(f"memory {flavor} {policy}: not bit-identical to {policies[0]} "
+                                 f"({len(differ)} tensors differ, e.g. {differ[:3]})")
+        runs[policy] = {"losses": losses, "step_ms": ms[1:] if steps > 1 else ms, "peak_gib": peak / 2**30,
+                        "peak_bytes": peak, "resident_gib": resident / 2**30,
+                        "offloaded_host_bytes": remat.OFFLOADED["bytes"],
+                        "offloaded_tensors": remat.OFFLOADED["tensors"], "per_step": per_step[-1],
+                        "bit_identical_to": policies[0], "wall_s": time.perf_counter() - t0}
+        del step, state
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(initial[name])
+            p.grad = None
+    return runs, iface
+
+
+def phase_memory(graph, source, dev) -> dict:
+    """The memory policies of a train step (item 20 of the module's list)."""
+    from anemoi_models_tpu_torch.training import estimate_step_bytes, resolve_remat_policy, train_run
+
+    out: dict = {}
+    timing = {}
+    t0 = time.perf_counter()
+    gt, gt_iface = policy_runs(graph, dev, memory_config("graphtransformer", 1024, 16), "graphtransformer",
+                               MEMORY_POLICIES, MEMORY_STEPS, 1e-5)
+    out["graphtransformer C=1024 H=16"] = gt
+    timing["graphtransformer"] = time.perf_counter() - t0
+    if not (gt["save_dots"]["peak_bytes"] < gt["none"]["peak_bytes"]
+            and gt["cpu_offload"]["peak_bytes"] < gt["none"]["peak_bytes"]):
+        raise AssertionError(f"GT C=1024 peaks: save_dots {gt['save_dots']['peak_gib']:.3f}, cpu_offload "
+                             f"{gt['cpu_offload']['peak_gib']:.3f} GiB not below none {gt['none']['peak_gib']:.3f}")
+
+    # remat_policy="auto" on the same GT step: the estimate against the "none" run's measured peak
+    t0 = time.perf_counter()
+    model = gt_iface.model
+    set_memory_policy(model, "none")
+    opt = make_optimizer(model.parameters(), 1e-5, warmup_steps=1, total_steps=100)
+    n_grid, di = graph["data"].num_nodes, gt_iface.data_indices
+    shapes = ((1, 2, 1, n_grid, len(di.internal_model.input)), (1, 1, n_grid, len(di.internal_model.output)))
+    resident = _free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    estimate = estimate_step_bytes(model, opt, *shapes)
+    counting_peak = torch.cuda.max_memory_allocated()
+    msgs: list = []
+    at_card = resolve_remat_policy(model, opt, *shapes, log=msgs.append)
+    at_1kib = resolve_remat_policy(model, opt, *shapes, limit_bytes=1 << 10, log=msgs.append)
+    measured = gt["none"]["peak_bytes"]
+    auto = {"estimate_bytes": estimate, "estimate_gib": estimate / 2**30, "none_peak_gib": measured / 2**30,
+            "estimate_over_none_peak": estimate / measured, "counting_forward_peak_gib": counting_peak / 2**30,
+            "resident_gib": resident / 2**30, "card_budget_gib": torch.cuda.mem_get_info(dev)[1] / 2**30,
+            "at_card_budget": at_card, "at_1_KiB": at_1kib, "log": msgs}
+    del gt_iface, model, opt
+    if at_card != "none" or at_1kib != "full":
+        raise AssertionError(f"remat auto: {at_card!r} at the card's budget, {at_1kib!r} at 1 KiB ({msgs})")
+    if estimate < 0.85 * measured:
+        raise AssertionError(f"remat auto: estimate {estimate / 2**30:.3f} GiB is under 0.85x the measured "
+                             f"'none' peak {measured / 2**30:.3f} GiB")
+    _free_device_memory()
+    run_log: list = []
+    # the variant phase_train_run trains: the curriculum's 2 lead times, 2 members, CRPS, EMA
+    run = train_run(source, forcing=TRAIN_RUN_FORCING, mesh_refinements=5,
+                    model_kwargs=dict(FLAGSHIP_KWARGS, remat_policy="auto"), steps=2, batch_size=1, seed=0,
+                    rollout_schedule=[(0, 1), (1, 2)], ensemble=2, loss="crps", ema_decay=0.999, log_every=1,
+                    log=run_log.append, device=dev, handle_signals=False)
+    said = [m for m in run_log if m.startswith("remat auto:")]
+    kept = sorted({chunk.remat_policy for chunk in run["model"].processor.proc})
+    if len(said) != 1 or not said[0].endswith("-> none") or kept != ["none"] or \
+            len(run["losses"]) != 2 or not np.all(np.isfinite(run["losses"])):
+        raise AssertionError(f"train_run(remat_policy='auto'): {said}, chunks {kept}, losses {run['losses']}")
+    auto["train_run"] = {"log": said, "chunks": kept, "losses": run["losses"], "step_ms": run["step_ms"]}
+    del run
+    out["auto"] = auto
+    timing["auto"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    out["gnn C=1024"], _ = policy_runs(graph, dev, memory_config("gnn", 1024, 4), "gnn", MEMORY_POLICIES,
+                                       MEMORY_STEPS, 1e-5)
+    timing["gnn"] = time.perf_counter() - t0
+    # the Transformer with attention dropout: the recompute and the host copies give the masks of "full"
+    t0 = time.perf_counter()
+    cfg = memory_config("transformer", 256, 4)
+    cfg.model.processor.dropout_p = 0.1
+    out["transformer C=256 dropout 0.1"], _ = policy_runs(graph, dev, cfg, "transformer",
+                                                          ("full", "save_dots", "cpu_offload"), 1, 1e-5, dropout=True)
+    timing["transformer dropout"] = time.perf_counter() - t0
+    # the flagship GT at O320 / r6 under "full" and cpu_offload
+    t0 = time.perf_counter()
+    o320 = build_enc_proc_dec_graph(**O320_GRAPH)
+    graph_s = time.perf_counter() - t0
+    runs, _ = policy_runs(o320, dev, memory_config("graphtransformer", 256, 4), "graphtransformer",
+                          ("full", "cpu_offload"), 2, 1e-5)
+    out["graphtransformer O320 C=256"] = {"graph_s": graph_s, "grid": o320["data"].num_nodes,
+                                          "hidden": o320["hidden"].num_nodes, **runs}
+    del o320
+    timing["o320"] = time.perf_counter() - t0
+    _free_device_memory()
+    out["phase_s"] = timing
+    return out
 
 
 def phase_dropout(source, dev) -> tuple[dict, dict]:
@@ -2367,6 +2581,10 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f} s")
     train["train_run"] = phase_train_run(source, dev)
     print(f"card: {name_power} train_run", json.dumps(train["train_run"]))
+    # the memory policies: remat "full", "save_dots", "none", cpu_offload and "auto" at the production width
+    t0 = time.perf_counter()
+    memory = phase_memory(graph, source, dev)
+    print(f"card: {name_power} memory ({time.perf_counter() - t0:.1f} s)", json.dumps(memory))
     # ZeRO-1 and FSDP: the flagship's train_run in two gloo ranks on this card against the unsharded run
     fsdp = phase_fsdp(source, dev)
     for mode in FSDP_MODES:

@@ -5,6 +5,7 @@ card, and the timing helpers chip_smoke.py shares.
     python3 kernel_turns.py PARENT_ROOT . --kernels fwd,bwd
     python3 kernel_turns.py --worker ROOT [--kernels ...]  # one turn: JSON of ROOT's kernels
     python3 kernel_turns.py PARENT_ROOT . --requests       # the GNN request and train step at C = 1024
+    python3 kernel_turns.py PARENT_ROOT . --steps          # the GraphTransformer's train steps
 
 Each turn is its own process that imports ``anemoi_models_tpu_torch`` from
 its root (so each builds its own kernels into ``ROOT/build``) and times, at
@@ -41,7 +42,12 @@ width (O96, C = 1024, bf16: the layered route) through ROOT's own
 ``chip_smoke.phase_serving`` (three timed ``predict_step`` requests and a
 profiled one) and ``chip_smoke.phase_train`` (two timed steps after a
 warm-up at lr 1e-5, and a profiled one), and reports for each the ms, the
-device's busy ms and the device time by kind.
+device's busy ms and the device time by kind. With ``--steps`` each turn
+trains the GraphTransformer through ROOT's ``chip_smoke.phase_train``: the
+O96 flagship (C = 256, 4 heads) under remat "full" (three timed steps after
+a warm-up) and "none" (one after a warm-up), and the production width (C =
+1024, 16 heads, lr 1e-5) under "full", with the ms, peak memory and
+launches of a step of each.
 
 Device ms come from CUDA events around launches queued behind a
 ``torch.cuda._sleep`` that outlasts the host's enqueue, so they bracket
@@ -331,6 +337,30 @@ def _request_worker(root: str) -> dict:
             "train_peak_mem_gib": train["peak_mem_gib"]}
 
 
+def _steps_worker(root: str) -> dict:
+    """The GraphTransformer's train steps of ROOT's checkout, through its
+    chip_smoke: the flagship under "full" and "none", and C = 1024."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import torch
+
+    import chip_smoke as cs
+    from anemoi_models_tpu_torch.graphs import build_enc_proc_dec_graph
+    from anemoi_models_tpu_torch.ops.kernels import load_kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    load_kernels()
+    graph = build_enc_proc_dec_graph(grid_lat=96, mesh_refinements=5, grid="octahedral")
+    dev = torch.device("cuda", 0)
+    flagship, _ = cs.phase_train(graph, dev, None, "graphtransformer")
+    wide, _ = cs.phase_train(graph, dev, None, "graphtransformer", remat_none=False, channels=1024, heads=16, lr=1e-5)
+    return {"package": root, "flagship_step_ms": flagship["step_ms"], "flagship_peak_mem_gib": flagship["peak_mem_gib"],
+            "flagship_per_step": flagship["per_step"], "flagship_none_step_ms": flagship["remat_none"]["step_ms"],
+            "flagship_none_peak_mem_gib": flagship["remat_none"]["peak_mem_gib"],
+            "flagship_none_per_step": flagship["remat_none"]["per_step"], "wide_step_ms": wide["step_ms"],
+            "wide_peak_mem_gib": wide["peak_mem_gib"], "wide_per_step": wide["per_step"]}
+
+
 def _which(args: list) -> tuple:
     if "--kernels" not in args:
         return KERNELS
@@ -344,21 +374,24 @@ def main() -> None:
     args = sys.argv[1:]
     which = _which(args)
     requests = "--requests" in args
+    steps = "--steps" in args
     if args[:1] == ["--worker"]:
-        print("turn", json.dumps(_request_worker(args[1]) if requests else _worker(args[1], which)), flush=True)
+        turn = _request_worker(args[1]) if requests else _steps_worker(args[1]) if steps else _worker(args[1], which)
+        print("turn", json.dumps(turn), flush=True)
         return
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("kernel_turns: no CUDA card")
     roots = [a for i, a in enumerate(args)
-             if a not in ("--kernels", "--requests") and (i == 0 or args[i - 1] != "--kernels")]
+             if a not in ("--kernels", "--requests", "--steps") and (i == 0 or args[i - 1] != "--kernels")]
     if len(roots) != 2:
-        raise SystemExit("usage: kernel_turns.py PARENT_ROOT ROOT [--kernels kv,gnn,fwd,bwd,flash | --requests]")
+        raise SystemExit("usage: kernel_turns.py PARENT_ROOT ROOT [--kernels kv,gnn,fwd,bwd,flash | --requests | "
+                         "--steps]")
     print("card:", card(), flush=True)
     turns = []
     for root in (roots[0], roots[1], roots[1], roots[0]):
-        mode = ["--requests"] if requests else ["--kernels", ",".join(which)]
+        mode = ["--requests"] if requests else ["--steps"] if steps else ["--kernels", ",".join(which)]
         run = subprocess.run([sys.executable, __file__, "--worker", root, *mode], timeout=900, capture_output=True,
                              text=True)
         print(run.stdout, end="", flush=True)
@@ -366,7 +399,7 @@ def main() -> None:
             print(run.stderr, end="", file=sys.stderr)
             raise SystemExit(f"kernel_turns: the turn of {root} failed ({run.returncode})")
         turns.append(next(json.loads(line[5:]) for line in run.stdout.splitlines() if line.startswith("turn ")))
-    if requests:
+    if requests or steps:
         return
     # the parent's and this checkout's outputs, per kernel, shape and output: bit for bit alike or not
     same = {}

@@ -10,6 +10,7 @@ only: a spawned child imports it by name to find its target.
 
 from __future__ import annotations
 
+import copy
 import datetime
 import os
 import socket
@@ -234,7 +235,9 @@ def model_task(rank: int, world: int, spec: dict) -> dict:
     from the unsharded model's checkpoint, one sharded train step (its loss,
     the reduced gradients and the updated parameters) and a 2-step sharded
     rollout train step's loss; with ``spec["negative"]``, the
-    GraphTransformer's step again without the reduction of the gradients."""
+    GraphTransformer's step again without the reduction of the gradients;
+    with ``spec["save_dots"]``, its step again under ``remat_policy``
+    "save_dots", with the calls of each mapper's block counted."""
     from anemoi_models_tpu_torch.checkpoint import load_checkpoint
     from anemoi_models_tpu_torch.utils.config import DotDict, instantiate
 
@@ -249,8 +252,8 @@ def model_task(rank: int, world: int, spec: dict) -> dict:
     for flavor, fs in spec["flavors"].items():
         di = IndexCollection(fs["cfg"], spec["name_to_index"])
 
-        def build():
-            net = instantiate(DotDict(fs["cfg"]).model.model, model_config=fs["cfg"], data_indices=di,
+        def build(cfg=fs["cfg"]):
+            net = instantiate(DotDict(cfg).model.model, model_config=cfg, data_indices=di,
                               graph_data=graph, device="cpu")
             net.load_state_dict(load_checkpoint(fs["checkpoint"])["params"], strict=True)
             return net
@@ -275,6 +278,18 @@ def model_task(rank: int, world: int, spec: dict) -> dict:
                 res["negative_grads"] = {k: p.grad.numpy().copy() for k, p in net.named_parameters()}
                 opt.step()
                 res["negative_params"] = {k: p.detach().numpy().copy() for k, p in net.named_parameters()}
+            if spec.get("save_dots") and flavor == "graphtransformer":
+                cfg = copy.deepcopy(fs["cfg"])
+                cfg["model"]["processor"]["remat_policy"] = "save_dots"
+                net = build(cfg)
+                calls = {"encoder": 0, "decoder": 0}
+                for part in calls:
+                    getattr(net, part).proc.register_forward_pre_hook(
+                        lambda *_, part=part: calls.__setitem__(part, calls[part] + 1))
+                opt = AdamW(net.parameters(), lambda count: spec["lr"], clip_norm=32.0)
+                res["save_dots_loss"] = float(make_train_step(net, opt, WeightedMSELoss(node_weights))(x, y))
+                res["save_dots_grads"] = {k: p.grad.numpy().copy() for k, p in net.named_parameters()}
+                res["mapper_block_calls"] = calls
         out[flavor] = res
     if "halo_gnn" in spec:
         out["halo_gnn"] = _halo_gnn(mesh, spec["halo_gnn"], graph)

@@ -683,8 +683,9 @@ def test_rollout_launches_on_card(dev, graph):
 @pytest.mark.parametrize("remat_policy", ["full", "none"])
 def test_model_gradients_on_card_match_cpu(dev, graph, remat_policy):
     """Every parameter's gradient of the MSE loss, kernels on the card against
-    the plain versions on the CPU, fp32; with "full" the two processor chunks
-    are recomputed in the backward (2 more forward launches of each kernel)."""
+    the plain versions on the CPU, fp32; the two mapper blocks are recomputed
+    in the backward under every policy (2 more forward launches of each
+    kernel), and with "full" the two processor chunks too (2 more)."""
     from anemoi_models_tpu_torch.training import weighted_mse
 
     cpu, card = _interfaces(graph, remat_policy)
@@ -696,7 +697,7 @@ def test_model_gradients_on_card_match_cpu(dev, graph, remat_policy):
     before = dict(ea.LAUNCHES)
     weighted_mse(card.model(x.to(dev)), y.to(dev)).backward()
     torch.cuda.synchronize()
-    recompute = 2 if remat_policy == "full" else 0
+    recompute = 2 + (2 if remat_policy == "full" else 0)
     assert {k: ea.LAUNCHES[k] - before[k] for k in before} == {
         "kv_proj": 4 + recompute, "edge_attn_csr": 4 + recompute, "edge_attn_csr_bwd": 4,
     }
@@ -748,7 +749,8 @@ def test_flavor_model_on_card_matches_cpu(dev, graph, flavor):
     """The GNN and Transformer flavors (C=64, 2 layers, fp32): forward and
     every parameter's gradient, kernels on the card against the plain
     versions on the CPU, and the new kernel launched on the path (with the
-    two processor chunks recomputed in the backward)."""
+    two processor chunks recomputed in the backward, and the GNN's two
+    mapper blocks)."""
     from anemoi_models_tpu_torch.training import weighted_mse
 
     cpu, card = _flavor_interfaces(graph, flavor)
@@ -766,10 +768,77 @@ def test_flavor_model_on_card_matches_cpu(dev, graph, flavor):
     before = table[name]
     weighted_mse(card.model(x.to(dev)), y.to(dev)).backward()
     torch.cuda.synchronize()
-    assert table[name] == before + n_fwd + 2  # the two processor layers again under remat "full"
+    # the two processor layers again under remat "full", and the GNN mappers' convs
+    assert table[name] == before + n_fwd + 2 + (2 if flavor == "gnn" else 0)
     card_grads = dict(card.model.named_parameters())
     for pname, p in cpu.model.named_parameters():
         assert _normwise(card_grads[pname].grad.cpu(), p.grad) <= BWD_TOL, pname
+
+
+# each policy's forward launches of the flavor's kernel in a step of the reduced models (2 processor
+# layers in 2 chunks, 2 mappers): the mappers' blocks again under every remat policy, the chunks under
+# "full" and "save_dots" (the kernels are not 2-D products, so "save_dots" recomputes them), nothing
+# again under cpu_offload
+POLICY_LAUNCHES = {
+    "graphtransformer": {"full": {"kv_proj": 8, "edge_attn_csr": 8}, "save_dots": {"kv_proj": 8, "edge_attn_csr": 8},
+                         "none": {"kv_proj": 6, "edge_attn_csr": 6}, "cpu_offload": {"kv_proj": 4, "edge_attn_csr": 4}},
+    "gnn": {"full": {"gnn_conv": 8}, "save_dots": {"gnn_conv": 8}, "none": {"gnn_conv": 6},
+            "cpu_offload": {"gnn_conv": 4}},
+    "transformer": {"full": {"flash_attention": 4, "kv_proj": 4}, "save_dots": {"flash_attention": 4, "kv_proj": 4},
+                    "none": {"flash_attention": 2, "kv_proj": 4},
+                    "cpu_offload": {"flash_attention": 2, "kv_proj": 2}},
+}
+
+
+def _set_policy(model, policy):
+    """The model's processor chunks under ``policy``, or every remat unit
+    under cpu_offload."""
+    for module in model.modules():
+        if hasattr(module, "cpu_offload"):
+            module.cpu_offload = policy == "cpu_offload"
+        if hasattr(module, "remat_policy"):
+            module.remat_policy = "full" if policy == "cpu_offload" else policy
+
+
+@pytest.mark.parametrize("flavor,batch", [("graphtransformer", 1), ("graphtransformer", 2), ("gnn", 1),
+                                          ("transformer", 1)])
+def test_memory_policies_on_card(dev, graph, flavor, batch):
+    """The four memory policies on the card (remat "full", "save_dots",
+    "none" and cpu_offload on every unit), fp32: the loss and every
+    gradient bit-identical to "full"'s and within the backward's normwise
+    1e-4 of the CPU's; each policy's launches of the flavor's kernels
+    (``POLICY_LAUNCHES``). At batch 2 the expanded edge tensors and the
+    transposed weights come back from the host under cpu_offload."""
+    from anemoi_models_tpu_torch.layers import remat
+    from anemoi_models_tpu_torch.training import weighted_mse
+
+    cpu, card = _interfaces(graph) if flavor == "graphtransformer" else _flavor_interfaces(graph, flavor)
+    card.to(dev)
+    gen = torch.Generator().manual_seed(17)
+    x = torch.randn(batch, 2, 1, graph["data"].num_nodes, 4, generator=gen)
+    y = torch.randn(batch, 1, graph["data"].num_nodes, 4, generator=gen)
+    weighted_mse(cpu.model(x), y).backward()
+    tables = (ea.LAUNCHES, gc.LAUNCHES, fa.LAUNCHES)
+    runs = {}
+    for policy in ("full", "save_dots", "none", "cpu_offload"):
+        _set_policy(card.model, policy)
+        card.model.zero_grad(set_to_none=True)
+        before = {k: v for t in tables for k, v in t.items()}
+        remat.OFFLOADED.update(tensors=0, bytes=0)
+        loss = weighted_mse(card.model(x.to(dev)), y.to(dev))
+        loss.backward()
+        torch.cuda.synchronize()
+        counts = {k: v - before[k] for t in tables for k, v in t.items()}
+        want = POLICY_LAUNCHES[flavor][policy]
+        assert {k: counts[k] for k in want} == want, policy
+        assert (remat.OFFLOADED["bytes"] > 0) == (policy == "cpu_offload"), policy
+        runs[policy] = (loss.item(), {n: p.grad.clone() for n, p in card.model.named_parameters()})
+    for policy, (loss, grads) in runs.items():
+        assert loss == runs["full"][0], policy
+        for name, g in runs["full"][1].items():
+            assert torch.equal(grads[name], g), f"{policy}: {name}"
+    for name, p in cpu.model.named_parameters():
+        assert _normwise(runs["full"][1][name].cpu(), p.grad) <= BWD_TOL, name
 
 
 # ---------------------------------------------------------------------------

@@ -81,6 +81,19 @@ def test_train_run_matches_jax(jax_run):
     np.testing.assert_allclose(g_eval["rmse"], ref, rtol=0, atol=2e-5 * max(1.0, float(np.abs(ref).mean())))
 
 
+def test_remat_auto_run_matches_jax(jax_run):
+    """``remat_policy="auto"``: the CPU has no memory budget, so it resolves
+    to "full" (logged), as the JAX package's does there, and the run gives
+    the JAX run's losses (the JAX run trains under "full")."""
+    want, kept = jax_run
+    msgs = []
+    got = train_run(_source(), steps=3, eval_every=3, eval_rollout=2, init_from=os.path.join(kept["ck1"], "latest"),
+                    **dict(PORT, model_kwargs=dict(TINY["model_kwargs"], remat_policy="auto"), log=msgs.append))
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=6e-4)
+    assert "remat auto: unknown device memory budget; using 'full'" in msgs
+    assert [chunk.remat_policy for chunk in got["model"].processor.proc] == ["full"]
+
+
 def _key_bias(name: str, value: np.ndarray) -> slice | None:
     """The key columns of an attention bias (``lin_kv``: [k | v];
     ``lin_qkvs``: [q | k | v | s]). A key bias shifts every logit of a

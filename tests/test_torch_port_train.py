@@ -351,13 +351,19 @@ def test_many_edge_attributes_match_jax(graph):
 
 
 def test_remat_full_and_none_give_equal_gradients(graph, model_setup):
+    """Every memory policy gives the same loss and gradients bit for bit:
+    remat "full", "save_dots" and "none", and cpu_offload on every mapper
+    and the processor."""
     di, x, y, params = model_setup
-    runs = [_port_grads(_port_model(_configs(remat_policy=p), di, graph, params), x, y) for p in ("full", "none")]
-    assert runs[0][0] == runs[1][0]
-    for name, g in runs[0][1].items():
-        torch.testing.assert_close(g, runs[1][1][name], rtol=0, atol=0, msg=name)
-    with pytest.raises(NotImplementedError, match="save_dots"):
-        _port_model(_configs(remat_policy="save_dots"), di, graph, params)
+    cfgs = [_configs(remat_policy=p) for p in ("full", "save_dots", "none")]
+    cfgs.append(_configs())
+    for part in ("encoder", "processor", "decoder"):
+        cfgs[-1].model[part].cpu_offload = True
+    runs = [_port_grads(_port_model(cfg, di, graph, params), x, y) for cfg in cfgs]
+    for run in runs[1:]:
+        assert run[0] == runs[0][0]
+        for name, g in runs[0][1].items():
+            torch.testing.assert_close(run[1][name], g, rtol=0, atol=0, msg=name)
 
 
 @pytest.mark.parametrize("clip_norm", [32.0, 0.05], ids=["no-clip", "clip"])
