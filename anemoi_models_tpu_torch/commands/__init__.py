@@ -1,11 +1,11 @@
 """The port's command line: ``python -m anemoi_models_tpu_torch <command>``.
 
 Counterpart of ``anemoi_models_tpu/commands/``: an argparse registry with
-``train``, ``predict``, ``evaluate``, ``info``, ``hello`` and
+``train``, ``predict``, ``evaluate``, ``bench``, ``info``, ``hello`` and
 ``train-demo``, each taking the JAX package's arguments plus ``--device``
 (the card unless it names another; ``--device cpu`` runs the kernels' plain
-versions). ``bench`` waits for the port's benchmark and ``plan`` (the TPU
-kernel planner) is not ported. ``train --data-parallel N`` runs under a
+versions). ``bench`` prints bench.py's JSON line of grid points/s, timed on
+the card; ``plan`` (the TPU kernel planner) is not ported. ``train --data-parallel N`` runs under a
 launcher (``torchrun``), one process a rank.
 """
 
@@ -31,7 +31,7 @@ def add_device_argument(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--device", default="cuda", help="torch device to run on (default: the card)")
 
 
-from anemoi_models_tpu_torch.commands import evaluate, hello, info, predict, train, train_demo  # noqa: E402,F401
+from anemoi_models_tpu_torch.commands import bench, evaluate, hello, info, predict, train, train_demo  # noqa: E402,F401
 
 
 def main(argv=None) -> int:

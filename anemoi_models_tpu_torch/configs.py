@@ -12,6 +12,11 @@ AIFS-class GraphTransformer recipe (reference
 ``models/encoder_processor_decoder.py`` + GraphTransformer mappers and
 processor, C=1024, 16 layers at production scale — scaled down by default
 so the presets run anywhere).
+
+:func:`flagship` and :func:`flagship_hierarchical` are the models of the
+JAX package's benchmark (``__graft_entry__._build`` and
+``_build_hierarchical``), which the port's ``bench`` command and
+``chip_smoke.py`` both build.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ from typing import Optional, Sequence
 
 from anemoi_models_tpu_torch.utils import DotDict
 
-__all__ = ["enc_proc_dec", "hierarchical", "FLAVORS"]
+__all__ = ["enc_proc_dec", "flagship", "flagship_hierarchical", "hierarchical", "FLAVORS"]
 
 FLAVORS = ("graphtransformer", "gnn", "transformer")
 
@@ -158,3 +163,61 @@ def hierarchical(
     cfg.model.enable_hierarchical_level_processing = enable_level_processing
     cfg.model.level_process_num_layers = level_process_num_layers
     return cfg
+
+
+def flagship(num_channels: int, num_layers: int, num_chunks: int, dtype: str, remat_policy: str = "full",
+             flavor: str = "graphtransformer", num_heads: int = 4, mlp_extra_layers: int = 0) -> DotDict:
+    """The flagship config of the JAX package's entry point
+    (``__graft_entry__._build``), written for the port, over the variables
+    ``lsm`` (forcing), ``z_500``, ``t_850``, ``q_700``, ``t2m`` and ``tp``
+    (diagnostic): 8 trainable node and 4 trainable edge features, mean-std
+    normalisation; ``num_heads`` for the GraphTransformer's mappers and
+    processor (the Transformer's processor has 4 heads and a window of
+    512), ``mlp_extra_layers`` for the GNN's MLPs."""
+    edges = {"trainable_size": 4, "sub_graph_edge_attributes": ["edge_length", "edge_dirs"]}
+    if flavor == "gnn":
+        edges["mlp_extra_layers"] = mlp_extra_layers
+    mapper = {**edges, "num_heads": num_heads} if flavor != "gnn" else edges
+    prefix = "GNN" if flavor == "gnn" else "GraphTransformer"
+    processor = {
+        "graphtransformer": {"_target_": _PROCESSOR["graphtransformer"], "graph_impl": "pallas", **mapper},
+        "gnn": {"_target_": _PROCESSOR["gnn"], **edges},
+        "transformer": {"_target_": _PROCESSOR["transformer"], "num_heads": 4, "window_size": 512, "dropout_p": 0.0},
+    }[flavor]
+    return DotDict({
+        "data": {
+            "forcing": ["lsm"],
+            "diagnostic": ["tp"],
+            "processors": {
+                "normalizer": {
+                    "_target_": "anemoi.models.preprocessing.normalizer.InputNormalizer",
+                    "config": {"default": "mean-std"},
+                },
+            },
+        },
+        "graph": {"data": "data", "hidden": "hidden"},
+        "training": {"multistep_input": 2},
+        "model": {
+            "num_channels": num_channels,
+            "compute_dtype": dtype,
+            "trainable_parameters": {"hidden": 8},
+            "model": {"_target_": "anemoi.models.models.encoder_processor_decoder.AnemoiModelEncProcDec"},
+            "encoder": {"_target_": f"anemoi.models.layers.mapper.{prefix}ForwardMapper", **mapper},
+            "processor": {"num_layers": num_layers, "num_chunks": num_chunks, "remat_policy": remat_policy,
+                          **processor},
+            "decoder": {"_target_": f"anemoi.models.layers.mapper.{prefix}BackwardMapper", **mapper},
+        },
+    })
+
+
+def flagship_hierarchical(hidden_names: Sequence[str], channels: int = 256, heads: int = 4, dtype: str = "bfloat16",
+                          num_layers: int = 8, remat_policy: str = "full") -> DotDict:
+    """The hierarchical model of the JAX package's benchmark
+    (``__graft_entry__._build_hierarchical``) over :func:`flagship`'s
+    variables: ``heads`` heads, level processors of 2 layers in one chunk,
+    8 trainable node and 4 trainable edge features."""
+    return hierarchical(
+        forcing=["lsm"], diagnostic=["tp"], hidden_names=hidden_names, num_channels=channels, num_layers=num_layers,
+        num_chunks=1, num_heads=heads, trainable_hidden=8, trainable_edges=4, level_process_num_layers=2,
+        remat_policy=remat_policy, compute_dtype=dtype,
+    )

@@ -27,6 +27,7 @@ __all__ = [
     "latlon_grid_nodes",
     "octahedral_grid_nodes",
     "icosahedral_nodes",
+    "morton_order",
     "rcm_order",
     "reorder_nodes",
     "knn_edges",
@@ -103,6 +104,28 @@ def octahedral_grid_nodes(resolution: int) -> NodeSet:
     w = np.concatenate(weights)
     w = w / w.mean()
     return NodeSet(coords=coords, attrs={"area_weight": w[:, None].astype(np.float32)})
+
+
+def morton_order(coords: np.ndarray, bits: int = 16) -> np.ndarray:
+    """Spatial (Morton / Z-curve) ordering permutation of (lat, lon) nodes:
+    the nodes sorted by the interleaved bits of their quantised latitude and
+    longitude, so that a node's neighbours sit near it in index space. The
+    graphs here order the mesh by :func:`rcm_order`, whose source spans are
+    tighter; this is the alternative a caller can pass to
+    :func:`reorder_nodes`."""
+    lat = ((coords[:, 0] + np.pi / 2) / np.pi * ((1 << bits) - 1)).astype(np.uint64)
+    lon = ((coords[:, 1] + np.pi) / (2 * np.pi) * ((1 << bits) - 1)).astype(np.uint64)
+
+    def spread(v: np.ndarray) -> np.ndarray:
+        v = v & np.uint64(0xFFFF)
+        v = (v | (v << np.uint64(8))) & np.uint64(0x00FF00FF)
+        v = (v | (v << np.uint64(4))) & np.uint64(0x0F0F0F0F)
+        v = (v | (v << np.uint64(2))) & np.uint64(0x33333333)
+        v = (v | (v << np.uint64(1))) & np.uint64(0x55555555)
+        return v
+
+    key = (spread(lat) << np.uint64(1)) | spread(lon)
+    return np.argsort(key, kind="stable")
 
 
 def rcm_order(edge_index: np.ndarray, num_nodes: int) -> np.ndarray:

@@ -5,7 +5,8 @@ anemoi-inference serving surface: the constructor (with the checkpoint's
 ``metadata``, ``supporting_arrays`` and a ``uuid4`` ``id``), ``to``,
 ``init_params``, ``load_params``, ``example_input``, ``forward``,
 ``fit_processors`` (a stateful processor's state, an imputer's NaN mask,
-from a sample batch), ``predict_step`` through the whole pipeline
+from a sample batch), ``predict_step`` through the whole pipeline (and
+``make_predict_fn``, its ``(params, batch)`` closure)
 (normalizer, imputers, remappers, then the model and its boundings), the
 multi-step forecast (``make_rollout_fn``,
 ``predict_rollout``) and checkpoints (``save``, ``load``,
@@ -109,16 +110,33 @@ class AnemoiModelInterface:
         self.pre_processors.fit(batch)
 
     @torch.inference_mode()
-    def predict_step(self, batch: torch.Tensor) -> torch.Tensor:
+    def predict_step(self, batch: torch.Tensor, params: Optional[Mapping[str, torch.Tensor]] = None) -> torch.Tensor:
         """Pre-process -> forward -> post-process one (batch, time, grid, vars)
-        batch, at the model-input or the data variable width."""
+        batch, at the model-input or the data variable width. ``params``
+        (name -> tensor, as ``model.named_parameters()`` names them) replace
+        the model's own for this call (``torch.func.functional_call``)."""
         if batch.dim() != 4:
             raise ValueError(
                 f"predict_step expects a (batch, time, grid, vars) 4-D tensor; received shape {tuple(batch.shape)}"
             )
         batch = self.pre_processors(batch, in_place=False)
         x = batch[:, 0 : self.multi_step, None, ...]  # add the ensemble dim
-        return self.post_processors(self.model(x), in_place=False)
+        y = self.model(x) if params is None else torch.func.functional_call(self.model, dict(params), (x,))
+        return self.post_processors(y, in_place=False)
+
+    def make_predict_fn(self, donate: bool = False):
+        """Return a ``(params, batch) -> prediction`` closure: :meth:`predict_step`
+        with ``params`` (name -> tensor) in place of the model's own, under
+        ``torch.no_grad()``. Stateful processors are fitted first
+        (:meth:`fit_processors`). ``donate`` (the JAX package's buffer
+        donation to XLA) is accepted and has no effect in eager PyTorch."""
+        del donate
+
+        def fn(params: Mapping[str, torch.Tensor], batch: torch.Tensor) -> torch.Tensor:
+            with torch.no_grad():
+                return self.predict_step(batch, params=params)
+
+        return fn
 
     def make_rollout_fn(self, n_steps: int):
         """``training.make_rollout_fn`` bound to this interface's model."""

@@ -46,7 +46,8 @@ package leaves it to XLA.
 
 Each wrapper takes the plain version for a tensor on the CPU, launches its
 kernel for a CUDA tensor or raises, and counts its launches in
-:data:`LAUNCHES`.
+:data:`LAUNCHES`; on either route it records its call's operations with
+:func:`~anemoi_models_tpu_torch.ops.cost.record`.
 """
 
 from __future__ import annotations
@@ -58,6 +59,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from anemoi_models_tpu_torch.ops import cost
 from anemoi_models_tpu_torch.ops.segment import segment_max, segment_sum
 
 __all__ = [
@@ -280,8 +282,14 @@ def kv_proj(f: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     dtype (the default) or, for bf16 operands, fp32. The bf16 GEMM reads
     16-byte rows, so a K or N that is not a multiple of 8 is padded with zero
     columns here (zero terms add nothing; the extra outputs are dropped)."""
+    cost.record("kv_proj", lambda: cost.kv_proj_flops(f.shape[0], f.shape[-1], w.shape[0]))
     if _on_cpu(f, w, b):
-        return kv_proj_plain(f, w, b, out_dtype)
+        with cost.plain():
+            return kv_proj_plain(f, w, b, out_dtype)
+    return _kv_proj_launch(f, w, b, out_dtype)
+
+
+def _kv_proj_launch(f: torch.Tensor, w: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype | None) -> torch.Tensor:
     out_dtype = out_dtype or f.dtype
     _require(f.dtype in _DTYPES and w.dtype == f.dtype, f"f, w must share fp32|bf16, got {f.dtype}, {w.dtype}")
     _require(out_dtype in (f.dtype, torch.float32), f"out_dtype must be {f.dtype} or fp32, got {out_dtype}")
@@ -295,7 +303,7 @@ def kv_proj(f: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         kp, np_ = -(-k // 8) * 8, -(-n // 8) * 8
         f = torch.nn.functional.pad(f, (0, kp - k))
         w = torch.nn.functional.pad(w, (0, kp - k, 0, np_ - n))
-        return kv_proj(f, w, torch.nn.functional.pad(b, (0, np_ - n)), out_dtype)[:, :n].contiguous()
+        return _kv_proj_launch(f, w, torch.nn.functional.pad(b, (0, np_ - n)), out_dtype)[:, :n].contiguous()
     if f.dtype == torch.bfloat16:
         _require(f.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0, "kv_proj in bf16 needs 16-byte aligned rows")
     out = torch.empty((m, n), dtype=out_dtype, device=f.device)
@@ -402,8 +410,11 @@ def edge_attn_csr(
     """Attention partials over a CSR edge list (see :func:`edge_attn_csr_plain`
     for the shapes). q, kv, a and w_aug share the compute dtype (fp32 or
     bf16); num, den and m are fp32."""
+    cost.record("edge_attn_csr", lambda: cost.edge_attn_flops(
+        q.shape[0] // (rowptr.numel() - 1), src.numel(), rowptr.numel() - 1, q.shape[1], num_heads, a.shape[1]))
     if _on_cpu(q, kv, rowptr, src, a, w_aug):
-        return edge_attn_csr_plain(q, kv, rowptr, src, a, w_aug, num_heads)
+        with cost.plain():
+            return edge_attn_csr_plain(q, kv, rowptr, src, a, w_aug, num_heads)
     dt = q.dtype
     _require(dt in _DTYPES, f"compute dtype must be fp32 or bf16, got {dt}")
     _require(all(t.dtype == dt for t in (kv, a, w_aug)), "q, kv, a, w_aug must share one dtype")
@@ -477,8 +488,11 @@ def edge_attn_csr_bwd(
     (see :func:`edge_attn_csr_bwd_plain` for the shapes): ``(dq, dkv, da,
     dw_aug)``, fp32. ``csr_t`` is the edge list's :class:`CSRTranspose` on
     the same device."""
+    cost.record("edge_attn_csr_bwd", lambda: cost.edge_attn_bwd_flops(
+        q.shape[0] // (rowptr.numel() - 1), src.numel(), rowptr.numel() - 1, q.shape[1], num_heads, a.shape[1]))
     if _on_cpu(q, kv, rowptr, src, a, w_aug, m, g_num, g_den):
-        return edge_attn_csr_bwd_plain(q, kv, rowptr, src, a, w_aug, m, g_num, g_den, num_heads)
+        with cost.plain():
+            return edge_attn_csr_bwd_plain(q, kv, rowptr, src, a, w_aug, m, g_num, g_den, num_heads)
     dt = q.dtype
     _require(dt in _DTYPES, f"compute dtype must be fp32 or bf16, got {dt}")
     _require(all(t.dtype == dt for t in (kv, a, w_aug)), "q, kv, a, w_aug must share one dtype")

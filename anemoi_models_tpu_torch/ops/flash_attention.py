@@ -53,6 +53,7 @@ from typing import Optional
 
 import torch
 
+from anemoi_models_tpu_torch.ops import cost
 from anemoi_models_tpu_torch.ops.edge_attention import _check_launch, _on_cpu, _require
 
 __all__ = [
@@ -246,10 +247,14 @@ def flash_attention(
     the rows in a longer sequence (see the module's docstring)."""
     if dropout_rate > 0.0 and dropout_key is None:
         raise ValueError("attention dropout_rate > 0 needs a dropout_key")
+    cost.record("flash_attention", lambda: cost.flash_flops(
+        q.shape[0] * q.shape[1], live_pairs(q.shape[2], window_size, is_causal, k.shape[2], q_offset, k_offset, n_valid),
+        q.shape[3]))
     if _on_cpu(q, k, v):
-        return blockwise_attention(q, k, v, window_size=window_size, is_causal=is_causal,
-                                   dropout_rate=dropout_rate, dropout_key=dropout_key, q_offset=q_offset,
-                                   k_offset=k_offset, n_valid=n_valid)
+        with cost.plain():
+            return blockwise_attention(q, k, v, window_size=window_size, is_causal=is_causal,
+                                       dropout_rate=dropout_rate, dropout_key=dropout_key, q_offset=q_offset,
+                                       k_offset=k_offset, n_valid=n_valid)
     _require(q.dtype in _DTYPES and k.dtype == q.dtype and v.dtype == q.dtype,
              f"q, k, v must share fp32 or bf16, got {q.dtype}, {k.dtype}, {v.dtype}")
     _require(q.dim() == 4 and k.dim() == 4 and v.shape == k.shape and k.shape[:2] == q.shape[:2]

@@ -55,6 +55,7 @@ from typing import Sequence
 import torch
 
 from anemoi_models_tpu_torch.layers.utils import get_activation
+from anemoi_models_tpu_torch.ops import cost
 from anemoi_models_tpu_torch.ops.edge_attention import _check_launch, _on_cpu, _require, _require_contiguous
 
 __all__ = ["GNNConv", "LAUNCHES", "LAYERED_CHUNK", "aggregate", "gnn_conv", "gnn_conv_plain", "gnn_prepass",
@@ -177,8 +178,13 @@ def gnn_conv(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`gnn_conv_plain`'s function; on the card every operand shares
     the compute dtype (fp32 or bf16) and is contiguous."""
+    n_dense = (len(ops) - 2) // 2
+    fused = e.shape[-1] in _FUSED_WIDTHS and n_dense == 3  # _gnn_route's choice, which the card checks below
+    cost.record("gnn_conv" if fused else "gnn_conv_layered", lambda: cost.gnn_conv_flops(
+        e.shape[0], src.numel(), rowptr.numel() - 1, x_src.shape[1], e.shape[-1], n_dense))
     if _on_cpu(x_dst, x_src, e, rowptr, src, *ops):
-        return gnn_conv_plain(x_dst, x_src, e, rowptr, src, ops, activation)
+        with cost.plain():
+            return gnn_conv_plain(x_dst, x_src, e, rowptr, src, ops, activation)
     code = _ACT_CODES.get(activation.lower())
     if code is None:
         raise NotImplementedError(f"the GNN conv kernels have no activation {activation!r}; they take {sorted(_ACT_CODES)}")

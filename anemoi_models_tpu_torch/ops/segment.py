@@ -10,7 +10,12 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["segment_sum", "segment_max", "segment_softmax"]
+__all__ = ["segment_sum", "segment_max", "segment_softmax", "gather_nodes"]
+
+
+def gather_nodes(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Gather node features per edge: x (B, N, C), idx (E,) -> (B, E, C)."""
+    return x.index_select(-2, idx.long())
 
 
 def _expand(segment_ids: torch.Tensor, data: torch.Tensor) -> torch.Tensor:

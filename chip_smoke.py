@@ -178,7 +178,15 @@ Builds the port's CUDA kernels from ``anemoi_models_tpu_torch/csrc``, then:
     at 1 KiB) and ``train_run(remat_policy="auto")`` for 2 steps on the O96
     record (2 lead times, 2 members, CRPS, EMA: the variant it estimates);
     and the GT at C = 256 on O320 / r6 (421,120 points) for 2 steps
-    under "full" and cpu_offload, with its peak memory.
+    under "full" and cpu_offload, with its peak memory;
+21. the ``bench`` command's function (``phase_bench``): each flavor's O96
+    flagship and the hierarchical model, forward and train, at bench.py's
+    defaults (C = 256, 8 layers, bf16, batch 1, remat "full"), 3 windows of
+    10 calls by CUDA events, each printing bench.py's JSON line with
+    ``mfu_frac`` (in (0, 1.05]), the kernels' calls a call (the FLOP
+    count's) equal to the requests' and steps' launches above; the FLOP
+    count of a reduced model of each flavor the same on the card and on the
+    CPU route; the bench's forward bit for bit ``predict_step``'s model call.
 
 Prints the card's name and power limit, each kernel's registers and spills
 from the compiler's report (``ptxas``), per-phase numbers, each wrapper's
@@ -213,9 +221,12 @@ import torch.multiprocessing as mp
 
 from anemoi_models_tpu_torch import configs
 from anemoi_models_tpu_torch.checkpoint import load_checkpoint
+from anemoi_models_tpu_torch.commands import bench
+from anemoi_models_tpu_torch.commands.bench import NAME_TO_INDEX
 from anemoi_models_tpu_torch.data_indices import IndexCollection
 from anemoi_models_tpu_torch.graphs import build_enc_proc_dec_graph, build_hierarchical_graph
 from anemoi_models_tpu_torch.interface import AnemoiModelInterface
+from anemoi_models_tpu_torch.ops import cost
 from anemoi_models_tpu_torch.ops import edge_attention as ea
 from anemoi_models_tpu_torch.ops import flash_attention as fa
 from anemoi_models_tpu_torch.ops import gnn_conv as gc
@@ -299,12 +310,8 @@ A2_ATTN = tuple(("processor", ("hidden", "hidden"), 256, 4, a2 - 4) for a2 in (8
 ROLLOUT_STEPS = 4  # lead times of the rollout phase
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 BWD_TOL = 1e-4
-NAME_TO_INDEX = {"lsm": 0, "z_500": 1, "t_850": 2, "q_700": 3, "t2m": 4, "tp": 5}
 EDGE_ATTRS = ["edge_length", "edge_dirs"]
 TRAINABLE_EDGES = 4
-# published H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, FLOP/s
-HBM_BPS = 3.35e12
-PEAK_FLOPS = {"bf16 tensor": 989e12, "fp32": 67e12}
 # device kernels of a profiled step, grouped by what they do (first match)
 PROFILE_KINDS = [
     ("edge_attn_csr_bwd (4 phases)", ("bwd_dst_kernel", "bwd_src_kernel", "dw_parts_kernel", "dw_reduce_kernel")),
@@ -331,7 +338,7 @@ PROFILE_KINDS = [
 def bound(nbytes: float, flops: float, peak: str) -> dict:
     """The least time the card could take: max(bytes / HBM rate, operations
     / peak rate for their type), in ms, and which of the two binds."""
-    by_bytes, by_ops = nbytes / HBM_BPS * 1e3, flops / PEAK_FLOPS[peak] * 1e3
+    by_bytes, by_ops = nbytes / cost.HBM_BPS * 1e3, flops / cost.PEAK_FLOPS[peak] * 1e3
     return {"bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "bytes": nbytes, "flops": flops, "peak": peak}
 
@@ -416,51 +423,6 @@ def normwise_err(got, want, what: str, tol: float = BWD_TOL) -> float:
     return err
 
 
-def model_config(num_channels: int, num_layers: int, num_chunks: int, dtype: str,
-                 remat_policy: str = "full", flavor: str = "graphtransformer", num_heads: int = 4,
-                 mlp_extra_layers: int = 0) -> DotDict:
-    """The flagship config of the JAX package's entry point
-    (``__graft_entry__._build``), written for the port; ``num_heads`` for
-    the GraphTransformer's mappers and processor, ``mlp_extra_layers`` for
-    the GNN's MLPs."""
-    edges = {"trainable_size": TRAINABLE_EDGES, "sub_graph_edge_attributes": EDGE_ATTRS}
-    if flavor == "gnn":
-        edges["mlp_extra_layers"] = mlp_extra_layers
-    mapper = {**edges, "num_heads": num_heads} if flavor != "gnn" else edges
-    prefix = "GNN" if flavor == "gnn" else "GraphTransformer"
-    processor = {
-        "graphtransformer": {"_target_": "anemoi.models.layers.processor.GraphTransformerProcessor",
-                             "graph_impl": "pallas", **mapper},
-        "gnn": {"_target_": "anemoi.models.layers.processor.GNNProcessor", **edges},
-        "transformer": {"_target_": "anemoi.models.layers.processor.TransformerProcessor",
-                        "num_heads": 4, "window_size": 512, "dropout_p": 0.0},
-    }[flavor]
-    return DotDict({
-        "data": {
-            "forcing": ["lsm"],
-            "diagnostic": ["tp"],
-            "processors": {
-                "normalizer": {
-                    "_target_": "anemoi.models.preprocessing.normalizer.InputNormalizer",
-                    "config": {"default": "mean-std"},
-                },
-            },
-        },
-        "graph": {"data": "data", "hidden": "hidden"},
-        "training": {"multistep_input": 2},
-        "model": {
-            "num_channels": num_channels,
-            "compute_dtype": dtype,
-            "trainable_parameters": {"hidden": 8},
-            "model": {"_target_": "anemoi.models.models.encoder_processor_decoder.AnemoiModelEncProcDec"},
-            "encoder": {"_target_": f"anemoi.models.layers.mapper.{prefix}ForwardMapper", **mapper},
-            "processor": {"num_layers": num_layers, "num_chunks": num_chunks, "remat_policy": remat_policy,
-                          **processor},
-            "decoder": {"_target_": f"anemoi.models.layers.mapper.{prefix}BackwardMapper", **mapper},
-        },
-    })
-
-
 def statistics(seed: int, n: int = len(NAME_TO_INDEX)) -> dict:
     rng = np.random.RandomState(seed)
     return {
@@ -542,10 +504,10 @@ def attn_bounds(case: dict, c: int, h: int, dtype: torch.dtype) -> tuple[dict, d
     itemsize = torch.finfo(dtype).bits // 8
     peak = "bf16 tensor" if dtype == torch.bfloat16 else "fp32"
     fwd_in = (nd * c + ns * 2 * c + e * a2 + a2 * c) * itemsize + (nd + 1 + e) * 4
-    fwd = bound(fwd_in + (nd * c + 2 * nd * h) * 4, e * (4 * c + 4 * a2 * h) + nd * 4 * a2 * c, peak)
+    fwd = bound(fwd_in + (nd * c + 2 * nd * h) * 4, cost.edge_attn_flops(1, e, nd, c, h, a2), peak)
     bwd_in = fwd_in + (nd * h + nd * c + nd * h) * 4 + (e + ns + 1 + e) * 4
     bwd_out = (nd * c + ns * 2 * c + e * a2 + a2 * c) * 4
-    bwd = bound(bwd_in + bwd_out, e * (10 * c + 12 * a2 * h) + nd * 10 * a2 * c, peak)
+    bwd = bound(bwd_in + bwd_out, cost.edge_attn_bwd_flops(1, e, nd, c, h, a2), peak)
     return fwd, bwd
 
 
@@ -583,7 +545,7 @@ def phase_kernels(graph, dev) -> tuple[dict, list]:
             nbytes = (f.numel() + w.numel() + got.numel()) * f.element_size() + b.numel() * 4
             peak = "bf16 tensor" if dt == torch.bfloat16 else "fp32"
             b_dt = b.to(dt)
-            extra = {**bound(nbytes, 2.0 * m * 2 * c * c, peak), "bit_identical": True,
+            extra = {**bound(nbytes, cost.kv_proj_flops(m, c, 2 * c), peak), "bit_identical": True,
                      "library_ms": cuda_ms(lambda: torch.addmm(b_dt, f, w.t())),
                      "host_us": host_us(lambda: ea.kv_proj(f, w, b))}
             record("kv_proj", f"{label} {m}x{c} . {c}x{2 * c}", dt, err,
@@ -704,8 +666,7 @@ def gnn_bound(case: dict, c: int, dtype: torch.dtype) -> dict:
     rows = nd + (0 if case["self_graph"] else ns)
     nbytes = (b * rows * c + 2 * b * e * c + (n_dense + 2) * c * c + (n_dense + 2) * c) * itemsize \
         + b * nd * c * 4 + (nd + 1 + e) * 4
-    flops = b * (2 * c * c * (nd + ns) + 2 * c * c * n_dense * e)
-    return bound(nbytes, flops, "bf16 tensor" if dtype == torch.bfloat16 else "fp32")
+    return bound(nbytes, cost.gnn_conv_flops(b, e, nd, ns, c, n_dense), "bf16 tensor" if dtype == torch.bfloat16 else "fp32")
 
 
 def gnn_check(case: dict, dt: torch.dtype, what: str) -> tuple[tuple, tuple, dict]:
@@ -892,7 +853,7 @@ def phase_flash_kernels(dev, n0: int = 10242, w0: int = 512) -> tuple[dict, list
             if not torch.equal(got, again):
                 raise AssertionError(f"flash_attention {shape} {dt}: two calls differ (not run-to-run deterministic)")
             err = max_err(got, want, TOL[dt], f"flash_attention {shape} {dt}")
-            flops = 4.0 * h * fa.live_pairs(n, window, causal) * d
+            flops = cost.flash_flops(h, fa.live_pairs(n, window, causal), d)
             nbytes = 4 * h * n * d * qkv.element_size()
             row = {"kernel": "flash_attention", "shape": shape, "dtype": str(dt).split(".")[-1], "max_abs_err": err,
                    "bit_identical": True,
@@ -973,7 +934,7 @@ def flash_offset_cases(dev, n0: int = 10242, w0: int = 512) -> list:
             nbytes = (2 * (q1 - q0) + 2 * k.shape[2]) * h * d * qkv.element_size()
             row.update(ms=cuda_ms(lambda: fa.flash_attention(q, k, v, *args)),
                        plain_ms=cuda_ms(lambda: fa.blockwise_attention(q, k, v, **kw), iters=3, warmup=1),
-                       **bound(nbytes, 4.0 * h * pairs * d, "bf16 tensor" if dt == torch.bfloat16 else "fp32"),
+                       **bound(nbytes, cost.flash_flops(h, pairs, d), "bf16 tensor" if dt == torch.bfloat16 else "fp32"),
                        library_ms=None if rate else cuda_ms(lambda: F.scaled_dot_product_attention(
                            q, k, v, attn_mask=mask), iters=5, warmup=1))
             rows.append(row)
@@ -991,7 +952,7 @@ def phase_reduced_model(graph, dev, flavor: str = "graphtransformer", channels: 
     ``pipeline_batch`` the processors are fitted on it on both devices and
     ``predict_step`` through the whole pipeline is compared too (the same
     NaN positions, the values at the forward's bound)."""
-    cfg = cfg or model_config(num_channels=channels, num_layers=2, num_chunks=1, dtype="float32", flavor=flavor,
+    cfg = cfg or configs.flagship(num_channels=channels, num_layers=2, num_chunks=1, dtype="float32", flavor=flavor,
                               num_heads=heads, mlp_extra_layers=mlp_extra_layers)
     kernel = kernel or FLAVOR_KERNEL[flavor]
     cpu = interface(graph, cfg, "cpu", seed=1, name_to_index=name_to_index, stats=stats)
@@ -1048,7 +1009,7 @@ def phase_serving(graph, dev, flavor: str = "graphtransformer", profile_dir: str
     """Flagship bf16 serving through predict_step (or the same model at
     another width, or ``cfg``'s model: ``flavor`` then labels it); per-request
     launch counts (``expected``: the flavor's EXPECTED by default)."""
-    cfg = cfg or model_config(num_channels=channels, num_layers=8, num_chunks=2, dtype="bfloat16", flavor=flavor,
+    cfg = cfg or configs.flagship(num_channels=channels, num_layers=8, num_chunks=2, dtype="bfloat16", flavor=flavor,
                               num_heads=heads)
     iface = interface(graph, cfg, dev, seed=3)
     n_grid = graph["data"].num_nodes
@@ -1116,7 +1077,7 @@ def phase_train(graph, dev, profile_dir: str | None, flavor: str = "graphtransfo
     ``must_fall``); ``steps`` includes the warm-up; launches per step as
     ``expected`` (the flavor's EXPECTED by default). Returns the numbers and
     the trained interface."""
-    cfg = cfg or model_config(num_channels=channels, num_layers=8, num_chunks=2, dtype="bfloat16",
+    cfg = cfg or configs.flagship(num_channels=channels, num_layers=8, num_chunks=2, dtype="bfloat16",
                               remat_policy="full", flavor=flavor, num_heads=heads)
     iface = interface(graph, cfg, dev, seed=4)
     model = iface.model
@@ -1161,7 +1122,7 @@ def phase_rollout(graph, dev, profile_dir: str | None = None) -> dict:
     forcings, one warm-up and three timed calls; ROLLOUT_STEPS times the
     request's launches per call, finite outputs, and the first lead time
     equal to ``predict_step`` on the same batch bit for bit."""
-    cfg = model_config(num_channels=256, num_layers=8, num_chunks=2, dtype="bfloat16")
+    cfg = configs.flagship(num_channels=256, num_layers=8, num_chunks=2, dtype="bfloat16")
     iface = interface(graph, cfg, dev, seed=3)
     di, stats = iface.data_indices, iface.statistics
     n_grid, n_out = graph["data"].num_nodes, len(di.data.output.full)
@@ -1208,7 +1169,7 @@ def phase_rollout_train(graph, dev, profile_dir: str | None = None, n_steps: int
     (``make_rollout_train_step``, ``n_steps`` lead times, remat "full"): one
     warm-up and three steps on one seeded batch; finite losses, the last
     below the first, ``n_steps`` times a train step's launches per step."""
-    cfg = model_config(num_channels=256, num_layers=8, num_chunks=2, dtype="bfloat16", remat_policy="full")
+    cfg = configs.flagship(num_channels=256, num_layers=8, num_chunks=2, dtype="bfloat16", remat_policy="full")
     iface = interface(graph, cfg, dev, seed=4)
     di, model = iface.data_indices, iface.model
     n_grid = graph["data"].num_nodes
@@ -1275,7 +1236,7 @@ def phase_determinism(graph, dev, flavor: str) -> dict:
     and every parameter and AdamW moment compared bit for bit. Returns
     whether all are identical, the first leaf that differs and the largest
     difference."""
-    cfg = model_config(num_channels=256, num_layers=8, num_chunks=2, dtype="bfloat16", remat_policy="full",
+    cfg = configs.flagship(num_channels=256, num_layers=8, num_chunks=2, dtype="bfloat16", remat_policy="full",
                        flavor=flavor)
     runs = []
     for _ in range(2):
@@ -1349,18 +1310,6 @@ def phase_attn_widths(graph, dev, cases) -> list:
     return rows
 
 
-def hier_config(hidden_names: list, channels: int = 256, heads: int = 4, dtype: str = "bfloat16") -> DotDict:
-    """bench.py's hierarchical model (``BENCH_MODEL=hierarchical``) as
-    ``__graft_entry__._build_hierarchical`` builds it, through the port's
-    ``configs.hierarchical``: 4 heads, level processors of 2 layers in one
-    chunk, 8 trainable node and 4 trainable edge features, remat "full"."""
-    return configs.hierarchical(
-        forcing=["lsm"], diagnostic=["tp"], hidden_names=hidden_names, num_channels=channels, num_layers=8,
-        num_chunks=1, num_heads=heads, trainable_hidden=8, trainable_edges=4, level_process_num_layers=2,
-        remat_policy="full", compute_dtype=dtype,
-    )
-
-
 def busy_share(profile: dict, call_ms: list) -> list:
     """The device's busy share of each timed call: the profiled call's
     device busy ms over the call's ms by CUDA events, without the profiler."""
@@ -1375,7 +1324,7 @@ def phase_hierarchical(hgraph, names: list, dev, profile_dir: str) -> tuple[dict
     after a warm-up of each, finite outputs and losses, falling losses,
     EXPECTED["hierarchical"] launches per request and step, peak memory, and
     a profiled request and step for the busy share."""
-    cfg = hier_config(names)
+    cfg = configs.flagship_hierarchical(names)
     serving = phase_serving(hgraph, dev, "hierarchical", cfg=cfg, expected=EXPECTED["hierarchical"][0])
     train, trained = phase_train(hgraph, dev, None, "hierarchical", remat_none=False, lr=1e-5,
                                  expected=EXPECTED["hierarchical"][1], cfg=cfg)
@@ -1402,7 +1351,7 @@ def aifs_config(channels: int = 256, num_layers: int = 8, num_chunks: int = 2, d
     the sst's land points with its mean, a Remapper (Monomapper: log1p on tp
     and cp, as the JAX package's tests/preprocessing configure it) and the
     four boundings in config order."""
-    cfg = model_config(num_channels=channels, num_layers=num_layers, num_chunks=num_chunks, dtype=dtype)
+    cfg = configs.flagship(num_channels=channels, num_layers=num_layers, num_chunks=num_chunks, dtype=dtype)
     cfg.data.diagnostic = ["t2m"]
     cfg.data.processors = {
         "normalizer": {"_target_": "anemoi.models.preprocessing.normalizer.InputNormalizer",
@@ -1713,7 +1662,7 @@ O320_GRAPH = dict(grid_lat=320, mesh_refinements=6, grid="octahedral")
 
 def memory_config(flavor: str, channels: int, heads: int) -> DotDict:
     """The O96 flagship config of ``flavor`` at ``channels``."""
-    return model_config(num_channels=channels, num_layers=8, num_chunks=2, dtype="bfloat16", flavor=flavor,
+    return configs.flagship(num_channels=channels, num_layers=8, num_chunks=2, dtype="bfloat16", flavor=flavor,
                         num_heads=heads)
 
 
@@ -1934,7 +1883,7 @@ def phase_dropout(source, dev) -> tuple[dict, dict]:
             raise AssertionError(f"flash_attention dropout {dt}: repeats differ or another key gives the same output")
         if not torch.equal(fa.flash_attention(q, k, v, w, False, 0.0, key), fa.flash_attention(q, k, v, w)):
             raise AssertionError(f"flash_attention {dt}: p = 0 does not keep the dropout-free bits")
-        flops = 4.0 * h * fa.live_pairs(n, w, False) * d
+        flops = cost.flash_flops(h, fa.live_pairs(n, w, False), d)
         rows.append({"kernel": "flash_attention", "shape": f"B*H={h} N={n} D={d} w={w} dropout={p}",
                      "dtype": str(dt).split(".")[-1], "max_abs_err": err, "bit_identical": True,
                      "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, w, False, p, key)),
@@ -2002,7 +1951,7 @@ def phase_head_widths(graph, hgraph, small_graph, dev) -> tuple[list, list, dict
                           "dtype": str(dt).split(".")[-1], "max_abs_err": err, "bit_identical": True,
                           "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, w)),
                           "plain_ms": cuda_ms(lambda: fa.blockwise_attention(q, k, v, window_size=w), iters=3, warmup=1),
-                          **bound(4 * h * n * d * qkv.element_size(), 4.0 * h * fa.live_pairs(n, w, False) * d,
+                          **bound(4 * h * n * d * qkv.element_size(), cost.flash_flops(h, fa.live_pairs(n, w, False), d),
                                   "bf16 tensor" if dt == torch.bfloat16 else "fp32")})
             del want
     reduced = {
@@ -2011,7 +1960,7 @@ def phase_head_widths(graph, hgraph, small_graph, dev) -> tuple[list, list, dict
     }
     serving, train = {}, {}
     for flavor, heads in (("graphtransformer", 2), ("transformer", 4)):
-        cfg = model_config(num_channels=1024, num_layers=8, num_chunks=2, dtype="bfloat16", flavor=flavor,
+        cfg = configs.flagship(num_channels=1024, num_layers=8, num_chunks=2, dtype="bfloat16", flavor=flavor,
                            num_heads=heads)
         serving[flavor] = phase_serving(small_graph, dev, flavor, cfg=cfg)
         train[flavor], _ = phase_train(small_graph, dev, None, flavor, remat_none=False, lr=1e-5, cfg=cfg,
@@ -2062,6 +2011,72 @@ def phase_cli(dev) -> dict:
             "eval_rmse_mean": float(np.mean(scores["rmse"])), "launches": counts}
 
 
+BENCH_ITERS = 10  # calls a timed window of the bench, as its command's default
+BENCH_RUNS = tuple((flavor, mode) for flavor in (*FLAVOR_KERNEL, "hierarchical") for mode in ("forward", "train"))
+
+
+def phase_bench(dev, name_power: str) -> tuple[dict, dict]:
+    """The port's ``bench`` command's function (``commands/bench.py:run_bench``)
+    at full width, as ``python -m anemoi_models_tpu_torch bench`` runs it:
+    O96 / r5, C = 256, 8 layers, bf16, batch 1, remat "full", 3 windows of
+    BENCH_ITERS calls, for each flavor and the hierarchical model (r5 / r4 /
+    r3), forward and train. Each run prints bench.py's JSON line on a line
+    of its own. Checks: each call's kernel calls (the FLOP count's) are
+    EXPECTED's (the counts phase_serving and phase_train hold a request and
+    a step to), the run's launches are those times the calls it made,
+    ``mfu_frac`` lies in (0, 1.05]; a reduced model of each flavor (grid_lat
+    16, r3) counts the same FLOPs a call on the card and on the CPU route,
+    forward and train; and the model's output under the bench's call (no
+    grad, and inside the FLOP counter) is bit for bit the output of
+    ``predict_step``'s model call. Returns the launches of each run, by
+    path, for serving and train."""
+    serving, train = {}, {}
+    for flavor, mode in BENCH_RUNS:
+        t0 = time.perf_counter()
+        reset_launches()
+        which = {"model": "hierarchical"} if flavor == "hierarchical" else {"flavor": flavor}
+        line, details = bench.run_bench(iters=BENCH_ITERS, mode=mode, device=dev, **which)
+        counts = launches()
+        print(f"card: {name_power} bench {flavor} {mode} ({time.perf_counter() - t0:.1f} s)", json.dumps(details))
+        print(json.dumps(line))
+        per_call = expect(counts, EXPECTED[flavor][mode == "train"])
+        counted = expect(counts, {k: n for k, (n, _) in details["flops"]["kernels"].items()})
+        if counted != per_call or counts != {k: n * details["calls"] for k, n in per_call.items()}:
+            raise AssertionError(f"bench {flavor} {mode}: expected {per_call} launches a call over "
+                                 f"{details['calls']} calls, counted {counted}, launched {counts}")
+        if not 0.0 < line.get("mfu_frac", 0.0) <= bench.MFU_LIMIT:
+            raise AssertionError(f"bench {flavor} {mode}: mfu_frac {line.get('mfu_frac')} not in (0, 1.05]")
+        (train if mode == "train" else serving)[f"bench {flavor}"] = {"launches": counts}
+    flops = {}
+    for flavor in FLAVOR_KERNEL:
+        for mode in ("forward", "train"):
+            both = []
+            for device in (dev, torch.device("cpu")):
+                setup = bench.build(flavor=flavor, mode=mode, grid_lat=16, refinements=3, device=device)
+                count = bench.flop_count(bench.make_call(setup, mode), setup.x)
+                both.append({"aten": count.aten, "kernels": count.kernels})
+            if both[0] != both[1]:
+                raise AssertionError(f"bench {flavor} {mode}: FLOP count on the card {both[0]} != CPU route {both[1]}")
+            flops[f"{flavor} {mode}"] = both[0]
+    print("bench-flops card = cpu (grid_lat 16, r3)", json.dumps(flops))
+    small = build_enc_proc_dec_graph(grid_lat=16, mesh_refinements=3)
+    iface = interface(small, configs.flagship(256, 8, 2, "bfloat16"), dev, seed=3)
+    seen = {}
+    hook = iface.model.register_forward_hook(lambda _m, inp, out: seen.update(x=inp[0].clone(), y=out.clone()))
+    gen = torch.Generator(device=dev).manual_seed(7)
+    n_in = len(iface.data_indices.data.input.full)
+    iface.predict_step(torch.randn(1, 2, small["data"].num_nodes, n_in, generator=gen, device=dev))
+    hook.remove()
+    x = seen["x"].clone()  # out of inference mode
+    with torch.no_grad():
+        plain_call = iface.model(x)
+        with cost.FlopCount():
+            counted_call = iface.model(x)
+    if not (torch.equal(plain_call, seen["y"]) and torch.equal(counted_call, seen["y"])):
+        raise AssertionError("bench: the model's output under the bench's call differs from predict_step's")
+    return serving, train
+
+
 O96_GRAPH = dict(grid_lat=96, mesh_refinements=5, grid="octahedral")
 PARALLEL_WORLD = 2  # ranks of phase_parallel, data = 1, model = 2, sharing cuda:0
 PARALLEL_LR = 1e-4  # a constant learning rate, so the one step's update is not zero
@@ -2090,9 +2105,9 @@ def _parallel_setup(graphs: dict, dev, cell: str):
     kind, model, overrides, lr = PARALLEL_CELLS[cell]
     graph = graphs[kind]
     if model == "hierarchical":
-        cfg = hier_config([n for n in graph.nodes if n != "data"])
+        cfg = configs.flagship_hierarchical([n for n in graph.nodes if n != "data"])
     else:
-        cfg = model_config(num_channels=256, num_layers=8, num_chunks=2, dtype="bfloat16", remat_policy="full",
+        cfg = configs.flagship(num_channels=256, num_layers=8, num_chunks=2, dtype="bfloat16", remat_policy="full",
                            flavor=model)
         cfg.model.processor.update(overrides)
     iface = interface(graph, cfg, dev, seed=4)
@@ -2564,7 +2579,7 @@ def main() -> None:
     small_hgraph, small_hnames = build_hierarchical_graph(grid_lat=16, mesh_refinements=3, num_levels=3)
     for heads in (1, 4):
         print(f"reduced-model hierarchical C=64 H={heads}",
-              json.dumps(phase_reduced_model(small_hgraph, dev, cfg=hier_config(small_hnames, 64, heads, "float32"))))
+              json.dumps(phase_reduced_model(small_hgraph, dev, cfg=configs.flagship_hierarchical(small_hnames, 64, heads, "float32"))))
     profile_dir = args.profile or os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_profile")
     serving["hierarchical"], train["hierarchical"] = phase_hierarchical(hgraph, hnames, dev, profile_dir)
     print(f"card: {name_power} serving hierarchical", json.dumps(serving["hierarchical"]))
@@ -2609,6 +2624,12 @@ def main() -> None:
     # the command line in-process: train, predict, evaluate
     train["cli"] = phase_cli(dev)
     print(f"card: {name_power} cli", json.dumps(train["cli"]))
+    # the bench command's function at full width: each flavor and the hierarchical model, forward and train
+    t0 = time.perf_counter()
+    bench_serving, bench_train = phase_bench(dev, name_power)
+    serving.update(bench_serving)
+    train.update(bench_train)
+    print(f"phase_bench {time.perf_counter() - t0:.1f} s")
     # model parallelism: each flavor's flagship sharded over two gloo ranks on this card against unsharded
     parallel = phase_parallel(O96_GRAPH, hgraph, dev)
     for cell in PARALLEL_CELLS:
