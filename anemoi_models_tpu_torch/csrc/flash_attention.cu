@@ -92,6 +92,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"  // the band, Philox dropout
 #include "gemm_sm90.cuh"
 
 namespace {
@@ -99,93 +100,6 @@ namespace {
 using bf16 = __nv_bfloat16;
 constexpr float kNeg = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
-
-// attention-weight dropout: on (0 or 1), the keep threshold round((1 - p) 2^32), the Philox key and
-// 1 / (1 - p)
-struct Dropout {
-  int on;
-  uint32_t keep_below, k0, k1;
-  float rscale;
-};
-
-// which keys each query sees, in the key tensor's local indices: query i sits at key position i + delta
-// (delta = q_pos0 - k_pos0), and keys [jlo, jhi] are those at global positions [0, n_valid)
-struct Band {
-  int nq, nk;          // query and key rows
-  int delta;           // q_pos0 - k_pos0
-  int jlo, jhi;        // the valid keys
-  int window, causal;  // window < 0: none
-  int q_pos0, k_pos0;  // global positions of row 0 (the dropout counter's)
-  int off;             // any of the above off its single-sequence value, or k's strides not q's: the OFF kernels
-};
-
-Band make_band(int nq, int nk, int window, int causal, int q_pos0, int k_pos0, int n_valid, const int64_t qs[3],
-               const int64_t ks[3]) {
-  const int jlo = k_pos0 < 0 ? -k_pos0 : 0;
-  const int jend = n_valid - k_pos0 < nk ? n_valid - k_pos0 : nk;
-  const int off = q_pos0 != 0 || k_pos0 != 0 || nq != nk || n_valid != nk || qs[0] != ks[0] || qs[1] != ks[1] ||
-                  qs[2] != ks[2];
-  return Band{nq, nk, q_pos0 - k_pos0, jlo, jend - 1, window, causal, q_pos0, k_pos0, off};
-}
-
-// the band a kernel runs: without OFF, the single-sequence values (one length N), known at compile time
-template <bool OFF>
-__device__ __forceinline__ Band local_band(Band bd) {
-  if constexpr (!OFF) {
-    bd.delta = bd.jlo = bd.q_pos0 = bd.k_pos0 = 0;
-    bd.nk = bd.nq;
-    bd.jhi = bd.nq - 1;
-  }
-  return bd;
-}
-
-// [lo, hi]: the keys query rows [qa, qb] can see (hi < lo: none)
-__device__ __forceinline__ void key_range(const Band& bd, int qa, int qb, int& lo, int& hi) {
-  lo = bd.jlo;
-  hi = bd.jhi;
-  if (bd.window >= 0) {
-    lo = max(lo, qa + bd.delta - bd.window);
-    hi = min(hi, qb + bd.delta + bd.window);
-  }
-  if (bd.causal) hi = min(hi, qb + bd.delta);
-}
-
-// whether query row i sees key j: live (the pair in range) and in the band (window and causal mask)
-__device__ __forceinline__ bool in_band(const Band& bd, int i, int j, bool live) {
-  if (bd.window >= 0) live = live && abs(i + bd.delta - j) <= bd.window;
-  if (bd.causal) live = live && j <= i + bd.delta;
-  return live;
-}
-
-// whether key j is valid: without OFF, below N, the single-sequence kernels' test
-template <bool OFF>
-__device__ __forceinline__ bool valid_key(const Band& bd, int j) {
-  return OFF ? j >= bd.jlo && j <= bd.jhi : j < bd.nk;
-}
-
-// Philox4x32-10 (Salmon et al., SC 2011): ten rounds of two 32 x 32 -> 64-bit products, the key
-// bumped by the Weyl constants between rounds
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0, uint32_t k1) {
-#pragma unroll
-  for (int i = 0; i < 10; ++i) {
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
-    k0 += 0x9E3779B9u;
-    k1 += 0xBB67AE85u;
-  }
-  return c;
-}
-
-__device__ __forceinline__ uint32_t word(const uint4& u, int i) {
-  return i == 0 ? u.x : i == 1 ? u.y : i == 2 ? u.z : u.w;
-}
-
-// whether pair (i, j) of head bh survives
-__device__ __forceinline__ bool keep(const Dropout& dp, int bh, int i, int j) {
-  const uint4 u = philox4x32_10(make_uint4(static_cast<uint32_t>(j) >> 2, i, bh, 0), dp.k0, dp.k1);
-  return word(u, j & 3) < dp.keep_below;
-}
 
 // ---------------------------------------------------------------------------
 // bf16: wgmma + TMA
@@ -223,7 +137,7 @@ struct FlashMaps {
 template <int D, bool DROP, bool OFF>
 __global__ void __launch_bounds__(Flash<D>::kThreads, 1)
 flash_attn_bf16_kernel(const __grid_constant__ FlashMaps maps, bf16* __restrict__ o, int H, int64_t ob, int64_t oh,
-                       int64_t on, Band band, float scale, Dropout dp) {
+                       int64_t on, Band band, float scale, Dropout dp, float* __restrict__ lse) {
   using F = Flash<D>;
   const Band bd = local_band<OFF>(band);
   extern __shared__ uint8_t smem_raw[];
@@ -448,6 +362,9 @@ flash_attn_bf16_kernel(const __grid_constant__ FlashMaps maps, bf16* __restrict_
     lt += __shfl_xor_sync(0xffffffffu, lt, 2);
     inv[h] = 1.f / fmaxf(lt, 1e-30f);
     if constexpr (DROP) inv[h] *= dp.rscale;
+    const int row = rowa + 8 * h;  // the row statistics, where asked: one lane of the quad, one warpgroup at D = 512
+    if (lse != nullptr && lane % 4 == 0 && (!F::kSplit || wg == 0) && row < bd.nq)
+      lse[(int64_t)bh * bd.nq + row] = lt > 0.f ? m[h] * scale + logf(lt) : __int_as_float(0x7f800000);
   }
   bf16* out = o + (int64_t)bidx * ob + (int64_t)hidx * oh;
   const int orow = 16 * (t / 32) + lane / 4;
@@ -484,20 +401,20 @@ flash_attn_bf16_kernel(const __grid_constant__ FlashMaps maps, bf16* __restrict_
 // a kernel without dropout compiles none of its code
 template <int D, bool DROP, bool OFF>
 int launch_bf16_kernel(dim3 grid, const FlashMaps& maps, void* o, int H, int64_t ob, int64_t oh, int64_t on,
-                       const Band& bd, float scale, const Dropout& dp, cudaStream_t stream) {
+                       const Band& bd, float scale, const Dropout& dp, float* lse, cudaStream_t stream) {
   using F = Flash<D>;
   auto kernel = flash_attn_bf16_kernel<D, DROP, OFF>;
   static const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(F::kSmem));
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  kernel<<<grid, F::kThreads, F::kSmem, stream>>>(maps, static_cast<bf16*>(o), H, ob, oh, on, bd, scale, dp);
+  kernel<<<grid, F::kThreads, F::kSmem, stream>>>(maps, static_cast<bf16*>(o), H, ob, oh, on, bd, scale, dp, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch_flash_bf16(const void* q, const void* k, const void* v, void* o, int B, int H, const int64_t qs[3],
                       const int64_t ks[3], int64_t ob, int64_t oh, int64_t on, const Band& bd, float scale,
-                      const Dropout& dp, cudaStream_t stream) {
+                      const Dropout& dp, float* lse, cudaStream_t stream) {
   using F = Flash<D>;
   FlashMaps maps;
   const int64_t qdims[4] = {D, bd.nq, H, B};
@@ -510,10 +427,10 @@ int launch_flash_bf16(const void* q, const void* k, const void* v, void* o, int 
   if (rc != 0) return rc;
   const dim3 grid((bd.nq + F::kBM - 1) / F::kBM, B * H);
   if (dp.on)
-    return bd.off ? launch_bf16_kernel<D, true, true>(grid, maps, o, H, ob, oh, on, bd, scale, dp, stream)
-                  : launch_bf16_kernel<D, true, false>(grid, maps, o, H, ob, oh, on, bd, scale, dp, stream);
-  return bd.off ? launch_bf16_kernel<D, false, true>(grid, maps, o, H, ob, oh, on, bd, scale, dp, stream)
-                : launch_bf16_kernel<D, false, false>(grid, maps, o, H, ob, oh, on, bd, scale, dp, stream);
+    return bd.off ? launch_bf16_kernel<D, true, true>(grid, maps, o, H, ob, oh, on, bd, scale, dp, lse, stream)
+                  : launch_bf16_kernel<D, true, false>(grid, maps, o, H, ob, oh, on, bd, scale, dp, lse, stream);
+  return bd.off ? launch_bf16_kernel<D, false, true>(grid, maps, o, H, ob, oh, on, bd, scale, dp, lse, stream)
+                : launch_bf16_kernel<D, false, false>(grid, maps, o, H, ob, oh, on, bd, scale, dp, lse, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -551,7 +468,8 @@ template <int D, bool DROP, bool OFF>
 __global__ void __launch_bounds__(kF32Threads)
 flash_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                       float* __restrict__ o, int H, int64_t qb, int64_t qh, int64_t qn, int64_t kb_, int64_t kh,
-                      int64_t kn, int64_t ob, int64_t oh, int64_t on, Band band, float scale, Dropout dp) {
+                      int64_t kn, int64_t ob, int64_t oh, int64_t on, Band band, float scale, Dropout dp,
+                      float* __restrict__ lse) {
   using L = F32Layout<D>;
   const Band bd = local_band<OFF>(band);
   extern __shared__ __align__(128) unsigned char smem_f32[];
@@ -644,13 +562,14 @@ flash_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, 
     float* orow = o + out_off + (int64_t)qpos * on + half * (D / 2);
 #pragma unroll
     for (int c = 0; c < D / 2; ++c) orow[c] = acc[c] * inv;
+    if (lse != nullptr && half == 0) lse[(int64_t)bh * bd.nq + qpos] = l > 0.f ? m + logf(l) : __int_as_float(0x7f800000);
   }
 }
 
 template <int D>
 int launch_flash_f32(const void* q, const void* k, const void* v, void* o, int B, int H, const int64_t qs[3],
                      const int64_t ks[3], int64_t ob, int64_t oh, int64_t on, const Band& bd, float scale,
-                     const Dropout& dp, cudaStream_t stream) {
+                     const Dropout& dp, float* lse, cudaStream_t stream) {
   using L = F32Layout<D>;
   auto kernel = dp.on ? (bd.off ? flash_attn_f32_kernel<D, true, true> : flash_attn_f32_kernel<D, true, false>)
                       : (bd.off ? flash_attn_f32_kernel<D, false, true> : flash_attn_f32_kernel<D, false, false>);
@@ -660,7 +579,7 @@ int launch_flash_f32(const void* q, const void* k, const void* v, void* o, int B
   const dim3 grid((bd.nq + kF32BM - 1) / kF32BM, B * H);
   kernel<<<grid, kF32Threads, L::kBytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), H, qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], ob, oh, on, bd, scale, dp);
+      static_cast<float*>(o), H, qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], ob, oh, on, bd, scale, dp, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -680,7 +599,8 @@ template <typename T, int NV, int R, bool DROP, bool OFF>
 __global__ void __launch_bounds__(32 * kRowWarps)
 flash_attn_rows_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ o,
                        int H, int D, int64_t qb, int64_t qh, int64_t qn, int64_t kb, int64_t kh, int64_t kn,
-                       int64_t ob, int64_t oh, int64_t on, Band band, float scale, Dropout dp) {
+                       int64_t ob, int64_t oh, int64_t on, Band band, float scale, Dropout dp,
+                       float* __restrict__ lse) {
   const Band bd = local_band<OFF>(band);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -743,13 +663,14 @@ flash_attn_rows_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
       const int ch = lane + 32 * c;
       if (ch < D) store_f(o + out_off + (int64_t)(i0 + r) * on + ch, acc[r][c] * inv);
     }
+    if (lse != nullptr && lane == 0) lse[(int64_t)bh * bd.nq + i0 + r] = l[r] > 0.f ? m[r] + logf(l[r]) : __int_as_float(0x7f800000);
   }
 }
 
 template <typename T, int NV>
 int launch_rows(const void* q, const void* k, const void* v, void* o, int B, int H, int D, const int64_t qs[3],
                 const int64_t ks[3], int64_t ob, int64_t oh, int64_t on, const Band& bd, float scale,
-                const Dropout& dp, cudaStream_t stream) {
+                const Dropout& dp, float* lse, cudaStream_t stream) {
   constexpr int R = 64 / NV;  // rows a warp: 64 accumulators a lane
   const dim3 grid((bd.nq + kRowWarps * R - 1) / (kRowWarps * R), B * H);
   auto kernel = dp.on ? (bd.off ? flash_attn_rows_kernel<T, NV, R, true, true>
@@ -758,17 +679,17 @@ int launch_rows(const void* q, const void* k, const void* v, void* o, int B, int
                                 : flash_attn_rows_kernel<T, NV, R, false, false>);
   kernel<<<grid, 32 * kRowWarps, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(o), H, D, qs[0],
-      qs[1], qs[2], ks[0], ks[1], ks[2], ob, oh, on, bd, scale, dp);
+      qs[1], qs[2], ks[0], ks[1], ks[2], ob, oh, on, bd, scale, dp, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_rows_any(const void* q, const void* k, const void* v, void* o, int B, int H, int D, const int64_t qs[3],
                     const int64_t ks[3], int64_t ob, int64_t oh, int64_t on, const Band& bd, float scale,
-                    const Dropout& dp, cudaStream_t s) {
-  if (D <= 256) return launch_rows<T, 8>(q, k, v, o, B, H, D, qs, ks, ob, oh, on, bd, scale, dp, s);
-  if (D <= 512) return launch_rows<T, 16>(q, k, v, o, B, H, D, qs, ks, ob, oh, on, bd, scale, dp, s);
-  if (D <= 1024) return launch_rows<T, 32>(q, k, v, o, B, H, D, qs, ks, ob, oh, on, bd, scale, dp, s);
+                    const Dropout& dp, float* lse, cudaStream_t s) {
+  if (D <= 256) return launch_rows<T, 8>(q, k, v, o, B, H, D, qs, ks, ob, oh, on, bd, scale, dp, lse, s);
+  if (D <= 512) return launch_rows<T, 16>(q, k, v, o, B, H, D, qs, ks, ob, oh, on, bd, scale, dp, lse, s);
+  if (D <= 1024) return launch_rows<T, 32>(q, k, v, o, B, H, D, qs, ks, ob, oh, on, bd, scale, dp, lse, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -778,22 +699,25 @@ extern "C" {
 
 // q (B, H, Nq, D) and k, v (B, H, Nk, D) by their (batch, head, row) strides qs and ks (channels contiguous);
 // q_pos0, k_pos0: the global positions of q's and k's row 0; keys outside [0, n_valid) are masked; window < 0:
-// none. dropout: 0 or 1; keep_below = round((1 - p) 2^32); k0, k1: the Philox key; rscale = 1 / (1 - p)
+// none. dropout: 0 or 1; keep_below = round((1 - p) 2^32); k0, k1: the Philox key; rscale = 1 / (1 - p);
+// lse: null, or (B, H, Nq) fp32 for each row's log-sum-exp of its scaled logits (+inf for a row that sees no
+// key), which the backward (flash_attention_bwd.cu) recomputes P from; the output's bits do not depend on it
 int flash_attn_f32(const void* q, const void* k, const void* v, void* o, int B, int H, int Nq, int Nk, int D,
                    int64_t qsb, int64_t qsh, int64_t qsn, int64_t ksb, int64_t ksh, int64_t ksn, int64_t ob,
                    int64_t oh, int64_t on, int window, int causal, int q_pos0, int k_pos0, int n_valid, float scale,
-                   int dropout, uint32_t keep_below, uint32_t k0, uint32_t k1, float rscale, void* stream) {
+                   int dropout, uint32_t keep_below, uint32_t k0, uint32_t k1, float rscale, float* lse,
+                   void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout dp{dropout, keep_below, k0, k1, rscale};
   const int64_t qs[3] = {qsb, qsh, qsn}, ks[3] = {ksb, ksh, ksn};
   const Band bd = make_band(Nq, Nk, window, causal, q_pos0, k_pos0, n_valid, qs, ks);
   switch (D) {  // the wrapper pads every head width up to 128 to one of these
-    case 16: return launch_flash_f32<16>(q, k, v, o, B, H, qs, ks, ob, oh, on, bd, scale, dp, s);
-    case 32: return launch_flash_f32<32>(q, k, v, o, B, H, qs, ks, ob, oh, on, bd, scale, dp, s);
-    case 64: return launch_flash_f32<64>(q, k, v, o, B, H, qs, ks, ob, oh, on, bd, scale, dp, s);
-    case 128: return launch_flash_f32<128>(q, k, v, o, B, H, qs, ks, ob, oh, on, bd, scale, dp, s);
+    case 16: return launch_flash_f32<16>(q, k, v, o, B, H, qs, ks, ob, oh, on, bd, scale, dp, lse, s);
+    case 32: return launch_flash_f32<32>(q, k, v, o, B, H, qs, ks, ob, oh, on, bd, scale, dp, lse, s);
+    case 64: return launch_flash_f32<64>(q, k, v, o, B, H, qs, ks, ob, oh, on, bd, scale, dp, lse, s);
+    case 128: return launch_flash_f32<128>(q, k, v, o, B, H, qs, ks, ob, oh, on, bd, scale, dp, lse, s);
     default:
-      if (D > 128) return launch_rows_any<float>(q, k, v, o, B, H, D, qs, ks, ob, oh, on, bd, scale, dp, s);
+      if (D > 128) return launch_rows_any<float>(q, k, v, o, B, H, D, qs, ks, ob, oh, on, bd, scale, dp, lse, s);
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -801,20 +725,21 @@ int flash_attn_f32(const void* q, const void* k, const void* v, void* o, int B, 
 int flash_attn_bf16(const void* q, const void* k, const void* v, void* o, int B, int H, int Nq, int Nk, int D,
                     int64_t qsb, int64_t qsh, int64_t qsn, int64_t ksb, int64_t ksh, int64_t ksn, int64_t ob,
                     int64_t oh, int64_t on, int window, int causal, int q_pos0, int k_pos0, int n_valid, float scale,
-                    int dropout, uint32_t keep_below, uint32_t k0, uint32_t k1, float rscale, void* stream) {
+                    int dropout, uint32_t keep_below, uint32_t k0, uint32_t k1, float rscale, float* lse,
+                   void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout dp{dropout, keep_below, k0, k1, rscale};
   const int64_t qs[3] = {qsb, qsh, qsn}, ks[3] = {ksb, ksh, ksn};
   const Band bd = make_band(Nq, Nk, window, causal, q_pos0, k_pos0, n_valid, qs, ks);
   switch (D) {  // the wrapper pads every head width up to 512 to one of these
-    case 16: return launch_flash_bf16<16>(q, k, v, o, B, H, qs, ks, ob, oh, on, bd, scale, dp, s);
-    case 32: return launch_flash_bf16<32>(q, k, v, o, B, H, qs, ks, ob, oh, on, bd, scale, dp, s);
-    case 64: return launch_flash_bf16<64>(q, k, v, o, B, H, qs, ks, ob, oh, on, bd, scale, dp, s);
-    case 128: return launch_flash_bf16<128>(q, k, v, o, B, H, qs, ks, ob, oh, on, bd, scale, dp, s);
-    case 256: return launch_flash_bf16<256>(q, k, v, o, B, H, qs, ks, ob, oh, on, bd, scale, dp, s);
-    case 512: return launch_flash_bf16<512>(q, k, v, o, B, H, qs, ks, ob, oh, on, bd, scale, dp, s);
+    case 16: return launch_flash_bf16<16>(q, k, v, o, B, H, qs, ks, ob, oh, on, bd, scale, dp, lse, s);
+    case 32: return launch_flash_bf16<32>(q, k, v, o, B, H, qs, ks, ob, oh, on, bd, scale, dp, lse, s);
+    case 64: return launch_flash_bf16<64>(q, k, v, o, B, H, qs, ks, ob, oh, on, bd, scale, dp, lse, s);
+    case 128: return launch_flash_bf16<128>(q, k, v, o, B, H, qs, ks, ob, oh, on, bd, scale, dp, lse, s);
+    case 256: return launch_flash_bf16<256>(q, k, v, o, B, H, qs, ks, ob, oh, on, bd, scale, dp, lse, s);
+    case 512: return launch_flash_bf16<512>(q, k, v, o, B, H, qs, ks, ob, oh, on, bd, scale, dp, lse, s);
     default:
-      if (D > 512) return launch_rows_any<bf16>(q, k, v, o, B, H, D, qs, ks, ob, oh, on, bd, scale, dp, s);
+      if (D > 512) return launch_rows_any<bf16>(q, k, v, o, B, H, D, qs, ks, ob, oh, on, bd, scale, dp, lse, s);
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -49,8 +49,11 @@
 // ptxas allocates each arm at its own count (else it warns C7508 and ignores
 // setmaxnreg). Shared memory: a 192 KB ring + 2 x 1 KB of gather rows + the
 // mbarriers + 1 KB of alignment slack, under 200 KB of the 227 KB a block
-// may have. No split-K and no atomics: two calls are bit-identical; the tile
-// order fixes each output's K order.
+// may have. No atomics: two calls are bit-identical; the tile order fixes
+// each output's K order. A launch may cut one problem's K into `splits`
+// fixed ranges (gnn_conv_bwd.cu's weight gradients, K = a chunk's edge
+// rows): each range's tiles are tiles of their own, and the epilogue gets the
+// range's index as its problem index and stores a partial of its own.
 //
 // An epilogue type provides:
 //   static constexpr bool kGather;
@@ -100,9 +103,10 @@ struct WsProblem {
 };
 struct WsArgs {
   WsProblem p[2];
-  int tiles0;  // problem 0's tiles
+  int tiles0;  // problem 0's tiles (of every K range)
   int tiles;   // all tiles
-  int ktiles;
+  int ktiles;  // K tiles of a tile
+  int splits;  // K ranges of problem 0 (1: none)
 };
 
 // Encodes one problem's tensor maps: a (m, k) rows lda apart, b (n, k) rows ldb apart.
@@ -115,12 +119,15 @@ int set_ws_problem(WsProblem* pr, const void* a, int lda, const void* b, int ldb
   return rc;
 }
 
-// tile t -> (problem, m0, n0); the N tiles of a row block are consecutive
+// tile t -> (problem, K range, m0, n0); the N tiles of a row block are consecutive, a K range's tiles too
 template <int BN>
-__device__ __forceinline__ void ws_tile(const WsArgs& args, int t, int* prob, int* m0, int* n0) {
+__device__ __forceinline__ void ws_tile(const WsArgs& args, int t, int* prob, int* split, int* m0, int* n0) {
   const int pb = t < args.tiles0 ? 0 : 1;
-  const int local = pb == 0 ? t : t - args.tiles0;
+  int local = pb == 0 ? t : t - args.tiles0;
   const int nt = (args.p[pb].n + BN - 1) / BN;
+  const int per = args.tiles0 / args.splits;  // problem 0's tiles of one K range
+  *split = pb == 0 ? local / per : 0;
+  local -= *split * per;
   *prob = pb;
   *m0 = (local / nt) * kWsBM;
   *n0 = (local % nt) * BN;
@@ -176,10 +183,10 @@ ws_gemm_kernel(const __grid_constant__ WsArgs args, const __grid_constant__ Epi 
     if (warp == kWsConsumerWarps && lane == 0) {  // the producer: every TMA copy, in the consumers' order
       int p = 0;
       for (int t = blockIdx.x; t < args.tiles; t += G) {
-        int pb, m0, n0;
-        ws_tile<BN>(args, t, &pb, &m0, &n0);
+        int pb, sp, m0, n0;
+        ws_tile<BN>(args, t, &pb, &sp, &m0, &n0);
         const WsProblem& pr = args.p[pb];
-        for (int kt = 0; kt < ktiles; ++kt, ++p) {
+        for (int kt = sp * ktiles; kt < (sp + 1) * ktiles; ++kt, ++p) {
           const int s = p % T::kStages;
           if (p >= T::kStages) mbar_wait(empty + s, ((p / T::kStages) - 1) & 1);
           uint8_t* stage = smem + s * T::kStage;
@@ -194,9 +201,9 @@ ws_gemm_kernel(const __grid_constant__ WsArgs args, const __grid_constant__ Epi 
         for (int t = blockIdx.x; t < args.tiles; t += G, ++i) {
           const int w = i & 1, j = i >> 1;
           if (j > 0) mbar_wait(rows_empty + w, (j - 1) & 1);
-          int pb, m0, n0;
-          ws_tile<BN>(args, t, &pb, &m0, &n0);
-          epi.template rows<BN>(pb, m0, n0, lane, rows + w * 2 * kWsBM);
+          int pb, sp, m0, n0;
+          ws_tile<BN>(args, t, &pb, &sp, &m0, &n0);
+          epi.template rows<BN>(pb + sp, m0, n0, lane, rows + w * 2 * kWsBM);
           mbar_arrive(rows_full + w);
         }
       }
@@ -209,8 +216,9 @@ ws_gemm_kernel(const __grid_constant__ WsArgs args, const __grid_constant__ Epi 
     float acc[kR];
     int i = 0;
     for (int t = blockIdx.x; t < args.tiles; t += G, ++i) {
-      int pb, m0, n0;
-      ws_tile<BN>(args, t, &pb, &m0, &n0);
+      int pb, sp, m0, n0;
+      ws_tile<BN>(args, t, &pb, &sp, &m0, &n0);
+      pb += sp;  // the epilogue's problem: the K range's index when K is split
 #pragma unroll
       for (int x = 0; x < kR; ++x) acc[x] = 0.f;
       const int p0 = i * ktiles;
@@ -258,9 +266,10 @@ inline int ws_sm_count() {
   return count;
 }
 
-// Launches the products of `args` (count 1 or 2, one K) under `epi` on `stream`.
+// Launches the products of `args` (count 1 or 2, one K) under `epi` on `stream`; with splits > 1 (count
+// 1), problem 0's K cut into `splits` ranges of whole K tiles, the last ones past K reading zeros.
 template <int BN, class Epi>
-int launch_ws_gemm(WsArgs& args, int count, int k, const Epi& epi, cudaStream_t stream) {
+int launch_ws_gemm(WsArgs& args, int count, int k, const Epi& epi, cudaStream_t stream, int splits = 1) {
   using T = WsTile<BN>;
   auto kernel = ws_gemm_kernel<BN, Epi>;
   static const cudaError_t attr =
@@ -271,9 +280,11 @@ int launch_ws_gemm(WsArgs& args, int count, int k, const Epi& epi, cudaStream_t 
   for (int i = 0; i < count; ++i) {
     tiles[i] = ((args.p[i].m + kWsBM - 1) / kWsBM) * ((args.p[i].n + BN - 1) / BN);
   }
-  args.tiles0 = tiles[0];
-  args.tiles = tiles[0] + tiles[1];
-  args.ktiles = (k + kWsBK - 1) / kWsBK;
+  if (splits < 1 || (splits > 1 && count != 1)) return static_cast<int>(cudaErrorInvalidValue);
+  args.splits = splits;
+  args.tiles0 = tiles[0] * splits;
+  args.tiles = args.tiles0 + tiles[1];
+  args.ktiles = ((k + kWsBK - 1) / kWsBK + splits - 1) / splits;
   if (args.tiles == 0) return 0;
   const int grid = args.tiles < ws_sm_count() ? args.tiles : ws_sm_count();
   kernel<<<grid, kWsThreads, T::kSmem, stream>>>(args, epi);

@@ -1,9 +1,10 @@
 // Parts of the GNN edge-MLP convolution that both of its routes share: the
 // fused kernels of gnn_conv.cu (C in {32, 64, 128, 256}, three Dense layers)
 // and the layered route of gnn_conv_layered.cu (every other width and MLP
-// depth). The activation codes, the CSR destination lookup, the per-node
-// pre-pass of the factored first Dense (on gemm_sm90.cuh's GEMM) and the
-// per-destination sum of the messages.
+// depth) and its backward (gnn_conv_bwd.cu). The activation codes, the CSR
+// destination lookup, the chunk's row table, the per-node pre-pass of the
+// factored first Dense (on gemm_sm90.cuh's GEMM) and the per-destination sum
+// of the messages.
 //
 // Everything sits in an unnamed namespace: each source that includes this
 // header gets its own copies, so the two objects link without clashes.
@@ -157,6 +158,31 @@ __global__ void gnn_agg_kernel(const T* __restrict__ msg, const int* __restrict_
 #pragma unroll
     for (int k = 0; k < V / 4; ++k) o[k] = make_float4(acc[4 * k], acc[4 * k + 1], acc[4 * k + 2], acc[4 * k + 3]);
   }
+}
+
+// Each chunk row's P rows for Dense 0, (B * Nd row, B * Ns row) of edge row
+// r0 + r (batch b, CSR edge ee): a thread per (batch, destination) writes
+// the rows of its CSR range that fall in the chunk. The table lives in the
+// chunk's fp32 h scratch, which nothing reads until the last Dense writes it.
+__global__ void gnn_rows_kernel(const int* __restrict__ rowptr, const int* __restrict__ src, int2* __restrict__ rows,
+                                int64_t r0, int m, int E, int num_dst, int num_src, int batch) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= batch * num_dst) return;
+  const int b = t / num_dst;
+  const int d = t - b * num_dst;
+  const int64_t base = static_cast<int64_t>(b) * E - r0;  // edge ee is chunk row base + ee
+  const int64_t lo = rowptr[d] > -base ? rowptr[d] : -base;
+  const int64_t hi = rowptr[d + 1] < m - base ? rowptr[d + 1] : m - base;
+  for (int64_t ee = lo; ee < hi; ++ee) rows[base + ee] = make_int2(b * num_dst + d, b * num_src + src[ee]);
+}
+
+int launch_rows(const void* rowptr, const void* src, void* rows, int64_t r0, int m, int E, int num_dst, int num_src,
+                int batch, cudaStream_t stream) {
+  const int threads = 256;
+  const int blocks = (batch * num_dst + threads - 1) / threads;
+  gnn_rows_kernel<<<blocks, threads, 0, stream>>>(static_cast<const int*>(rowptr), static_cast<const int*>(src),
+                                                  static_cast<int2*>(rows), r0, m, E, num_dst, num_src, batch);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // P_dst = x_dst . W0[:, 0:C]^T + b0 and P_src = x_src . W0[:, C:2C]^T, fp32, one launch

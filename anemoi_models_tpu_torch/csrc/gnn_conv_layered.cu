@@ -86,7 +86,7 @@
 // cudaGetLastError().
 
 #include "gemm_sm90_ws.cuh"  // the warp-specialised bf16 GEMM
-#include "gnn_common.cuh"    // the activations, dst_of, the fp32 pre-pass and gnn_agg_kernel
+#include "gnn_common.cuh"    // the activations, dst_of, the fp32 pre-pass, gnn_rows_kernel and gnn_agg_kernel
 
 namespace {
 
@@ -269,31 +269,6 @@ struct GatherEpi {
 #undef GNN_GATHER_WALK
   }
 };
-
-// Each chunk row's P rows for Dense 0, (B * Nd row, B * Ns row) of edge row
-// r0 + r (batch b, CSR edge ee): a thread per (batch, destination) writes
-// the rows of its CSR range that fall in the chunk. The table lives in the
-// chunk's fp32 h scratch, which nothing reads until the last Dense writes it.
-__global__ void gnn_rows_kernel(const int* __restrict__ rowptr, const int* __restrict__ src, int2* __restrict__ rows,
-                                int64_t r0, int m, int E, int num_dst, int num_src, int batch) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= batch * num_dst) return;
-  const int b = t / num_dst;
-  const int d = t - b * num_dst;
-  const int64_t base = static_cast<int64_t>(b) * E - r0;  // edge ee is chunk row base + ee
-  const int64_t lo = rowptr[d] > -base ? rowptr[d] : -base;
-  const int64_t hi = rowptr[d + 1] < m - base ? rowptr[d + 1] : m - base;
-  for (int64_t ee = lo; ee < hi; ++ee) rows[base + ee] = make_int2(b * num_dst + d, b * num_src + src[ee]);
-}
-
-int launch_rows(const void* rowptr, const void* src, void* rows, int64_t r0, int m, int E, int num_dst, int num_src,
-                int batch, cudaStream_t stream) {
-  const int threads = 256;
-  const int blocks = (batch * num_dst + threads - 1) / threads;
-  gnn_rows_kernel<<<blocks, threads, 0, stream>>>(static_cast<const int*>(rowptr), static_cast<const int*>(src),
-                                                  static_cast<int2*>(rows), r0, m, E, num_dst, num_src, batch);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // The GEMM's N tile, in one place: 256 where it divides C (C = 256, 512,
 // 1024, ...), else 128 (C = 384, padded narrow widths, ...).

@@ -84,10 +84,10 @@ class GraphConvProcessorBlock(_GraphConvBase):
     and edges the rank's), and the conv runs under halo exchange."""
 
     def forward(self, x: torch.Tensor, edge_attr: torch.Tensor, rowptr: torch.Tensor,
-                src: torch.Tensor, halo=None) -> tuple[torch.Tensor, torch.Tensor]:
+                src: torch.Tensor, csr_t: CSRTranspose, halo=None) -> tuple[torch.Tensor, torch.Tensor]:
         """x (B, N, C), edge_attr (B, E, C) -> (new x, new edge_attr)."""
         if halo is None:
-            out, edges_new = self.conv(x, edge_attr, rowptr, src)
+            out, edges_new = self.conv(x, edge_attr, rowptr, src, csr_t)
         else:
             out, edges_new = halo_graph_conv(*halo, self.conv.params(), x, edge_attr, self.conv.activation)
         return self.node_mlp(torch.cat([x, out], dim=-1)) + x, edges_new
@@ -105,12 +105,13 @@ class GraphConvMapperBlock(_GraphConvBase):
         self.update_src_nodes = update_src_nodes
 
     def forward(self, x: tuple[torch.Tensor, torch.Tensor], edge_attr: torch.Tensor, rowptr: torch.Tensor,
-                src: torch.Tensor, shard=None) -> tuple[tuple[torch.Tensor, torch.Tensor], torch.Tensor]:
+                src: torch.Tensor, csr_t: CSRTranspose,
+                shard=None) -> tuple[tuple[torch.Tensor, torch.Tensor], torch.Tensor]:
         """(x_src (B, Ns, C), x_dst (B, Nd, C)), edge_attr (B, E, C) ->
         ((new x_src, new x_dst), new edge_attr)."""
         x_src, x_dst = x
         if shard is None:
-            out, edges_new = self.conv((x_src, x_dst), edge_attr, rowptr, src)
+            out, edges_new = self.conv((x_src, x_dst), edge_attr, rowptr, src, csr_t)
         else:
             out, edges_new = sharded_mapper_gnn_conv(*shard, self.conv.params(), x_src, x_dst, edge_attr,
                                                      self.conv.activation)

@@ -91,14 +91,15 @@ class GNNProcessorChunk(_Chunk):
         )
 
     def _run(self, x: torch.Tensor, edge_attr: torch.Tensor, rowptr: torch.Tensor,
-             src: torch.Tensor, halo=None) -> tuple[torch.Tensor, torch.Tensor]:
+             src: torch.Tensor, csr_t: CSRTranspose, halo=None) -> tuple[torch.Tensor, torch.Tensor]:
         """x (B, N, C); edge_attr (E, edge_dim) raw for the embedding chunk,
-        else (B, E, C) -> (x, edge_attr (B, E, C)). ``halo``: (mesh, the
-        rank's HaloShard) under a model-sharded mesh, else None."""
+        else (B, E, C) -> (x, edge_attr (B, E, C)). ``csr_t``: the edge list
+        by source; ``halo``: (mesh, the rank's HaloShard) under a
+        model-sharded mesh, else None."""
         if self.emb_edges is not None:
             edge_attr = self.emb_edges(edge_attr).unsqueeze(0).expand(x.shape[0], -1, -1)
         for block in self.blocks:
-            x, edge_attr = block(x, edge_attr, rowptr, src, halo)
+            x, edge_attr = block(x, edge_attr, rowptr, src, csr_t, halo)
         return x, edge_attr
 
 

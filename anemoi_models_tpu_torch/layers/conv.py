@@ -25,7 +25,7 @@ layouts of this same function and have no counterpart here.
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import torch
 from torch import nn
@@ -55,13 +55,17 @@ class GraphConv(nn.Module):
                        activation=activation, dtype=dtype, device=device)
 
     def forward(self, x: Union[torch.Tensor, tuple[torch.Tensor, torch.Tensor]], edge_attr: torch.Tensor,
-                rowptr: torch.Tensor, src: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                rowptr: torch.Tensor, src: torch.Tensor,
+                csr_t: Optional[CSRTranspose] = None) -> tuple[torch.Tensor, torch.Tensor]:
         """x (B, N, C) or (x_src (B, Ns, C), x_dst (B, Nd, C)); edge_attr
         (B, E, C) in CSR order -> (aggregated (B, Nd, C), edges_new (B, E, C)),
-        both in edge_attr's dtype."""
+        both in edge_attr's dtype. ``csr_t``: the edge list by source, for
+        the backward."""
         dt = edge_attr.dtype
         x_src, x_dst = (t.to(dt).contiguous() for t in (x if isinstance(x, tuple) else (x, x)))
-        agg, msg = GNNConv.apply(x_dst, x_src, edge_attr.contiguous(), rowptr, src, self.activation, *self.params())
+        lead = (csr_t,) if csr_t is not None else ()
+        agg, msg = GNNConv.apply(x_dst, x_src, edge_attr.contiguous(), rowptr, src, *lead, self.activation,
+                                 *self.params())
         return agg.to(dt), msg
 
     def params(self) -> list[torch.Tensor]:

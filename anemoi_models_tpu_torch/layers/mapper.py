@@ -188,14 +188,14 @@ class _GNNBaseMapper(nn.Module):
 
     def _run(self, x_src: torch.Tensor, x_dst: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         edge_attr = self.trainable(self.edge_attr.to(self.dtype))
-        rowptr, src, shard = self.rowptr, self.src, None
+        rowptr, src, csr_t, shard = self.rowptr, self.src, edge_csr_t(self), None
         mesh = model_sharded()
         if mesh is not None:  # the rank's edges, embedded after the slice (a per-row MLP)
             part = mapper_shard_of(self, mesh)
             edge_attr = edge_attr[part.edge_lo:part.edge_hi]
-            rowptr, src, shard = part.rowptr, part.src, (mesh, part)
+            rowptr, src, csr_t, shard = part.rowptr, part.src, part.csr_t, (mesh, part)
         edge_attr = self.emb_edges(edge_attr).unsqueeze(0).expand(x_src.shape[0], -1, -1)
-        return run_unit(self.proc, (x_src, x_dst), edge_attr, rowptr, src, shard, remat_policy="full",
+        return run_unit(self.proc, (x_src, x_dst), edge_attr, rowptr, src, csr_t, shard, remat_policy="full",
                         cpu_offload=self.cpu_offload, owner=self)[0]
 
 

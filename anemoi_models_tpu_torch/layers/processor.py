@@ -253,14 +253,14 @@ class GNNProcessor(nn.Module):
         """x (B, N, C) -> (B, N, C) (a rank's rows under a model-sharded
         mesh); no layer drops, so ``dropout_key`` is unused."""
         edge_attr = self.trainable(self.edge_attr.to(self.dtype))
-        rowptr, src, halo = self.rowptr, self.src, None
+        rowptr, src, csr_t, halo = self.rowptr, self.src, edge_csr_t(self), None
         mesh = model_sharded()
         if mesh is not None:
             shard = halo_shard_of(self, mesh)
             edge_attr = edge_attr[shard.edge_lo:shard.edge_hi]
-            rowptr, src, halo = shard.rowptr, shard.src, (mesh, shard)
+            rowptr, src, csr_t, halo = shard.rowptr, shard.src, shard.csr_t, (mesh, shard)
         for chunk in self.proc:
-            x, edge_attr = chunk(x, edge_attr, rowptr, src, halo)
+            x, edge_attr = chunk(x, edge_attr, rowptr, src, csr_t, halo)
         return x
 
 
@@ -404,7 +404,8 @@ class HaloGNNProcessor(nn.Module):
             if mesh is not None:
                 return halo_graph_conv(mesh, shard, params, x_, edges_, self.activation)
             agg, msg = GNNConv.apply(x_.to(edges_.dtype).contiguous(), x_.to(edges_.dtype).contiguous(),
-                                     edges_.contiguous(), self.rowptr, self.src, self.activation, *params)
+                                     edges_.contiguous(), self.rowptr, self.src, edge_csr_t(self), self.activation,
+                                     *params)
             return agg.to(edges_.dtype), msg
 
         for i in range(self.num_layers):

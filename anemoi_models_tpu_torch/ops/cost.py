@@ -6,8 +6,7 @@ in two parts:
 
 - the aten operations that ``torch.utils.flop_counter`` has a formula for
   (the matrix products, attention and convolutions of ``FlopCounterMode``'s
-  registry), seen by :class:`FlopCount`, a dispatch mode: cuBLAS's products
-  and the plain-recompute backwards of ``gnn_conv`` and ``flash_attention``;
+  registry), seen by :class:`FlopCount`, a dispatch mode: cuBLAS's products;
 - each hand-written kernel's calls times its formula below, recorded by the
   kernel's wrapper where it chooses its route (:func:`record`). The
   kernels run through ctypes, so the dispatch mode never sees them; on the
@@ -27,8 +26,14 @@ of a kernel's bound):
   ``E (10 C + 12 A2 H) + Nd 10 A2 C``;
 - ``gnn_conv`` (both routes): the first Dense factored per node (2 C^2 for
   each destination and each source row), 2 C^2 per edge for each Dense;
+- ``gnn_conv_bwd``: the forward recomputed (``gnn_conv``'s count), then per
+  edge and Dense the weight gradient and the input gradient (4 C^2), per node
+  the first Dense's input and weight gradients (4 C^2 for each destination
+  and each source row): three times the forward's count;
 - ``flash_attention``: ``4 D`` per (query, key) pair inside the mask, per
   head;
+- ``flash_attention_bwd``: per pair and head the logit recomputed, dO . v,
+  dV, dQ and dK (``10 D``), 2.5 times the forward's count;
 
 each times the batch. Nothing here runs at import time.
 """
@@ -48,7 +53,9 @@ __all__ = [
     "card_peaks",
     "edge_attn_bwd_flops",
     "edge_attn_flops",
+    "flash_bwd_flops",
     "flash_flops",
+    "gnn_conv_bwd_flops",
     "gnn_conv_flops",
     "kv_proj_flops",
     "plain",
@@ -84,8 +91,16 @@ def gnn_conv_flops(batch: int, num_edges: int, nd: int, ns: int, c: int, n_dense
     return batch * (2 * c * c * (nd + ns) + 2 * c * c * n_dense * num_edges)
 
 
+def gnn_conv_bwd_flops(batch: int, num_edges: int, nd: int, ns: int, c: int, n_dense: int) -> int:
+    return 3 * gnn_conv_flops(batch, num_edges, nd, ns, c, n_dense)
+
+
 def flash_flops(batch_heads: int, pairs: int, d: int) -> int:
     return 4 * d * pairs * batch_heads
+
+
+def flash_bwd_flops(batch_heads: int, pairs: int, d: int) -> int:
+    return 10 * d * pairs * batch_heads
 
 
 # the counters open now, innermost last, and how deep the plain versions hiding from them are nested

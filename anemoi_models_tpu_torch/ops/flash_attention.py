@@ -2,10 +2,11 @@
 PyTorch version and the autograd Function.
 
 Replaces ``anemoi_models_tpu/ops/pallas/flash_attention.py:_flash_kernel``
-(forward) and keeps the JAX package's backward: the gradient recomputes
-through the plain blockwise version, as ``flash_attention.py:_bwd``
-recomputes through ``blockwise_attention``. The TPU kernel has no backward
-kernel, so the port has none either.
+(forward). The JAX package differentiates its blockwise twin
+(``flash_attention.py:_bwd``), which XLA fuses; run eagerly on the card that
+recompute set the pace of a step, so the port has a backward kernel
+(``csrc/flash_attention_bwd.cu``) that computes the gradient of that same
+function from the forward's row statistics.
 
 - :func:`blockwise_attention` is the plain version: a q-block loop with
   O(N (blk + 2w)) live memory, fp32 logits and softmax, masking at -1e30,
@@ -13,6 +14,12 @@ kernel, so the port has none either.
 - :func:`flash_attention` takes it for CPU tensors and launches
   ``csrc/flash_attention.cu`` for CUDA tensors (or raises), counting its
   launches in :data:`LAUNCHES`.
+- :func:`flash_attention_bwd` is the backward: ``P`` recomputed per tile
+  from the forward's log-sum-exp (written by the forward kernel when asked,
+  ``return_lse``), ``D_i = rowsum(dO_i * O_i)``, a pass by key blocks for dK
+  and dV and one by query blocks for dQ, no atomics; bf16 heads up to 128 on
+  the tensor cores (``mma.sync``), fp32 and wider heads on the CUDA cores.
+  :func:`flash_attention_bwd_plain` is its plain version.
 - :class:`FlashAttention` is the Function the attention layer runs through.
 
 Shapes: q, k, v are (batch, heads, seq, head_dim); ``window_size`` is the
@@ -38,12 +45,11 @@ p_ij v_j / ((1 - rate) l_i)``, the normalizer summing every pair. ``keep_ij``
 is :func:`dropout_keep`: word ``j % 4`` of Philox4x32-10 at counter ``(j // 4,
 i, b H + h, 0)`` under the 64-bit key, below ``round((1 - rate) 2^32)``, at
 the global positions i and j, so a sharded call drops the unsharded call's
-pairs. The
-kernels and the plain version draw the same bits, so the backward, which
-recomputes through :func:`blockwise_attention` with the same key,
-differentiates the mask the forward used. :func:`fold_key` derives a key
-from a seed and counters (step, layer, lead time); nothing advances between
-a forward and its recompute.
+pairs. The kernels and the plain version draw the same bits, so the
+backward, which redraws the mask with the same key, differentiates the mask
+the forward used. :func:`fold_key` derives a key from a seed and counters
+(step, layer, lead time); nothing advances between a forward and its
+recompute.
 """
 
 from __future__ import annotations
@@ -62,6 +68,8 @@ __all__ = [
     "blockwise_attention",
     "dropout_keep",
     "flash_attention",
+    "flash_attention_bwd",
+    "flash_attention_bwd_plain",
     "fold_key",
     "keep_threshold",
     "live_pairs",
@@ -75,7 +83,7 @@ _MASK32 = 0xFFFFFFFF
 _MASK64 = 0xFFFFFFFFFFFFFFFF
 
 # kernel launches; a CPU call runs the plain version and adds nothing
-LAUNCHES: dict[str, int] = {"flash_attention": 0}
+LAUNCHES: dict[str, int] = {"flash_attention": 0, "flash_attention_bwd": 0}
 
 
 def fold_key(key: int, *data: int) -> int:
@@ -143,20 +151,24 @@ def blockwise_attention(
     q_offset: int = 0,
     k_offset: int = 0,
     n_valid: Optional[int] = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Windowed attention over q-blocks, fp32 logits and softmax; the
     weights are rounded to v's dtype before the product with v, and the
     output is in q's dtype. With ``dropout_rate`` > 0 the normalized weights
     of the pairs :func:`dropout_keep` drops under ``dropout_key`` are zeroed
     and the rest divided by ``1 - dropout_rate``. ``q_offset``, ``k_offset``
     and ``n_valid`` (default: every key valid) place the rows in a longer
-    sequence (see the module's docstring)."""
+    sequence (see the module's docstring). With ``return_lse`` it returns
+    ``(out, lse)``: each row's log-sum-exp of its scaled logits, fp32 (B, H,
+    Nq), +inf for a query that sees no key."""
     b, h, nq, d = q.shape
     nk = k.shape[2]
     if n_valid is None:
         n_valid = k_offset + nk
     if nq == 0:
-        return q.new_empty(b, h, 0, d)
+        out = q.new_empty(b, h, 0, d)
+        return (out, q.new_empty(b, h, 0, dtype=torch.float32)) if return_lse else out
     blk = min(block_size, nq)
     scale = 1.0 / math.sqrt(d)
     kwidth = nk if window_size is None else min(blk + 2 * window_size, nk)
@@ -167,7 +179,7 @@ def blockwise_attention(
             raise ValueError("attention dropout_rate > 0 needs a dropout_key")
         keep_below = keep_threshold(dropout_rate)
         bh = torch.arange(b * h, device=q.device).view(b, h, 1, 1)
-    blocks = []
+    blocks, lses = [], []
     for q0 in range(0, nq, blk):
         q1 = min(q0 + blk, nq)
         kstart = 0 if window_size is None else min(max(q0 + shift - window_size, 0), nk - kwidth)
@@ -183,14 +195,89 @@ def blockwise_attention(
             mask &= qpos >= kpos
         if edges:
             mask &= (kpos >= 0) & (kpos < n_valid)
-        w = torch.softmax(s.masked_fill(~mask, _NEG), dim=-1)
+        s = s.masked_fill(~mask, _NEG)
+        if return_lse:
+            lses.append(torch.where(mask.any(-1), torch.logsumexp(s, -1), math.inf))
+        w = torch.softmax(s, dim=-1)
         if edges or shift:  # a query that sees no key gets 0, as the kernels give it
             w = torch.where(mask.any(-1, keepdim=True), w, 0.0)
         if dropout_rate > 0.0:
             keep = dropout_keep(dropout_key, keep_below, bh, qpos, kpos.clamp_min(0))
             w = torch.where(keep, w / (1.0 - dropout_rate), 0.0)
         blocks.append(torch.einsum("bhqk,bhkd->bhqd", w.to(v.dtype).float(), vs.float()))
-    return torch.cat(blocks, dim=2).to(q.dtype)
+    out = torch.cat(blocks, dim=2).to(q.dtype)
+    return (out, torch.cat(lses, dim=2)) if return_lse else out
+
+
+def flash_attention_bwd_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,  # (B, H, Nq, D) the forward's output
+    d_out: torch.Tensor,  # (B, H, Nq, D) its cotangent
+    lse: torch.Tensor,  # (B, H, Nq) fp32 the forward's row log-sum-exp
+    *,
+    window_size: Optional[int] = None,
+    is_causal: bool = False,
+    block_size: int = 512,
+    dropout_rate: float = 0.0,
+    dropout_key: Optional[int] = None,
+    q_offset: int = 0,
+    k_offset: int = 0,
+    n_valid: Optional[int] = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward of :func:`blockwise_attention`, written out over the
+    same q-blocks: ``(dq, dk, dv)`` fp32. ``P`` is recomputed from ``lse``,
+    ``D_i = rowsum(dO_i * O_i)``, ``dS = P (dP - D_i)`` with ``dP`` the
+    gradient of the dropped weights through the forward's mask
+    (:func:`dropout_keep` under ``dropout_key``). It rounds where
+    ``csrc/flash_attention_bwd.cu`` rounds: the dropped weights and ``dS`` to
+    the inputs' dtype before their products, every sum in fp32."""
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    if n_valid is None:
+        n_valid = k_offset + nk
+    dq = torch.zeros(b, h, nq, d, device=q.device)
+    dk, dv = torch.zeros(b, h, nk, d, device=q.device), torch.zeros(b, h, nk, d, device=q.device)
+    if nq == 0:
+        return dq, dk, dv
+    dt = q.dtype
+    blk = min(block_size, nq)
+    scale = 1.0 / math.sqrt(d)
+    kwidth = nk if window_size is None else min(blk + 2 * window_size, nk)
+    shift = q_offset - k_offset
+    drop = dropout_rate > 0.0
+    if drop:
+        if dropout_key is None:
+            raise ValueError("attention dropout_rate > 0 needs a dropout_key")
+        keep_below = keep_threshold(dropout_rate)
+        bh = torch.arange(b * h, device=q.device).view(b, h, 1, 1)
+    delta = (d_out.float() * out.float()).sum(-1)
+    for q0 in range(0, nq, blk):
+        q1 = min(q0 + blk, nq)
+        kstart = 0 if window_size is None else min(max(q0 + shift - window_size, 0), nk - kwidth)
+        ks, vs = k[:, :, kstart:kstart + kwidth].float(), v[:, :, kstart:kstart + kwidth].float()
+        qb, gb = q[:, :, q0:q1].float(), d_out[:, :, q0:q1].float()
+        s = torch.einsum("bhqd,bhkd->bhqk", qb, ks) * scale
+        qpos = torch.arange(q0, q1, device=q.device)[:, None] + q_offset
+        kpos = torch.arange(kstart, kstart + kwidth, device=q.device)[None, :] + k_offset
+        mask = (kpos >= 0) & (kpos < n_valid) & torch.ones(q1 - q0, 1, dtype=torch.bool, device=q.device)
+        if window_size is not None:
+            mask &= (qpos - kpos).abs() <= window_size
+        if is_causal:
+            mask &= qpos >= kpos
+        p = torch.where(mask, torch.exp(s - lse[:, :, q0:q1, None]), 0.0)
+        dp = torch.einsum("bhqd,bhkd->bhqk", gb, vs)
+        pd = p
+        if drop:
+            keep = dropout_keep(dropout_key, keep_below, bh, qpos, kpos.clamp_min(0))
+            pd = torch.where(keep, p / (1.0 - dropout_rate), 0.0)
+            dp = torch.where(keep, dp / (1.0 - dropout_rate), 0.0)
+        dv[:, :, kstart:kstart + kwidth] += torch.einsum("bhqk,bhqd->bhkd", pd.to(dt).float(), gb)
+        ds = (p * (dp - delta[:, :, q0:q1, None])).to(dt).float()
+        dq[:, :, q0:q1] = torch.einsum("bhqk,bhkd->bhqd", ds, ks) * scale
+        dk[:, :, kstart:kstart + kwidth] += torch.einsum("bhqk,bhqd->bhkd", ds, qb) * scale
+    return dq, dk, dv
 
 
 def live_pairs(n: int, window_size: Optional[int], is_causal: bool, nk: Optional[int] = None, q_offset: int = 0,
@@ -237,8 +324,11 @@ def flash_attention(
     q_offset: int = 0,
     k_offset: int = 0,
     n_valid: Optional[int] = None,
-) -> torch.Tensor:
-    """Attention output (B, H, Nq, D) in q's dtype. On the card q, k and v
+    return_lse: bool = False,
+):
+    """Attention output (B, H, Nq, D) in q's dtype, and with ``return_lse``
+    the rows' log-sum-exp (fp32 (B, H, Nq), as :func:`blockwise_attention`
+    gives it; the kernel writes it beside an output of the same bits). On the card q, k and v
     share one dtype (fp32 or bf16), B, H and D; k and v share one shape
     (B, H, Nk, D) and strides; rows may be strided (a view of a fused
     projection), channels are contiguous. The output is a (B, H, Nq, D) view
@@ -254,7 +344,7 @@ def flash_attention(
         with cost.plain():
             return blockwise_attention(q, k, v, window_size=window_size, is_causal=is_causal,
                                        dropout_rate=dropout_rate, dropout_key=dropout_key, q_offset=q_offset,
-                                       k_offset=k_offset, n_valid=n_valid)
+                                       k_offset=k_offset, n_valid=n_valid, return_lse=return_lse)
     _require(q.dtype in _DTYPES and k.dtype == q.dtype and v.dtype == q.dtype,
              f"q, k, v must share fp32 or bf16, got {q.dtype}, {k.dtype}, {v.dtype}")
     _require(q.dim() == 4 and k.dim() == 4 and v.shape == k.shape and k.shape[:2] == q.shape[:2]
@@ -279,8 +369,10 @@ def flash_attention(
     else:
         _require(all(t.stride(-1) == 1 for t in (q, k, v)), "q, k, v need contiguous channels")
     out = torch.empty((b, nq, h, dk), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device) if return_lse else None
     if nq == 0:  # no query rows: nothing to launch
-        return out.permute(0, 2, 1, 3)[..., :d]
+        out = out.permute(0, 2, 1, 3)[..., :d]
+        return (out, lse) if return_lse else out
     drop = dropout_rate > 0.0
     from anemoi_models_tpu_torch.ops.kernels import load_kernels
 
@@ -295,33 +387,112 @@ def flash_attention(
             -1 if window_size is None else window_size, int(is_causal), q_offset, k_offset, n_valid,
             1.0 / math.sqrt(d), int(drop), keep_threshold(dropout_rate) if drop else 0,
             (dropout_key & _MASK32) if drop else 0, (dropout_key >> 32) if drop else 0,
-            1.0 / (1.0 - dropout_rate), stream,
+            1.0 / (1.0 - dropout_rate), None if lse is None else lse.data_ptr(), stream,
         )
     _check_launch(rc, "flash_attention")
     LAUNCHES["flash_attention"] += 1
-    return out.permute(0, 2, 1, 3)[..., :d]
+    out = out.permute(0, 2, 1, 3)[..., :d]
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    d_out: torch.Tensor,
+    lse: torch.Tensor,
+    window_size: Optional[int] = None,
+    is_causal: bool = False,
+    dropout_rate: float = 0.0,
+    dropout_key: Optional[int] = None,
+    q_offset: int = 0,
+    k_offset: int = 0,
+    n_valid: Optional[int] = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` fp32 of :func:`flash_attention` at its inputs, from
+    its output ``out``, the cotangent ``d_out`` (q's dtype) and the row
+    log-sum-exp ``lse`` it returned; the call's other arguments as the
+    forward's. On the card one launch of ``csrc/flash_attention_bwd.cu``
+    (its three kernels: the row terms D, dK and dV, dQ)."""
+    if dropout_rate > 0.0 and dropout_key is None:
+        raise ValueError("attention dropout_rate > 0 needs a dropout_key")
+    cost.record("flash_attention_bwd", lambda: cost.flash_bwd_flops(
+        q.shape[0] * q.shape[1], live_pairs(q.shape[2], window_size, is_causal, k.shape[2], q_offset, k_offset, n_valid),
+        q.shape[3]))
+    if _on_cpu(q, k, v, out, d_out, lse):
+        with cost.plain():
+            return flash_attention_bwd_plain(q, k, v, out, d_out, lse, window_size=window_size, is_causal=is_causal,
+                                             dropout_rate=dropout_rate, dropout_key=dropout_key, q_offset=q_offset,
+                                             k_offset=k_offset, n_valid=n_valid)
+    dt = q.dtype
+    _require(dt in _DTYPES and all(t.dtype == dt for t in (k, v, out, d_out)),
+             f"q, k, v, out and d_out must share fp32 or bf16, got {[str(t.dtype) for t in (q, k, v, out, d_out)]}")
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    _require(q.dim() == 4 and k.shape == (b, h, nk, d) and v.shape == k.shape and out.shape == q.shape
+             and d_out.shape == q.shape, f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, "
+             f"out {tuple(out.shape)}, d_out {tuple(d_out.shape)}")
+    _require(lse.dtype == torch.float32 and lse.shape == (b, h, nq) and lse.is_contiguous(), "lse must be fp32 (B, H, Nq)")
+    n_valid = k_offset + nk if n_valid is None else n_valid
+    _require(0 < d <= _MAX_HEAD, f"flash_attention_bwd takes head widths up to {_MAX_HEAD}, got {d}")
+    _require(v.stride() == k.stride(), "k and v must share strides")
+    _require(window_size is None or window_size >= 0, f"window_size must be >= 0, got {window_size}")
+    _require(0 < b * h < 65536 and nk > 0, f"batch * heads {b * h} or key rows {nk} out of range")
+    _require(q_offset >= 0 and max(q_offset + nq, abs(k_offset) + nk, n_valid) < 2**31,
+             f"positions out of range: q_offset {q_offset}, k_offset {k_offset}, n_valid {n_valid}")
+    _require(0.0 <= dropout_rate < 1.0, f"dropout_rate must be in [0, 1), got {dropout_rate}")
+    dk_ = _tile_width(d, dt) if dt == torch.bfloat16 and d <= 128 else d  # the tensor-core kernels' widths
+    if dk_ != d:  # zero channels: the logits and D_i are unchanged, the gradients' extra columns dropped
+        q, k, v, out, d_out = (torch.nn.functional.pad(t, (0, dk_ - d)) for t in (q, k, v, out, d_out))
+    if not all(_strides_ok(t) for t in (q, k, v, out, d_out)):  # the kernels read rows as 16-byte vectors
+        q, k, v, out, d_out = (t.contiguous() for t in (q, k, v, out, d_out))
+    dq = torch.zeros((b, h, nq, dk_), dtype=torch.float32, device=q.device)
+    dkk = torch.zeros((b, h, nk, dk_), dtype=torch.float32, device=q.device)
+    dv = torch.zeros((b, h, nk, dk_), dtype=torch.float32, device=q.device)
+    if nq == 0:
+        return dq[..., :d], dkk[..., :d], dv[..., :d]
+    delta = torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
+    drop = dropout_rate > 0.0
+    from anemoi_models_tpu_torch.ops.kernels import load_kernels
+
+    lib = load_kernels()
+    fn = lib.flash_attn_bwd_bf16 if dt == torch.bfloat16 else lib.flash_attn_bwd_f32
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), d_out.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dkk.data_ptr(), dv.data_ptr(), b, h, nq, nk, dk_,
+            *q.stride()[:3], *k.stride()[:3], *out.stride()[:3], *d_out.stride()[:3],
+            -1 if window_size is None else window_size, int(is_causal), q_offset, k_offset, n_valid,
+            1.0 / math.sqrt(d), int(drop), keep_threshold(dropout_rate) if drop else 0,
+            (dropout_key & _MASK32) if drop else 0, (dropout_key >> 32) if drop else 0,
+            1.0 / (1.0 - dropout_rate), stream,
+        )
+    _check_launch(rc, "flash_attention_bwd")
+    LAUNCHES["flash_attention_bwd"] += 1
+    if dk_ != d:
+        dq, dkk, dv = dq[..., :d], dkk[..., :d], dv[..., :d]
+    return dq, dkk, dv
 
 
 class FlashAttention(torch.autograd.Function):
-    """:func:`flash_attention` forward; the backward recomputes through
-    :func:`blockwise_attention` (default block), with the forward's dropout
-    key and so its mask, and differentiates it."""
+    """:func:`flash_attention` forward (with its row log-sum-exp), and
+    :func:`flash_attention_bwd` backward, with the forward's dropout key and
+    so its mask."""
 
     @staticmethod
     def forward(ctx, q, k, v, window_size: Optional[int], is_causal: bool, dropout_rate: float = 0.0,
                 dropout_key: Optional[int] = None, q_offset: int = 0, k_offset: int = 0,
                 n_valid: Optional[int] = None):
-        ctx.save_for_backward(q, k, v)
         ctx.kw = dict(window_size=window_size, is_causal=is_causal, dropout_rate=dropout_rate,
                       dropout_key=dropout_key, q_offset=q_offset, k_offset=k_offset, n_valid=n_valid)
-        return flash_attention(q, k, v, **ctx.kw)
+        out, lse = flash_attention(q, k, v, **ctx.kw, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        if g.shape[2] == 0:  # no query rows: no gradient
-            return (*(torch.zeros_like(t) for t in ctx.saved_tensors), None, None, None, None, None, None, None)
-        leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            out = blockwise_attention(*leaves, **ctx.kw)
-        dq, dk, dv = torch.autograd.grad(out, leaves, g)
-        return dq, dk, dv, None, None, None, None, None, None, None
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, g.to(q.dtype), lse, **ctx.kw)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None, None, None, None, None

@@ -42,24 +42,42 @@ the graph functions sort by destination, so it is the CSR order.
   LayerNorm's statistics run over the true width and the outputs are sliced
   back. Each call counts one launch of its route in :data:`LAUNCHES`. There
   is no plain route on the card.
-- :class:`GNNConv` is the Function GraphConv runs through: its backward
-  recomputes through the plain version and differentiates it, as
-  ``ops/slot_gnn.py:conv_bwd`` recomputes through ``_slot_gnn_once``.
+- :func:`gnn_conv_bwd` is the backward (``csrc/gnn_conv_bwd.cu``, one route
+  for every width, depth and activation): per chunk of :data:`LAYERED_CHUNK`
+  edge rows it recomputes the edge MLP from a rerun of the pre-pass, runs
+  the LayerNorm's backward, then each Dense's weight and input gradients,
+  from the last to the first, on the forward's Hopper GEMMs, and sums the
+  first Dense's per-edge gradient per destination and, over the transposed
+  CSR, per source, then the first Dense's per-node products, all on the
+  forward's GEMMs (the JAX package leaves every product of this backward
+  to XLA). :func:`gnn_conv_bwd_plain` is its plain version: an explicit
+  backward at the kernel's rounding points.
+- :class:`GNNConv` is the Function GraphConv runs through: :func:`gnn_conv`
+  forward, :func:`gnn_conv_bwd` backward (the JAX package's
+  ``ops/slot_gnn.py:conv_bwd`` differentiates its plain twin instead).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Sequence
 
 import torch
 
 from anemoi_models_tpu_torch.layers.utils import get_activation
 from anemoi_models_tpu_torch.ops import cost
-from anemoi_models_tpu_torch.ops.edge_attention import _check_launch, _on_cpu, _require, _require_contiguous
+from anemoi_models_tpu_torch.ops.edge_attention import (
+    CSRTranspose,
+    _check_launch,
+    _on_cpu,
+    _require,
+    _require_contiguous,
+    csr_transpose,
+)
 
-__all__ = ["GNNConv", "LAUNCHES", "LAYERED_CHUNK", "aggregate", "gnn_conv", "gnn_conv_plain", "gnn_prepass",
-           "mlp_operands", "node_products"]
+__all__ = ["GNNConv", "LAUNCHES", "LAYERED_CHUNK", "act_grad", "aggregate", "gnn_conv", "gnn_conv_bwd",
+           "gnn_conv_bwd_plain", "gnn_conv_plain", "gnn_prepass", "mlp_operands", "node_products"]
 
 _FUSED_WIDTHS = (32, 64, 128, 256)  # channel widths csrc/gnn_conv.cu's fused kernels are built for
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -73,7 +91,13 @@ LAYERED_CHUNK = 65536
 # kernel launches, one per gnn_conv call of each route (the pre-pass, message
 # or Dense and LayerNorm kernels, and the aggregation; gnn_prepass alone is
 # counted apart); a CPU call runs the plain version and adds nothing
-LAUNCHES: dict[str, int] = {"gnn_conv": 0, "gnn_conv_layered": 0, "gnn_prepass": 0}
+LAUNCHES: dict[str, int] = {"gnn_conv": 0, "gnn_conv_layered": 0, "gnn_prepass": 0, "gnn_conv_bwd": 0}
+# the backward's fixed splits (a function of the shape alone, so every card sums in one order): the rows
+# of a chunk each LayerNorm-backward CTA and each transpose tile sums, and the CTAs the weight gradients'
+# K split aims at
+_LN_BWD_ROWS = 64
+_TRANSPOSE_ROWS = 64
+_DW_CTAS = 128
 
 
 def _gnn_route(c: int, n_dense: int) -> str:
@@ -280,27 +304,274 @@ def gnn_prepass(x_dst: torch.Tensor, x_src: torch.Tensor, w0: torch.Tensor,
     return p_dst, p_src
 
 
+def act_grad(activation: str, z: torch.Tensor) -> torch.Tensor:
+    """d act(z) / dz of each activation of :data:`_ACT_CODES`, fp32, as
+    torch's autograd takes it (ReLU' = 0 and LeakyReLU' = 0.01 at 0, GELU
+    in its tanh form)."""
+    name = activation.lower()
+    if name in ("silu", "swish"):
+        s = torch.sigmoid(z)
+        return s * (1 + z * (1 - s))
+    if name == "gelu":
+        k = math.sqrt(2 / math.pi)
+        t = torch.tanh(k * (z + 0.044715 * z ** 3))
+        return 0.5 * (1 + t) + 0.5 * z * (1 - t * t) * k * (1 + 3 * 0.044715 * z * z)
+    if name == "relu":
+        return (z > 0).to(z.dtype)
+    if name == "leakyrelu":
+        return torch.where(z > 0, 1.0, 0.01)
+    if name == "tanh":
+        return 1 - torch.tanh(z) ** 2
+    if name == "sigmoid":
+        s = torch.sigmoid(z)
+        return s * (1 - s)
+    if name == "elu":
+        return torch.where(z > 0, 1.0, torch.exp(z))
+    if name == "softplus":
+        return torch.sigmoid(z)
+    if name == "mish":
+        t = torch.tanh(torch.nn.functional.softplus(z))
+        return t + z * torch.sigmoid(z) * (1 - t * t)
+    if name == "identity":
+        return torch.ones_like(z)
+    raise NotImplementedError(f"no derivative for activation {activation!r}; known: {sorted(_ACT_CODES)}")
+
+
+def gnn_conv_bwd_plain(
+    x_dst: torch.Tensor,
+    x_src: torch.Tensor,
+    e: torch.Tensor,
+    rowptr: torch.Tensor,
+    src: torch.Tensor,
+    ops: Sequence[torch.Tensor],
+    activation: str,
+    g_agg: torch.Tensor,  # (B, Nd, C) fp32 cotangent of agg
+    g_msg: torch.Tensor,  # (B, E, C) cotangent of msg
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, list[torch.Tensor]]:
+    """The backward of :func:`gnn_conv_plain`, written out: ``(dx_dst,
+    dx_src, de, dops)`` in fp32, ``dops`` one gradient per operand of
+    ``ops``. It rounds where ``csrc/gnn_conv_bwd.cu`` rounds: the
+    recomputed activations to the compute dtype (the forward's points), the
+    gradient of each Dense's output to the compute dtype before its products
+    (a tensor-core operand), and the per-node sums of the first Dense's
+    gradient to it before the node-level products; every product and sum in
+    fp32. The roundings are straight-through: the gradient passes a
+    rounding unchanged."""
+    dt = e.dtype
+    act = get_activation(activation)
+    nd = rowptr.numel() - 1
+    dst = torch.repeat_interleave(torch.arange(nd, device=e.device), rowptr.long().diff())
+    srcl = src.long()
+    *dense, gamma, beta = ops
+    n_dense = len(dense) // 2
+    b, _, c = e.shape
+    w0c = dense[0][:, 2 * c:]
+    p_dst, p_src = node_products(x_dst, x_src, dense[0], dense[1])
+    h = e.float() @ w0c.float().t() + p_dst[:, dst] + p_src[:, srcl]
+    zs, acts = [], []
+    for i in range(1, n_dense):
+        zs.append(h)
+        acts.append(act(h).to(dt))
+        h = acts[-1].float() @ dense[2 * i].float().t() + dense[2 * i + 1].float()
+    mu = h.mean(-1, keepdim=True)
+    rs = torch.rsqrt(((h - mu) ** 2).mean(-1, keepdim=True) + 1e-6)
+    xhat = (h - mu) * rs
+    dmsg = g_msg.float() + g_agg.float()[:, dst]
+    dgamma = (dmsg * xhat.to(dt).float()).sum((0, 1))
+    dbeta = dmsg.sum((0, 1))
+    dy = dmsg * gamma.float()
+    dh = (rs * (dy - dy.mean(-1, keepdim=True) - xhat * (dy * xhat).mean(-1, keepdim=True))).to(dt)
+    grads: list[torch.Tensor] = [None] * (2 * n_dense)
+    for i in range(n_dense - 1, 0, -1):
+        dhf = dh.float().reshape(-1, c)
+        grads[2 * i] = dhf.t() @ acts[i - 1].float().reshape(-1, c)
+        grads[2 * i + 1] = dhf.sum(0)
+        dh = ((dh.float() @ dense[2 * i].float()) * act_grad(activation, zs[i - 1])).to(dt)
+    dhf = dh.float()
+    de = dmsg + dhf @ w0c.float()
+    dw_c = dhf.reshape(-1, c).t() @ e.float().reshape(-1, c)
+    # per node: the sums of dh0 over each destination's and each source's edges, rounded
+    pd = torch.zeros(b, nd, c, device=e.device).index_add_(1, dst, dhf).to(dt).float()
+    ps = torch.zeros(b, x_src.shape[1], c, device=e.device).index_add_(1, srcl, dhf).to(dt).float()
+    w0 = dense[0].float()
+    dx_dst, dx_src = pd @ w0[:, :c], ps @ w0[:, c:2 * c]
+    dw_a = pd.reshape(-1, c).t() @ x_dst.float().reshape(-1, c)
+    dw_b = ps.reshape(-1, c).t() @ x_src.float().reshape(-1, c)
+    grads[0], grads[1] = torch.cat([dw_a, dw_b, dw_c], dim=1), dhf.reshape(-1, c).sum(0)
+    return dx_dst, dx_src, de, grads + [dgamma, dbeta]
+
+
+def _csr_t_of(rowptr: torch.Tensor, src: torch.Tensor, num_src: int) -> CSRTranspose:
+    """The transposed CSR of an edge list, built on the host for a caller
+    that passed none (the layers pass the one their edge set holds)."""
+    t = csr_transpose(rowptr.cpu().numpy(), src.cpu().numpy(), num_src)
+    return CSRTranspose(*(torch.from_numpy(a).to(rowptr.device) for a in t))
+
+
+def _dw_splits(c: int, chunk: int, dt: torch.dtype) -> int:
+    """The K split of the weight gradients' GEMMs over a chunk's edge rows:
+    about :data:`_DW_CTAS` CTAs over the (C, C) output tiles of the card's
+    GEMM (128 x 256, or 128 x 128 where 256 does not divide C, in bf16; 64 x 64
+    on the CUDA cores in fp32), a function of the shape alone."""
+    if dt == torch.bfloat16:
+        tiles, kstep = -(-c // 128) * -(-c // (256 if c % 256 == 0 else 128)), 64
+    else:
+        tiles, kstep = -(-c // 64) ** 2, 16
+    return max(1, min(-(-_DW_CTAS // tiles), -(-chunk // kstep)))
+
+
+def gnn_conv_bwd(
+    x_dst: torch.Tensor,
+    x_src: torch.Tensor,
+    e: torch.Tensor,
+    rowptr: torch.Tensor,
+    src: torch.Tensor,
+    ops: Sequence[torch.Tensor],
+    activation: str,
+    g_agg: torch.Tensor,
+    g_msg: torch.Tensor,
+    csr_t: CSRTranspose | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, list[torch.Tensor]]:
+    """:func:`gnn_conv_bwd_plain`'s function. On the card the operands are
+    :func:`gnn_conv`'s, ``g_agg`` fp32 and ``g_msg`` in the compute dtype;
+    ``csr_t`` is the edge list's :class:`CSRTranspose` on the same device
+    (built on the host when not given). One launch of
+    ``csrc/gnn_conv_bwd.cu``."""
+    n_dense = (len(ops) - 2) // 2
+    cost.record("gnn_conv_bwd", lambda: cost.gnn_conv_bwd_flops(
+        e.shape[0], src.numel(), rowptr.numel() - 1, x_src.shape[1], e.shape[-1], n_dense))
+    if _on_cpu(x_dst, x_src, e, rowptr, src, g_agg, g_msg, *ops):
+        with cost.plain():
+            return gnn_conv_bwd_plain(x_dst, x_src, e, rowptr, src, ops, activation, g_agg, g_msg)
+    code = _ACT_CODES.get(activation.lower())
+    if code is None:
+        raise NotImplementedError(f"the GNN conv kernels have no activation {activation!r}; they take {sorted(_ACT_CODES)}")
+    dt = e.dtype
+    _require(dt in _DTYPES, f"compute dtype must be fp32 or bf16, got {dt}")
+    _require(all(t.dtype == dt for t in (x_dst, x_src, g_msg, *ops)), "x_dst, x_src, e, g_msg and the MLP must share one dtype")
+    _require(g_agg.dtype == torch.float32, "g_agg must be fp32")
+    _require(rowptr.dtype == torch.int32 and src.dtype == torch.int32, "rowptr and src must be int32")
+    _require(x_dst.dim() == 3 and x_src.dim() == 3 and e.dim() == 3, "x_dst, x_src, e must be (B, N, C)")
+    batch, nd, c = x_dst.shape
+    ns, num_edges = x_src.shape[1], src.numel()
+    *dense, gamma, beta = ops
+    _gnn_route(c, n_dense)  # the widths and depths the kernels take
+    _require(nd == rowptr.numel() - 1 and nd > 0 and ns > 0, f"x_dst has {nd} rows for {rowptr.numel() - 1} destinations")
+    _require(x_src.shape[0] == batch and x_src.shape[2] == c, f"x_src shape {tuple(x_src.shape)}")
+    _require(e.shape == (batch, num_edges, c) and g_msg.shape == e.shape and g_agg.shape == x_dst.shape,
+             f"e, g_msg, g_agg shapes {tuple(e.shape)}, {tuple(g_msg.shape)}, {tuple(g_agg.shape)}")
+    weights, biases = dense[0::2], dense[1::2]
+    _require(weights[0].shape == (c, 3 * c) and all(w.shape == (c, c) for w in weights[1:]),
+             f"weights {[tuple(w.shape) for w in weights]} for C={c} (torch Linear layout)")
+    _require(all(t.shape == (c,) for t in (*biases, gamma, beta)), "biases and LayerNorm affine must be (C,)")
+    _require_contiguous(x_dst=x_dst, x_src=x_src, e=e, rowptr=rowptr, src=src, g_agg=g_agg, g_msg=g_msg,
+                        gamma=gamma, beta=beta, **{f"dense_{i}": t for i, t in enumerate(dense)})
+    if csr_t is None:
+        csr_t = _csr_t_of(rowptr, src, ns)
+    perm, colptr = csr_t.perm, csr_t.colptr
+    _require(perm.dtype == torch.int32 and colptr.dtype == torch.int32 and perm.device == e.device
+             and colptr.device == e.device, "the transposed CSR must be int32 on e's device")
+    _require(perm.numel() == num_edges and colptr.numel() == ns + 1, "the transposed CSR does not match the edge list")
+    c_ln = c  # the LayerNorm's statistics run over the true width
+    if c % 8:
+        c = c + 8 - c % 8
+        x_dst, x_src, e, ops = _padded(x_dst, x_src, e, ops, c)
+        *dense, gamma, beta = ops
+        g_agg, g_msg = (torch.nn.functional.pad(t, (0, c - c_ln)).contiguous() for t in (g_agg, g_msg))
+    _require(all(t.data_ptr() % 16 == 0 for t in (x_dst, x_src, e, g_msg, g_agg, *ops)), "rows must be 16-byte aligned")
+    dev = e.device
+    # the products' second operands as K-major (C_in, C_out) copies: Dense 0's edge block, each later Dense, then
+    # Dense 0's destination and source blocks
+    w0 = dense[0]
+    dense_t = [w0[:, 2 * c:].t().contiguous()] + [w.t().contiguous() for w in dense[2::2]] + \
+        [w0[:, :c].t().contiguous(), w0[:, c:2 * c].t().contiguous()]
+    chunk = max(1, min(LAYERED_CHUNK, batch * num_edges))
+    ld_t = -(-chunk // 8) * 8  # the transposed chunks' row stride: 16-byte rows
+    splits = _dw_splits(c, chunk, dt)
+    db_blocks, ln_blocks = -(-chunk // _TRANSPOSE_ROWS), -(-chunk // _LN_BWD_ROWS)
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    p_dst, p_src = f32(batch, nd, c), f32(batch, ns, c)
+    z, h = f32(n_dense - 1, chunk, c), f32(chunk, c)
+    a = torch.empty((n_dense - 1, chunk, c), dtype=dt, device=dev)
+    dh0, dh1 = (torch.empty((chunk, c), dtype=dt, device=dev) for _ in range(2))
+    rows = torch.empty((chunk, 2), dtype=torch.int32, device=dev)
+    tr_a, tr_b = (torch.empty((c, ld_t), dtype=dt, device=dev) for _ in range(2))
+    # the per-node sums rounded to bf16 for the node-level products (fp32 reads them as they are)
+    node_t = torch.empty((max(nd, ns) * batch if dt == torch.bfloat16 else 0, c), dtype=dt, device=dev)
+    dw_parts, db_parts, ln_parts = f32(n_dense, splits, c, c), f32(n_dense, db_blocks, c), f32(ln_blocks, 2, c)
+    de, dx_dst, dx_src = f32(batch, num_edges, c), f32(batch, nd, c), f32(batch, ns, c)
+    dp_dst = torch.zeros((batch, nd, c), dtype=torch.float32, device=dev)
+    dp_src = torch.zeros((batch, ns, c), dtype=torch.float32, device=dev)
+    dw, db, dln = f32(n_dense + 2, c, c), f32(n_dense, c), f32(2, c)
+    from anemoi_models_tpu_torch.ops.kernels import load_kernels
+
+    lib = load_kernels()
+    fn = lib.gnn_conv_bwd_bf16 if dt == torch.bfloat16 else lib.gnn_conv_bwd_f32
+    ptrs = (ctypes.c_void_p * len(dense))(*(t.data_ptr() for t in dense))
+    ptrs_t = (ctypes.c_void_p * len(dense_t))(*(t.data_ptr() for t in dense_t))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(
+            x_dst.data_ptr(), x_src.data_ptr(), e.data_ptr(), rowptr.data_ptr(), src.data_ptr(),
+            colptr.data_ptr(), perm.data_ptr(), ptrs, ptrs_t, n_dense, gamma.data_ptr(), beta.data_ptr(),
+            g_agg.data_ptr(), g_msg.data_ptr(), p_dst.data_ptr(), p_src.data_ptr(), z.data_ptr(), a.data_ptr(),
+            h.data_ptr(), dh0.data_ptr(), dh1.data_ptr(), rows.data_ptr(), tr_a.data_ptr(), tr_b.data_ptr(), ld_t,
+            node_t.data_ptr(), dw_parts.data_ptr(), splits, db_parts.data_ptr(), db_blocks, ln_parts.data_ptr(),
+            ln_blocks, chunk, de.data_ptr(), dp_dst.data_ptr(), dp_src.data_ptr(), dx_dst.data_ptr(),
+            dx_src.data_ptr(), dw.data_ptr(), db.data_ptr(), dln.data_ptr(), batch, nd, ns, num_edges, c, c_ln, code,
+            stream,
+        )
+    _check_launch(rc, "gnn_conv_bwd")
+    LAUNCHES["gnn_conv_bwd"] += 1
+    grads = [torch.cat([dw[n_dense], dw[n_dense + 1], dw[0]], dim=1), db[0]]
+    for i in range(1, n_dense):
+        grads += [dw[i], db[i]]
+    grads += [dln[0], dln[1]]
+    if c != c_ln:
+        grads = [_unpad_operand(t, c_ln, c) for t in grads]
+        dx_dst, dx_src, de = (t[..., :c_ln].contiguous() for t in (dx_dst, dx_src, de))
+    return dx_dst, dx_src, de, grads
+
+
+def _unpad_operand(t: torch.Tensor, c: int, cp: int) -> torch.Tensor:
+    """A gradient of a :func:`_padded` operand at the true width ``c``: a
+    bias or affine (cp,), or a weight (cp, k cp) with its k blocks each cut."""
+    if t.dim() == 1:
+        return t[:c]
+    blocks = t.shape[1] // cp
+    return torch.cat([t[:c, k * cp:k * cp + c] for k in range(blocks)], dim=1)
+
+
 class GNNConv(torch.autograd.Function):
-    """:func:`gnn_conv` with the edge MLP's parameters as inputs
-    (``params``: each Dense's fp32 ``weight``, ``bias``, then the
-    LayerNorm's ``weight``, ``bias``); the backward recomputes through
-    :func:`gnn_conv_plain`. Returns ``(agg fp32, msg)``."""
+    """:func:`gnn_conv` with the edge MLP's parameters as inputs, and
+    :func:`gnn_conv_bwd` as its backward. ``apply(x_dst, x_src, e, rowptr,
+    src, [csr_t,] activation, *params)``: ``csr_t``, the edge list's
+    :class:`CSRTranspose` on the edges' device, may be left out (the card's
+    backward then builds it); ``params``: each Dense's fp32 ``weight``,
+    ``bias``, then the LayerNorm's ``weight``, ``bias``. Returns ``(agg
+    fp32, msg)``."""
 
     @staticmethod
-    def forward(ctx, x_dst, x_src, e, rowptr, src, activation: str, *params):
+    def forward(ctx, x_dst, x_src, e, rowptr, src, *rest):
+        csr_t = rest[0] if isinstance(rest[0], CSRTranspose) else None
+        activation, *params = rest[1:] if csr_t is not None else rest
         ctx.save_for_backward(x_dst, x_src, e, rowptr, src, *params)
-        ctx.activation = activation
+        ctx.activation, ctx.csr_t, ctx.n_lead = activation, csr_t, 6 + (csr_t is not None)
         return gnn_conv(x_dst, x_src, e, rowptr, src, _operands(params, e.dtype), activation)
 
     @staticmethod
     def backward(ctx, g_agg, g_msg):
         x_dst, x_src, e, rowptr, src, *params = ctx.saved_tensors
-        leaves = [t.detach().requires_grad_() for t in (x_dst, x_src, e, *params)]
-        with torch.enable_grad():
-            xd, xs, ee, *ps = leaves
-            agg, msg = gnn_conv_plain(xd, xs, ee, rowptr, src, _operands(ps, e.dtype), ctx.activation)
-        grads = torch.autograd.grad((agg, msg), leaves, (g_agg, g_msg))
-        return (*grads[:3], None, None, None, *grads[3:])
+        ops = _operands(params, e.dtype)
+        dx_dst, dx_src, de, grads = gnn_conv_bwd(
+            x_dst, x_src, e, rowptr, src, ops, ctx.activation, g_agg.float().contiguous(),
+            g_msg.to(e.dtype).contiguous(), ctx.csr_t,
+        )
+        return (dx_dst.to(x_dst.dtype), dx_src.to(x_src.dtype), de.to(e.dtype), *([None] * (ctx.n_lead - 3)),
+                *(g.to(p.dtype) for g, p in zip(grads, params)))
 
 
 def _operands(params: Sequence[torch.Tensor], dtype: torch.dtype) -> list[torch.Tensor]:

@@ -74,7 +74,7 @@ def halo_graph_conv(
     dt = edges.dtype
     x_ext = halo_exchange(x, shard)
     agg, msg = GNNConv.apply(x.to(dt).contiguous(), x_ext.to(dt).contiguous(), edges.contiguous(), shard.rowptr,
-                             shard.src, activation, *params)
+                             shard.src, shard.csr_t, activation, *params)
     return agg.to(dt), msg
 
 

@@ -85,5 +85,5 @@ def sharded_mapper_gnn_conv(
     dt = edges.dtype
     rows = gather_source_rows(mesh, shard, x_src)
     agg, msg = GNNConv.apply(x_dst.to(dt).contiguous(), rows.to(dt).contiguous(), edges.contiguous(), shard.rowptr,
-                             shard.src, activation, *params)
+                             shard.src, shard.csr_t, activation, *params)
     return agg.to(dt), msg

@@ -21,6 +21,16 @@ Builds the port's CUDA kernels from ``anemoi_models_tpu_torch/csrc``, then:
    at the same bounds, two calls of each bit-identical, and at C = 256 on
    the processor set with A2 = 8, 17, 24, 32, 33, 48 and 64 edge
    attributes and at C = 1024 with 24 and 32, each timed beside its bound;
+   and the two other backward kernels against their plain twins, two calls
+   bit-identical: gnn_conv_bwd (the GNN conv's, from the forward's inputs
+   and both cotangents) on the three O96 edge sets at C = 256 (three Dense,
+   the fused forward's shape) and C = 1024, and at C = 36 (padded to 40),
+   fp32 within 1e-4 and bf16 within 2e-2 normwise; flash_attention_bwd at
+   (B*H, N, D) = (4, 10,242, 64) with w = 512, causal, dropout 0.1 and a
+   rank's rows at offsets, fp32 1e-4 and bf16 2e-2 normwise, from the
+   forward's row log-sum-exp, whose output is bit for bit the one without
+   it; each timed beside its bound and, for flash, the backward of SDPA
+   with the same boolean mask as its library call;
 3. runs a reduced model (O48 grid, refinement-4 mesh, C=64, 2 layers; and,
    for the GraphTransformer, the production width C=1024 with 16 heads on a
    16-latitude grid and a refinement-3 mesh) in fp32 through the kernels on
@@ -69,8 +79,10 @@ Builds the port's CUDA kernels from ``anemoi_models_tpu_torch/csrc``, then:
    launches: 8 processor layers and 2 mappers; or 8 flash_attention, 2
    kv_proj and 2 edge_attn_csr) and four O96 bf16 train steps with
    ``remat_policy="full"`` (finite losses, the last below the first;
-   launches per step: 20 gnn_conv; or 16 flash_attention and 4 of each
-   GraphTransformer mapper kernel);
+   launches per step: 20 gnn_conv and 10 gnn_conv_bwd; or 16
+   flash_attention, 8 flash_attention_bwd and 4 of each GraphTransformer
+   mapper kernel); no GNN or Transformer train step of any phase reaches
+   the plain versions (``no_plain``: they raise for the length of a step);
 8. the GraphTransformer at the production width of
    ``anemoi_models_tpu/configs.py`` (C = 1024, 16 heads; O96, r5, 8 layers in
    2 chunks, bf16, batch 1, ``remat_policy="full"``): three ``predict_step``
@@ -91,7 +103,7 @@ Builds the port's CUDA kernels from ``anemoi_models_tpu_torch/csrc``, then:
     train step's launches, peak memory);
 11. for each flavor, two models built from one seed and two train steps of
     each on one batch: the losses, every parameter and every AdamW moment
-    compared bit for bit (the GraphTransformer's must be identical);
+    bit for bit identical;
 12. both edge-attention kernels at the head widths of the hierarchical model
     (D = 128 and 256 on the O96 pyramid's r4 / r3 level processors and its
     r5->r4, r4->r3 downscale and r4->r5, r3->r4 upscale edge sets) and at
@@ -258,19 +270,26 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                          "anemoi_models_tpu/ops/pallas/gnn_conv.py:30"),  # _kernel, every other width and depth
     "flash_attention": ("anemoi_models_tpu_torch/csrc/flash_attention.cu",
                         "anemoi_models_tpu/ops/pallas/flash_attention.py:38"),  # _flash_kernel
+    # the two backward kernels: the gradients of the TPU kernels the JAX package differentiates through their
+    # jnp twins (ops/slot_gnn.py:conv_bwd, ops/pallas/flash_attention.py:_bwd)
+    "gnn_conv_bwd": ("anemoi_models_tpu_torch/csrc/gnn_conv_bwd.cu",
+                     "anemoi_models_tpu/ops/pallas/gnn_conv.py:30"),  # _kernel's gradient
+    "flash_attention_bwd": ("anemoi_models_tpu_torch/csrc/flash_attention_bwd.cu",
+                            "anemoi_models_tpu/ops/pallas/flash_attention.py:38"),  # _flash_kernel's gradient
 }
 LAUNCH_TABLES = (ea.LAUNCHES, gc.LAUNCHES, fa.LAUNCHES)
 FLAVOR_KERNEL = {"graphtransformer": "edge_attn_csr", "gnn": "gnn_conv", "transformer": "flash_attention"}
 # launches per request and per train step (remat "full") of each flavor's O96 flagship: a step
-# recomputes the processor's 8 layers and, under every policy, the 2 mapper blocks; the GNN at
-# C = 1024 ("gnn production") runs the same count on the layered route
+# recomputes the processor's 8 layers and, under every policy, the 2 mapper blocks, and runs one backward
+# kernel a layer; the GNN at C = 1024 ("gnn production") runs the same count on the layered route
 EXPECTED = {
     "graphtransformer": ({"kv_proj": 10, "edge_attn_csr": 10},
                          {"kv_proj": 20, "edge_attn_csr": 20, "edge_attn_csr_bwd": 10}),
-    "gnn": ({"gnn_conv": 10}, {"gnn_conv": 20}),
+    "gnn": ({"gnn_conv": 10}, {"gnn_conv": 20, "gnn_conv_bwd": 10}),
     "transformer": ({"flash_attention": 8, "kv_proj": 2, "edge_attn_csr": 2},
-                    {"flash_attention": 16, "kv_proj": 4, "edge_attn_csr": 4, "edge_attn_csr_bwd": 2}),
-    "gnn production": ({"gnn_conv_layered": 10}, {"gnn_conv_layered": 20}),
+                    {"flash_attention": 16, "flash_attention_bwd": 8, "kv_proj": 4, "edge_attn_csr": 4,
+                     "edge_attn_csr_bwd": 2}),
+    "gnn production": ({"gnn_conv_layered": 10}, {"gnn_conv_layered": 20, "gnn_conv_bwd": 10}),
     # the 3-level hierarchical model: 16 attention convs a request (encoder, 3 + 2 level processors of 2
     # layers, 2 downscale and 2 upscale mappers, decoder); a train step recomputes the level processors'
     # 10 layers (remat "full") and the 6 mapper blocks, and runs 16 backward
@@ -315,6 +334,10 @@ TRAINABLE_EDGES = 4
 # device kernels of a profiled step, grouped by what they do (first match)
 PROFILE_KINDS = [
     ("edge_attn_csr_bwd (4 phases)", ("bwd_dst_kernel", "bwd_src_kernel", "dw_parts_kernel", "dw_reduce_kernel")),
+    ("gnn_conv_bwd products", ("ZPairs", "DaPairs", "DePairs", "DwPairs")),
+    ("gnn_conv_bwd LayerNorm, transposes, sums",
+     ("gnn_ln_bwd_kernel", "gnn_transpose_kernel", "gnn_dst_sum_kernel", "gnn_src_sum_kernel", "gnn_sum_parts")),
+    ("flash_attention_bwd", ("flash_bwd_",)),
     ("gnn_conv layered row table", ("gnn_rows_kernel",)),
     ("gnn_conv layered Dense 0", ("gnn_dense0_tag",)),
     ("gnn_conv layered hidden Dense", ("gnn_dense_tag",)),
@@ -384,6 +407,29 @@ def ptxas_summary(log: str) -> list[dict]:
         if used and rows and rows[-1]["kernel"] == name and "registers" not in rows[-1]:
             rows[-1]["registers"] = int(used.group(1))
     return rows
+
+
+@contextlib.contextmanager
+def no_plain():
+    """The GNN conv's and the band-masked attention's plain versions (and
+    so any autograd over them) raise while this is open: a card train step
+    inside runs the kernels alone."""
+    names = ((gc, "gnn_conv_plain"), (gc, "gnn_conv_bwd_plain"), (fa, "blockwise_attention"),
+             (fa, "flash_attention_bwd_plain"))
+    saved = [getattr(mod, name) for mod, name in names]
+
+    def refuse(name):
+        def call(*args, **kwargs):
+            raise AssertionError(f"a card train step reached the plain version {name}")
+        return call
+
+    for mod, name in names:
+        setattr(mod, name, refuse(name))
+    try:
+        yield
+    finally:
+        for (mod, name), fn in zip(names, saved):
+            setattr(mod, name, fn)
 
 
 def reset_launches() -> None:
@@ -588,9 +634,11 @@ def phase_kernels(graph, dev) -> tuple[dict, list]:
 
 
 def phase_backward_kernels(graph, dev) -> tuple[dict, list]:
-    """edge_attn_csr_bwd against plain at the three edge sets (and with dead
-    destinations), fp32 and bf16, two calls bit-identical; the summary is
-    bf16 on the processor's edges."""
+    """The backward kernels against their plain versions, two calls
+    bit-identical: edge_attn_csr_bwd at the three edge sets (and with dead
+    destinations), fp32 and bf16, then :func:`gnn_backward_cases` and
+    :func:`flash_backward_cases`. Returns each kernel's summary (bf16, the
+    processor's or the flagship attention's shape) and a row per case."""
     gen = torch.Generator().manual_seed(1)
     c, h = 256, 4
     rows, summary, bf16_err = [], {}, 0.0
@@ -627,6 +675,167 @@ def phase_backward_kernels(graph, dev) -> tuple[dict, list]:
                 bf16_err = max(bf16_err, abs_err)
                 if label == "processor" and keep is None:
                     summary = {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_us")}
+            rows.append(row)
+    gnn_summary, gnn_rows = gnn_backward_cases(graph, dev)
+    flash_summary, flash_rows = flash_backward_cases(dev)
+    return ({"edge_attn_csr_bwd": {**summary, "max_abs_err": bf16_err}, "gnn_conv_bwd": gnn_summary,
+             "flash_attention_bwd": flash_summary}, rows + gnn_rows + flash_rows)
+
+
+# (edge set, C): the flagship's width (three Dense, the fused forward's shape) and the production width on the
+# three O96 edge sets, and a width the wrapper pads (36 -> 40)
+GNN_BWD_CASES = tuple((label, c) for c in (256, 1024) for label in ("processor", "encoder", "decoder")) + \
+    (("processor", 36),)
+
+
+def gnn_bwd_bound(case: dict, c: int, dtype: torch.dtype) -> dict:
+    """The least time of one gnn_conv_bwd call: the forward's inputs (x_dst,
+    x_src once on a self-graph, e, the MLP), g_msg and the fp32 g_agg read
+    once, dx_dst, dx_src, de and every parameter's gradient written once in
+    fp32, the CSR and its transpose read once; the operations of
+    ``cost.gnn_conv_bwd_flops`` (three times the forward's)."""
+    b, nd, ns, e = case.get("batch", 1), case["nd"], case["ns"], case["num_edges"]
+    n_dense = (len(case["ops"]) - 2) // 2
+    itemsize = torch.finfo(dtype).bits // 8
+    rows = nd + (0 if case["self_graph"] else ns)
+    params = (n_dense + 2) * c * c + (n_dense + 2) * c
+    nbytes = (b * rows * c + 2 * b * e * c + params) * itemsize + b * nd * c * 4 \
+        + (b * rows * c + b * e * c + params) * 4 + (nd + ns + 2 + 2 * e) * 4
+    return bound(nbytes, cost.gnn_conv_bwd_flops(b, e, nd, ns, c, n_dense),
+                 "bf16 tensor" if dtype == torch.bfloat16 else "fp32")
+
+
+def gnn_backward_cases(graph, dev) -> tuple[dict, list]:
+    """gnn_conv_bwd against gnn_conv_bwd_plain (SiLU, cotangents on agg and
+    msg) at :data:`GNN_BWD_CASES`, fp32 (not at C = 1024) within 1e-4 and
+    bf16 within 2e-2 normwise (both round at the same points from fp32 sums
+    taken in another order), two calls bit-identical, each bf16 case timed
+    beside its bound and the plain version. The summary is bf16 at C = 256
+    on the processor's set."""
+    gen = torch.Generator().manual_seed(11)
+    rows, summary, bf16_err = [], {}, 0.0
+    for label, c in GNN_BWD_CASES:
+        case = gnn_case(graph, label, dev, gen, c)
+        rp, sr = case["rowptr"], case["src"]
+        csr_t = ea.CSRTranspose(*(torch.from_numpy(a).to(dev)
+                                  for a in ea.csr_transpose(rp.cpu(), sr.cpu(), case["ns"])))
+        g_agg = torch.randn(1, case["nd"], c, generator=gen).to(dev)
+        g_msg32 = torch.randn(1, case["num_edges"], c, generator=gen).to(dev)
+        shape = f"{label} C={c} E={case['num_edges']} Nd={case['nd']} Ns={case['ns']}"
+        for dt in (torch.bfloat16,) if c == 1024 else (torch.float32, torch.bfloat16):
+            xd, xs, e = (case[k].to(dt) for k in ("x_dst", "x_src", "e"))
+            if case["self_graph"]:
+                xs = xd
+            args = (xd, xs, e, rp, sr, [t.to(dt) for t in case["ops"]], "SiLU", g_agg, g_msg32.to(dt))
+            got, again = gc.gnn_conv_bwd(*args, csr_t), gc.gnn_conv_bwd(*args, csr_t)
+            want = gc.gnn_conv_bwd_plain(*args)
+            torch.cuda.synchronize()
+            what = f"gnn_conv_bwd {shape} {dt}"
+            names = ["dx_dst", "dx_src", "de"] + [f"d op {i}" for i in range(len(want[3]))]
+            got, again, want = ([*t[:3], *t[3]] for t in (got, again, want))
+            for name, g, g2 in zip(names, got, again):
+                if not torch.equal(g, g2):
+                    raise AssertionError(f"{what} {name}: two calls differ (not run-to-run deterministic)")
+            tol = TOL[dt] if dt == torch.bfloat16 else BWD_TOL
+            err = max(normwise_err(g, w_, f"{what} {n}", tol) for g, w_, n in zip(got, want, names))
+            abs_err = max((g - w_).abs().max().item() for g, w_ in zip(got, want))
+            row = {"kernel": "gnn_conv_bwd", "shape": shape, "dtype": str(dt).split(".")[-1], "normwise_err": err,
+                   "max_abs_err": abs_err, "bit_identical": True}
+            if dt == torch.bfloat16 and c != 36:
+                row.update({"ms": cuda_ms(lambda: gc.gnn_conv_bwd(*args, csr_t), iters=10),
+                            "forward_ms": cuda_ms(lambda: gc.gnn_conv(*args[:7]), iters=10),
+                            "plain_ms": cuda_ms(lambda: gc.gnn_conv_bwd_plain(*args), iters=2, warmup=1),
+                            **gnn_bwd_bound(case, c, dt), "library_ms": None,
+                            "host_us": host_us(lambda: gc.gnn_conv_bwd(*args, csr_t), iters=10)})
+                bf16_err = max(bf16_err, abs_err)
+                if label == "processor" and c == 256:
+                    summary = {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_us")}
+            rows.append(row)
+            del got, again, want
+    return {**summary, "max_abs_err": bf16_err}, rows
+
+
+def flash_backward_cases(dev, n0: int = 10242, w0: int = 512) -> tuple[dict, list]:
+    """flash_attention_bwd against flash_attention_bwd_plain at the O96
+    processor's shape (B = 1, H = 4, N = 10,242, D = 64, q, k and v strided
+    views of one fused projection): w = 512, causal w = 512, dropout 0.1
+    and rank 1's rows of a two-rank split against its halo-extended keys,
+    fp32 within 1e-4 and bf16 within 2e-2 normwise, two calls bit-identical,
+    both from the forward kernel's row log-sum-exp (held to the plain
+    version's within 1e-4, the same rows infinite), whose output is bit for
+    bit the call's without it; timed beside the bound, the plain version
+    and (without dropout: SDPA draws its own mask) the backward of SDPA
+    with the same boolean mask. The summary is bf16 at w = 512."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator().manual_seed(13)
+    h, d, half = 4, 64, n0 - n0 // 2
+    qkv32 = torch.randn(1, n0, 3, h, d, generator=gen)
+    g32 = torch.randn(1, h, n0, d, generator=gen)
+    key = fa.fold_key(19, 2, 1)
+    cases = (  # label, query rows, key rows, window, causal, dropout
+        ("w=512", (0, n0), (0, n0), w0, False, 0.0),
+        ("causal w=512", (0, n0), (0, n0), w0, True, 0.0),
+        ("w=512 dropout 0.1", (0, n0), (0, n0), w0, False, 0.1),
+        ("halo rank 1 w=512", (half, n0), (half - w0, n0), w0, False, 0.0),
+    )
+    rows, summary, bf16_err = [], {}, 0.0
+    for label, (q0, q1), (k0, k1), window, causal, rate in cases:
+        for dt in (torch.float32, torch.bfloat16):
+            qkv = qkv32.to(dev, dt)
+            q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+            q, k, v = q[:, :, q0:q1], k[:, :, k0:k1], v[:, :, k0:k1]
+            g = g32[:, :, q0:q1].to(dev, dt)
+            kw = dict(window_size=window, is_causal=causal, dropout_rate=rate, dropout_key=key if rate else None,
+                      q_offset=q0, k_offset=k0, n_valid=n0)
+            shape = f"{label}: {q1 - q0} query rows at {q0}, {k1 - k0} keys at {k0}, B*H={h} D={d}"
+            what = f"flash_attention_bwd {shape} {dt}"
+            out, lse = fa.flash_attention(q, k, v, **kw, return_lse=True)
+            if not torch.equal(out, fa.flash_attention(q, k, v, **kw)):
+                raise AssertionError(f"{what}: the row statistics changed the forward's bits")
+            lse_want = fa.blockwise_attention(q, k, v, **kw, return_lse=True)[1]
+            finite = torch.isfinite(lse_want)
+            if not torch.equal(torch.isfinite(lse), finite):
+                raise AssertionError(f"{what}: the rows that see no key differ")
+            lse_err = max_err(lse[finite], lse_want[finite], BWD_TOL, f"{what} lse")
+            got, again = fa.flash_attention_bwd(q, k, v, out, g, lse, **kw), fa.flash_attention_bwd(q, k, v, out, g,
+                                                                                                     lse, **kw)
+            want = fa.flash_attention_bwd_plain(q, k, v, out, g, lse, **kw)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("dq", "dk", "dv"), got, again):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{what} {name}: two calls differ (not run-to-run deterministic)")
+            tol = TOL[dt] if dt == torch.bfloat16 else BWD_TOL
+            err = max(normwise_err(a, b, f"{what} {n}", tol) for a, b, n in zip(got, want, ("dq", "dk", "dv")))
+            abs_err = max((a - b).abs().max().item() for a, b in zip(got, want))
+            pairs = fa.live_pairs(q1 - q0, window, causal, k1 - k0, q0, k0, n0)
+            nbytes = (3 * (q1 - q0) + 2 * (k1 - k0)) * h * d * qkv.element_size() + (q1 - q0) * h * 4 \
+                + ((q1 - q0) + 2 * (k1 - k0)) * h * d * 4
+            row = {"kernel": "flash_attention_bwd", "shape": shape, "dtype": str(dt).split(".")[-1],
+                   "normwise_err": err, "max_abs_err": abs_err, "lse_err": lse_err, "bit_identical": True,
+                   "forward_bits_with_lse": True,
+                   "ms": cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, out, g, lse, **kw), iters=10),
+                   "forward_ms": cuda_ms(lambda: fa.flash_attention(q, k, v, **kw, return_lse=True), iters=10),
+                   "plain_ms": cuda_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, out, g, lse, **kw), iters=2,
+                                       warmup=1),
+                   **bound(nbytes, cost.flash_bwd_flops(h, pairs, d), "bf16 tensor" if dt == torch.bfloat16 else "fp32"),
+                   "library_ms": None}
+            if not rate:
+                qpos = torch.arange(q0, q1, device=dev)[:, None]
+                kpos = torch.arange(k0, k1, device=dev)[None, :]
+                mask = (qpos - kpos).abs() <= window
+                if causal:
+                    mask &= qpos >= kpos
+                leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+                sdpa = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+                row["library_ms"] = cuda_ms(lambda: torch.autograd.grad(sdpa, leaves, g, retain_graph=True), iters=5,
+                                            warmup=1)
+                del sdpa, leaves, mask
+            if dt == torch.bfloat16:
+                bf16_err = max(bf16_err, abs_err)
+                if label == "w=512":
+                    row["host_us"] = host_us(lambda: fa.flash_attention_bwd(q, k, v, out, g, lse, **kw), iters=10)
+                    summary = {k_: row[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_us")}
             rows.append(row)
     return {**summary, "max_abs_err": bf16_err}, rows
 
@@ -1057,7 +1266,8 @@ def timed_steps(step, x, y, n: int) -> tuple[list, list, list]:
         before = launches()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        loss = step(x, y)
+        with no_plain():
+            loss = step(x, y)
         end.record()
         torch.cuda.synchronize()
         losses.append(loss.item())
@@ -1688,8 +1898,9 @@ def policy_launches(flavor: str, policy: str) -> dict:
     if flavor == "graphtransformer":
         return {"kv_proj": 10 + proc + maps, "edge_attn_csr": 10 + proc + maps, "edge_attn_csr_bwd": 10}
     if flavor == "gnn":
-        return {"gnn_conv_layered": 10 + proc + maps}
-    return {"flash_attention": 8 + proc, "kv_proj": 2 + maps, "edge_attn_csr": 2 + maps, "edge_attn_csr_bwd": 2}
+        return {"gnn_conv_layered": 10 + proc + maps, "gnn_conv_bwd": 10}
+    return {"flash_attention": 8 + proc, "flash_attention_bwd": 8, "kv_proj": 2 + maps, "edge_attn_csr": 2 + maps,
+            "edge_attn_csr_bwd": 2}
 
 
 def _free_device_memory() -> int:
@@ -1903,9 +2114,10 @@ def phase_dropout(source, dev) -> tuple[dict, dict]:
     model_kwargs = dict(FLAGSHIP_KWARGS, num_heads=4, window_size=512, dropout_p=0.1)
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    run = train_run(FirstSteps(source, 3), forcing=TRAIN_RUN_FORCING, flavor="transformer", mesh_refinements=5,
-                    model_kwargs=model_kwargs, steps=3, batch_size=1, peak_lr=1e-5, warmup_steps=1, seed=0,
-                    log_every=1, log=lambda s: None, device=dev, handle_signals=False)
+    with no_plain():
+        run = train_run(FirstSteps(source, 3), forcing=TRAIN_RUN_FORCING, flavor="transformer", mesh_refinements=5,
+                        model_kwargs=model_kwargs, steps=3, batch_size=1, peak_lr=1e-5, warmup_steps=1, seed=0,
+                        log_every=1, log=lambda s: None, device=dev, handle_signals=False)
     counts = launches()
     losses = run["losses"]
     if len(losses) != 3 or not np.all(np.isfinite(losses)) or not losses[-1] < losses[0]:
@@ -2035,7 +2247,8 @@ def phase_bench(dev, name_power: str) -> tuple[dict, dict]:
         t0 = time.perf_counter()
         reset_launches()
         which = {"model": "hierarchical"} if flavor == "hierarchical" else {"flavor": flavor}
-        line, details = bench.run_bench(iters=BENCH_ITERS, mode=mode, device=dev, **which)
+        with no_plain():
+            line, details = bench.run_bench(iters=BENCH_ITERS, mode=mode, device=dev, **which)
         counts = launches()
         print(f"card: {name_power} bench {flavor} {mode} ({time.perf_counter() - t0:.1f} s)", json.dumps(details))
         print(json.dumps(line))
@@ -2185,7 +2398,8 @@ def _parallel_cell(graphs: dict, dev, mesh, cell: str, ref: dict) -> dict:
             model.load_state_dict(state)
             step = make_train_step(model, optimizer())
             reset_launches()
-            loss = step(x, y)
+            with no_plain():
+                loss = step(x, y)
             counts = launches()
             steps.append({"loss": loss, "counts": counts,
                           "grads": {k: p.grad.clone() for k, p in model.named_parameters()},
@@ -2503,7 +2717,8 @@ def main() -> None:
           f"built in {time.perf_counter() - t0:.1f} s")
 
     summary, rows = phase_kernels(graph, dev)
-    summary["edge_attn_csr_bwd"], bwd_rows = phase_backward_kernels(graph, dev)
+    bwd_summary, bwd_rows = phase_backward_kernels(graph, dev)
+    summary.update(bwd_summary)
     summary["gnn_conv"], gnn_rows = phase_gnn_kernels(graph, dev)
     summary["gnn_conv_layered"], width_rows = phase_gnn_widths(graph, dev)
     summary["flash_attention"], flash_rows = phase_flash_kernels(dev)
@@ -2560,13 +2775,13 @@ def main() -> None:
                                              lr=1e-5, expected=EXPECTED["gnn production"][1], steps=3,
                                              must_fall=False)
     print(f"card: {name_power} train gnn production C=1024", json.dumps(train["gnn production"]))
-    # two train steps of two models built from one seed, per flavor: bit for bit alike, or the first leaf
-    # that differs; the GraphTransformer's (the path rollout training and resume rest on) must be
+    # two train steps of two models built from one seed, per flavor: bit for bit alike (every backward kernel
+    # sums in a fixed order), or the first leaf that differs
     for flavor in FLAVOR_KERNEL:
         det = phase_determinism(graph, dev, flavor)
         print(f"card: {name_power} determinism {flavor}", json.dumps(det))
-        if flavor == "graphtransformer" and not det["bit_identical"]:
-            raise AssertionError(f"two GraphTransformer train steps differ: {det}")
+        if not det["bit_identical"]:
+            raise AssertionError(f"two {flavor} train steps differ: {det}")
     # the hierarchical model: its O96 pyramid (r5 / r4 / r3), both edge-attention kernels at its head widths
     # (D = 128, 256) and at head widths the lanes pad (D = 96, 48), a reduced fp32 model against the CPU
     # (1 head at C = 64, so that D reaches 256 on the coarsest level, and 4 heads), then bench.py's model
@@ -2643,7 +2858,8 @@ def main() -> None:
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # the train path a kernel is counted on
-    home = {**{kernel: flavor for flavor, kernel in FLAVOR_KERNEL.items()}, "gnn_conv_layered": "gnn production"}
+    home = {**{kernel: flavor for flavor, kernel in FLAVOR_KERNEL.items()}, "gnn_conv_layered": "gnn production",
+            "gnn_conv_bwd": "gnn", "flash_attention_bwd": "transformer"}
     kernels = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": train[home.get(name, "graphtransformer")]["launches"][name],

@@ -5,7 +5,7 @@ card, and the timing helpers chip_smoke.py shares.
     python3 kernel_turns.py PARENT_ROOT . --kernels fwd,bwd
     python3 kernel_turns.py --worker ROOT [--kernels ...]  # one turn: JSON of ROOT's kernels
     python3 kernel_turns.py PARENT_ROOT . --requests       # the GNN request and train step at C = 1024
-    python3 kernel_turns.py PARENT_ROOT . --steps          # the GraphTransformer's train steps
+    python3 kernel_turns.py PARENT_ROOT . --steps          # each flavor's train steps
 
 Each turn is its own process that imports ``anemoi_models_tpu_torch`` from
 its root (so each builds its own kernels into ``ROOT/build``) and times, at
@@ -43,10 +43,12 @@ width (O96, C = 1024, bf16: the layered route) through ROOT's own
 profiled one) and ``chip_smoke.phase_train`` (two timed steps after a
 warm-up at lr 1e-5, and a profiled one), and reports for each the ms, the
 device's busy ms and the device time by kind. With ``--steps`` each turn
-trains the GraphTransformer through ROOT's ``chip_smoke.phase_train``: the
-O96 flagship (C = 256, 4 heads) under remat "full" (three timed steps after
-a warm-up) and "none" (one after a warm-up), and the production width (C =
-1024, 16 heads, lr 1e-5) under "full", with the ms, peak memory and
+trains through ROOT's ``chip_smoke.phase_train`` (three timed steps after a
+warm-up, remat "full") the O96 flagship of each flavor (C = 256, 4 heads;
+the GraphTransformer also under "none") and the GNN and the
+GraphTransformer at the production width (C = 1024, lr 1e-5; 16 heads),
+and through ``chip_smoke.policy_runs`` three steps of the Transformer with
+attention dropout 0.1 (C = 256, lr 1e-5), with the ms, peak memory and
 launches of a step of each.
 
 Device ms come from CUDA events around launches queued behind a
@@ -338,8 +340,9 @@ def _request_worker(root: str) -> dict:
 
 
 def _steps_worker(root: str) -> dict:
-    """The GraphTransformer's train steps of ROOT's checkout, through its
-    chip_smoke: the flagship under "full" and "none", and C = 1024."""
+    """Each flavor's train steps of ROOT's checkout, through its chip_smoke:
+    the flagships, the GNN and the GraphTransformer at C = 1024, and the
+    Transformer with dropout 0.1."""
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     import torch
@@ -352,13 +355,26 @@ def _steps_worker(root: str) -> dict:
     load_kernels()
     graph = build_enc_proc_dec_graph(grid_lat=96, mesh_refinements=5, grid="octahedral")
     dev = torch.device("cuda", 0)
+    out = {"package": root}
+
+    def keep(label, run):
+        out[label] = {"step_ms": run["step_ms"], "peak_mem_gib": run["peak_mem_gib"], "per_step": run["per_step"]}
+
     flagship, _ = cs.phase_train(graph, dev, None, "graphtransformer")
-    wide, _ = cs.phase_train(graph, dev, None, "graphtransformer", remat_none=False, channels=1024, heads=16, lr=1e-5)
-    return {"package": root, "flagship_step_ms": flagship["step_ms"], "flagship_peak_mem_gib": flagship["peak_mem_gib"],
-            "flagship_per_step": flagship["per_step"], "flagship_none_step_ms": flagship["remat_none"]["step_ms"],
-            "flagship_none_peak_mem_gib": flagship["remat_none"]["peak_mem_gib"],
-            "flagship_none_per_step": flagship["remat_none"]["per_step"], "wide_step_ms": wide["step_ms"],
-            "wide_peak_mem_gib": wide["peak_mem_gib"], "wide_per_step": wide["per_step"]}
+    keep("graphtransformer", flagship)
+    keep("graphtransformer none", flagship["remat_none"])
+    keep("graphtransformer C=1024", cs.phase_train(graph, dev, None, "graphtransformer", remat_none=False,
+                                                   channels=1024, heads=16, lr=1e-5)[0])
+    for flavor in ("gnn", "transformer"):
+        keep(flavor, cs.phase_train(graph, dev, None, flavor, remat_none=False)[0])
+    keep("gnn C=1024", cs.phase_train(graph, dev, None, "gnn", remat_none=False, channels=1024, lr=1e-5,
+                                      expected=cs.EXPECTED["gnn production"][1], must_fall=False)[0])
+    cfg = cs.memory_config("transformer", 256, 4)
+    cfg.model.processor.dropout_p = 0.1
+    runs, _ = cs.policy_runs(graph, dev, cfg, "transformer", ("full",), 4, 1e-5, dropout=True)
+    out["transformer dropout 0.1"] = {"step_ms": runs["full"]["step_ms"], "peak_mem_gib": runs["full"]["peak_gib"],
+                                      "per_step": runs["full"]["per_step"]}
+    return out
 
 
 def _which(args: list) -> tuple:

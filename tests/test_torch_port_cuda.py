@@ -998,3 +998,118 @@ def test_edge_attention_takes_more_than_16_attributes(dev, graph, dtype, channel
     for name, g, g2, w in zip(("dq", "dkv", "da", "dw_aug"), bgot, bagain, bwant):
         assert torch.equal(g, g2), f"{name} differs between two calls"
         assert _normwise(g, w) <= BWD_TOL, f"{name}: normwise error {_normwise(g, w):.3e}"
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels: gnn_conv_bwd and flash_attention_bwd
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels,extra,activation", [(32, 0, "SiLU"), (256, 0, "SiLU"), (40, 1, "GELU"),
+                                                       (36, 0, "Mish"), (1024, 0, "SiLU")])
+@pytest.mark.parametrize("edges,batch", [("hidden-hidden", 1), ("data-hidden", 2), ("hidden-data", 1)])
+def test_gnn_conv_bwd_matches_plain_and_repeats_bit_for_bit(dev, graph, dtype, channels, extra, activation, edges,
+                                                             batch):
+    """gnn_conv_bwd against gnn_conv_bwd_plain (every gradient, fp32 1e-4 and
+    bf16 2e-2 normwise: both round at the same points from fp32 sums taken in
+    another order), two calls bit-identical, one launch a call."""
+    s_name, d_name = edges.split("-")
+    es = graph[(s_name, "to", d_name)]
+    ns, nd = graph[s_name].num_nodes, graph[d_name].num_nodes
+    rowptr, src, num_edges = _csr(es, ns, nd, dev)
+    gen = torch.Generator().manual_seed(channels + extra)
+    x_dst = torch.randn(batch, nd, channels, generator=gen).to(dev, dtype)
+    x_src = x_dst if s_name == d_name else torch.randn(batch, ns, channels, generator=gen).to(dev, dtype)
+    e = torch.randn(batch, num_edges, channels, generator=gen).to(dev, dtype)
+    dense = [(torch.randn(channels, k, generator=gen) * k ** -0.5, 0.1 * torch.randn(channels, generator=gen))
+             for k in (3 * channels,) + (channels,) * (2 + extra)]
+    norm = (1 + 0.1 * torch.randn(channels, generator=gen), 0.1 * torch.randn(channels, generator=gen))
+    ops = gc.mlp_operands([(w.to(dev), b.to(dev)) for w, b in dense], tuple(t.to(dev) for t in norm), dtype)
+    g_agg = torch.randn(batch, nd, channels, generator=gen).to(dev)
+    g_msg = torch.randn(batch, num_edges, channels, generator=gen).to(dev, dtype)
+    args = (x_dst, x_src, e, rowptr, src, ops, activation, g_agg, g_msg)
+    before = gc.LAUNCHES["gnn_conv_bwd"]
+    got = gc.gnn_conv_bwd(*args, _csr_t(rowptr, src, ns))
+    again = gc.gnn_conv_bwd(*args)  # the transposed CSR built by the wrapper
+    assert gc.LAUNCHES["gnn_conv_bwd"] == before + 2
+    want = gc.gnn_conv_bwd_plain(*args)
+    tol = BWD_TOL if dtype == torch.float32 else TOL[dtype]
+    for g, g2, w in zip([*got[:3], *got[3]], [*again[:3], *again[3]], [*want[:3], *want[3]]):
+        assert torch.equal(g, g2), "two calls differ"
+        assert torch.isfinite(g).all() and _normwise(g, w) <= tol
+
+
+FLASH_BWD = {  # keyword arguments of the attention, query rows, key rows (from a 700-row sequence)
+    "window": (dict(window_size=64), (0, 700), (0, 700)),
+    "no window": (dict(window_size=None), (0, 333), (0, 333)),
+    "causal": (dict(window_size=40, is_causal=True), (0, 700), (0, 700)),
+    "dropout": (dict(window_size=64, dropout_rate=0.1, dropout_key=fa.fold_key(5, 1)), (0, 700), (0, 700)),
+    "halo rows": (dict(window_size=64, n_valid=700), (350, 700), (286, 700)),
+    "gathered causal rows": (dict(window_size=None, is_causal=True, n_valid=700), (350, 700), (0, 700)),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 128, 24, 96, 256])
+@pytest.mark.parametrize("case", list(FLASH_BWD))
+def test_flash_attention_bwd_matches_plain(dev, dtype, head_dim, case):
+    """flash_attention_bwd against flash_attention_bwd_plain from the
+    forward kernel's row log-sum-exp (fp32 1e-4, bf16 2e-2 normwise), two
+    calls bit-identical; the forward's output the same bits with the row
+    statistics and without."""
+    kw, (q0, q1), (k0, k1) = FLASH_BWD[case]
+    kw = dict(kw, q_offset=q0, k_offset=k0)
+    gen = torch.Generator().manual_seed(head_dim)
+    qkv = torch.randn(1, 700, 3, 2, head_dim, generator=gen).to(dev, dtype)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    q, k, v = q[:, :, q0:q1], k[:, :, k0:k1], v[:, :, k0:k1]
+    g = torch.randn(1, 2, q1 - q0, head_dim, generator=gen).to(dev, dtype)
+    out, lse = fa.flash_attention(q, k, v, **kw, return_lse=True)
+    assert torch.equal(out, fa.flash_attention(q, k, v, **kw))
+    _, lse_want = fa.blockwise_attention(q, k, v, **kw, return_lse=True)
+    finite = torch.isfinite(lse_want)
+    assert torch.equal(torch.isfinite(lse), finite)
+    torch.testing.assert_close(lse[finite], lse_want[finite], atol=BWD_TOL, rtol=BWD_TOL)
+    before = fa.LAUNCHES["flash_attention_bwd"]
+    got, again = (fa.flash_attention_bwd(q, k, v, out, g, lse, **kw) for _ in range(2))
+    assert fa.LAUNCHES["flash_attention_bwd"] == before + 2
+    want = fa.flash_attention_bwd_plain(q, k, v, out, g, lse, **kw)
+    tol = BWD_TOL if dtype == torch.float32 else TOL[dtype]
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b), "two calls differ"
+        assert torch.isfinite(a).all() and _normwise(a, w) <= tol
+
+
+@pytest.mark.parametrize("flavor", ["gnn", "transformer"])
+def test_backward_functions_run_the_kernels(dev, graph, flavor, monkeypatch):
+    """GNNConv's and FlashAttention's backwards on CUDA tensors launch their
+    kernels and never reach a plain version: the plain versions raise here."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA backward reached a plain version")
+
+    for mod, name in ((gc, "gnn_conv_plain"), (gc, "gnn_conv_bwd_plain"), (fa, "blockwise_attention"),
+                      (fa, "flash_attention_bwd_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    gen = torch.Generator().manual_seed(3)
+    if flavor == "gnn":
+        es = graph[("hidden", "to", "hidden")]
+        n = graph["hidden"].num_nodes
+        rowptr, src, num_edges = _csr(es, n, n, dev)
+        x = torch.randn(1, n, 64, generator=gen).to(dev).requires_grad_()
+        e = torch.randn(1, num_edges, 64, generator=gen).to(dev).requires_grad_()
+        params = [(torch.randn(64, k, generator=gen) * k ** -0.5).to(dev).requires_grad_() if i % 2 == 0
+                  else torch.zeros(64, device=dev, requires_grad=True) for i, k in enumerate((192, 192, 64, 64, 64, 64))]
+        params += [torch.ones(64, device=dev, requires_grad=True), torch.zeros(64, device=dev, requires_grad=True)]
+        before = gc.LAUNCHES["gnn_conv_bwd"]
+        agg, msg = gc.GNNConv.apply(x, x, e, rowptr, src, _csr_t(rowptr, src, n), "SiLU", *params)
+        (agg.sum() + (msg * msg).sum()).backward()
+        assert gc.LAUNCHES["gnn_conv_bwd"] == before + 1
+        leaves = [x, e, *params]
+    else:
+        q, k, v = (torch.randn(1, 2, 300, 32, generator=gen).to(dev).requires_grad_() for _ in range(3))
+        before = fa.LAUNCHES["flash_attention_bwd"]
+        fa.FlashAttention.apply(q, k, v, 40, False).square().sum().backward()
+        assert fa.LAUNCHES["flash_attention_bwd"] == before + 1
+        leaves = [q, k, v]
+    assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in leaves)
