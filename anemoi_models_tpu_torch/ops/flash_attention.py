@@ -16,10 +16,13 @@ function from the forward's row statistics.
   launches in :data:`LAUNCHES`.
 - :func:`flash_attention_bwd` is the backward: ``P`` recomputed per tile
   from the forward's log-sum-exp (written by the forward kernel when asked,
-  ``return_lse``), ``D_i = rowsum(dO_i * O_i)``, a pass by key blocks for dK
-  and dV and one by query blocks for dQ, no atomics; bf16 heads up to 128 on
-  the tensor cores (``mma.sync``), fp32 and wider heads on the CUDA cores.
-  :func:`flash_attention_bwd_plain` is its plain version.
+  ``return_lse``), ``D_i = rowsum(dO_i * O_i)``; bf16 heads up to 128 on one
+  ``wgmma`` + TMA kernel by key blocks that computes S, P, dP and dS once per
+  pair and adds each query tile's dQ in key-block order (deterministic, no
+  floating-point atomics), fp32 heads up to 128 on register-tiled CUDA-core
+  kernels (a pass by key blocks for dK and dV, one by query blocks for dQ),
+  wider heads on CUDA-core row kernels. :func:`flash_attention_bwd_plain` is
+  its plain version.
 - :class:`FlashAttention` is the Function the attention layer runs through.
 
 Shapes: q, k, v are (batch, heads, seq, head_dim); ``window_size`` is the
@@ -313,6 +316,19 @@ def _tile_width(d: int, dtype: torch.dtype) -> int:
     return next((w for w in widths if w >= d), d)
 
 
+def _bwd_width(d: int) -> int:
+    """The head width the backward runs a head of ``d`` channels at: the
+    next of 16, 32, 64, 128 (the tile kernels, either dtype) up to 128,
+    else ``d`` itself (the row kernels)."""
+    return next((w for w in (16, 32, 64, 128) if w >= d), d)
+
+
+def _bwd_query_tiles(nq: int) -> int:
+    """The 64-query tiles whose dQ the bf16 backward kernel adds to in key
+    block order, a counter each (``csrc/flash_attention_bwd.cu:kFbQueries``)."""
+    return -(-nq // 64)
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -414,7 +430,7 @@ def flash_attention_bwd(
     its output ``out``, the cotangent ``d_out`` (q's dtype) and the row
     log-sum-exp ``lse`` it returned; the call's other arguments as the
     forward's. On the card one launch of ``csrc/flash_attention_bwd.cu``
-    (its three kernels: the row terms D, dK and dV, dQ)."""
+    (the row terms D, then one bf16 kernel or the two fp32 or row kernels)."""
     if dropout_rate > 0.0 and dropout_key is None:
         raise ValueError("attention dropout_rate > 0 needs a dropout_key")
     cost.record("flash_attention_bwd", lambda: cost.flash_bwd_flops(
@@ -442,17 +458,21 @@ def flash_attention_bwd(
     _require(q_offset >= 0 and max(q_offset + nq, abs(k_offset) + nk, n_valid) < 2**31,
              f"positions out of range: q_offset {q_offset}, k_offset {k_offset}, n_valid {n_valid}")
     _require(0.0 <= dropout_rate < 1.0, f"dropout_rate must be in [0, 1), got {dropout_rate}")
-    dk_ = _tile_width(d, dt) if dt == torch.bfloat16 and d <= 128 else d  # the tensor-core kernels' widths
+    dk_ = _bwd_width(d)
     if dk_ != d:  # zero channels: the logits and D_i are unchanged, the gradients' extra columns dropped
         q, k, v, out, d_out = (torch.nn.functional.pad(t, (0, dk_ - d)) for t in (q, k, v, out, d_out))
     if not all(_strides_ok(t) for t in (q, k, v, out, d_out)):  # the kernels read rows as 16-byte vectors
         q, k, v, out, d_out = (t.contiguous() for t in (q, k, v, out, d_out))
+    # dq is added to (the bf16 tile kernel) and stays 0 for a query that sees no key; every key's dk, dv is written
     dq = torch.zeros((b, h, nq, dk_), dtype=torch.float32, device=q.device)
-    dkk = torch.zeros((b, h, nk, dk_), dtype=torch.float32, device=q.device)
-    dv = torch.zeros((b, h, nk, dk_), dtype=torch.float32, device=q.device)
+    dkk = torch.empty((b, h, nk, dk_), dtype=torch.float32, device=q.device)
+    dv = torch.empty((b, h, nk, dk_), dtype=torch.float32, device=q.device)
     if nq == 0:
-        return dq[..., :d], dkk[..., :d], dv[..., :d]
+        return dq[..., :d], dkk[..., :d].zero_(), dv[..., :d].zero_()
     delta = torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
+    # the bf16 tile kernel's work counter and each query tile's count of the key blocks that have added to its dq
+    counters = torch.zeros(1 + b * h * _bwd_query_tiles(nq), dtype=torch.int32, device=q.device) \
+        if dt == torch.bfloat16 and dk_ <= 128 else None
     drop = dropout_rate > 0.0
     from anemoi_models_tpu_torch.ops.kernels import load_kernels
 
@@ -467,7 +487,7 @@ def flash_attention_bwd(
             -1 if window_size is None else window_size, int(is_causal), q_offset, k_offset, n_valid,
             1.0 / math.sqrt(d), int(drop), keep_threshold(dropout_rate) if drop else 0,
             (dropout_key & _MASK32) if drop else 0, (dropout_key >> 32) if drop else 0,
-            1.0 / (1.0 - dropout_rate), stream,
+            1.0 / (1.0 - dropout_rate), None if counters is None else counters.data_ptr(), stream,
         )
     _check_launch(rc, "flash_attention_bwd")
     LAUNCHES["flash_attention_bwd"] += 1

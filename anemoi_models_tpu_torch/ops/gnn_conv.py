@@ -42,16 +42,18 @@ the graph functions sort by destination, so it is the CSR order.
   LayerNorm's statistics run over the true width and the outputs are sliced
   back. Each call counts one launch of its route in :data:`LAUNCHES`. There
   is no plain route on the card.
-- :func:`gnn_conv_bwd` is the backward (``csrc/gnn_conv_bwd.cu``, one route
-  for every width, depth and activation): per chunk of :data:`LAYERED_CHUNK`
-  edge rows it recomputes the edge MLP from a rerun of the pre-pass, runs
-  the LayerNorm's backward, then each Dense's weight and input gradients,
-  from the last to the first, on the forward's Hopper GEMMs, and sums the
-  first Dense's per-edge gradient per destination and, over the transposed
-  CSR, per source, then the first Dense's per-node products, all on the
-  forward's GEMMs (the JAX package leaves every product of this backward
-  to XLA). :func:`gnn_conv_bwd_plain` is its plain version: an explicit
-  backward at the kernel's rounding points.
+- :func:`gnn_conv_bwd` is the backward (``csrc/gnn_conv_bwd.cu``, every
+  width, depth and activation): per chunk of :data:`LAYERED_CHUNK` edge rows
+  it recomputes the edge MLP from a rerun of the pre-pass, runs the
+  LayerNorm's backward and the input-gradient chain from the last Dense to
+  the first (in bf16 at the widths of ``_CHAIN_WIDTHS`` one fused kernel per
+  64 edge rows, :func:`_bwd_route`; else a launch per product), then every
+  Dense's weight gradient in one grouped launch that reads the chunk as it
+  lies (no transposed copy), and sums the first Dense's per-edge gradient
+  per destination and, over the transposed CSR, per source, then the first
+  Dense's per-node products (the JAX package leaves every product of this
+  backward to XLA). :func:`gnn_conv_bwd_plain` is its plain version: an
+  explicit backward at the kernel's rounding points.
 - :class:`GNNConv` is the Function GraphConv runs through: :func:`gnn_conv`
   forward, :func:`gnn_conv_bwd` backward (the JAX package's
   ``ops/slot_gnn.py:conv_bwd`` differentiates its plain twin instead).
@@ -92,12 +94,18 @@ LAYERED_CHUNK = 65536
 # or Dense and LayerNorm kernels, and the aggregation; gnn_prepass alone is
 # counted apart); a CPU call runs the plain version and adds nothing
 LAUNCHES: dict[str, int] = {"gnn_conv": 0, "gnn_conv_layered": 0, "gnn_prepass": 0, "gnn_conv_bwd": 0}
-# the backward's fixed splits (a function of the shape alone, so every card sums in one order): the rows
-# of a chunk each LayerNorm-backward CTA and each transpose tile sums, and the CTAs the weight gradients'
-# K split aims at
-_LN_BWD_ROWS = 64
-_TRANSPOSE_ROWS = 64
+# the backward's fixed splits (a function of the shape alone, so every card sums in one order): the edge
+# rows of a chunk each column-sum partial covers (a LayerNorm-backward CTA, a fused-chain CTA, a consumer
+# warpgroup of the bf16 input gradients, a transpose tile of the fp32 route), and the CTAs the weight
+# gradients' K split aims at (every Dense of a chunk in one launch on the bf16 route)
+_BWD_ROWS = 64
 _DW_CTAS = 128
+# the fused backward chain (csrc/gnn_conv_bwd.cu:gnn_bwd_chain_kernel): the widths it is built for, its most
+# Dense layers, and the shared memory a block may have
+_CHAIN_WIDTHS = (32, 64, 128, 256)
+_CHAIN_MAX_DENSE = 4
+_SMEM_LIMIT = 232448
+_BWD_MAX_DENSE = 14  # csrc/gnn_conv_bwd.cu: its grouped launches and sums take at most 14 Dense
 
 
 def _gnn_route(c: int, n_dense: int) -> str:
@@ -408,15 +416,37 @@ def _csr_t_of(rowptr: torch.Tensor, src: torch.Tensor, num_src: int) -> CSRTrans
     return CSRTranspose(*(torch.from_numpy(a).to(rowptr.device) for a in t))
 
 
-def _dw_splits(c: int, chunk: int, dt: torch.dtype) -> int:
+def _chain_smem(c: int, n_dense: int) -> int:
+    """Bytes of shared memory the fused backward chain takes at width ``c``
+    with ``n_dense`` Dense (``csrc/gnn_conv_bwd.cu:Chain::smem``): a
+    three-stage ring of weight slices (K 32 wide at C = 256, else 64 or C),
+    the (64, C) bf16 A tile, one fp32 (64, C) z tile per hidden Dense, the
+    column sums, the row-statistic exchange, the barriers and the alignment
+    slack."""
+    kbk = 32 if c == 256 else min(c, 64)
+    return 1024 + 3 * c * kbk * 2 + 64 * c * 2 + (n_dense - 1) * 64 * c * 4 + 32 * c + 4 * 2 * 64 * 4 + 7 * 8
+
+
+def _bwd_route(c: int, n_dense: int, dtype: torch.dtype) -> str:
+    """Which chain the backward runs a chunk through on the card: ``"fused"``
+    (one kernel per 64 edge rows, ``gnn_bwd_chain_kernel``) in bf16 at the
+    widths it is built for with a depth whose z tiles fit its shared memory,
+    else ``"layered"`` (a launch per product)."""
+    _gnn_route(c, n_dense)  # the widths and depths the kernels take
+    fits = n_dense <= _CHAIN_MAX_DENSE and _chain_smem(c, n_dense) <= _SMEM_LIMIT
+    return "fused" if dtype == torch.bfloat16 and c in _CHAIN_WIDTHS and fits else "layered"
+
+
+def _dw_splits(c: int, chunk: int, dt: torch.dtype, n_problems: int = 1) -> int:
     """The K split of the weight gradients' GEMMs over a chunk's edge rows:
-    about :data:`_DW_CTAS` CTAs over the (C, C) output tiles of the card's
-    GEMM (128 x 256, or 128 x 128 where 256 does not divide C, in bf16; 64 x 64
-    on the CUDA cores in fp32), a function of the shape alone."""
+    about :data:`_DW_CTAS` CTAs over the ``n_problems`` (C, C) outputs of one
+    launch (bf16: every Dense of the chunk on ``csrc/gemm_sm90_mn.cuh``'s
+    128 x 256 tiles, or 128 x 128 where 256 does not divide C; fp32: one Dense
+    on 64 x 64 CUDA-core tiles), a function of the shape alone."""
     if dt == torch.bfloat16:
-        tiles, kstep = -(-c // 128) * -(-c // (256 if c % 256 == 0 else 128)), 64
+        tiles, kstep = -(-c // 128) * -(-c // (256 if c % 256 == 0 else 128)) * n_problems, 64
     else:
-        tiles, kstep = -(-c // 64) ** 2, 16
+        tiles, kstep = (-(-c // 64)) ** 2, 16
     return max(1, min(-(-_DW_CTAS // tiles), -(-chunk // kstep)))
 
 
@@ -456,6 +486,7 @@ def gnn_conv_bwd(
     ns, num_edges = x_src.shape[1], src.numel()
     *dense, gamma, beta = ops
     _gnn_route(c, n_dense)  # the widths and depths the kernels take
+    _require(n_dense <= _BWD_MAX_DENSE, f"the GNN conv's backward kernel takes at most {_BWD_MAX_DENSE} Dense, got {n_dense}")
     _require(nd == rowptr.numel() - 1 and nd > 0 and ns > 0, f"x_dst has {nd} rows for {rowptr.numel() - 1} destinations")
     _require(x_src.shape[0] == batch and x_src.shape[2] == c, f"x_src shape {tuple(x_src.shape)}")
     _require(e.shape == (batch, num_edges, c) and g_msg.shape == e.shape and g_agg.shape == x_dst.shape,
@@ -480,50 +511,67 @@ def gnn_conv_bwd(
         g_agg, g_msg = (torch.nn.functional.pad(t, (0, c - c_ln)).contiguous() for t in (g_agg, g_msg))
     _require(all(t.data_ptr() % 16 == 0 for t in (x_dst, x_src, e, g_msg, g_agg, *ops)), "rows must be 16-byte aligned")
     dev = e.device
-    # the products' second operands as K-major (C_in, C_out) copies: Dense 0's edge block, each later Dense, then
-    # Dense 0's destination and source blocks
-    w0 = dense[0]
-    dense_t = [w0[:, 2 * c:].t().contiguous()] + [w.t().contiguous() for w in dense[2::2]] + \
-        [w0[:, :c].t().contiguous(), w0[:, c:2 * c].t().contiguous()]
     chunk = max(1, min(LAYERED_CHUNK, batch * num_edges))
-    ld_t = -(-chunk // 8) * 8  # the transposed chunks' row stride: 16-byte rows
-    splits = _dw_splits(c, chunk, dt)
-    db_blocks, ln_blocks = -(-chunk // _TRANSPOSE_ROWS), -(-chunk // _LN_BWD_ROWS)
+    blocks = -(-chunk // _BWD_ROWS)
+    bf16 = dt == torch.bfloat16
+    route = _bwd_route(c_ln, n_dense, dt)  # a padded width takes the layered chain
+    splits = _dw_splits(c, chunk, dt, n_dense if bf16 else 1)
 
     def f32(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
     p_dst, p_src = f32(batch, nd, c), f32(batch, ns, c)
-    z, h = f32(n_dense - 1, chunk, c), f32(chunk, c)
+    layered = route == "layered"
+    z, h = (f32(n_dense - 1, chunk, c), f32(chunk, c)) if layered else (f32(0), f32(0))
     a = torch.empty((n_dense - 1, chunk, c), dtype=dt, device=dev)
-    dh0, dh1 = (torch.empty((chunk, c), dtype=dt, device=dev) for _ in range(2))
     rows = torch.empty((chunk, 2), dtype=torch.int32, device=dev)
-    tr_a, tr_b = (torch.empty((c, ld_t), dtype=dt, device=dev) for _ in range(2))
-    # the per-node sums rounded to bf16 for the node-level products (fp32 reads them as they are)
-    node_t = torch.empty((max(nd, ns) * batch if dt == torch.bfloat16 else 0, c), dtype=dt, device=dev)
-    dw_parts, db_parts, ln_parts = f32(n_dense, splits, c, c), f32(n_dense, db_blocks, c), f32(ln_blocks, 2, c)
-    de, dx_dst, dx_src = f32(batch, num_edges, c), f32(batch, nd, c), f32(batch, ns, c)
-    dp_dst = torch.zeros((batch, nd, c), dtype=torch.float32, device=dev)
-    dp_src = torch.zeros((batch, ns, c), dtype=torch.float32, device=dev)
+    db_parts, ln_parts = f32(n_dense, blocks, c), f32(blocks, 2, c)
+    # the per-node sums of dh0, fp32 (written by the first chunk, added to by the others)
+    de, dp_dst, dp_src, dx_dst, dx_src = (f32(batch, num_edges, c), f32(batch, nd, c), f32(batch, ns, c),
+                                          f32(batch, nd, c), f32(batch, ns, c))
     dw, db, dln = f32(n_dense + 2, c, c), f32(n_dense, c), f32(2, c)
     from anemoi_models_tpu_torch.ops.kernels import load_kernels
 
     lib = load_kernels()
-    fn = lib.gnn_conv_bwd_bf16 if dt == torch.bfloat16 else lib.gnn_conv_bwd_f32
     ptrs = (ctypes.c_void_p * len(dense))(*(t.data_ptr() for t in dense))
-    ptrs_t = (ctypes.c_void_p * len(dense_t))(*(t.data_ptr() for t in dense_t))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(
-            x_dst.data_ptr(), x_src.data_ptr(), e.data_ptr(), rowptr.data_ptr(), src.data_ptr(),
-            colptr.data_ptr(), perm.data_ptr(), ptrs, ptrs_t, n_dense, gamma.data_ptr(), beta.data_ptr(),
-            g_agg.data_ptr(), g_msg.data_ptr(), p_dst.data_ptr(), p_src.data_ptr(), z.data_ptr(), a.data_ptr(),
-            h.data_ptr(), dh0.data_ptr(), dh1.data_ptr(), rows.data_ptr(), tr_a.data_ptr(), tr_b.data_ptr(), ld_t,
-            node_t.data_ptr(), dw_parts.data_ptr(), splits, db_parts.data_ptr(), db_blocks, ln_parts.data_ptr(),
-            ln_blocks, chunk, de.data_ptr(), dp_dst.data_ptr(), dp_src.data_ptr(), dx_dst.data_ptr(),
-            dx_src.data_ptr(), dw.data_ptr(), db.data_ptr(), dln.data_ptr(), batch, nd, ns, num_edges, c, c_ln, code,
-            stream,
-        )
+        if bf16:
+            # every Dense's dh (the grouped weight gradients read them all), the per-node sums rounded for the
+            # node products, and the weight gradients' partials (every Dense, then the node blocks)
+            dh = torch.empty((n_dense, chunk, c), dtype=dt, device=dev)
+            node_t = torch.empty((batch * (nd + ns), c), dtype=dt, device=dev)
+            dw_parts = f32(n_dense + 2, splits, c, c)
+            rc = lib.gnn_conv_bwd_bf16(
+                x_dst.data_ptr(), x_src.data_ptr(), e.data_ptr(), rowptr.data_ptr(), src.data_ptr(),
+                colptr.data_ptr(), perm.data_ptr(), ptrs, n_dense, gamma.data_ptr(), g_agg.data_ptr(),
+                g_msg.data_ptr(), p_dst.data_ptr(), p_src.data_ptr(), z.data_ptr(), a.data_ptr(), h.data_ptr(),
+                dh.data_ptr(), rows.data_ptr(), node_t.data_ptr(), dw_parts.data_ptr(), splits, db_parts.data_ptr(),
+                blocks, ln_parts.data_ptr(), blocks, chunk, int(route == "fused"), de.data_ptr(), dp_dst.data_ptr(),
+                dp_src.data_ptr(), dx_dst.data_ptr(), dx_src.data_ptr(), dw.data_ptr(), db.data_ptr(),
+                dln.data_ptr(), batch, nd, ns, num_edges, c, c_ln, code, stream,
+            )
+        else:
+            # the CUDA-core products' second operands as K-major (C_in, C_out) copies: Dense 0's edge block, each
+            # later Dense, then Dense 0's destination and source blocks; the weight gradients read transposed
+            # copies of the chunk
+            w0 = dense[0]
+            dense_t = [w0[:, 2 * c:].t().contiguous()] + [w.t().contiguous() for w in dense[2::2]] + \
+                [w0[:, :c].t().contiguous(), w0[:, c:2 * c].t().contiguous()]
+            ptrs_t = (ctypes.c_void_p * len(dense_t))(*(t.data_ptr() for t in dense_t))
+            ld_t = -(-chunk // 8) * 8
+            dh0, dh1 = f32(chunk, c), f32(chunk, c)
+            tr_a, tr_b = f32(c, ld_t), f32(c, ld_t)
+            dw_parts = f32(n_dense, splits, c, c)
+            rc = lib.gnn_conv_bwd_f32(
+                x_dst.data_ptr(), x_src.data_ptr(), e.data_ptr(), rowptr.data_ptr(), src.data_ptr(),
+                colptr.data_ptr(), perm.data_ptr(), ptrs, ptrs_t, n_dense, gamma.data_ptr(), beta.data_ptr(),
+                g_agg.data_ptr(), g_msg.data_ptr(), p_dst.data_ptr(), p_src.data_ptr(), z.data_ptr(), a.data_ptr(),
+                h.data_ptr(), dh0.data_ptr(), dh1.data_ptr(), rows.data_ptr(), tr_a.data_ptr(), tr_b.data_ptr(),
+                ld_t, None, dw_parts.data_ptr(), splits, db_parts.data_ptr(), blocks, ln_parts.data_ptr(), blocks,
+                chunk, de.data_ptr(), dp_dst.data_ptr(), dp_src.data_ptr(), dx_dst.data_ptr(), dx_src.data_ptr(),
+                dw.data_ptr(), db.data_ptr(), dln.data_ptr(), batch, nd, ns, num_edges, c, c_ln, code, stream,
+            )
     _check_launch(rc, "gnn_conv_bwd")
     LAUNCHES["gnn_conv_bwd"] += 1
     grads = [torch.cat([dw[n_dense], dw[n_dense + 1], dw[0]], dim=1), db[0]]

@@ -41,6 +41,8 @@ _F = ctypes.c_float
 _U = ctypes.c_uint32
 _GNN_BWD = ([_P] * 7 + [ctypes.POINTER(_P)] * 2 + [_I] + [_P] * 14 + [_I, _P, _P, _I, _P, _I, _P, _I, _I] + [_P] * 8
             + [_I] * 7 + [_P])
+_GNN_BWD_BF16 = ([_P] * 7 + [ctypes.POINTER(_P), _I] + [_P] * 12 + [_I, _P, _I, _P, _I, _I, _I] + [_P] * 8 + [_I] * 7
+                 + [_P])
 _SIGNATURES = {
     "kv_proj_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
     "kv_proj_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -56,10 +58,10 @@ _SIGNATURES = {
     "gnn_prepass_bf16": [_P] * 6 + [_I] * 3 + [_P],
     "flash_attn_f32": [_P] * 4 + [_I] * 5 + [_L] * 9 + [_I] * 5 + [_F, _I, _U, _U, _U, _F, _P, _P],
     "flash_attn_bf16": [_P] * 4 + [_I] * 5 + [_L] * 9 + [_I] * 5 + [_F, _I, _U, _U, _U, _F, _P, _P],
-    "flash_attn_bwd_f32": [_P] * 10 + [_I] * 5 + [_L] * 12 + [_I] * 5 + [_F, _I, _U, _U, _U, _F, _P],
-    "flash_attn_bwd_bf16": [_P] * 10 + [_I] * 5 + [_L] * 12 + [_I] * 5 + [_F, _I, _U, _U, _U, _F, _P],
+    "flash_attn_bwd_f32": [_P] * 10 + [_I] * 5 + [_L] * 12 + [_I] * 5 + [_F, _I, _U, _U, _U, _F, _P, _P],
+    "flash_attn_bwd_bf16": [_P] * 10 + [_I] * 5 + [_L] * 12 + [_I] * 5 + [_F, _I, _U, _U, _U, _F, _P, _P],
     "gnn_conv_bwd_f32": _GNN_BWD,
-    "gnn_conv_bwd_bf16": _GNN_BWD,
+    "gnn_conv_bwd_bf16": _GNN_BWD_BF16,
 }
 
 

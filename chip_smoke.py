@@ -255,7 +255,7 @@ from anemoi_models_tpu_torch.training import (
     weighted_mse,
 )
 from anemoi_models_tpu_torch.utils import DotDict
-from kernel_turns import card, cuda_ms, host_us, layered_split
+from kernel_turns import card, cuda_ms, host_us, kernels_per_call, layered_split
 
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "kv_proj": ("anemoi_models_tpu_torch/csrc/gemm_sm90.cuh",
@@ -334,9 +334,10 @@ TRAINABLE_EDGES = 4
 # device kernels of a profiled step, grouped by what they do (first match)
 PROFILE_KINDS = [
     ("edge_attn_csr_bwd (4 phases)", ("bwd_dst_kernel", "bwd_src_kernel", "dw_parts_kernel", "dw_reduce_kernel")),
-    ("gnn_conv_bwd products", ("ZPairs", "DaPairs", "DePairs", "DwPairs")),
+    ("gnn_conv_bwd fused chain", ("gnn_bwd_chain_kernel",)),
+    ("gnn_conv_bwd products", ("ZPairs", "DaPairs", "mn_gemm_kernel", "gnn_bwd_f32_kernel")),
     ("gnn_conv_bwd LayerNorm, transposes, sums",
-     ("gnn_ln_bwd_kernel", "gnn_transpose_kernel", "gnn_dst_sum_kernel", "gnn_src_sum_kernel", "gnn_sum_parts")),
+     ("gnn_ln_bwd", "gnn_transpose_kernel", "gnn_dst_sum_kernel", "gnn_src_sum_kernel", "gnn_sum_segs")),
     ("flash_attention_bwd", ("flash_bwd_",)),
     ("gnn_conv layered row table", ("gnn_rows_kernel",)),
     ("gnn_conv layered Dense 0", ("gnn_dense0_tag",)),
@@ -741,6 +742,13 @@ def gnn_backward_cases(graph, dev) -> tuple[dict, list]:
             abs_err = max((g - w_).abs().max().item() for g, w_ in zip(got, want))
             row = {"kernel": "gnn_conv_bwd", "shape": shape, "dtype": str(dt).split(".")[-1], "normwise_err": err,
                    "max_abs_err": abs_err, "bit_identical": True}
+            if dt == torch.bfloat16:  # the device kernels of a call, by name: no transposed copy of a chunk
+                names = kernels_per_call(lambda: gc.gnn_conv_bwd(*args, csr_t))
+                row.update({"route": gc._bwd_route(c, len(case["ops"]) // 2 - 1, dt),
+                            "device_kernels": round(sum(names.values()), 2),
+                            "transposes": round(sum(k for name, k in names.items() if "transpose" in name), 2)})
+                if row["transposes"]:
+                    raise AssertionError(f"{what}: a bf16 call transposed a chunk ({names})")
             if dt == torch.bfloat16 and c != 36:
                 row.update({"ms": cuda_ms(lambda: gc.gnn_conv_bwd(*args, csr_t), iters=10),
                             "forward_ms": cuda_ms(lambda: gc.gnn_conv(*args[:7]), iters=10),
@@ -749,7 +757,8 @@ def gnn_backward_cases(graph, dev) -> tuple[dict, list]:
                             "host_us": host_us(lambda: gc.gnn_conv_bwd(*args, csr_t), iters=10)})
                 bf16_err = max(bf16_err, abs_err)
                 if label == "processor" and c == 256:
-                    summary = {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_us")}
+                    summary = {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_us",
+                                                   "device_kernels")}
             rows.append(row)
             del got, again, want
     return {**summary, "max_abs_err": bf16_err}, rows

@@ -3,6 +3,7 @@ card, and the timing helpers chip_smoke.py shares.
 
     python3 kernel_turns.py PARENT_ROOT .                 # parent, this, this, parent; every kernel
     python3 kernel_turns.py PARENT_ROOT . --kernels fwd,bwd
+    python3 kernel_turns.py PARENT_ROOT . --kernels gnn_bwd,flash_bwd   # the backward kernels
     python3 kernel_turns.py --worker ROOT [--kernels ...]  # one turn: JSON of ROOT's kernels
     python3 kernel_turns.py PARENT_ROOT . --requests       # the GNN request and train step at C = 1024
     python3 kernel_turns.py PARENT_ROOT . --steps          # each flavor's train steps
@@ -35,7 +36,21 @@ the O96 main path's shapes with seeded inputs:
   w = 512, no window, ragged N = 4,098 (w = 512) and causal (w = 512), at
   D = 24, 48, 96, 256 and 512 with w = 512, and with attention dropout
   (p = 0.1) at D = 64, w = 512, q, k and v strided views of one fused
-  projection, in bf16 and fp32, with a SHA-256 of its output.
+  projection, in bf16 and fp32, with a SHA-256 of its output;
+- ``gnn_bwd``: ``gnn_conv_bwd`` (SiLU, three Dense, cotangents on agg and
+  msg, the edge set's transposed CSR given) at the shapes of
+  ``chip_smoke.py``'s backward phase: the processor, encoder and decoder
+  sets at C = 256 (fp32 and bf16) and C = 1024 (bf16), and C = 36 (padded to
+  40) on the processor's set (fp32 and bf16), with a SHA-256 of each
+  gradient and, in bf16, the device kernels of one call by name from
+  ``torch.profiler`` (``kernels``; ``transposes``: those named
+  ``gnn_transpose_kernel``);
+- ``flash_bwd``: ``flash_attention_bwd`` at the O96 processor's (B*H, N, D)
+  = (4, 10,242, 64) from the forward kernel's row log-sum-exp, q, k and v
+  strided views of one fused projection: w = 512, causal w = 512, dropout
+  0.1 with w = 512, and rank 1's 5,121 rows of a two-rank split against its
+  halo-extended keys (w = 512), in bf16 and fp32, with a SHA-256 of each of
+  dq, dk and dv.
 
 With ``--requests`` each turn serves and trains the GNN at the production
 width (O96, C = 1024, bf16: the layered route) through ROOT's own
@@ -137,11 +152,40 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-KERNELS = ("kv", "gnn", "fwd", "bwd", "flash")
+KERNELS = ("kv", "gnn", "fwd", "bwd", "flash", "gnn_bwd", "flash_bwd")
 # the layered GNN route's launches, by a mark in the kernel's name (first match)
 LAYERED_KINDS = (("pre-pass", "gnn_prepass_tag"), ("row table", "gnn_rows_kernel"), ("Dense 0", "gnn_dense0_tag"),
                  ("hidden Dense", "gnn_dense_tag"), ("last Dense", "gnn_dense_last_tag"), ("LayerNorm", "gnn_ln_kernel"),
                  ("sum", "gnn_agg_kernel"))
+
+
+def kernels_per_call(fn, iters: int = 3) -> dict:
+    """Device kernels per call of ``fn``, by name, from ``torch.profiler``
+    over ``iters`` calls after a warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    names: dict = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA or getattr(e, "is_user_annotation", False):
+            continue
+        name = kernel_name(e.name)
+        names[name] = names.get(name, 0) + 1 / iters
+    return names
+
+
+def kernel_name(name: str) -> str:
+    """A profiled kernel's name without its namespaces, template arguments
+    and parameters: ``(anonymous namespace)::gnn_bwd_chain_kernel<256>(...)``
+    -> ``gnn_bwd_chain_kernel``."""
+    name = name.replace("(anonymous namespace)::", "")
+    return name.split("<")[0].split("(")[0].split("::")[-1] or name[:60]
 
 
 def layered_split(fn, iters: int = 5) -> dict:
@@ -206,7 +250,8 @@ def _worker(root: str, which: tuple) -> dict:
     t0 = time.perf_counter()
     load_kernels()
     out = {"package": os.path.dirname(ea.__file__), "build_s": time.perf_counter() - t0, "kv_proj": [],
-           "gnn_conv": [], "edge_attn_csr": [], "edge_attn_csr_bwd": [], "flash_attention": []}
+           "gnn_conv": [], "edge_attn_csr": [], "edge_attn_csr_bwd": [], "flash_attention": [], "gnn_conv_bwd": [],
+           "flash_attention_bwd": []}
     graph = build_enc_proc_dec_graph(grid_lat=96, mesh_refinements=5, grid="octahedral")
     gen = torch.Generator().manual_seed(0)
     c = 256
@@ -309,7 +354,96 @@ def _worker(root: str, which: tuple) -> dict:
                 entry, lambda: [call()],
                 ("ms", lambda it: cuda_ms(call, iters=it), 20),
                 ("host_us", lambda it: host_us(call, iters=it), 50)))
+    if "gnn_bwd" in which:
+        out["gnn_conv_bwd"] = _gnn_bwd_turn(graph, dev)
+    if "flash_bwd" in which:
+        out["flash_attention_bwd"] = _flash_bwd_turn(dev)
     return out
+
+
+# (edge set, C, dtypes): chip_smoke.py's GNN_BWD_CASES, fp32 not at the production width
+GNN_BWD_SHAPES = tuple((label, names, c) for c in (256, 1024) for label, names in EDGE_SETS) + (
+    ("processor", EDGE_SETS[0][1], 36),)
+
+
+def _gnn_bwd_turn(graph, dev) -> list:
+    import torch
+
+    from anemoi_models_tpu_torch.ops import edge_attention as ea
+    from anemoi_models_tpu_torch.ops import gnn_conv as gc
+
+    gen = torch.Generator().manual_seed(21)
+    rows = []
+    for label, (s_name, d_name), c in GNN_BWD_SHAPES:
+        ei = graph[(s_name, "to", d_name)].edge_index
+        ns, nd = graph[s_name].num_nodes, graph[d_name].num_nodes
+        rowptr_np, src_np = ea.csr_from_edge_index(ei, ns, nd)
+        rowptr, src = torch.from_numpy(rowptr_np).to(dev), torch.from_numpy(src_np).to(dev)
+        csr_t = ea.CSRTranspose(*(torch.from_numpy(t).to(dev) for t in ea.csr_transpose(rowptr_np, src_np, ns)))
+        x_dst = torch.randn(1, nd, c, generator=gen)
+        x_src = x_dst if label == "processor" else torch.randn(1, ns, c, generator=gen)
+        e = torch.randn(1, ei.shape[1], c, generator=gen)
+        dense = [(torch.randn(c, k, generator=gen) * k ** -0.5, torch.randn(c, generator=gen) * 0.1)
+                 for k in (3 * c, c, c)]
+        norm = (1 + 0.1 * torch.randn(c, generator=gen), 0.1 * torch.randn(c, generator=gen))
+        g_agg = torch.randn(1, nd, c, generator=gen).to(dev)
+        g_msg = torch.randn(1, ei.shape[1], c, generator=gen)
+        for dt in (torch.bfloat16,) if c == 1024 else (torch.bfloat16, torch.float32):
+            xd, e_d, gm = x_dst.to(dev, dt), e.to(dev, dt), g_msg.to(dev, dt)
+            xs = xd if label == "processor" else x_src.to(dev, dt)
+            ops = [t.to(dev) for t in gc.mlp_operands(dense, norm, dt)]
+            args = (xd, xs, e_d, rowptr, src, ops, "SiLU", g_agg, gm, csr_t)
+
+            def run(args=args):
+                dx_dst, dx_src, de, grads = gc.gnn_conv_bwd(*args)
+                return {"dx_dst": dx_dst, "dx_src": dx_src, "de": de, **{f"d op {i}": g for i, g in enumerate(grads)}}
+
+            timers = [("ms", lambda n, args=args: cuda_ms(lambda: gc.gnn_conv_bwd(*args), iters=n), 10),
+                      ("host_us", lambda n, args=args: host_us(lambda: gc.gnn_conv_bwd(*args), iters=n), 10)]
+            if dt == torch.bfloat16:
+                timers.append(("kernels", lambda n, args=args: kernels_per_call(lambda: gc.gnn_conv_bwd(*args), n), 3))
+            entry = _timed({"shape": f"{label} E={ei.shape[1]} C={c}", "dtype": str(dt).split(".")[-1]}, run, *timers)
+            if "kernels" in entry:
+                entry["transposes"] = sum(n for k, n in entry["kernels"].items() if "transpose" in k)
+                entry["device_kernels"] = sum(entry["kernels"].values())
+            rows.append(entry)
+            del args, ops, xd, xs, e_d, gm
+    return rows
+
+
+def _flash_bwd_turn(dev) -> list:
+    import torch
+
+    from anemoi_models_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(23)
+    n0, w0, h, d = 10242, 512, 4, 64
+    half = n0 - n0 // 2
+    qkv32 = torch.randn(1, n0, 3, h, d, generator=gen)
+    g32 = torch.randn(1, h, n0, d, generator=gen)
+    key = fa.fold_key(19, 2, 1)
+    cases = (("w=512", (0, n0), (0, n0), False, 0.0), ("causal w=512", (0, n0), (0, n0), True, 0.0),
+             ("w=512 dropout=0.1", (0, n0), (0, n0), False, 0.1),
+             ("halo rank 1 w=512", (half, n0), (half - w0, n0), False, 0.0))
+    rows = []
+    for label, (q0, q1), (k0, k1), causal, rate in cases:
+        for dt in (torch.bfloat16, torch.float32):
+            qkv = qkv32.to(dev, dt)
+            q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+            q, k, v = q[:, :, q0:q1], k[:, :, k0:k1], v[:, :, k0:k1]
+            g = g32[:, :, q0:q1].to(dev, dt)
+            kw = dict(window_size=w0, is_causal=causal, dropout_rate=rate, dropout_key=key if rate else None,
+                      q_offset=q0, k_offset=k0, n_valid=n0)
+            out, lse = fa.flash_attention(q, k, v, **kw, return_lse=True)
+
+            def call(q=q, k=k, v=v, out=out, g=g, lse=lse, kw=kw):
+                return fa.flash_attention_bwd(q, k, v, out, g, lse, **kw)
+
+            rows.append(_timed({"shape": f"B*H={h} D={d} {label}: {q1 - q0} query rows, {k1 - k0} keys",
+                                "dtype": str(dt).split(".")[-1]}, lambda call=call: dict(zip(("dq", "dk", "dv"), call())),
+                               ("ms", lambda it, call=call: cuda_ms(call, iters=it), 10),
+                               ("host_us", lambda it, call=call: host_us(call, iters=it), 20)))
+    return rows
 
 
 def _request_worker(root: str) -> dict:
@@ -402,8 +536,8 @@ def main() -> None:
     roots = [a for i, a in enumerate(args)
              if a not in ("--kernels", "--requests", "--steps") and (i == 0 or args[i - 1] != "--kernels")]
     if len(roots) != 2:
-        raise SystemExit("usage: kernel_turns.py PARENT_ROOT ROOT [--kernels kv,gnn,fwd,bwd,flash | --requests | "
-                         "--steps]")
+        raise SystemExit("usage: kernel_turns.py PARENT_ROOT ROOT [--kernels kv,gnn,fwd,bwd,flash,gnn_bwd,flash_bwd | "
+                         "--requests | --steps]")
     print("card:", card(), flush=True)
     turns = []
     for root in (roots[0], roots[1], roots[1], roots[0]):
@@ -419,9 +553,10 @@ def main() -> None:
         return
     # the parent's and this checkout's outputs, per kernel, shape and output: bit for bit alike or not
     same = {}
-    for kernel in ("kv_proj", "gnn_conv", "edge_attn_csr", "edge_attn_csr_bwd", "flash_attention"):
-        new_by_key = {(e["shape"], e["dtype"]): e for e in turns[1][kernel]}
-        for old in turns[0][kernel]:
+    for kernel in ("kv_proj", "gnn_conv", "edge_attn_csr", "edge_attn_csr_bwd", "flash_attention", "gnn_conv_bwd",
+                   "flash_attention_bwd"):
+        new_by_key = {(e["shape"], e["dtype"]): e for e in turns[1].get(kernel, [])}
+        for old in turns[0].get(kernel, []):
             new = new_by_key.get((old["shape"], old["dtype"]))
             if new is None or "sha256" not in old or "sha256" not in new:
                 continue

@@ -214,3 +214,49 @@ def test_functions_run_the_twins_on_cpu(graph):
     want = fa.flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(), ref, g, lse, **kw)
     assert all(torch.equal(t.grad, w) for t, w in zip(leaves, want))
     assert {**gc.LAUNCHES, **fa.LAUNCHES} == before, "a CPU call counted a kernel launch"
+
+
+def test_gnn_bwd_route_follows_the_shape():
+    """The card's choice of backward chain, a function of (C, Dense layers,
+    dtype) alone: the fused chain in bf16 at C = 32, 64, 128, 256 where its
+    z tiles fit the 227 KB a block may have (C = 256: up to three Dense; the
+    smaller widths: up to four), the layered chain otherwise and in fp32;
+    the fused chain's shared memory pinned at the flagship's shape."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert gc._chain_smem(256, 3) == 224312 <= gc._SMEM_LIMIT < gc._chain_smem(256, 4)
+    assert gc._chain_smem(32, 2) == 22584 and gc._chain_smem(128, 4) == 171064
+    for c in (32, 64, 128, 256):
+        for n_dense in (2, 3, 4, 5):
+            fits = n_dense <= (3 if c == 256 else 4)
+            assert gc._bwd_route(c, n_dense, bf16) == ("fused" if fits else "layered"), (c, n_dense)
+            assert gc._bwd_route(c, n_dense, f32) == "layered"
+    for c in (8, 24, 36, 40, 48, 96, 100, 384, 512, 1024):
+        assert gc._bwd_route(c, 3, bf16) == "layered", c
+    with pytest.raises(ValueError):
+        gc._bwd_route(64, 1, bf16)
+
+
+def test_gnn_bwd_weight_gradient_split_follows_the_shape():
+    """The K split of the weight gradients (about 128 CTAs over one launch's
+    (C, C) tiles: every Dense of a chunk in bf16, one in fp32), at most one
+    range per K step of the chunk, and pinned at the main path's shapes."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    chunk = gc.LAYERED_CHUNK
+    assert gc._dw_splits(256, chunk, bf16, 3) == 22  # 2 tiles a Dense (128 x 256)
+    assert gc._dw_splits(1024, chunk, bf16, 3) == 2  # 32 tiles a Dense
+    assert gc._dw_splits(40, chunk, bf16, 3) == 43  # 1 tile a Dense (128 x 128)
+    assert gc._dw_splits(256, chunk, f32) == 8 and gc._dw_splits(1024, chunk, f32) == 1
+    assert gc._dw_splits(256, 100, bf16, 3) == 2  # a 100-row chunk has two K steps of 64
+    for c in (32, 40, 256, 384, 1024):
+        for n in (2, 3, 4, 6):
+            assert 1 <= gc._dw_splits(c, chunk, bf16, n) <= -(-chunk // 64)
+
+
+def test_flash_bwd_widths_and_query_tiles_follow_the_shape():
+    """The backward's head widths (the tile kernels' 16, 32, 64, 128 up to
+    128, both dtypes; the row kernels' own width above) and the 64-query
+    tiles whose dQ the bf16 kernel adds to in key-block order (a counter
+    each, after the work counter)."""
+    assert [fa._bwd_width(d) for d in (1, 16, 17, 24, 32, 48, 64, 96, 128, 129, 256, 1000)] == \
+        [16, 16, 32, 32, 32, 64, 64, 128, 128, 129, 256, 1000]
+    assert [fa._bwd_query_tiles(n) for n in (1, 64, 65, 700, 5121, 10242)] == [1, 1, 2, 11, 81, 161]

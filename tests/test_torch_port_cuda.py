@@ -1007,13 +1007,31 @@ def test_edge_attention_takes_more_than_16_attributes(dev, graph, dtype, channel
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("channels,extra,activation", [(32, 0, "SiLU"), (256, 0, "SiLU"), (40, 1, "GELU"),
-                                                       (36, 0, "Mish"), (1024, 0, "SiLU")])
+                                                       (36, 0, "Mish"), (1024, 0, "SiLU"), (64, 0, "ReLU"),
+                                                       (128, 1, "Tanh"), (256, -1, "GELU"), (384, 0, "SiLU"),
+                                                       (64, -1, "ELU")])
 @pytest.mark.parametrize("edges,batch", [("hidden-hidden", 1), ("data-hidden", 2), ("hidden-data", 1)])
 def test_gnn_conv_bwd_matches_plain_and_repeats_bit_for_bit(dev, graph, dtype, channels, extra, activation, edges,
                                                              batch):
     """gnn_conv_bwd against gnn_conv_bwd_plain (every gradient, fp32 1e-4 and
     bf16 2e-2 normwise: both round at the same points from fp32 sums taken in
-    another order), two calls bit-identical, one launch a call."""
+    another order), two calls bit-identical, one launch a call: in bf16 the
+    fused chain at C = 32, 64, 128 and 256 (2, 3 and 4 Dense) and the layered
+    chain at C = 36 (padded), 40, 384 and 1024."""
+    _gnn_bwd_case(dev, graph, dtype, channels, extra, activation, edges, batch)
+
+
+@pytest.mark.parametrize("channels", [64, 40])
+@pytest.mark.parametrize("activation", ["identity", "SiLU", "GELU", "ReLU", "Tanh", "Sigmoid", "LeakyReLU", "ELU",
+                                        "Softplus", "Mish"])
+def test_gnn_conv_bwd_every_activation(dev, graph, channels, activation):
+    """Every activation code through the bf16 backward's two chains (C = 64
+    the fused one, C = 40 the layered one) against gnn_conv_bwd_plain."""
+    assert gc._bwd_route(channels, 3, torch.bfloat16) == ("fused" if channels == 64 else "layered")
+    _gnn_bwd_case(dev, graph, torch.bfloat16, channels, 0, activation, "hidden-hidden", 1)
+
+
+def _gnn_bwd_case(dev, graph, dtype, channels, extra, activation, edges, batch):
     s_name, d_name = edges.split("-")
     es = graph[(s_name, "to", d_name)]
     ns, nd = graph[s_name].num_nodes, graph[d_name].num_nodes
