@@ -1,0 +1,7 @@
+"""Share of a lead's untraced time in which the traced window's device ran nothing, in %."""
+
+from port_bench.harness.readers import idle_pct
+
+
+def read(run):
+    return idle_pct(run, 'forecast')
